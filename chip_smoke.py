@@ -7,29 +7,55 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
 0):
 
 1. print the card's name and power limit; build the kernels from
-   ``incubator_mxnet_tpu_torch/csrc`` and print the build time;
+   ``incubator_mxnet_tpu_torch/csrc`` (one ``nvcc`` per source, all at
+   once) and print the build time;
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16 and f32: K1/K2 (ghost BN forward/backward) at the stem, a
    56x56x256 dual exit, a 28x28x512 donated downsample exit, a 28x28x512
    downsample BN and the 7x7x2048 final exit; K3 (max pool with index)
-   at the stem on tie-heavy input;
-3. the main path: ``resnet50_v1(ghost_bn=16)`` at batch 256, 224 px, bf16
-   compute, f32 master weights, sgd momentum 0.9 / lr 0.1 / wd 1e-4, a
-   dynamic loss scale, synthetic data from a seed; ``STEPS`` steps with
-   the launch counters set to 0 just before; every loss finite and
-   exactly 53/53/1 launches per step;
-4. time each kernel with CUDA events at the shapes the main path gave it
-   (K1 and K2 summed over one step's 53 layers), beside its plain
-   version, its bound and, for K3, ``F.max_pool2d``;
+   at the stem on tie-heavy input; K4/K5/K6 (flash attention forward,
+   dQ, dK/dV) at the LM's (4, 8, 2048, 128) causal and not, a ragged
+   length (Sq = Sk = 1000, D 64) and a cross length with empty rows
+   (Sq 256, Sk 128, causal, D 16);
+3. the ResNet path: ``resnet50_v1(ghost_bn=16)`` at batch 256, 224 px,
+   bf16 compute, f32 master weights, sgd momentum 0.9 / lr 0.1 / wd
+   1e-4, a dynamic loss scale, synthetic data from a seed; ``STEPS``
+   steps with the launch counters set to 0 just before; every loss
+   finite and exactly 53/53/1 launches per step, none of K4-K6;
+3b. the LM path: ``example/long_context/train_lm_torch.py``'s
+   ``LongContextLM`` at dim 1024, 8 heads, seq 2048, batch 4, 2 layers,
+   vocab 256, f32 (TF32 off), ``STEPS`` steps of its update (momentum
+   0.9, lr ``LM_LR``) on its synthetic tokens, with the counters set to
+   0 just before; every loss finite, the last below the first, exactly 2
+   launches per step of each of K4/K5/K6 and none of K1-K3;
+4. time each kernel with CUDA events at the shapes the paths gave it
+   (K1 and K2 summed over one step's 53 layers; K4-K6 at one layer's
+   attention), beside its plain version, its bound and, where one
+   PyTorch call computes the same function, that call
+   (``F.max_pool2d`` for K3, ``F.scaled_dot_product_attention`` for K4,
+   its backward for K5 and K6 together); plus K4 and SDPA at
+   (1, 8, 8192, 128);
 5. one f32 step (TF32 off) of ``resnet50_v1(ghost_bn=16)`` at batch 16,
    64 px on the card and on the CPU from the same weights and batch;
+5b. one f32 step of a small LM (dim 128, 8 heads, seq 256, batch 2, 2
+   layers) on the card and on the CPU from the same weights;
 6. print the kernels' JSON line, the card line, and the result line.
 
 Tolerances of phase 2 (kernel against plain version on the same inputs):
 f32 outputs within 1e-4 of the reference's largest magnitude (sums in
 another order), bf16 outputs within 2^-7 of it (a value computed in f32
 on both sides may round one bf16 step apart), the f32 statistics and
-dgamma/dbeta sums within 1e-3 of it; max pooling exact.
+dgamma/dbeta sums within 1e-3 of it; max pooling exact.  Flash
+attention: O and the LSE of rows that see a key as above; dQ, dK and dV
+within 1e-3 (f32: each sums up to 2048 products, in another order) or
+2^-6 (bf16: the gradient is rounded once, from a larger f32 sum);
+rows that see no key exactly 0 in O and dQ, and their LSE below -5e29
+on both sides.
+
+Phase 5b: the LM has no ReLU or max-pool ties, so its step is not
+chaotic like the ResNet's; it is held to the loss within 1e-5
+(relative) and every parameter after the step within 1e-4 of its
+largest magnitude.
 
 Phase 5 compares against a noise floor measured in the same run.  This
 step is chaotic at random init: nudging every CPU weight by 1e-6
@@ -54,6 +80,15 @@ STEPS = 6          # main-path steps; the first is warm-up for the timing
 BATCH = 256
 IMAGE = 224
 SEED = 0
+# the long-context LM at bench.py --mode attention's shapes
+LM = dict(vocab=256, dim=1024, heads=8, n_layers=2)
+LM_SEQ, LM_BATCH = 2048, 4
+# the example's lr 0.05 suits its dim-128 default; at dim 1024 its update
+# (momentum 0.9) diverges by the third step, in the JAX example as in the
+# port, so the full-width run takes 0.01
+LM_LR = 0.01
+LM_SMALL = dict(vocab=256, dim=128, heads=8, n_layers=2)
+FLASH = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
 # tensor cores
@@ -177,6 +212,124 @@ def check_kernels(dev, errs):
         torch.cuda.empty_cache()
 
 
+def _flash_module():
+    import importlib
+
+    return importlib.import_module(
+        "incubator_mxnet_tpu_torch.parallel.flash_attention")
+
+
+def _lm_module():
+    """``example/long_context/train_lm_torch.py``, loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "example", "long_context", "train_lm_torch.py")
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_flash(dev, errs):
+    """Phase 2, K4-K6."""
+    import torch
+
+    fa = _flash_module()
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bh = LM_BATCH * LM["heads"]
+    d = LM["dim"] // LM["heads"]
+    # (label, BH, Sq, Sk, D, causal)
+    cases = [("LM causal", bh, LM_SEQ, LM_SEQ, d, True),
+             ("LM dense", bh, LM_SEQ, LM_SEQ, d, False),
+             ("ragged 1000 D64", 8, 1000, 1000, 64, True),
+             ("cross 256/128 D16", 8, 256, 128, 16, True)]
+    for dtype in (torch.bfloat16, torch.float32):
+        out_frac = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+        grad_frac = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-3
+        for label, n, sq, sk, dd, causal in cases:
+            tag = "%s %s" % (label, str(dtype).split(".")[1])
+            q = torch.randn(n, sq, dd, generator=g, device=dev).to(dtype)
+            k = torch.randn(n, sk, dd, generator=g, device=dev).to(dtype)
+            v = torch.randn(n, sk, dd, generator=g, device=dev).to(dtype)
+            do = torch.randn(n, sq, dd, generator=g, device=dev).to(dtype)
+            scale = dd ** -0.5
+            out, lse = fa.flash_fwd(q, k, v, scale, causal)
+            outp, lsep = fa._flash_fwd_plain(q, k, v, scale, causal)
+            seen = lsep > -5e29
+            errs["flash_attn_fwd"].append(_check("K4 O    " + tag, out, outp,
+                                                 out_frac))
+            _check("K4 LSE  " + tag, lse[seen], lsep[seen], 1e-4)
+            delta = (do.float() * outp.float()).sum(-1)
+            dq = fa.flash_bwd_dq(q, k, v, do, lsep, delta, scale, causal)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lsep, delta, scale, causal)
+            dqp, dkp, dvp = fa._flash_bwd_plain(q, k, v, do, lsep, delta,
+                                                scale, causal)
+            errs["flash_attn_bwd_dq"].append(_check("K5 dQ   " + tag, dq, dqp,
+                                                    grad_frac))
+            errs["flash_attn_bwd_dkv"].append(max(
+                _check("K6 dK   " + tag, dk, dkp, grad_frac),
+                _check("K6 dV   " + tag, dv, dvp, grad_frac)))
+            empty = ~seen
+            if not (torch.equal(seen, lse > -5e29)
+                    and torch.count_nonzero(out[empty]).item() == 0
+                    and torch.count_nonzero(dq[empty]).item() == 0):
+                raise AssertionError("%s: rows that see no key are not 0"
+                                     % tag)
+            if empty.any():
+                print("  %-44s %d rows see no key: O, dQ exactly 0"
+                      % ("K4/K5 " + tag, int(empty.sum())), flush=True)
+            del q, k, v, do, out, lse, outp, lsep, dq, dk, dv, dqp, dkp, dvp
+        torch.cuda.empty_cache()
+
+
+def _losses_ok(losses):
+    return all(v == v and abs(v) != float("inf") for v in losses)
+
+
+def run_lm_path(dev):
+    """Phase 3b: returns (losses, step_ms list, counts)."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels, convert
+
+    lmm = _lm_module()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(SEED)
+    lm = lmm.LongContextLM(LM["vocab"], LM["dim"], LM["heads"],
+                           LM["n_layers"], device=dev)
+    convert.lm_params_from_jax(lm, lmm.build_params(
+        rng, LM["vocab"], LM["dim"], LM["n_layers"]))
+    tokens = torch.from_numpy(lmm.synthetic_tokens(
+        rng, LM["vocab"], LM_BATCH, LM_SEQ)).to(dev)
+    step = lmm.make_step(lm, LM_LR)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        loss = step(tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    counts = _kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    print("  losses %s  step_ms %s" % (["%.5f" % v for v in losses],
+                                       ["%.1f" % t for t in step_ms]),
+          flush=True)
+    if not _losses_ok(losses):
+        raise AssertionError("non-finite loss on the LM path: %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the LM's loss did not fall: %s" % losses)
+    want = {name: 0 for name in _kernels.KERNELS}
+    want.update({name: LM["n_layers"] * STEPS for name in FLASH})
+    print("  launches %s (want %s)" % (counts, want), flush=True)
+    if counts != want:
+        raise AssertionError("launch counts %s, want %s" % (counts, want))
+    return losses, step_ms, counts
+
+
 def run_main_path(dev):
     """Phase 3: returns (losses, step_ms list, BN layer configs, counts)."""
     import torch
@@ -227,10 +380,11 @@ def run_main_path(dev):
     print("  losses %s  skipped %d  loss scale %g  step_ms %s"
           % (["%.5f" % v for v in losses], step.skipped_steps,
              step.loss_scale, ["%.1f" % t for t in step_ms]), flush=True)
-    if not all(v == v and abs(v) != float("inf") for v in losses):
+    if not _losses_ok(losses):
         raise AssertionError("non-finite loss on the main path: %s" % losses)
-    want = {"ghost_bn_fwd": 53 * STEPS, "ghost_bn_bwd": 53 * STEPS,
-            "maxpool_idx_fwd": STEPS}
+    want = {name: 0 for name in _kernels.KERNELS}
+    want.update({"ghost_bn_fwd": 53 * STEPS, "ghost_bn_bwd": 53 * STEPS,
+                 "maxpool_idx_fwd": STEPS})
     print("  launches %s (want %s)" % (counts, want), flush=True)
     if counts != want:
         raise AssertionError("launch counts %s, want %s" % (counts, want))
@@ -316,6 +470,127 @@ def time_kernels(dev, layers):
     del x
     torch.cuda.empty_cache()
     return rows
+
+
+def _causal_pairs(sq, sk):
+    """Visible (i, j) pairs of one head under the right-aligned mask."""
+    return sum(min(max(i + sk - sq + 1, 0), sk) for i in range(sq))
+
+
+def _bound(nbytes, ops):
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    op_ms = ops / PEAK_F32 * 1e3
+    return {"bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def time_flash(dev):
+    """Phase 4, K4-K6 at one LM layer's attention: (4, 8, 2048, 128),
+    causal, f32.  Bounds count the products only (2 FLOP per multiply-add
+    over the visible pairs: S and PV for K4; S, dP, dQ for K5; S, dP, dV,
+    dK for K6) and each input read, each output written once."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = _flash_module()
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    b, h, s = LM_BATCH, LM["heads"], LM_SEQ
+    d = LM["dim"] // h
+    q, k, v, do = (torch.randn(b * h, s, d, generator=g, device=dev)
+                   for _ in range(4))
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, scale, True)
+    delta = (do * out).sum(-1)
+    pairs = b * h * _causal_pairs(s, s)
+    mat = b * h * s * d * 4                    # one (BH, S, D) f32 tensor
+    row = b * h * s * 4                        # one (BH, S) f32 vector
+    rows = {
+        "flash_attn_fwd": dict(
+            ms=_time_ms(lambda: fa.flash_fwd(q, k, v, scale, True), 10),
+            plain_ms=_time_ms(lambda: fa._flash_fwd_plain(q, k, v, scale,
+                                                          True), 3),
+            **_bound(4 * mat + row, 4 * d * pairs)),
+        "flash_attn_bwd_dq": dict(
+            ms=_time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                scale, True), 10),
+            plain_ms=_time_ms(lambda: fa._flash_bwd_dq_plain(
+                q, k, v, do, lse, delta, scale, True), 3),
+            **_bound(5 * mat + 2 * row, 6 * d * pairs)),
+        "flash_attn_bwd_dkv": dict(
+            ms=_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                 scale, True), 10),
+            plain_ms=_time_ms(lambda: fa._flash_bwd_dkv_plain(
+                q, k, v, do, lse, delta, scale, True), 3),
+            **_bound(6 * mat + 2 * row, 8 * d * pairs)),
+    }
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+    rows["flash_attn_fwd"]["library_ms"] = _time_ms(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+        10)
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, do4, retain_graph=True), 10)
+    # one call computes dQ, dK and dV: the same time stands in both rows
+    rows["flash_attn_bwd_dq"]["library_ms"] = lib_bwd
+    rows["flash_attn_bwd_dkv"]["library_ms"] = lib_bwd
+    err = _max_err(out.view(b, h, s, d), lib_out.detach())
+    print("  SDPA forward against K4: max abs diff %.3e" % err, flush=True)
+    del q, k, v, do, out, lse, delta, q4, k4, v4, do4, leaves, lib_out
+    torch.cuda.empty_cache()
+
+    # the long row: one sequence of 8192, forward only
+    sl = 8192
+    ql, kl, vl = (torch.randn(h, sl, d, generator=g, device=dev)
+                  for _ in range(3))
+    long_ms = _time_ms(lambda: fa.flash_fwd(ql, kl, vl, scale, True), 5)
+    q4, k4, v4 = (t.view(1, h, sl, d) for t in (ql, kl, vl))
+    long_lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 5)
+    long_bound = _bound(4 * h * sl * d * 4 + h * sl * 4,
+                        4 * d * h * _causal_pairs(sl, sl))
+    print("  K4 at (1, 8, 8192, 128) causal f32: ms %.4f  library_ms %.4f  "
+          "bound_ms %.4f (%s)" % (long_ms, long_lib, long_bound["bound_ms"],
+                                  long_bound["bound_by"]), flush=True)
+    del ql, kl, vl, q4, k4, v4
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_card_vs_cpu(dev):
+    """Phase 5b: one f32 step of a small LM on the card and on the CPU from
+    the same numpy weights and tokens."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import convert
+
+    lmm = _lm_module()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(SEED)
+    start = lmm.build_params(rng, LM_SMALL["vocab"], LM_SMALL["dim"],
+                             LM_SMALL["n_layers"])
+    tokens = lmm.synthetic_tokens(rng, LM_SMALL["vocab"], 2, 256)
+    losses, after = {}, {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        lm = lmm.LongContextLM(device=d, **LM_SMALL)
+        convert.lm_params_from_jax(lm, start)
+        losses[where] = lmm.make_step(lm, 0.05)(
+            torch.from_numpy(tokens).to(d)).item()
+        after[where] = dict(lm.named_parameters())
+    worst = 0.0
+    for name, p in after["cpu"].items():
+        ref = p.detach()
+        err = (after["cuda"][name].detach().cpu() - ref).abs().max().item()
+        worst = max(worst, err / max(ref.abs().max().item(), 1e-30))
+    lrel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print("  loss card %.7f cpu %.7f  rel diff %.3e (limit 1e-5); params "
+          "after the step: max diff %.3e of each tensor's largest magnitude "
+          "(limit 1e-4)" % (losses["cuda"], losses["cpu"], lrel, worst),
+          flush=True)
+    if not (lrel <= 1e-5 and worst <= 1e-4):
+        raise AssertionError("card and CPU LM steps disagree")
 
 
 def card_vs_cpu(dev):
@@ -407,8 +682,9 @@ def main():
     print("[2] kernels against their plain versions", flush=True)
     errs = {name: [] for name in _kernels.KERNELS}
     check_kernels(dev, errs)
+    check_flash(dev, errs)
 
-    print("[3] main path: resnet50_v1(ghost_bn=16) batch %d, %d px, bf16, "
+    print("[3] ResNet path: resnet50_v1(ghost_bn=16) batch %d, %d px, bf16, "
           "%d steps" % (BATCH, IMAGE, STEPS), flush=True)
     losses, step_ms, layers, counts = run_main_path(dev)
     steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
@@ -416,17 +692,33 @@ def main():
           % (steady, STEPS, BATCH / steady * 1e3, card), flush=True)
     torch.cuda.empty_cache()
 
+    print("[3b] LM path: LongContextLM dim %d, %d heads, seq %d, batch %d, "
+          "%d layers, f32, %d steps" % (LM["dim"], LM["heads"], LM_SEQ,
+                                        LM_BATCH, LM["n_layers"], STEPS),
+          flush=True)
+    _, lm_ms, lm_counts = run_lm_path(dev)
+    counts.update({name: lm_counts[name] for name in FLASH})
+    lm_steady = sorted(lm_ms[1:])[len(lm_ms[1:]) // 2]
+    print("[3b] lm_step_ms %.2f (median of steps 2-%d)  %.1f tokens/s  on %s"
+          % (lm_steady, STEPS, LM_BATCH * LM_SEQ / lm_steady * 1e3, card),
+          flush=True)
+    torch.cuda.empty_cache()
+
     print("[4] kernel times (CUDA events, K1/K2 summed over one step's 53 "
-          "layers)", flush=True)
+          "layers, K4-K6 one layer's attention)", flush=True)
     rows = time_kernels(dev, layers)
+    rows.update(time_flash(dev))
     for name, row in rows.items():
-        print("  %-16s ms %.4f  plain_ms %.4f  bound_ms %.4f (%s)  "
+        print("  %-18s ms %.4f  plain_ms %.4f  bound_ms %.4f (%s)  "
               "library_ms %s" % (name, row["ms"], row["plain_ms"],
                                  row["bound_ms"], row["bound_by"],
                                  row["library_ms"]), flush=True)
 
     print("[5] one f32 step at batch 16, 64 px: card against CPU", flush=True)
     card_vs_cpu(dev)
+    print("[5b] one f32 step of the LM at dim 128, seq 256: card against CPU",
+          flush=True)
+    lm_card_vs_cpu(dev)
 
     here = os.path.dirname(os.path.abspath(__file__))
     meta = {
@@ -436,6 +728,14 @@ def main():
                          "incubator_mxnet_tpu/parallel/fused_bn.py:577"),
         "maxpool_idx_fwd": ("incubator_mxnet_tpu_torch/csrc/maxpool_idx.cu",
                             "incubator_mxnet_tpu/parallel/maxpool_idx.py:145"),
+        "flash_attn_fwd": ("incubator_mxnet_tpu_torch/csrc/flash_attention.cu",
+                           "incubator_mxnet_tpu/parallel/flash_attention.py:139"),
+        "flash_attn_bwd_dq": (
+            "incubator_mxnet_tpu_torch/csrc/flash_attention.cu",
+            "incubator_mxnet_tpu/parallel/flash_attention.py:261"),
+        "flash_attn_bwd_dkv": (
+            "incubator_mxnet_tpu_torch/csrc/flash_attention.cu",
+            "incubator_mxnet_tpu/parallel/flash_attention.py:279"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

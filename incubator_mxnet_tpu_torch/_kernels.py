@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use by one ``nvcc`` call
-into a shared library with a plain C interface
+The sources under ``csrc/`` are compiled at first use, one ``nvcc``
+process per source, all started together, and linked by one more into a
+shared library with a plain C interface
 (``build/torch_kernels/libmxnet_tpu_torch_<hash>.so`` at the repository
 root, keyed by a hash of the sources and flags) and loaded with
 ``ctypes``.  Every pointer and the stream cross as ``c_void_p``; every C
@@ -29,10 +30,10 @@ __all__ = ["KERNELS", "build", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("ghost_bn.cu", "maxpool_idx.cu")
+_SOURCES = ("ghost_bn.cu", "maxpool_idx.cu", "flash_attention.cu")
 _BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC")
+               "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +50,16 @@ _SIGNATURES = {
     # dtype, x, out, idx, N, C, H, W, OH, OW, kh, kw, sh, sw, ph, pw, stream
     "maxpool_idx_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P],
+    # dtype, q, k, v, out, lse, BH, Sq, Sk, D, scale, causal, stream
+    "flash_attn_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # dtype, q, k, v, dout, lse, delta, dq, BH, Sq, Sk, D, scale, causal,
+    # stream
+    "flash_attn_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _I, _P],
+    # dtype, q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk, D, scale,
+    # causal, stream
+    "flash_attn_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -77,6 +88,43 @@ def _library_path():
     return _BUILD_DIR / ("libmxnet_tpu_torch_%s.so" % h.hexdigest()[:12])
 
 
+def _run(procs):
+    """Wait for every ``(cmd, Popen)``; raise on the first that failed."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = "%s failed (%d):\n%s\n%s" % (" ".join(cmd),
+                                                 proc.returncode, out, err)
+    if failed:
+        raise RuntimeError(failed)
+
+
+def _compile(path):
+    """One ``nvcc -c`` per source, all at once, then one link into
+    ``path`` (written under a temporary name and renamed)."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = "%s.%d" % (path.stem, os.getpid())
+    objs = [_BUILD_DIR / ("%s.%s.o" % (tag, Path(s).stem)) for s in _SOURCES]
+    nvcc = _nvcc()
+    cmds = [[nvcc, *_NVCC_FLAGS, "-c", str(_CSRC / s), "-o", str(o)]
+            for s, o in zip(_SOURCES, objs)]
+    try:
+        _run([(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True))
+              for c in cmds])
+        tmp = path.with_suffix(".%d.tmp" % os.getpid())
+        link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *[str(o) for o in objs]]
+        _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, path)
+    finally:
+        for o in objs:
+            if o.exists():
+                o.unlink()
+
+
 def build():
     """Compile the kernels (if the library for these sources is missing)
     and load them.  Returns the seconds spent building (0.0 when the
@@ -88,18 +136,9 @@ def build():
         path = _library_path()
         seconds = 0.0
         if not path.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(".%d.tmp" % os.getpid())
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                   *[str(_CSRC / s) for s in _SOURCES]]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _compile(path)
             seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed (%d):\n%s\n%s"
-                                   % (proc.returncode, proc.stdout,
-                                      proc.stderr))
-            os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -9,14 +9,21 @@ have).  Small shapes; the full-size checks are in ``chip_smoke.py``.
 Tolerances: f32 outputs 1e-4 of the reference's largest magnitude (sums
 in another order); bf16 outputs 2^-7 of it (one rounding of a value the
 two sides compute in f32 may land one bf16 step apart); the f32 sums
-dgamma and dbeta 1e-3 of it.  Max pooling is exact.
+dgamma and dbeta 1e-3 of it.  Max pooling is exact.  Flash attention
+(K4-K6): O and LSE 1e-4 in f32 and 2^-7 in bf16, dQ/dK/dV 1e-3 in f32
+(sums over every key or query) and 2^-6 in bf16; rows that see no key
+exactly 0 in O and dQ.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from incubator_mxnet_tpu_torch import _kernels
 from incubator_mxnet_tpu_torch.parallel import fused_bn, maxpool_idx
+
+fa = importlib.import_module("incubator_mxnet_tpu_torch.parallel.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +104,69 @@ def test_maxpool_kernel_matches_plain(dev, dtype):
     assert torch.equal(idx, idxp)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal", [
+    (4, 128, 128, 64, True),      # two full tiles each way
+    (3, 100, 100, 128, False),    # ragged last tile, the widest head
+    (3, 100, 100, 32, True),
+    (2, 96, 40, 16, True),        # Sk < Sq: 56 rows see no key
+    (2, 24, 72, 8, True),         # Sk > Sq: the mask's offset is +48
+    (2, 8, 200, 40, False),       # D not a multiple of 16
+])
+def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(bh, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(bh, sk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(bh, sk, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(bh, sq, d, generator=g, device=dev).to(dtype)
+    scale = d ** -0.5
+    before = _kernels.launch_counts()
+    out, lse = fa.flash_fwd(q, k, v, scale, causal)
+    outp, lsep = fa._flash_fwd_plain(q, k, v, scale, causal, 8, 8)
+    torch.cuda.synchronize()
+    tol = _out_tol(dtype)
+    _close(out, outp, tol)
+    seen = lsep > -5e29
+    _close(lse[seen], lsep[seen], 1e-4)
+    assert torch.equal(seen, lse > -5e29)
+    delta = (do.float() * outp.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lsep, delta, scale, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lsep, delta, scale, causal)
+    dqp, dkp, dvp = fa._flash_bwd_plain(q, k, v, do, lsep, delta, scale,
+                                        causal, 8, 8)
+    torch.cuda.synchronize()
+    gtol = 1e-3 if dtype == torch.float32 else 2.0 ** -6
+    _close(dq, dqp, gtol)
+    _close(dk, dkp, gtol)
+    _close(dv, dvp, gtol)
+    empty = ~seen
+    assert torch.equal(out[empty], torch.zeros_like(out[empty]))
+    assert torch.equal(dq[empty], torch.zeros_like(dq[empty]))
+    after = _kernels.launch_counts()
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        assert after[name] == before[name] + 1
+
+
+def test_flash_attention_autograd_on_card(dev, monkeypatch):
+    """The public function's forward and gradients on the card against the
+    dense reference (f32, TF32 off in the einsums)."""
+    from incubator_mxnet_tpu_torch.parallel import flash_attention
+    from incubator_mxnet_tpu_torch.parallel.ring_attention import \
+        attention_reference
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = [torch.randn(2, 4, 160, 64, generator=g, device=dev,
+                       requires_grad=True) for _ in range(3)]
+    w = torch.randn(2, 4, 160, 64, generator=g, device=dev)
+    grads = []
+    for fn in (flash_attention, attention_reference):
+        out = fn(*qkv, causal=True)
+        grads.append((out,) + torch.autograd.grad((out * w).sum(), qkv))
+    for a, b in zip(*grads):
+        _close(a, b, 1e-3)
+
+
 def test_dual_cotangents_stay_apart_on_card(dev, monkeypatch):
     """The dual exit's two outputs reach K2 as two cotangents (autograd
     did not merge them), and K2 sums them."""
@@ -135,6 +205,18 @@ def test_cuda_wrappers_refuse_bad_inputs(dev):
         maxpool_idx.maxpool_with_index(
             x.transpose(2, 3), (1, 1, 2, 2), (1, 1, 2, 2),
             ((0, 0), (0, 0), (0, 0), (0, 0)))
+    q = torch.zeros(2, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q, q.transpose(1, 2).contiguous().transpose(1, 2), q,
+                     1.0, False)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_fwd(q[..., :60].contiguous(), q[..., :60].contiguous(),
+                     q[..., :60].contiguous(), 1.0, False)
+    big = torch.zeros(2, 16, 136, device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_fwd(big, big, big, 1.0, False)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd(q.half(), q.half(), q.half(), 1.0, False)
 
 
 def test_small_train_step_card_matches_cpu(dev, monkeypatch):

@@ -17,11 +17,14 @@ from incubator_mxnet_tpu_torch.parallel import train_step as tstep
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import incubator_mxnet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+spec = importlib.util.spec_from_file_location(
+    "train_lm_torch", "example/long_context/train_lm_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "incubator_mxnet_tpu" or k.startswith("incubator_mxnet_tpu."))
@@ -36,8 +39,19 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15
+    assert int(n) >= 17
     assert bad == "[]"
+
+
+def _example_lm():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_train_lm_torch",
+        os.path.join(ROOT, "example", "long_context", "train_lm_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.LongContextLM
 
 
 def _no_card(monkeypatch):
@@ -51,6 +65,7 @@ def _no_card(monkeypatch):
     lambda: tnn.Dense(4, in_units=3),
     lambda: tres.GhostBNReLU(group=2, in_channels=4),
     lambda: tres.resnet50_v1(ghost_bn=16),
+    lambda: _example_lm()(64, 32, 2, 1),
 ])
 def test_entry_points_refuse_cpu_without_asking(monkeypatch, build):
     _no_card(monkeypatch)
@@ -79,3 +94,18 @@ def test_step_refuses_net_on_other_device():
                         tstep.FunctionalOptimizer(), device="cpu")
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         context.resolve("meta")
+
+
+def test_flash_attention_runs_on_cpu_without_a_card(monkeypatch):
+    """CPU tensors take the plain versions whether or not a card exists:
+    nothing builds or launches a kernel."""
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.parallel import flash_attention
+
+    _no_card(monkeypatch)
+    before = _kernels.launch_counts()
+    q = torch.randn(1, 2, 16, 8, requires_grad=True)
+    out = flash_attention(q, q, q, causal=True)
+    out.sum().backward()
+    assert out.device.type == "cpu" and torch.isfinite(q.grad).all()
+    assert _kernels.launch_counts() == before
