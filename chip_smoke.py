@@ -17,6 +17,14 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    dQ, dK/dV) at the LM's (4, 8, 2048, 128) causal and not, a ragged
    length (Sq = Sk = 1000, D 64) and a cross length with empty rows
    (Sq 256, Sk 128, causal, D 16);
+2c. K7 (``bn_copy``, K1's copy yardstick) bit-exact against ``clone()``
+   at the 9 ResNet-50 BN shapes (batch 256, bf16); the rtc kernels
+   compiled by NVRTC from ``incubator_mxnet_tpu_torch/csrc/rtc`` (their
+   compile ms printed): R1 ``scale_kernel`` exact against ``2x + 1`` at
+   (4, 8, 2048, 128) f32, R2 ``mm_kernel`` within 1e-4 of max |a @ b| at
+   (8192, 1024) @ (1024, 1024) and a ragged (1000, 300) @ (300, 129);
+   a missing export or kernel raises ValueError and a float64 launch
+   TypeError;
 3. the ResNet path: ``resnet50_v1(ghost_bn=16)`` at batch 256, 224 px,
    bf16 compute, f32 master weights, sgd momentum 0.9 / lr 0.1 / wd
    1e-4, a dynamic loss scale, synthetic data from a seed; ``STEPS``
@@ -28,6 +36,18 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    0.9, lr ``LM_LR``) on its synthetic tokens, with the counters set to
    0 just before; every loss finite, the last below the first, exactly 2
    launches per step of each of K4/K5/K6 and none of K1-K3;
+3c. the imperative path: one causal attention layer of the LM at its
+   width written with ``nd`` and ``autograd`` alone (x (4, 2048, 1024)
+   from numpy seed 1; Wq, Wk, Wv, Wo (1024, 1024) from
+   ``nd.random.uniform`` after ``nd.random.seed(0)`` on ``mx.gpu(0)``,
+   with ``attach_grad``): ``nd.dot``, reshape/transpose to heads,
+   ``nd.contrib.flash_attention(causal=True)``, back, ``nd.dot`` with Wo,
+   ``(y * y).mean()``, ``backward``; ``STEPS`` steps with the counters at
+   0 just before, then R1 on y and R2 on the output projection through
+   rtc; exactly 1/1/1 launches of K4/K5/K6 a step, R1 and R2 once, none
+   of K1-K3 or K7; loss and the four weight gradients within 1e-4
+   (relative) of the same layer in plain torch autograd (dense
+   ``attention_reference``); ``nd_step_ms`` the median of steps 2-6;
 4. time each kernel with CUDA events at the shapes the paths gave it
    (K1 and K2 summed over one step's 53 layers; K4-K6 at one layer's
    attention), beside its plain version, its bound and, where one
@@ -35,6 +55,11 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    (``F.max_pool2d`` for K3, ``F.scaled_dot_product_attention`` for K4,
    its backward for K5 and K6 together); plus K4 and SDPA at
    (1, 8, 8192, 128);
+4c. K7 at the 9 BN shapes beside K1, K2 (through
+   ``tools/bn_kernel_bench_torch.py``) and ``Tensor.copy_``, with K1 and
+   K2 as a share of K7's time; R1 and R2 beside their bounds (R2 also
+   beside ``torch.matmul``, TF32 off); K7's launches are those of this
+   sweep;
 5. one f32 step (TF32 off) of ``resnet50_v1(ghost_bn=16)`` at batch 16,
    64 px on the card and on the CPU from the same weights and batch;
 5b. one f32 step of a small LM (dim 128, 8 heads, seq 256, batch 2, 2
@@ -89,6 +114,9 @@ LM_SEQ, LM_BATCH = 2048, 4
 LM_LR = 0.01
 LM_SMALL = dict(vocab=256, dim=128, heads=8, n_layers=2)
 FLASH = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+# the nd path: one attention layer of the LM at its width (phase 3c)
+ND_TOL = 1e-4
+RTC = ("scale_kernel", "mm_kernel")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
 # tensor cores
@@ -557,6 +585,319 @@ def time_flash(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 2c, 3c, 4c: K7, the rtc kernels R1/R2 and the imperative nd path
+# ---------------------------------------------------------------------------
+
+
+def _device_ms(fn, reps, name):
+    """Mean device time in ms of the kernel ``name`` over ``reps`` calls of
+    ``fn``, from torch.profiler's CUDA trace (as
+    ``tools/torch_profile_step.py`` reads it): the kernel's own time, also
+    where the host launches it more slowly than the card runs it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and ev.name == name]
+    if len(times) != reps:
+        raise AssertionError("the profiler saw %d launches of %s, want %d"
+                             % (len(times), name, reps))
+    return sum(times) / reps
+
+
+def _bench_tool():
+    """``tools/bn_kernel_bench_torch.py``, loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "bn_kernel_bench_torch.py")
+    spec = importlib.util.spec_from_file_location("bn_kernel_bench_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rel_err(got, want):
+    """Max abs error over the reference's largest magnitude."""
+    return _max_err(got, want) / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_copy_and_rtc(dev, errs):
+    """Phase 2c: K7 bit-exact against ``clone()`` at the 9 BN shapes; R1
+    exact and R2 within ND_TOL (relative) of their plain versions; the
+    rtc refusals.  Returns ``{name: CudaKernel}`` of R1 and R2."""
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import rtc
+    from incubator_mxnet_tpu_torch.parallel import fused_bn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    errs["bn_copy"] = []
+    for shape in _bench_tool().SHAPES:
+        ng = fused_bn.ghost_group(*shape, 2, 16)
+        x = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+        y = fused_bn.bn_copy(x, ng)
+        same = torch.equal(y.view(torch.int16), x.clone().view(torch.int16))
+        print("  K7 %-22s group %-2d bit-exact against clone(): %s"
+              % (shape, ng, same), flush=True)
+        if not same:
+            raise AssertionError("K7 differs from clone() at %s" % (shape,))
+        errs["bn_copy"].append(_max_err(y, x))
+        del x, y
+    torch.cuda.empty_cache()
+
+    kernels = {}
+    for name in RTC:
+        mod = rtc.CudaModule(rtc.user_source(name), exports=[name])
+        kernels[name] = mod.get_kernel(name, rtc.USER_KERNELS[name])
+        print("  %-12s NVRTC compile %.1f ms (%s)" % (name, mod.compile_ms,
+                                                      rtc.USER_KERNELS[name]),
+              flush=True)
+    ctx = mx.gpu(dev.index or 0)
+    d = LM["dim"] // LM["heads"]
+    x = mx.nd.NDArray(torch.randn(LM_BATCH, LM["heads"], LM_SEQ, d,
+                                  generator=g, device=dev))
+    y = rtc.launch_scale(kernels["scale_kernel"], x, ctx)
+    want = rtc.scale_plain(x._data)
+    err = _max_err(y._data, want)
+    print("  R1 scale_kernel (%d, %d, %d, %d) f32: max_abs_err %.3e (exact "
+          "required)" % (LM_BATCH, LM["heads"], LM_SEQ, d, err), flush=True)
+    if not torch.equal(y._data, want):
+        raise AssertionError("R1 is not exact")
+    errs["scale_kernel"] = [err]
+    errs["mm_kernel"] = []
+    for m, k, n in ((LM_BATCH * LM_SEQ, LM["dim"], LM["dim"]),
+                    (1000, 300, 129)):
+        a = mx.nd.NDArray(torch.randn(m, k, generator=g, device=dev))
+        b = mx.nd.NDArray(torch.randn(k, n, generator=g, device=dev))
+        c = rtc.launch_mm(kernels["mm_kernel"], a, b, ctx)
+        want = rtc.mm_plain(a._data, b._data)
+        rel = _rel_err(c._data, want)
+        print("  R2 mm_kernel (%d, %d) @ (%d, %d) f32: max_abs_err %.3e, "
+              "%.3e of max |a @ b| (limit %.0e)"
+              % (m, k, k, n, _max_err(c._data, want), rel, ND_TOL),
+              flush=True)
+        if not rel <= ND_TOL:
+            raise AssertionError("R2 disagrees with a @ b")
+        errs["mm_kernel"].append(_max_err(c._data, want))
+    # the refusals: a missing export or kernel, a wrong dtype
+    for build in (lambda: rtc.CudaModule(rtc.user_source("scale_kernel"),
+                                         exports=["nope"]),
+                  lambda: rtc.CudaModule(
+                      rtc.user_source("scale_kernel")).get_kernel(
+                          "missing", "const float *x")):
+        try:
+            build()
+        except ValueError as e:
+            print("  refused as it should: ValueError(%s)" % e, flush=True)
+        else:
+            raise AssertionError("a missing export or kernel did not raise")
+    try:
+        kernels["scale_kernel"].launch([x.astype("float64"), y, x.size], ctx,
+                                       (1, 1, 1), (256, 1, 1))
+    except TypeError as e:
+        print("  refused as it should: TypeError(%s)" % e, flush=True)
+    else:
+        raise AssertionError("a float64 launch of scale_kernel did not raise")
+    del x, y, a, b, c, want
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def nd_attention_layer(mx, x, w, heads):
+    """One causal attention layer of the LM, with ``nd`` and ``autograd``
+    alone: ``(loss, y, a)`` after ``loss.backward()``, where ``a`` is the
+    attention output before the output projection ``y = a @ wo``."""
+    nd = mx.nd
+    b, s, dim = x.shape
+    dh = dim // heads
+
+    def heads_first(t):
+        return t.reshape((b, s, heads, dh)).transpose((0, 2, 1, 3))
+
+    with mx.autograd.record():
+        q, k, v = (heads_first(nd.dot(x, w[n])) for n in ("wq", "wk", "wv"))
+        o = nd.contrib.flash_attention(q, k, v, causal=True)
+        a = o.transpose((0, 2, 1, 3)).reshape((b, s, dim))
+        y = nd.dot(a, w["wo"])
+        loss = (y * y).mean()
+    loss.backward()
+    return loss, y, a
+
+
+def run_nd_path(dev, kernels):
+    """Phase 3c: the nd layer at the LM's width, STEPS times, then R1 on y
+    and R2 on the output projection; returns (step_ms list, counts)."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels, rtc
+    from incubator_mxnet_tpu_torch.parallel.ring_attention import \
+        attention_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nd = mx.nd
+    ctx = mx.gpu(dev.index or 0)
+    dim, heads = LM["dim"], LM["heads"]
+    nd.random.seed(0)
+    bound = dim ** -0.5
+    w = {n: nd.random.uniform(-bound, bound, shape=(dim, dim), ctx=ctx)
+         for n in ("wq", "wk", "wv", "wo")}
+    for p in w.values():
+        p.attach_grad()
+    x = nd.array(np.random.RandomState(1).standard_normal(
+        (LM_BATCH, LM_SEQ, dim)).astype(np.float32), ctx=ctx)
+    step_ms = []
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    for k in kernels.values():
+        k.launches = 0
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        loss, y, a = nd_attention_layer(mx, x, w, heads)
+        nd.waitall()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    r1 = rtc.launch_scale(kernels["scale_kernel"], y, ctx)
+    a2 = a.reshape((LM_BATCH * LM_SEQ, dim))
+    r2 = rtc.launch_mm(kernels["mm_kernel"], a2, w["wo"], ctx)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    counts.update({n: k.launches for n, k in kernels.items()})
+    want = {n: 0 for n in _kernels.KERNELS}
+    want.update({n: STEPS for n in FLASH})
+    want.update({n: 1 for n in RTC})
+    print("  launches %s (want %s)" % (counts, want), flush=True)
+    if counts != want:
+        raise AssertionError("launch counts %s, want %s" % (counts, want))
+
+    # the same layer in plain torch autograd, dense attention
+    wt = {n: p._data.detach().clone().requires_grad_() for n, p in w.items()}
+    xt = x._data
+    b, s = LM_BATCH, LM_SEQ
+
+    def heads_first(t):
+        return t.view(b, s, heads, dim // heads).transpose(1, 2)
+
+    q, k_, v = (heads_first(xt @ wt[n]) for n in ("wq", "wk", "wv"))
+    ref_a = attention_reference(q, k_, v, causal=True).transpose(1, 2) \
+        .reshape(b, s, dim)
+    ref_y = ref_a @ wt["wo"]
+    ref_loss = (ref_y * ref_y).mean()
+    ref_grads = torch.autograd.grad(ref_loss, list(wt.values()))
+    lrel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    grel = {n: _rel_err(w[n].grad._data, gr)
+            for n, gr in zip(wt, ref_grads)}
+    print("  loss nd %.7f torch %.7f rel diff %.3e; gradients %s of each "
+          "reference's largest magnitude (tolerance %.0e)"
+          % (loss.item(), ref_loss.item(), lrel,
+             {n: "%.3e" % e for n, e in grel.items()}, ND_TOL), flush=True)
+    if not (lrel <= ND_TOL and max(grel.values()) <= ND_TOL):
+        raise AssertionError("the nd layer disagrees with plain torch")
+    with torch.no_grad():
+        r1_ok = torch.equal(r1._data, rtc.scale_plain(y._data))
+        r2_rel = _rel_err(r2._data, y._data.reshape(b * s, dim))
+    print("  R1 on y exact: %s; R2 projection against y: %.3e (tolerance "
+          "%.0e)" % (r1_ok, r2_rel, ND_TOL), flush=True)
+    if not (r1_ok and r2_rel <= ND_TOL):
+        raise AssertionError("R1 or R2 disagrees on the nd path")
+    del w, x, loss, y, a, a2, r1, r2, wt, ref_a, ref_y, ref_loss, ref_grads
+    torch.cuda.empty_cache()
+    return step_ms, counts
+
+
+def time_nd_kernels(dev, kernels):
+    """Phase 4c: K7 at the 9 BN shapes beside K1, K2 and ``copy_``
+    (through ``tools/bn_kernel_bench_torch.py``), and R1, R2 beside their
+    bounds and ``torch.matmul``.  Returns (rows, K7's launches)."""
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels, rtc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tool = _bench_tool()
+    rows = {}
+    _kernels.reset_launch_counts()
+    print("  %-20s %9s %9s %9s %9s %7s %7s %9s" % (
+        "shape (bf16)", "K7 ms", "bound ms", "copy_ ms", "K1 ms", "K1/K7",
+        "K2/K7", "K2 ms"), flush=True)
+    for n, c, h, w_ in tool.SHAPES:
+        leg = tool.Leg(n, c, h, w_, torch.bfloat16, False, False, dev)
+        tool.bench_kernels(leg, dev, iters=10, warmup=2)
+        row = leg.row
+        nbytes = 2 * n * c * h * w_ * 2
+        x = torch.empty((n, c, h, w_), dtype=torch.bfloat16, device=dev)
+        dst = torch.empty_like(x)
+        copy_ms = _time_ms(lambda: dst.copy_(x), 10)
+        print("  %-20s %9.4f %9.4f %9.4f %9.4f %7.2f %7.2f %9.4f" % (
+            row["shape"], row["copy_ms"], nbytes / PEAK_BYTES * 1e3, copy_ms,
+            row["fwd_ms"], row["fwd_ms"] / row["copy_ms"],
+            row["bwd_ms"] / row["copy_ms"], row["bwd_ms"]), flush=True)
+        if "bn_copy" not in rows:        # the stem: K7's row in the table
+            rows["bn_copy"] = dict(
+                ms=row["copy_ms"],
+                plain_ms=_time_ms(lambda: x.clone(), 10),
+                library_ms=copy_ms, **_bound(nbytes, 0))
+        del leg, x, dst
+    k7_launches = _kernels.launch_counts()["bn_copy"]
+    torch.cuda.empty_cache()
+
+    ctx = mx.gpu(dev.index or 0)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    d = LM["dim"] // LM["heads"]
+    x = mx.nd.NDArray(torch.randn(LM_BATCH, LM["heads"], LM_SEQ, d,
+                                  generator=g, device=dev))
+    r1 = kernels["scale_kernel"]
+    # one PyTorch call computes 2x + 1: 1 + 2 * x, exact as R1 is
+    one = torch.ones((), device=dev)
+    if not torch.equal(torch.add(one, x._data, alpha=2),
+                       rtc.scale_plain(x._data)):
+        raise AssertionError("torch.add(1, x, alpha=2) is not 2x + 1")
+    rows["scale_kernel"] = dict(
+        ms=_device_ms(lambda: rtc.launch_scale(r1, x, ctx), 20,
+                      "scale_kernel"),
+        plain_ms=_time_ms(lambda: rtc.scale_plain(x._data), 20),
+        library_ms=_time_ms(lambda: torch.add(one, x._data, alpha=2), 20),
+        **_bound(2 * x.size * 4, 0))
+    dst = torch.empty_like(x._data)
+    print("  R1 at (%d, %d, %d, %d) f32: device %.4f ms a launch, %.4f ms "
+          "between launches (CUDA events: the host's launch path); "
+          "torch.add(1, x, alpha=2) %.4f ms; copy_ on the same bytes %.4f ms"
+          % (LM_BATCH, LM["heads"], LM_SEQ, d, rows["scale_kernel"]["ms"],
+             _time_ms(lambda: rtc.launch_scale(r1, x, ctx), 20),
+             rows["scale_kernel"]["library_ms"],
+             _time_ms(lambda: dst.copy_(x._data), 20)), flush=True)
+    m, k, n = LM_BATCH * LM_SEQ, LM["dim"], LM["dim"]
+    a = mx.nd.NDArray(torch.randn(m, k, generator=g, device=dev))
+    b = mx.nd.NDArray(torch.randn(k, n, generator=g, device=dev))
+    r2 = kernels["mm_kernel"]
+    rows["mm_kernel"] = dict(
+        ms=_device_ms(lambda: rtc.launch_mm(r2, a, b, ctx), 10, "mm_kernel"),
+        plain_ms=_time_ms(lambda: rtc.mm_plain(a._data, b._data), 10),
+        library_ms=_time_ms(lambda: torch.matmul(a._data, b._data), 10),
+        **_bound((m * k + k * n + m * n) * 4, 2 * m * n * k))
+    print("  R2 at (%d, %d) @ (%d, %d) f32: device %.4f ms a launch, %.4f ms "
+          "between launches (CUDA events)" % (
+              m, k, k, n, rows["mm_kernel"]["ms"],
+              _time_ms(lambda: rtc.launch_mm(r2, a, b, ctx), 10)),
+          flush=True)
+    del x, one, dst, a, b
+    torch.cuda.empty_cache()
+    return rows, k7_launches
+
+
 def lm_card_vs_cpu(dev):
     """Phase 5b: one f32 step of a small LM on the card and on the CPU from
     the same numpy weights and tokens."""
@@ -683,6 +1024,9 @@ def main():
     errs = {name: [] for name in _kernels.KERNELS}
     check_kernels(dev, errs)
     check_flash(dev, errs)
+    print("[2c] K7 (bn_copy) and the rtc kernels R1/R2 against their plain "
+          "versions", flush=True)
+    rtc_kernels = check_copy_and_rtc(dev, errs)
 
     print("[3] ResNet path: resnet50_v1(ghost_bn=16) batch %d, %d px, bf16, "
           "%d steps" % (BATCH, IMAGE, STEPS), flush=True)
@@ -704,10 +1048,25 @@ def main():
           flush=True)
     torch.cuda.empty_cache()
 
+    print("[3c] nd path: one causal attention layer of the LM (x (%d, %d, "
+          "%d), 4 weights (%d, %d), %d heads) with nd + autograd, f32, %d "
+          "steps, then R1 and R2 through rtc" % (
+              LM_BATCH, LM_SEQ, LM["dim"], LM["dim"], LM["dim"], LM["heads"],
+              STEPS), flush=True)
+    nd_ms, nd_counts = run_nd_path(dev, rtc_kernels)
+    counts.update({name: nd_counts[name] for name in RTC})
+    nd_steady = sorted(nd_ms[1:])[len(nd_ms[1:]) // 2]
+    print("[3c] nd_step_ms %.2f (median of steps 2-%d)  on %s"
+          % (nd_steady, STEPS, card), flush=True)
+
     print("[4] kernel times (CUDA events, K1/K2 summed over one step's 53 "
           "layers, K4-K6 one layer's attention)", flush=True)
     rows = time_kernels(dev, layers)
     rows.update(time_flash(dev))
+    print("[4c] K7 at the 9 ResNet-50 BN shapes (batch 256, bf16) beside K1, "
+          "K2 and copy_; R1 and R2 at the nd path's shapes", flush=True)
+    nd_rows, counts["bn_copy"] = time_nd_kernels(dev, rtc_kernels)
+    rows.update(nd_rows)
     for name, row in rows.items():
         print("  %-18s ms %.4f  plain_ms %.4f  bound_ms %.4f (%s)  "
               "library_ms %s" % (name, row["ms"], row["plain_ms"],
@@ -736,6 +1095,12 @@ def main():
         "flash_attn_bwd_dkv": (
             "incubator_mxnet_tpu_torch/csrc/flash_attention.cu",
             "incubator_mxnet_tpu/parallel/flash_attention.py:279"),
+        "bn_copy": ("incubator_mxnet_tpu_torch/csrc/bn_copy.cu",
+                    "tools/bn_kernel_bench.py:99"),
+        "scale_kernel": ("incubator_mxnet_tpu_torch/csrc/rtc/scale_kernel.cu",
+                         "incubator_mxnet_tpu/rtc.py:37"),
+        "mm_kernel": ("incubator_mxnet_tpu_torch/csrc/rtc/mm_kernel.cu",
+                      "incubator_mxnet_tpu/rtc.py:37"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -3,8 +3,17 @@
 The JAX package is the reference and this package never imports it, nor
 ``jax``.  Its entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  The kernels that the JAX package wrote in Pallas are
-hand-written CUDA here (``csrc/``), built at first use by ``_kernels``.
-"""
-from . import context, gluon, initializer, parallel
+hand-written CUDA here (``csrc/``), built at first use by ``_kernels``;
+user kernels given as CUDA C at run time compile with NVRTC (``rtc``).
 
-__all__ = ["context", "gluon", "initializer", "parallel"]
+The imperative API keeps the reference's names: ``mx.nd`` (NDArray and
+its operators), ``mx.autograd``, ``mx.random``, ``mx.cpu()``/``mx.gpu()``.
+"""
+from . import (autograd, context, gluon, initializer, ndarray, parallel,
+               random, rtc)
+from . import ndarray as nd
+from .context import cpu, gpu
+from .ndarray import NDArray
+
+__all__ = ["autograd", "context", "gluon", "initializer", "ndarray", "nd",
+           "parallel", "random", "rtc", "cpu", "gpu", "NDArray"]

@@ -4,8 +4,8 @@ The sources under ``csrc/`` are compiled at first use, one ``nvcc``
 process per source, all started together, and linked by one more into a
 shared library with a plain C interface
 (``build/torch_kernels/libmxnet_tpu_torch_<hash>.so`` at the repository
-root, keyed by a hash of the sources and flags) and loaded with
-``ctypes``.  Every pointer and the stream cross as ``c_void_p``; every C
+root, keyed by a hash of the sources, their headers and the flags) and
+loaded with ``ctypes``.  Every pointer and the stream cross as ``c_void_p``; every C
 entry returns ``cudaGetLastError()`` and :meth:`Kernel.launch` raises when
 it is non-zero.  Each kernel keeps a plain integer launch counter that
 only :meth:`Kernel.launch` advances.
@@ -30,7 +30,8 @@ __all__ = ["KERNELS", "build", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("ghost_bn.cu", "maxpool_idx.cu", "flash_attention.cu")
+_SOURCES = ("ghost_bn.cu", "maxpool_idx.cu", "flash_attention.cu",
+            "bn_copy.cu")
 _BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC")
@@ -60,6 +61,8 @@ _SIGNATURES = {
     # causal, stream
     "flash_attn_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _I, _P],
+    # dtype, x, y, G, C, HW, ng, stream
+    "bn_copy": [_I, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -82,7 +85,8 @@ def _nvcc():
 
 def _library_path():
     h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    headers = tuple(sorted(p.name for p in _CSRC.glob("*.cuh")))
+    for name in _SOURCES + headers:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return _BUILD_DIR / ("libmxnet_tpu_torch_%s.so" % h.hexdigest()[:12])

@@ -25,7 +25,7 @@ def default_device():
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port runs on the card by default; pass "
-            "device='cpu' to run on the CPU")
+            "device='cpu' (ctx=mx.cpu() for nd arrays) to run on the CPU")
     return gpu(0)
 
 

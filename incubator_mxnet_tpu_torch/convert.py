@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["ordered_tensors", "params_from_jax", "params_to_numpy",
-           "lm_params_from_jax", "lm_params_to_numpy"]
+           "lm_params_from_jax", "lm_params_to_numpy", "ndarrays_from_numpy"]
 
 
 def ordered_tensors(net):
@@ -111,3 +111,12 @@ def lm_params_to_numpy(lm):
                 for k, t in node.items()}
 
     return walk(_lm_tree(lm))
+
+
+def ndarrays_from_numpy(arrays, ctx=None):
+    """``{name: numpy}`` (the JAX package's ``{name: NDArray.asnumpy()}``)
+    as ``{name: NDArray}`` of the port on ``ctx`` (``None``: the default
+    CUDA card), each in its own dtype."""
+    from .ndarray import array
+
+    return {k: array(np.asarray(v), ctx) for k, v in arrays.items()}

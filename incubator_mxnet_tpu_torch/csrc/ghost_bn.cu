@@ -45,9 +45,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "ghost_bn_slice.cuh"
 
-constexpr int kThreads = 256;
+namespace {
 
 __device__ __forceinline__ float load(const float* p, int64_t i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, int64_t i) {
@@ -86,30 +86,6 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
     b += __shfl_xor_sync(0xffffffffu, b, o);
   }
 }
-
-// Walks the slice of one block: `ng` planes of `hw` elements, planes
-// `plane` elements apart.  The (plane, offset) pair advances without a
-// division per element.
-struct SliceIter {
-  int p, j, dp, dj, hw;
-  int64_t plane, base;
-  __device__ SliceIter(int64_t base_, int64_t plane_, int hw_)
-      : hw(hw_), plane(plane_), base(base_) {
-    p = threadIdx.x / hw;
-    j = threadIdx.x - p * hw;
-    dp = blockDim.x / hw;
-    dj = blockDim.x - dp * hw;
-  }
-  __device__ __forceinline__ int64_t offset() const { return base + p * plane + j; }
-  __device__ __forceinline__ void next() {
-    p += dp;
-    j += dj;
-    if (j >= hw) {
-      j -= hw;
-      ++p;
-    }
-  }
-};
 
 template <typename T, bool kRes, bool kRelu>
 __global__ void __launch_bounds__(kThreads)

@@ -8,7 +8,10 @@ cotangent, its two reductions and dX (+ dR) in another (K2,
 ``ghost_bn_bwd``).  On a CPU tensor the same functions run their plain
 PyTorch versions (:func:`_gbn_fwd_plain`, :func:`_gbn_bwd_plain`, ports of
 ``_gbn_ref`` and ``_gbn_bwd_jnp``); on a CUDA tensor they launch the
-kernels or raise.
+kernels or raise.  :func:`bn_copy` (K7, ``csrc/bn_copy.cu``, port of
+``tools/bn_kernel_bench.py``'s ``_call_copy``) copies an activation with
+K1's grid and slice walk: the bandwidth yardstick of K1 in
+``tools/bn_kernel_bench_torch.py``.
 
 The group size is the reference's, not a free choice: the TPU plan picks
 it from the divisors of N under the caller's cap, shaped by the TPU's
@@ -22,7 +25,7 @@ import torch
 from .. import _kernels
 
 __all__ = ["ghost_bn_act", "ghost_bn_stats_merge", "ghost_group",
-           "ghost_bn_fwd", "ghost_bn_bwd"]
+           "ghost_bn_fwd", "ghost_bn_bwd", "bn_copy"]
 
 # ---------------------------------------------------------------------------
 # the reference's group selection (fused_bn.py _plan, _gbn_ref)
@@ -267,6 +270,29 @@ def ghost_bn_bwd(gy, gy2, x, y, gamma, beta, mean, var, eps, act, ng):
         _ptr(dg), _ptr(db), groups, c, h * w, ng, float(eps),
         1 if act == "relu" else 0)
     return dx, dg.sum(0), db.sum(0), dr
+
+
+def bn_copy(x, ng):
+    """A copy of the NCHW activation ``x`` (K7, ``csrc/bn_copy.cu``): the
+    bandwidth yardstick of K1, which it copies with K1's grid and slice
+    walk at ghost group ``ng``.  CUDA tensors go through K7; CPU tensors
+    through the plain version, ``x.clone()``."""
+    _check_act(x, {}, ng)
+    if x.device.type == "cpu":
+        return x.clone()
+    if x.device.type != "cuda":
+        raise ValueError("bn_copy runs on cuda or cpu, got %s" % x.device)
+    n, c, h, w = x.shape
+    _check_cuda(x.device, {"x": x}, {})
+    groups = n // ng
+    if groups > 65535:
+        raise ValueError("at most 65535 ghost groups per launch, got %d"
+                         % groups)
+    y = torch.empty_like(x)
+    _kernels.KERNELS["bn_copy"].launch(
+        x.device, _DTYPE_CODE[x.dtype], _ptr(x), _ptr(y), groups, c, h * w,
+        ng)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ two sides compute in f32 may land one bf16 step apart); the f32 sums
 dgamma and dbeta 1e-3 of it.  Max pooling is exact.  Flash attention
 (K4-K6): O and LSE 1e-4 in f32 and 2^-7 in bf16, dQ/dK/dV 1e-3 in f32
 (sums over every key or query) and 2^-6 in bf16; rows that see no key
-exactly 0 in O and dQ.
+exactly 0 in O and dQ.  K7 (``bn_copy``) and R1 (``scale_kernel``)
+exact; R2 (``mm_kernel``) 1e-4 of max |a @ b| (f32 sums in another order
+than cuBLAS's); the nd attention layer card against CPU 1e-4 relative.
 """
 import importlib
 
@@ -252,3 +254,135 @@ def test_small_train_step_card_matches_cpu(dev, monkeypatch):
     for a, b in zip(convert.params_to_numpy(nets["cuda"]),
                     convert.params_to_numpy(nets["cpu"])):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K7 and the rtc kernels R1/R2; the nd path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,ng", [((32, 64, 28, 28), 16),
+                                      ((16, 2048, 7, 7), 8),
+                                      ((6, 3, 5, 5), 3)])
+def test_bn_copy_kernel_is_exact(dev, dtype, shape, ng):
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    before = _kernels.launch_counts()["bn_copy"]
+    y = fused_bn.bn_copy(x, ng)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x.clone())
+    assert _kernels.launch_counts()["bn_copy"] == before + 1
+
+
+@pytest.fixture
+def rtc_kernels(dev):
+    from incubator_mxnet_tpu_torch import rtc
+
+    out = {}
+    for name, sig in rtc.USER_KERNELS.items():
+        mod = rtc.CudaModule(rtc.user_source(name), exports=[name])
+        assert mod.compile_ms > 0
+        out[name] = mod.get_kernel(name, sig)
+    return out
+
+
+def test_rtc_kernels_match_plain(dev, rtc_kernels, monkeypatch):
+    """R1 exact; R2 within 1e-4 of max |a @ b| (TF32 off), at a ragged
+    shape; each launch counted."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import rtc
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = mx.nd.NDArray(torch.randn(3, 1000, 7, generator=g, device=dev))
+    y = rtc.launch_scale(rtc_kernels["scale_kernel"], x, mx.gpu(0))
+    torch.cuda.synchronize()
+    assert torch.equal(y._data, rtc.scale_plain(x._data))
+    a = mx.nd.NDArray(torch.randn(130, 70, generator=g, device=dev))
+    b = mx.nd.NDArray(torch.randn(70, 65, generator=g, device=dev))
+    c = rtc.launch_mm(rtc_kernels["mm_kernel"], a, b, mx.gpu(0))
+    _close(c._data, rtc.mm_plain(a._data, b._data), 1e-4)
+    assert rtc_kernels["scale_kernel"].launches == 1
+    assert rtc_kernels["mm_kernel"].launches == 1
+
+
+def test_rtc_refusals_on_card(dev, rtc_kernels):
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import rtc
+
+    src = rtc.user_source("scale_kernel")
+    with pytest.raises(ValueError, match="not defined"):
+        rtc.CudaModule(src, exports=["nope"])
+    with pytest.raises(ValueError, match="not found"):
+        rtc.CudaModule(src).get_kernel("missing", "const float *x")
+    with pytest.raises(RuntimeError, match="NVRTC compile"):
+        rtc.CudaModule("extern \"C\" __global__ void k() { undefined(); }")
+    k = rtc_kernels["scale_kernel"]
+    x = mx.nd.zeros((4,), ctx=mx.gpu(0))
+    with pytest.raises(TypeError, match="float32"):
+        k.launch([x.astype("float64"), x, 4], mx.gpu(0), (1, 1, 1),
+                 (4, 1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        k.launch([x.as_in_context(mx.cpu()), x, 4], mx.gpu(0), (1, 1, 1),
+                 (4, 1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        k.launch([x, x, 4], mx.cpu(), (1, 1, 1), (4, 1, 1))
+    with pytest.raises(ValueError, match="takes 3 arguments"):
+        k.launch([x, x], mx.gpu(0), (1, 1, 1), (4, 1, 1))
+    assert k.launches == 0
+
+
+@pytest.mark.parametrize("export", ["axpy", "ns::axpy<float>"])
+def test_rtc_export_nvrtc_cannot_resolve_raises_value_error(dev, export):
+    """An export that passes the lexical check (its name is in a comment,
+    or in another namespace) but that NVRTC cannot resolve."""
+    from incubator_mxnet_tpu_torch import rtc
+
+    src = ("// axpy lives in namespace other\n"
+           "namespace other { template <typename T> __global__ void "
+           "axpy(T a, T *x) {} }\n"
+           "extern \"C\" __global__ void k(float *x) {}\n")
+    with pytest.raises(ValueError, match=r"export.*axpy.*not defined"):
+        rtc.CudaModule(src, exports=[export])
+    assert rtc.CudaModule(src, exports=["other::axpy<float>"]) \
+        .get_kernel("other::axpy<float>", "float a, float *x").launches == 0
+
+
+def test_nd_attention_layer_card_matches_cpu(dev, monkeypatch):
+    """The chip_smoke [3c] layer at a small size on the card (K4-K6 once
+    each) and on the CPU (plain versions) from the same inputs: loss and
+    weight gradients within 1e-4 relative."""
+    import importlib.util
+    import os
+
+    import incubator_mxnet_tpu_torch as mx
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.RandomState(1)
+    x = rng.standard_normal((2, 64, 64)).astype(np.float32)
+    w = {n: (rng.uniform(-1, 1, (64, 64)) / 8).astype(np.float32)
+         for n in ("wq", "wk", "wv", "wo")}
+    out = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        wn = {n: mx.nd.array(v, ctx=ctx) for n, v in w.items()}
+        for p in wn.values():
+            p.attach_grad()
+        before = _kernels.launch_counts()
+        loss, _, _ = smoke.nd_attention_layer(mx, mx.nd.array(x, ctx=ctx),
+                                              wn, 4)
+        after = _kernels.launch_counts()
+        launched = [after[n] - before[n] for n in smoke.FLASH]
+        assert launched == ([1, 1, 1] if ctx.type == "cuda" else [0, 0, 0])
+        out[ctx.type] = (loss.asnumpy(), {n: p.grad.asnumpy()
+                                          for n, p in wn.items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for n in w:
+        g_cpu = out["cpu"][1][n]
+        err = np.abs(out["cuda"][1][n] - g_cpu).max()
+        assert err <= 1e-4 * np.abs(g_cpu).max(), (n, err)

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,9 +23,12 @@ import incubator_mxnet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location(
-    "train_lm_torch", "example/long_context/train_lm_torch.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
+                   ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py")):
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from incubator_mxnet_tpu_torch import rtc
+assert not rtc._libs, "rtc loaded a library at import"
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "incubator_mxnet_tpu" or k.startswith("incubator_mxnet_tpu."))
@@ -39,7 +43,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 17
+    assert int(n) >= 30
     assert bad == "[]"
 
 
@@ -94,6 +98,58 @@ def test_step_refuses_net_on_other_device():
                         tstep.FunctionalOptimizer(), device="cpu")
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         context.resolve("meta")
+
+
+@pytest.mark.parametrize("build", [
+    lambda mx: mx.nd.array([1.0, 2.0]),
+    lambda mx: mx.nd.zeros((2, 3)),
+    lambda mx: mx.nd.ones(3),
+    lambda mx: mx.nd.arange(4),
+    lambda mx: mx.nd.random.normal(shape=(2,)),
+    lambda mx: mx.nd.random.uniform(shape=(2,)),
+    lambda mx: mx.nd.broadcast_add(np.ones(2), np.ones(2)),
+    lambda mx: mx.rtc.CudaModule(mx.rtc.user_source("scale_kernel"),
+                                 exports=["scale_kernel"]),
+    lambda mx: mx.rtc.CudaKernel(None, "scale_kernel", mx.rtc.parse_signature(
+        mx.rtc.USER_KERNELS["scale_kernel"])).launch(
+            [mx.nd.zeros((2,), ctx=mx.cpu())] * 2 + [2], mx.cpu(),
+            (1, 1, 1), (2, 1, 1)),
+])
+def test_imperative_entry_points_refuse_cpu_without_asking(monkeypatch,
+                                                          build):
+    import incubator_mxnet_tpu_torch as mx
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(mx)
+
+
+def test_imperative_path_runs_on_cpu_when_asked(monkeypatch, tmp_path):
+    """``ctx=mx.cpu()`` works everywhere but ``rtc``, which has no CPU
+    path and says so."""
+    import incubator_mxnet_tpu_torch as mx
+
+    _no_card(monkeypatch)
+    cpu = mx.cpu()
+    mx.nd.random.seed(0)
+    w = mx.nd.random.uniform(shape=(3, 3), ctx=cpu)
+    w.attach_grad()
+    x = mx.nd.array(np.ones((2, 3), np.float32), ctx=cpu)
+    with mx.autograd.record():
+        loss = mx.nd.dot(x, w).sum()
+    loss.backward()
+    assert w.grad.context == cpu and w.grad.asnumpy().shape == (3, 3)
+    path = str(tmp_path / "w.params")
+    mx.nd.save(path, {"w": w})
+    assert mx.nd.load(path, ctx=cpu)["w"].context == cpu
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mx.nd.load(path)
+    assert mx.nd.zeros((1,), ctx=cpu).context == cpu
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mx.rtc.launch_scale(mx.rtc.CudaKernel(
+            None, "scale_kernel",
+            mx.rtc.parse_signature(mx.rtc.USER_KERNELS["scale_kernel"])),
+            x, cpu)
 
 
 def test_flash_attention_runs_on_cpu_without_a_card(monkeypatch):
