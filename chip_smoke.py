@@ -54,12 +54,16 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    PyTorch call computes the same function, that call
    (``F.max_pool2d`` for K3, ``F.scaled_dot_product_attention`` for K4,
    its backward for K5 and K6 together); plus K4 and SDPA at
-   (1, 8, 8192, 128);
+   (1, 8, 8192, 128).  Bounds are the larger of bytes over 3.35 TB/s and
+   operations over the f32 CUDA cores' 67 TFLOP/s; K4 also carries
+   ``tc_bound_ms``, its 3xTF32 bound on the tensor cores (three TF32
+   passes of every product at 495 TFLOP/s), and ``ms_over_library``;
 4c. K7 at the 9 BN shapes beside K1, K2 (through
    ``tools/bn_kernel_bench_torch.py``) and ``Tensor.copy_``, with K1 and
-   K2 as a share of K7's time; R1 and R2 beside their bounds (R2 also
-   beside ``torch.matmul``, TF32 off); K7's launches are those of this
-   sweep;
+   K2 as a share of K7's time; R1 and R2 beside their bounds; R2 beside
+   ``torch.matmul`` (TF32 off), both by the profiler's device time, with
+   ``tc_bound_ms`` and ``ms_over_library`` as K4; K7's launches are those
+   of this sweep;
 5. one f32 step (TF32 off) of ``resnet50_v1(ghost_bn=16)`` at batch 16,
    64 px on the card and on the CPU from the same weights and batch;
 5b. one f32 step of a small LM (dim 128, 8 heads, seq 256, batch 2, 2
@@ -119,9 +123,10 @@ ND_TOL = 1e-4
 RTC = ("scale_kernel", "mm_kernel")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
-# tensor cores
+# tensor cores, dense TF32 FLOP/s on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 #: f32 operations per element: K1 (sum, square-sum, scale, shift,
 #: residual add, ReLU), K2 (xhat, mask, two reductions, dX), K3 (compares)
 OPS_FWD, OPS_BWD = 7, 12
@@ -505,11 +510,20 @@ def _causal_pairs(sq, sk):
     return sum(min(max(i + sk - sq + 1, 0), sk) for i in range(sq))
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, ops, peak=PEAK_F32):
+    """The least time for ``nbytes`` of traffic and ``ops`` operations at
+    ``peak`` operations a second."""
     byte_ms = nbytes / PEAK_BYTES * 1e3
-    op_ms = ops / PEAK_F32 * 1e3
+    op_ms = ops / peak * 1e3
     return {"bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def _tensor_core_row(row, nbytes, ops):
+    """Add to a 3xTF32 kernel's row its bound on the tensor cores (three
+    TF32 passes of every product) and its time over the library call's."""
+    row["tc_bound_ms"] = _bound(nbytes, 3 * ops, PEAK_TF32)["bound_ms"]
+    row["ms_over_library"] = row["ms"] / row["library_ms"]
 
 
 def time_flash(dev):
@@ -555,6 +569,7 @@ def time_flash(dev):
     rows["flash_attn_fwd"]["library_ms"] = _time_ms(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
         10)
+    _tensor_core_row(rows["flash_attn_fwd"], 4 * mat + row, 4 * d * pairs)
     leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
     lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
     lib_bwd = _time_ms(lambda: torch.autograd.grad(
@@ -575,11 +590,16 @@ def time_flash(dev):
     q4, k4, v4 = (t.view(1, h, sl, d) for t in (ql, kl, vl))
     long_lib = _time_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), 5)
-    long_bound = _bound(4 * h * sl * d * 4 + h * sl * 4,
-                        4 * d * h * _causal_pairs(sl, sl))
+    long_row = dict(ms=long_ms, library_ms=long_lib,
+                    **_bound(4 * h * sl * d * 4 + h * sl * 4,
+                             4 * d * h * _causal_pairs(sl, sl)))
+    _tensor_core_row(long_row, 4 * h * sl * d * 4 + h * sl * 4,
+                     4 * d * h * _causal_pairs(sl, sl))
     print("  K4 at (1, 8, 8192, 128) causal f32: ms %.4f  library_ms %.4f  "
-          "bound_ms %.4f (%s)" % (long_ms, long_lib, long_bound["bound_ms"],
-                                  long_bound["bound_by"]), flush=True)
+          "ms/library %.3f  bound_ms %.4f (%s)  tc_bound_ms %.4f"
+          % (long_ms, long_lib, long_row["ms_over_library"],
+             long_row["bound_ms"], long_row["bound_by"],
+             long_row["tc_bound_ms"]), flush=True)
     del ql, kl, vl, q4, k4, v4
     torch.cuda.empty_cache()
     return rows
@@ -590,11 +610,12 @@ def time_flash(dev):
 # ---------------------------------------------------------------------------
 
 
-def _device_ms(fn, reps, name):
-    """Mean device time in ms of the kernel ``name`` over ``reps`` calls of
-    ``fn``, from torch.profiler's CUDA trace (as
-    ``tools/torch_profile_step.py`` reads it): the kernel's own time, also
-    where the host launches it more slowly than the card runs it."""
+def _device_ms(fn, reps, name=None):
+    """Mean device time in ms a call of ``fn`` (over ``reps`` calls) of the
+    kernel ``name``, or of every kernel it launches, from torch.profiler's
+    CUDA trace (as ``tools/torch_profile_step.py`` reads it): the kernels'
+    own time, also where the host launches them more slowly than the card
+    runs them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -606,10 +627,10 @@ def _device_ms(fn, reps, name):
         torch.cuda.synchronize()
     times = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
              if ev.device_type == torch.autograd.DeviceType.CUDA
-             and ev.name == name]
-    if len(times) != reps:
+             and name in (None, ev.name)]
+    if len(times) != reps and (name is not None or len(times) < reps):
         raise AssertionError("the profiler saw %d launches of %s, want %d"
-                             % (len(times), name, reps))
+                             % (len(times), name or "kernels", reps))
     return sum(times) / reps
 
 
@@ -883,14 +904,21 @@ def time_nd_kernels(dev, kernels):
     a = mx.nd.NDArray(torch.randn(m, k, generator=g, device=dev))
     b = mx.nd.NDArray(torch.randn(k, n, generator=g, device=dev))
     r2 = kernels["mm_kernel"]
+    # R2 and torch.matmul on one clock: the profiler's device time
+    nbytes, ops = (m * k + k * n + m * n) * 4, 2 * m * n * k
     rows["mm_kernel"] = dict(
         ms=_device_ms(lambda: rtc.launch_mm(r2, a, b, ctx), 10, "mm_kernel"),
         plain_ms=_time_ms(lambda: rtc.mm_plain(a._data, b._data), 10),
-        library_ms=_time_ms(lambda: torch.matmul(a._data, b._data), 10),
-        **_bound((m * k + k * n + m * n) * 4, 2 * m * n * k))
-    print("  R2 at (%d, %d) @ (%d, %d) f32: device %.4f ms a launch, %.4f ms "
-          "between launches (CUDA events)" % (
+        library_ms=_device_ms(lambda: torch.matmul(a._data, b._data), 10),
+        **_bound(nbytes, ops))
+    _tensor_core_row(rows["mm_kernel"], nbytes, ops)
+    print("  R2 at (%d, %d) @ (%d, %d) f32: device %.4f ms a launch, "
+          "torch.matmul (TF32 off) device %.4f ms, ms/library %.3f; "
+          "tc_bound_ms %.4f; %.4f ms between R2 launches (CUDA events)" % (
               m, k, k, n, rows["mm_kernel"]["ms"],
+              rows["mm_kernel"]["library_ms"],
+              rows["mm_kernel"]["ms_over_library"],
+              rows["mm_kernel"]["tc_bound_ms"],
               _time_ms(lambda: rtc.launch_mm(r2, a, b, ctx), 10)),
           flush=True)
     del x, one, dst, a, b
@@ -1069,9 +1097,12 @@ def main():
     rows.update(nd_rows)
     for name, row in rows.items():
         print("  %-18s ms %.4f  plain_ms %.4f  bound_ms %.4f (%s)  "
-              "library_ms %s" % (name, row["ms"], row["plain_ms"],
-                                 row["bound_ms"], row["bound_by"],
-                                 row["library_ms"]), flush=True)
+              "library_ms %s%s" % (
+                  name, row["ms"], row["plain_ms"], row["bound_ms"],
+                  row["bound_by"], row["library_ms"],
+                  "  tc_bound_ms %.4f  ms/library %.3f" % (
+                      row["tc_bound_ms"], row["ms_over_library"])
+                  if "tc_bound_ms" in row else ""), flush=True)
 
     print("[5] one f32 step at batch 16, 64 px: card against CPU", flush=True)
     card_vs_cpu(dev)

@@ -514,9 +514,13 @@ USER_KERNELS = {
     "mm_kernel": "const float *a, const float *b, float *c, int M, int N, "
                  "int K",
 }
-#: mm_kernel's tile of C per block and threads per block (csrc/rtc note)
-MM_TILE = 64
+#: mm_kernel's tile of C per block, threads per block and dynamic shared
+#: memory: the #defines MM_TILE, MM_THREADS and MM_SMEM_BYTES of
+#: csrc/rtc/mm_kernel.cu (3 stages of a 128 x 16 A slice at a pitch of 20
+#: floats and a 16 x 128 B slice at a pitch of 136)
+MM_TILE = 128
 MM_THREADS = 256
+MM_SMEM_BYTES = 3 * (128 * 20 + 16 * 136) * 4
 
 
 def user_source(name):
@@ -558,5 +562,5 @@ def launch_mm(kernel, a, b, ctx):
                             device=a._data.device))
     kernel.launch([a, b, c, m, n, k], ctx,
                   (-(-n // MM_TILE), -(-m // MM_TILE), 1),
-                  (MM_THREADS, 1, 1))
+                  (MM_THREADS, 1, 1), shared_mem=MM_SMEM_BYTES)
     return c

@@ -114,6 +114,7 @@ def test_maxpool_kernel_matches_plain(dev, dtype):
     (2, 96, 40, 16, True),        # Sk < Sq: 56 rows see no key
     (2, 24, 72, 8, True),         # Sk > Sq: the mask's offset is +48
     (2, 8, 200, 40, False),       # D not a multiple of 16
+    (2, 200, 200, 128, True),     # Sq not a multiple of K4's 128-row tile
 ])
 def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
     g = torch.Generator(device=dev).manual_seed(4)
@@ -304,6 +305,30 @@ def test_rtc_kernels_match_plain(dev, rtc_kernels, monkeypatch):
     c = rtc.launch_mm(rtc_kernels["mm_kernel"], a, b, mx.gpu(0))
     _close(c._data, rtc.mm_plain(a._data, b._data), 1e-4)
     assert rtc_kernels["scale_kernel"].launches == 1
+    assert rtc_kernels["mm_kernel"].launches == 1
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (257, 33, 130),     # K and N not multiples of 4: 4-byte copies
+    (1, 5, 1),
+    (300, 64, 260),     # M and N beyond one 128 tile, 16-byte copies
+    (129, 1000, 4),
+])
+def test_rtc_mm_kernel_shapes(dev, rtc_kernels, monkeypatch, m, k, n):
+    """R2 within 1e-4 of max |a @ b| (TF32 off in the plain version) at
+    ragged and aligned shapes."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import rtc
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=dev).manual_seed(8)
+    a = mx.nd.NDArray(torch.randn(m, k, generator=g, device=dev))
+    b = mx.nd.NDArray(torch.randn(k, n, generator=g, device=dev))
+    c = rtc.launch_mm(rtc_kernels["mm_kernel"], a, b, mx.gpu(0))
+    torch.cuda.synchronize()
+    want = rtc.mm_plain(a._data, b._data)
+    err = (c._data - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
     assert rtc_kernels["mm_kernel"].launches == 1
 
 

@@ -197,3 +197,49 @@ def test_no_nvrtc_raises_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(rtc, "_libs", {})
     with pytest.raises(RuntimeError, match="libnvrtc not found"):
         rtc._nvrtc()
+
+
+def _mm_defines():
+    """The integer ``#define``s of ``csrc/rtc/mm_kernel.cu``, each evaluated
+    over the ones before it."""
+    out = {}
+    for name, expr in re.findall(r"^#define (MM_\w+) (.+)$",
+                                 rtc.user_source("mm_kernel"), re.M):
+        out[name] = int(eval(expr, {}, dict(out)))
+    return out
+
+
+class _FakeMM:
+    """Records what ``launch_mm`` hands the kernel."""
+
+    def __init__(self):
+        self.calls = []
+
+    def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
+        self.calls.append((args, grid_dims, block_dims, shared_mem))
+
+
+@pytest.mark.parametrize("m,k,n", [(257, 33, 130), (1, 5, 1), (1000, 300, 129),
+                                   (8192, 1024, 1024), (256, 64, 384)])
+def test_launch_mm_geometry_matches_the_source(m, k, n):
+    """Grid over ceil(N / tile) x ceil(M / tile) blocks; block size and
+    dynamic shared memory as the kernel's own #defines say, for ragged and
+    aligned shapes."""
+    d = _mm_defines()
+    assert (rtc.MM_TILE, rtc.MM_THREADS, rtc.MM_SMEM_BYTES) == (
+        d["MM_TILE"], d["MM_THREADS"], d["MM_SMEM_BYTES"])
+    assert d["MM_SMEM_BYTES"] == d["MM_STAGES"] * 4 * (
+        d["MM_TILE"] * d["MM_PITCH_A"] + d["MM_KSTEP"] * d["MM_PITCH_B"])
+    assert d["MM_SMEM_BYTES"] <= 227 * 1024
+    fake = _FakeMM()
+    a, b = tmx.nd.zeros((m, k), ctx=CPU), tmx.nd.zeros((k, n), ctx=CPU)
+    c = rtc.launch_mm(fake, a, b, CPU)
+    (args, grid, block, smem), = fake.calls
+    tile = d["MM_TILE"]
+    assert grid == (-(-n // tile), -(-m // tile), 1)
+    assert grid[0] * tile >= n > (grid[0] - 1) * tile
+    assert grid[1] * tile >= m > (grid[1] - 1) * tile
+    assert block == (d["MM_THREADS"], 1, 1)
+    assert smem == d["MM_SMEM_BYTES"]
+    assert args[:3] == [a, b, c] and args[3:] == [m, n, k]
+    assert c.shape == (m, n)
