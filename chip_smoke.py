@@ -55,9 +55,11 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    (``F.max_pool2d`` for K3, ``F.scaled_dot_product_attention`` for K4,
    its backward for K5 and K6 together); plus K4 and SDPA at
    (1, 8, 8192, 128).  Bounds are the larger of bytes over 3.35 TB/s and
-   operations over the f32 CUDA cores' 67 TFLOP/s; K4 also carries
-   ``tc_bound_ms``, its 3xTF32 bound on the tensor cores (three TF32
-   passes of every product at 495 TFLOP/s), and ``ms_over_library``;
+   operations over the f32 CUDA cores' 67 TFLOP/s; K4-K6 also carry
+   ``tc_bound_ms``, their 3xTF32 bound on the tensor cores (three TF32
+   passes of every product at 495 TFLOP/s), and ``ms_over_library``
+   (K5 and K6 each over SDPA's whole backward; a line gives K5 + K6 over
+   it);
 4c. K7 at the 9 BN shapes beside K1, K2 (through
    ``tools/bn_kernel_bench_torch.py``) and ``Tensor.copy_``, with K1 and
    K2 as a share of K7's time; R1 and R2 beside their bounds; R2 beside
@@ -574,9 +576,21 @@ def time_flash(dev):
     lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
     lib_bwd = _time_ms(lambda: torch.autograd.grad(
         lib_out, leaves, do4, retain_graph=True), 10)
-    # one call computes dQ, dK and dV: the same time stands in both rows
+    # one call computes dQ, dK and dV: the same time stands in both rows,
+    # and beside K5 + K6 together
     rows["flash_attn_bwd_dq"]["library_ms"] = lib_bwd
     rows["flash_attn_bwd_dkv"]["library_ms"] = lib_bwd
+    _tensor_core_row(rows["flash_attn_bwd_dq"], 5 * mat + 2 * row,
+                     6 * d * pairs)
+    _tensor_core_row(rows["flash_attn_bwd_dkv"], 6 * mat + 2 * row,
+                     8 * d * pairs)
+    pair_ms = (rows["flash_attn_bwd_dq"]["ms"]
+               + rows["flash_attn_bwd_dkv"]["ms"])
+    print("  K5 + K6 at (4, 8, 2048, 128) causal f32: ms %.4f  SDPA backward "
+          "%.4f  (K5 + K6)/SDPA backward %.3f  tc_bound_ms %.4f" % (
+              pair_ms, lib_bwd, pair_ms / lib_bwd,
+              rows["flash_attn_bwd_dq"]["tc_bound_ms"]
+              + rows["flash_attn_bwd_dkv"]["tc_bound_ms"]), flush=True)
     err = _max_err(out.view(b, h, s, d), lib_out.detach())
     print("  SDPA forward against K4: max abs diff %.3e" % err, flush=True)
     del q, k, v, do, out, lse, delta, q4, k4, v4, do4, leaves, lib_out

@@ -22,8 +22,9 @@ through the plain versions.
 
 ``block_q``/``block_k`` tile the plain versions as they tile the Pallas
 grid (clamped to divisors of the lengths, :func:`_fit_block`).  The CUDA
-kernels use their own 64 x 64 tiles, fixed in the source, and mask the
-ragged edge themselves.  The result does not depend on either tiling.
+kernels use their own tiles, fixed in the source (128 rows a block; 64-key
+tiles in K4, 32-row streamed tiles in K5 and K6), and mask the ragged edge
+themselves.  The result does not depend on either tiling.
 """
 from __future__ import annotations
 

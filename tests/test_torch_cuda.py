@@ -115,6 +115,8 @@ def test_maxpool_kernel_matches_plain(dev, dtype):
     (2, 24, 72, 8, True),         # Sk > Sq: the mask's offset is +48
     (2, 8, 200, 40, False),       # D not a multiple of 16
     (2, 200, 200, 128, True),     # Sq not a multiple of K4's 128-row tile
+    (2, 300, 136, 128, True),     # ragged on K5/K6's 128- and 32-row tiles
+                                  # both ways; 164 rows see no key
 ])
 def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
     g = torch.Generator(device=dev).manual_seed(4)

@@ -1,18 +1,21 @@
-"""The 3xTF32 split that R2 (``csrc/rtc/mm_kernel.cu``) and K4
+"""The 3xTF32 split that R2 (``csrc/rtc/mm_kernel.cu``) and K4-K6
 (``csrc/flash_attention.cu``) compute with on the tensor cores, emulated
 in numpy on the CPU.
 
 Each float32 operand x becomes ``hi = tf32(x)`` and ``lo = tf32(x - hi)``
-(``cvt.rna.tf32.f32``: round to nearest, ties away from zero, onto 10
-mantissa bits), and a product takes three TF32 passes, ``lo·hi + hi·lo``
+(``cvt.rna.tf32.f32``'s rounding: to nearest, ties away from zero, onto
+10 mantissa bits; K4-K6 compute it as this module does, with an integer
+add and mask), and a product takes three TF32 passes, ``lo·hi + hi·lo``
 then ``hi·hi``; a product of two TF32 values is exact in float32, and the
 sums stay float32.  These tests hold that arithmetic, applied to the
 kernels' plain versions, to the float32 tolerances ``chip_smoke.py``
 phase 2 holds the kernels to: R2 within 1e-4 of max |a @ b|, K4's O
-within 1e-4 of its largest magnitude (at least 1) and its LSE within 1e-4.
-One TF32 pass misses by an order of magnitude more, which is why the
-kernels take three.  A bf16 value is exact in TF32 (its lo is 0), so K4
-takes one pass for bf16 Q Kᵀ and two for P V.
+within 1e-4 of its largest magnitude (at least 1) and its LSE within 1e-4,
+K5's dQ and K6's dK and dV within 1e-3 of theirs.  One TF32 pass misses
+by an order of magnitude more, which is why the kernels take three.  A
+bf16 value is exact in TF32 (its lo is 0), so a product of two bf16
+inputs (Q Kᵀ, dO Vᵀ) takes one pass and a product of P or dS with one
+two.
 """
 import importlib
 
@@ -119,3 +122,39 @@ def test_k4_split_keeps_float32_accuracy(monkeypatch, bh, sq, sk, d,
     assert torch.equal(out[~seen], want[~seen])
     one_err = (results[1][0] - want).abs().max().item()
     assert one_err > 10 * err
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal", [
+    (2, 128, 128, 64, True),
+    (2, 100, 100, 128, False),
+    (2, 96, 40, 16, True),        # Sq > Sk: 56 rows see no key
+])
+def test_k5_k6_split_keeps_float32_accuracy(monkeypatch, bh, sq, sk, d,
+                                            causal):
+    """``_flash_bwd_dq_plain`` and ``_flash_bwd_dkv_plain`` with their
+    products (S, dP, then dS K for K5; Pᵀ dO and dSᵀ Q for K6) in 3xTF32,
+    against themselves in float32, at the card's gradient tolerance: 1e-3
+    of the largest magnitude (at least 1)."""
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, s, d))
+                                    .astype(np.float32))
+                   for s in (sq, sk, sk, sq))
+    scale = d ** -0.5
+    out, lse = tfa._flash_fwd_plain(q, k, v, scale, causal, 64, 64)
+    delta = (do * out).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, causal, 64, 64)
+    want = (tfa._flash_bwd_dq_plain(*args),) + tfa._flash_bwd_dkv_plain(*args)
+    results = {}
+    for passes in (3, 1):
+        monkeypatch.setattr(torch, "matmul", _tf32_matmul(passes))
+        results[passes] = ((tfa._flash_bwd_dq_plain(*args),)
+                           + tfa._flash_bwd_dkv_plain(*args))
+        monkeypatch.undo()
+    empty = lse <= -5e29
+    assert torch.equal(results[3][0][empty], torch.zeros_like(want[0][empty]))
+    for name, got, one, ref in zip(("dQ", "dK", "dV"), results[3], results[1],
+                                   want):
+        limit = 1e-3 * max(1.0, ref.abs().max().item())
+        err = (got - ref).abs().max().item()
+        assert err <= limit, (name, err, limit)
+        assert (one - ref).abs().max().item() > 10 * err, name
