@@ -15,13 +15,18 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    downsample BN and the 7x7x2048 final exit; K3 (max pool with index)
    at the stem on tie-heavy input; K4/K5/K6 (flash attention forward,
    dQ, dK/dV) at the LM's (4, 8, 2048, 128) causal and not, a ragged
-   length (Sq = Sk = 1000, D 64) and a cross length with empty rows
-   (Sq 256, Sk 128, causal, D 16);
-2c. K7 (``bn_copy``, K1's copy yardstick) bit-exact against ``clone()``
-   at the 9 ResNet-50 BN shapes (batch 256, bf16); the rtc kernels
+   length (Sq = Sk = 1000, D 64), a cross length with empty rows (Sq 256,
+   Sk 128, causal, D 16), head dims 20 and 4 (zero-padded to 24 and 8)
+   and b*h = 70000 at S 16; each case's launches of K4-K6 counted; head
+   dim 256, which no kernel takes, refused with ValueError and no launch;
+2c. K7 (``bn_copy``, the copy over ghost-BN blocks that K1 and K2 are
+   read against) bit-exact against ``clone()`` at the 9 ResNet-50 BN
+   shapes (batch 256, bf16) and, in bf16 and f32, at C 3 / HW 5 and C 64
+   / HW 49, with x on and off y's 16-byte grid; the rtc kernels
    compiled by NVRTC from ``incubator_mxnet_tpu_torch/csrc/rtc`` (their
    compile ms printed): R1 ``scale_kernel`` exact against ``2x + 1`` at
-   (4, 8, 2048, 128) f32, R2 ``mm_kernel`` within 1e-4 of max |a @ b| at
+   (4, 8, 2048, 128) f32, at n 1, 3, 5 and 1000003, and on views 1-3
+   floats off the 16-byte grid, R2 ``mm_kernel`` within 1e-4 of max |a @ b| at
    (8192, 1024) @ (1024, 1024) and a ragged (1000, 300) @ (300, 129);
    a missing export or kernel raises ValueError and a float64 launch
    TypeError;
@@ -60,12 +65,16 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    passes of every product at 495 TFLOP/s), and ``ms_over_library``
    (K5 and K6 each over SDPA's whole backward; a line gives K5 + K6 over
    it);
-4c. K7 at the 9 BN shapes beside K1, K2 (through
-   ``tools/bn_kernel_bench_torch.py``) and ``Tensor.copy_``, with K1 and
-   K2 as a share of K7's time; R1 and R2 beside their bounds; R2 beside
-   ``torch.matmul`` (TF32 off), both by the profiler's device time, with
-   ``tc_bound_ms`` and ``ms_over_library`` as K4; K7's launches are those
-   of this sweep;
+4c. K7 at the 9 BN shapes (with its channels a block, ``kc``) beside
+   ``Tensor.copy_``, K1 and K2 (through ``tools/bn_kernel_bench_torch.py``),
+   with K1 and K2 as a share of K7's time (what they cost beyond the
+   walk over contiguous runs that K7 copies with), and R1 beside
+   ``torch.add(1, x, alpha=2)``: all on one clock, the profiler's device
+   time a launch with the L2 flushed (256 MB written) before every
+   launch; the K7 and R1 rows carry ``ms_over_library``.  R2 beside its
+   bound and ``torch.matmul`` (TF32 off), both by the profiler's device
+   time (unflushed), with ``tc_bound_ms`` and ``ms_over_library`` as K4;
+   K7's launches are those of this sweep;
 5. one f32 step (TF32 off) of ``resnet50_v1(ghost_bn=16)`` at batch 16,
    64 px on the card and on the CPU from the same weights and batch;
 5b. one f32 step of a small LM (dim 128, 8 heads, seq 256, batch 2, 2
@@ -270,6 +279,8 @@ def check_flash(dev, errs):
     """Phase 2, K4-K6."""
     import torch
 
+    from incubator_mxnet_tpu_torch import _kernels
+
     fa = _flash_module()
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     bh = LM_BATCH * LM["heads"]
@@ -278,12 +289,18 @@ def check_flash(dev, errs):
     cases = [("LM causal", bh, LM_SEQ, LM_SEQ, d, True),
              ("LM dense", bh, LM_SEQ, LM_SEQ, d, False),
              ("ragged 1000 D64", 8, 1000, 1000, 64, True),
-             ("cross 256/128 D16", 8, 256, 128, 16, True)]
+             ("cross 256/128 D16", 8, 256, 128, 16, True),
+             # head dims the kernels take zero-padded to a multiple of 8,
+             # b*h over 65535
+             ("D20 padded", 8, 300, 300, 20, True),
+             ("D4 padded 200/136", 8, 200, 136, 4, True),
+             ("b*h 70000 S16 D32", 70000, 16, 16, 32, True)]
     for dtype in (torch.bfloat16, torch.float32):
         out_frac = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
         grad_frac = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-3
         for label, n, sq, sk, dd, causal in cases:
             tag = "%s %s" % (label, str(dtype).split(".")[1])
+            before = _kernels.launch_counts()
             q = torch.randn(n, sq, dd, generator=g, device=dev).to(dtype)
             k = torch.randn(n, sk, dd, generator=g, device=dev).to(dtype)
             v = torch.randn(n, sk, dd, generator=g, device=dev).to(dtype)
@@ -314,8 +331,29 @@ def check_flash(dev, errs):
             if empty.any():
                 print("  %-44s %d rows see no key: O, dQ exactly 0"
                       % ("K4/K5 " + tag, int(empty.sum())), flush=True)
+            got = {name: _kernels.launch_counts()[name] - before[name]
+                   for name in FLASH}
+            want = {name: 1 for name in FLASH}
+            if got != want:
+                raise AssertionError("%s: launches %s, want %s"
+                                     % (tag, got, want))
             del q, k, v, do, out, lse, outp, lsep, dq, dk, dv, dqp, dkp, dvp
         torch.cuda.empty_cache()
+    # D > 128: no form of K4-K6 takes it, and a card tensor never falls
+    # back to the plain version
+    before = _kernels.launch_counts()
+    big = torch.zeros(8, 512, 256, device=dev)
+    for fn, args in ((fa.flash_fwd, (big, big, big, 0.0625, True)),
+                     (fa.flash_attention, (big[None], big[None], big[None]))):
+        try:
+            fn(*args)
+        except ValueError as e:
+            print("  %-44s refused: %s" % ("D256 " + fn.__name__, e),
+                  flush=True)
+        else:
+            raise AssertionError("D256 %s was not refused" % fn.__name__)
+    if _kernels.launch_counts() != before:
+        raise AssertionError("D256: a kernel launched before the refusal")
 
 
 def _losses_ok(losses):
@@ -357,7 +395,7 @@ def run_lm_path(dev):
         raise AssertionError("non-finite loss on the LM path: %s" % losses)
     if not losses[-1] < losses[0]:
         raise AssertionError("the LM's loss did not fall: %s" % losses)
-    want = {name: 0 for name in _kernels.KERNELS}
+    want = {name: 0 for name in _kernels.launch_counts()}
     want.update({name: LM["n_layers"] * STEPS for name in FLASH})
     print("  launches %s (want %s)" % (counts, want), flush=True)
     if counts != want:
@@ -417,7 +455,7 @@ def run_main_path(dev):
              step.loss_scale, ["%.1f" % t for t in step_ms]), flush=True)
     if not _losses_ok(losses):
         raise AssertionError("non-finite loss on the main path: %s" % losses)
-    want = {name: 0 for name in _kernels.KERNELS}
+    want = {name: 0 for name in _kernels.launch_counts()}
     want.update({"ghost_bn_fwd": 53 * STEPS, "ghost_bn_bwd": 53 * STEPS,
                  "maxpool_idx_fwd": STEPS})
     print("  launches %s (want %s)" % (counts, want), flush=True)
@@ -690,6 +728,22 @@ def check_copy_and_rtc(dev, errs):
             raise AssertionError("K7 differs from clone() at %s" % (shape,))
         errs["bn_copy"].append(_max_err(y, x))
         del x, y
+    # runs that are not whole 16-byte vectors (scalar head and tail), and
+    # an x off the 16-byte grid of y (every element scalar)
+    for shape, ng, offset in (((48, 3, 1, 5), 16, 0), ((256, 64, 7, 7), 16, 0),
+                              ((48, 3, 1, 5), 16, 1), ((64, 64, 7, 7), 16, 3)):
+        for dtype in (torch.bfloat16, torch.float32):
+            numel = shape[0] * shape[1] * shape[2] * shape[3]
+            x = torch.randn(numel + offset, generator=g, device=dev) \
+                .to(dtype)[offset:].view(shape)
+            y = fused_bn.bn_copy(x, ng)
+            same = torch.equal(y.view(-1), x.clone().view(-1))
+            print("  K7 %-22s %-8s x offset %d: bit-exact: %s"
+                  % (shape, str(dtype).split(".")[1], offset, same),
+                  flush=True)
+            if not same:
+                raise AssertionError("K7 differs from clone() at %s %s"
+                                     % (shape, dtype))
     torch.cuda.empty_cache()
 
     kernels = {}
@@ -711,6 +765,26 @@ def check_copy_and_rtc(dev, errs):
     if not torch.equal(y._data, want):
         raise AssertionError("R1 is not exact")
     errs["scale_kernel"] = [err]
+    # ragged n; x and y views 1-3 floats off the 16-byte grid, together
+    # (a scalar head, then float4) and x alone (every element scalar)
+    r1 = kernels["scale_kernel"]
+    for n in (1, 3, 5, 1000003):
+        xs = mx.nd.NDArray(torch.randn(n, generator=g, device=dev))
+        ok = torch.equal(rtc.launch_scale(r1, xs, ctx)._data,
+                         rtc.scale_plain(xs._data))
+        for off in (1, 2, 3):
+            xb = torch.randn(n + 4, generator=g, device=dev)
+            yb = torch.empty(n + 4, device=dev)
+            xv = mx.nd.NDArray(xb[off:off + n])
+            r1.launch([xv, mx.nd.NDArray(yb[off:off + n]), n], ctx,
+                      rtc.scale_grid(n, ctx), (rtc.SCALE_THREADS, 1, 1))
+            ok = ok and torch.equal(yb[off:off + n], rtc.scale_plain(xv._data))
+            ok = ok and torch.equal(rtc.launch_scale(r1, xv, ctx)._data,
+                                    rtc.scale_plain(xv._data))
+        print("  R1 n %-8d offsets 0-3 (x and y, x alone) exact: %s"
+              % (n, ok), flush=True)
+        if not ok:
+            raise AssertionError("R1 is not exact at n %d" % n)
     errs["mm_kernel"] = []
     for m, k, n in ((LM_BATCH * LM_SEQ, LM["dim"], LM["dim"]),
                     (1000, 300, 129)):
@@ -810,7 +884,7 @@ def run_nd_path(dev, kernels):
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
     counts.update({n: k.launches for n, k in kernels.items()})
-    want = {n: 0 for n in _kernels.KERNELS}
+    want = {n: 0 for n in _kernels.launch_counts()}
     want.update({n: STEPS for n in FLASH})
     want.update({n: 1 for n in RTC})
     print("  launches %s (want %s)" % (counts, want), flush=True)
@@ -853,39 +927,52 @@ def run_nd_path(dev, kernels):
 
 
 def time_nd_kernels(dev, kernels):
-    """Phase 4c: K7 at the 9 BN shapes beside K1, K2 and ``copy_``
-    (through ``tools/bn_kernel_bench_torch.py``), and R1, R2 beside their
-    bounds and ``torch.matmul``.  Returns (rows, K7's launches)."""
+    """Phase 4c: K7 at the 9 BN shapes beside ``copy_``, K1 and K2, and R1
+    beside ``torch.add``, each by the profiler's device time with the L2
+    flushed before every launch (``tools/bn_kernel_bench_torch.py``'s
+    ``flushed_device_ms``); R2 beside its bound and ``torch.matmul``.
+    Returns (rows, K7's launches)."""
     import torch
 
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch import _kernels, rtc
+    from incubator_mxnet_tpu_torch.parallel import fused_bn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     tool = _bench_tool()
+
+    def flushed(fn, name=None, reps=10):
+        return tool.flushed_device_ms(fn, reps, dev, name)
+
     rows = {}
     _kernels.reset_launch_counts()
-    print("  %-20s %9s %9s %9s %9s %7s %7s %9s" % (
-        "shape (bf16)", "K7 ms", "bound ms", "copy_ ms", "K1 ms", "K1/K7",
-        "K2/K7", "K2 ms"), flush=True)
+    print("  L2 flushed (%d MB written) before every timed launch; device "
+          "ms a launch" % (tool.FLUSH_BYTES >> 20), flush=True)
+    print("  %-20s %3s %9s %9s %8s %9s %9s %9s %7s %7s" % (
+        "shape (bf16)", "kc", "K7 ms", "copy_ ms", "K7/copy_", "bound ms",
+        "K1 ms", "K2 ms", "K1/K7", "K2/K7"), flush=True)
+    worst = 0.0
     for n, c, h, w_ in tool.SHAPES:
         leg = tool.Leg(n, c, h, w_, torch.bfloat16, False, False, dev)
-        tool.bench_kernels(leg, dev, iters=10, warmup=2)
+        tool.bench_kernels(leg, dev, iters=10)
         row = leg.row
         nbytes = 2 * n * c * h * w_ * 2
-        x = torch.empty((n, c, h, w_), dtype=torch.bfloat16, device=dev)
+        x = leg.x
         dst = torch.empty_like(x)
-        copy_ms = _time_ms(lambda: dst.copy_(x), 10)
-        print("  %-20s %9.4f %9.4f %9.4f %9.4f %7.2f %7.2f %9.4f" % (
-            row["shape"], row["copy_ms"], nbytes / PEAK_BYTES * 1e3, copy_ms,
-            row["fwd_ms"], row["fwd_ms"] / row["copy_ms"],
-            row["bwd_ms"] / row["copy_ms"], row["bwd_ms"]), flush=True)
+        copy_ms = flushed(lambda: dst.copy_(x))
+        k7 = row["copy_ms"]
+        worst = max(worst, k7 / copy_ms)
+        print("  %-20s %3d %9.4f %9.4f %8.3f %9.4f %9.4f %9.4f %7.2f %7.2f"
+              % (row["shape"], fused_bn.bn_copy_channels(x, leg.ng),
+                 k7, copy_ms, k7 / copy_ms, nbytes / PEAK_BYTES * 1e3,
+                 row["fwd_ms"], row["bwd_ms"], row["fwd_ms"] / k7,
+                 row["bwd_ms"] / k7), flush=True)
         if "bn_copy" not in rows:        # the stem: K7's row in the table
-            rows["bn_copy"] = dict(
-                ms=row["copy_ms"],
-                plain_ms=_time_ms(lambda: x.clone(), 10),
-                library_ms=copy_ms, **_bound(nbytes, 0))
+            rows["bn_copy"] = dict(ms=k7, plain_ms=flushed(lambda: x.clone()),
+                                   library_ms=copy_ms, **_bound(nbytes, 0))
+            rows["bn_copy"]["ms_over_library"] = k7 / copy_ms
         del leg, x, dst
+    print("  K7/copy_ at most %.3f over the 9 shapes" % worst, flush=True)
     k7_launches = _kernels.launch_counts()["bn_copy"]
     torch.cuda.empty_cache()
 
@@ -901,19 +988,25 @@ def time_nd_kernels(dev, kernels):
                        rtc.scale_plain(x._data)):
         raise AssertionError("torch.add(1, x, alpha=2) is not 2x + 1")
     rows["scale_kernel"] = dict(
-        ms=_device_ms(lambda: rtc.launch_scale(r1, x, ctx), 20,
-                      "scale_kernel"),
-        plain_ms=_time_ms(lambda: rtc.scale_plain(x._data), 20),
-        library_ms=_time_ms(lambda: torch.add(one, x._data, alpha=2), 20),
+        ms=flushed(lambda: rtc.launch_scale(r1, x, ctx), "scale_kernel", 20),
+        plain_ms=flushed(lambda: rtc.scale_plain(x._data), None, 20),
+        library_ms=flushed(lambda: torch.add(one, x._data, alpha=2), None,
+                           20),
         **_bound(2 * x.size * 4, 0))
-    dst = torch.empty_like(x._data)
-    print("  R1 at (%d, %d, %d, %d) f32: device %.4f ms a launch, %.4f ms "
-          "between launches (CUDA events: the host's launch path); "
-          "torch.add(1, x, alpha=2) %.4f ms; copy_ on the same bytes %.4f ms"
-          % (LM_BATCH, LM["heads"], LM_SEQ, d, rows["scale_kernel"]["ms"],
-             _time_ms(lambda: rtc.launch_scale(r1, x, ctx), 20),
-             rows["scale_kernel"]["library_ms"],
-             _time_ms(lambda: dst.copy_(x._data), 20)), flush=True)
+    rows["scale_kernel"]["ms_over_library"] = (
+        rows["scale_kernel"]["ms"] / rows["scale_kernel"]["library_ms"])
+    print("  R1 at (%d, %d, %d, %d) f32, %d blocks: device %.4f ms a launch, "
+          "torch.add(1, x, alpha=2) %.4f, R1/add %.3f (both L2 flushed); "
+          "%.4f ms between R1 launches (CUDA events, unflushed: the host's "
+          "launch path)" % (
+              LM_BATCH, LM["heads"], LM_SEQ, d,
+              rtc.scale_grid(x.size, ctx)[0], rows["scale_kernel"]["ms"],
+              rows["scale_kernel"]["library_ms"],
+              rows["scale_kernel"]["ms_over_library"],
+              _time_ms(lambda: rtc.launch_scale(r1, x, ctx), 20)),
+          flush=True)
+    print("  profiler sessions taken again (trace lost or cut short): %d"
+          % tool.retried, flush=True)
     m, k, n = LM_BATCH * LM_SEQ, LM["dim"], LM["dim"]
     a = mx.nd.NDArray(torch.randn(m, k, generator=g, device=dev))
     b = mx.nd.NDArray(torch.randn(k, n, generator=g, device=dev))
@@ -935,7 +1028,7 @@ def time_nd_kernels(dev, kernels):
               rows["mm_kernel"]["tc_bound_ms"],
               _time_ms(lambda: rtc.launch_mm(r2, a, b, ctx), 10)),
           flush=True)
-    del x, one, dst, a, b
+    del x, one, a, b
     torch.cuda.empty_cache()
     return rows, k7_launches
 
@@ -1105,18 +1198,20 @@ def main():
           "layers, K4-K6 one layer's attention)", flush=True)
     rows = time_kernels(dev, layers)
     rows.update(time_flash(dev))
-    print("[4c] K7 at the 9 ResNet-50 BN shapes (batch 256, bf16) beside K1, "
-          "K2 and copy_; R1 and R2 at the nd path's shapes", flush=True)
+    print("[4c] K7 at the 9 ResNet-50 BN shapes (batch 256, bf16) beside "
+          "copy_, K1 and K2; R1 beside torch.add; R2 at the nd path's "
+          "shapes", flush=True)
     nd_rows, counts["bn_copy"] = time_nd_kernels(dev, rtc_kernels)
     rows.update(nd_rows)
     for name, row in rows.items():
         print("  %-18s ms %.4f  plain_ms %.4f  bound_ms %.4f (%s)  "
-              "library_ms %s%s" % (
+              "library_ms %s%s%s" % (
                   name, row["ms"], row["plain_ms"], row["bound_ms"],
                   row["bound_by"], row["library_ms"],
-                  "  tc_bound_ms %.4f  ms/library %.3f" % (
-                      row["tc_bound_ms"], row["ms_over_library"])
-                  if "tc_bound_ms" in row else ""), flush=True)
+                  "  tc_bound_ms %.4f" % row["tc_bound_ms"]
+                  if "tc_bound_ms" in row else "",
+                  "  ms/library %.3f" % row["ms_over_library"]
+                  if "ms_over_library" in row else ""), flush=True)
 
     print("[5] one f32 step at batch 16, 64 px: card against CPU", flush=True)
     card_vs_cpu(dev)

@@ -26,7 +26,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "build", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "build", "launch_counts", "query",
+           "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -63,6 +64,12 @@ _SIGNATURES = {
                            _F, _I, _P],
     # dtype, x, y, G, C, HW, ng, stream
     "bn_copy": [_I, _P, _P, _I, _I, _I, _I, _P],
+}
+
+#: C entries that launch nothing -> argtypes; each returns an int
+_QUERIES = {
+    # dtype, G, C, HW, ng -> the channels a block of bn_copy copies
+    "bn_copy_channels": [_I, _I, _I, _I, _I],
 }
 
 _lock = threading.Lock()
@@ -144,7 +151,7 @@ def build():
             _compile(path)
             seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -175,6 +182,15 @@ class Kernel:
 
 
 KERNELS = {name: Kernel(name) for name in _SIGNATURES}
+
+
+def query(name, *args):
+    """The int that the C entry ``name`` of :data:`_QUERIES` returns for
+    ``args``; builds the library if needed, launches nothing and counts
+    nothing."""
+    if _lib is None:
+        build()
+    return getattr(_lib, name)(*args)
 
 
 def launch_counts():

@@ -1,7 +1,8 @@
 // Flash attention for Hopper (sm_90a): forward (K4 flash_attn_fwd), dQ
 // (K5 flash_attn_bwd_dq) and dK/dV (K6 flash_attn_bwd_dkv).  Inputs are
-// (BH, S, D) contiguous, bf16 or f32, with D <= 128 and D % 8 == 0;
-// softmax, sums and outputs' arithmetic are f32.
+// (BH, S, D) contiguous, bf16 or f32, with D <= 128 and D % 8 == 0 (the
+// wrapper pads other head dims up to 128 to a multiple of 8 and refuses
+// D > 128); softmax, sums and outputs' arithmetic are f32.
 //
 // Replaces incubator_mxnet_tpu/parallel/flash_attention.py: `_fwd` (its
 // Pallas `_fwd_kernel`) and the two calls of `_bwd` (`_bwd_dq_kernel`,
@@ -648,8 +649,11 @@ size_t tile_bytes(int rows) {
   return static_cast<size_t>(rows) * (16 * DC + 16 / sizeof(T)) * sizeof(T);
 }
 
-bool bad_shape(int BH, int Sq, int Sk, int D) {
-  return BH < 1 || BH > 65535 || Sq < 1 || Sk < 1 || D < 8 || D > 128 || D % 8;
+// b*h is the grid's x (up to 2^31 - 1); the grid's y, `tiles` row tiles of
+// the launch, is at most 65535.  The wrapper pads other head dims up to
+// 128 to a multiple of 8 and refuses D > 128.
+bool bad_shape(int BH, int Sq, int Sk, int D, int tiles) {
+  return BH < 1 || Sq < 1 || Sk < 1 || D < 8 || D > 128 || D % 8 || tiles > 65535;
 }
 
 template <typename T, int DC>
@@ -704,7 +708,8 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k, const void* v,
                               void* out, void* lse, int BH, int Sq, int Sk, int D,
                               float scale, int causal, void* stream) {
-  if (bad_shape(BH, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(BH, Sq, Sk, D, (Sq - 1) / kBQ4 + 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
              ? FLASH_DISPATCH(fwd, float, D, q, k, v, out, lse, BH, Sq, Sk, D, scale,
@@ -718,7 +723,8 @@ extern "C" int flash_attn_bwd_dq(int dtype, const void* q, const void* k, const 
                                  const void* dout, const void* lse, const void* delta,
                                  void* dq, int BH, int Sq, int Sk, int D, float scale,
                                  int causal, void* stream) {
-  if (bad_shape(BH, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(BH, Sq, Sk, D, (Sq - 1) / kBR + 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
              ? FLASH_DISPATCH(bwd_dq, float, D, q, k, v, dout, lse, delta, dq, BH, Sq,
@@ -732,7 +738,8 @@ extern "C" int flash_attn_bwd_dkv(int dtype, const void* q, const void* k, const
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int BH, int Sq, int Sk, int D,
                                   float scale, int causal, void* stream) {
-  if (bad_shape(BH, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(BH, Sq, Sk, D, (Sk - 1) / kBR + 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
              ? FLASH_DISPATCH(bwd_dkv, float, D, q, k, v, dout, lse, delta, dk, dv, BH,

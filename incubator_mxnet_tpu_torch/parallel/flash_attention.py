@@ -25,6 +25,21 @@ grid (clamped to divisors of the lengths, :func:`_fit_block`).  The CUDA
 kernels use their own tiles, fixed in the source (128 rows a block; 64-key
 tiles in K4, 32-row streamed tiles in K5 and K6), and mask the ragged edge
 themselves.  The result does not depend on either tiling.
+
+The kernels take head dims D <= 128 with D % 8 == 0.  Other head dims are
+routed by shape before any launch, never after a kernel fails:
+
+- D <= 128 otherwise: q, k, v (and dO) are zero-padded along D to the next
+  multiple of 8 (at least 8), the kernels run on the padded tensors and
+  the outputs are sliced back.  This is exact: zero columns add zero to
+  every q.k and leave the real columns of P V alone; the softmax scale is
+  fixed from the unpadded D before the padding.  :func:`flash_attention`
+  pads once per call on the card, so its forward and backward see the
+  same tensors.
+- D > 128: refused on the card with ``ValueError``.  No resident tile of
+  K4-K6 fits (K5 holds Q and dO, 132 KB f32 at D = 128), and a CUDA tensor
+  never falls back to the plain version; a D <= 256 form of the kernels
+  is still to be written.  The CPU path takes any D.
 """
 from __future__ import annotations
 
@@ -40,6 +55,10 @@ _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels keep up to 128 f32 accumulators per row (csrc note)
 _MAX_HEAD_DIM = 128
+#: rows a block of K4 (kBQ4) and of K5/K6 (kBR) in csrc/flash_attention.cu:
+#: the tile count along the grid's y, which is at most 65535
+_BLOCK_ROWS = 128
+_MAX_GRID_Y = 65535
 
 
 def _fit_block(size, block):
@@ -238,16 +257,39 @@ def _check(q, k, v, do=None, lse=None, delta=None):
     return bh, sq, sk, d
 
 
-def _check_cuda(bh, d, tensors):
-    """What the kernels take: D <= 128 with D % 8 == 0, contiguous inputs
-    on 16-byte boundaries (they load 16 bytes a thread), at most 65535
-    (batch x heads) rows of the grid."""
-    if d > _MAX_HEAD_DIM or d % 8:
+def _kernel_dim(d):
+    """The head dim the kernels run ``d`` at: the next multiple of 8, at
+    least 8.  Raises above 128, which no kernel takes (module note)."""
+    if d > _MAX_HEAD_DIM:
         raise ValueError("the flash attention kernels take head dims <= %d "
-                         "with D %% 8 == 0, got %d" % (_MAX_HEAD_DIM, d))
-    if bh > 65535:
-        raise ValueError("at most 65535 batch x heads per launch, got %d"
-                         % bh)
+                         "on the card, got %d" % (_MAX_HEAD_DIM, d))
+    return max(8, -(-d // 8) * 8)
+
+
+def _pad(t, d):
+    """``t`` zero-padded along its last axis to ``d`` columns."""
+    return t if t.shape[-1] == d else \
+        torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+
+
+def _padded(*ts):
+    """``ts`` zero-padded along D to the head dim the kernels run the
+    first one's D at (:func:`_kernel_dim`, which refuses D > 128)."""
+    dp = _kernel_dim(ts[0].shape[-1])
+    return [_pad(t, dp) for t in ts]
+
+
+def _unpad(t, d):
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
+def _check_cuda(tiles, tensors):
+    """What the kernels take beyond the head dim: at most 65535 row tiles
+    of 128 along the grid's y (b*h is its x, up to 2^31 - 1), contiguous
+    inputs on 16-byte boundaries (they load 16 bytes a thread)."""
+    if tiles > _MAX_GRID_Y:
+        raise ValueError("at most %d tiles of %d rows per launch, got %d"
+                         % (_MAX_GRID_Y, _BLOCK_ROWS, tiles))
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
@@ -255,51 +297,43 @@ def _check_cuda(bh, d, tensors):
             raise ValueError("%s must start on a 16-byte boundary" % name)
 
 
-def flash_fwd(q, k, v, scale, causal, block_q=128, block_k=128):
-    """``(out, lse)`` over (BH, S, D) tensors.  CUDA tensors go through K4;
-    CPU tensors through the plain version (tiled by block_q x block_k)."""
-    bh, sq, sk, d = _check(q, k, v)
-    if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, scale, causal, block_q, block_k)
-    _check_cuda(bh, d, {"q": q, "k": k, "v": v})
+def _tiles(s):
+    return -(-s // _BLOCK_ROWS)
+
+
+def _launch_fwd(q, k, v, scale, causal):
+    """K4 on card tensors whose D the kernel takes: ``(out, lse)``."""
+    bh, sq, d = q.shape
+    _check_cuda(_tiles(sq), {"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     _kernels.KERNELS["flash_attn_fwd"].launch(
         q.device, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
+        v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d,
         float(scale), int(bool(causal)))
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, block_q=128,
-                 block_k=128):
-    """dQ.  ``lse`` is the forward's, ``delta`` = rowsum(dO * O) in f32, both
-    (BH, Sq).  CUDA tensors go through K5; CPU tensors through the plain
-    version."""
-    bh, sq, sk, d = _check(q, k, v, do, lse, delta)
-    if q.device.type == "cpu":
-        return _flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal,
-                                   block_q, block_k)
-    _check_cuda(bh, d, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                        "delta": delta})
+def _launch_bwd_dq(q, k, v, do, lse, delta, scale, causal):
+    """K5 on card tensors whose D the kernel takes: dq."""
+    bh, sq, d = q.shape
+    _check_cuda(_tiles(sq), {"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                             "delta": delta})
     dq = torch.empty_like(q)
     _kernels.KERNELS["flash_attn_bwd_dq"].launch(
         q.device, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), bh, sq, sk, d, float(scale), int(bool(causal)))
+        dq.data_ptr(), bh, sq, k.shape[1], d, float(scale),
+        int(bool(causal)))
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, block_q=128,
-                  block_k=128):
-    """``(dk, dv)``.  CUDA tensors go through K6; CPU tensors through the
-    plain version."""
-    bh, sq, sk, d = _check(q, k, v, do, lse, delta)
-    if q.device.type == "cpu":
-        return _flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal,
-                                    block_q, block_k)
-    _check_cuda(bh, d, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                        "delta": delta})
+def _launch_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
+    """K6 on card tensors whose D the kernel takes: ``(dk, dv)``."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    _check_cuda(_tiles(sk), {"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                             "delta": delta})
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _kernels.KERNELS["flash_attn_bwd_dkv"].launch(
@@ -310,6 +344,51 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, block_q=128,
     return dk, dv
 
 
+def _on_card(t):
+    """True where the kernels run: a CUDA tensor (``_check`` admits only
+    cuda and cpu)."""
+    return t.device.type == "cuda"
+
+
+def flash_fwd(q, k, v, scale, causal, block_q=128, block_k=128):
+    """``(out, lse)`` over (BH, S, D) tensors.  CUDA tensors go through K4,
+    zero-padded along D to a multiple of 8 (D > 128 is refused; module
+    note); CPU tensors through the plain version (tiled by
+    block_q x block_k)."""
+    _check(q, k, v)
+    if not _on_card(q):
+        return _flash_fwd_plain(q, k, v, scale, causal, block_q, block_k)
+    out, lse = _launch_fwd(*_padded(q, k, v), scale, causal)
+    return _unpad(out, q.shape[-1]), lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, block_q=128,
+                 block_k=128):
+    """dQ.  ``lse`` is the forward's, ``delta`` = rowsum(dO * O) in f32, both
+    (BH, Sq).  CUDA tensors go through K5, padded as :func:`flash_fwd`;
+    CPU tensors through the plain version."""
+    _check(q, k, v, do, lse, delta)
+    if not _on_card(q):
+        return _flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal,
+                                   block_q, block_k)
+    dq = _launch_bwd_dq(*_padded(q, k, v, do), lse, delta, scale, causal)
+    return _unpad(dq, q.shape[-1])
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, block_q=128,
+                  block_k=128):
+    """``(dk, dv)``.  CUDA tensors go through K6, padded as
+    :func:`flash_fwd`; CPU tensors through the plain version."""
+    _check(q, k, v, do, lse, delta)
+    if not _on_card(q):
+        return _flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal,
+                                    block_q, block_k)
+    dk, dv = _launch_bwd_dkv(*_padded(q, k, v, do), lse, delta, scale,
+                             causal)
+    d = q.shape[-1]
+    return _unpad(dk, d), _unpad(dv, d)
+
+
 # ---------------------------------------------------------------------------
 # autograd and the public entry
 # ---------------------------------------------------------------------------
@@ -317,26 +396,33 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, block_q=128,
 
 class _FlashAttention(torch.autograd.Function):
     """Forward K4 (saving q, k, v, out, lse); backward delta in torch, as
-    the reference computes it in jnp outside its kernels, then K5 and K6."""
+    the reference computes it in jnp outside its kernels, then K5 and K6.
+    On the card a head dim off the kernels' grid is padded here, once for
+    the whole call (module note); the CPU's plain version takes it as it
+    is."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, block_q, block_k):
+        d = q.shape[-1]
+        if _on_card(q):
+            q, k, v = _padded(q, k, v)
         out, lse = flash_fwd(q, k, v, scale, causal, block_q, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (scale, causal, block_q, block_k)
-        return out
+        ctx.cfg = (d, scale, causal, block_q, block_k)
+        return _unpad(out, d)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        scale, causal, block_q, block_k = ctx.cfg
-        do = g.contiguous()
+        d, scale, causal, block_q, block_k = ctx.cfg
+        do = _pad(g.contiguous(), q.shape[-1])
         delta = (do.float() * out.float()).sum(dim=-1)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, block_q,
                           block_k)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal,
                                block_q, block_k)
-        return dq, dk, dv, None, None, None, None
+        return (_unpad(dq, d), _unpad(dk, d), _unpad(dv, d), None, None,
+                None, None)
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
@@ -346,7 +432,9 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
     Returns softmax(Q Kᵀ · scale [+ causal mask]) V, with ``scale``
     defaulting to 1/sqrt(D).  Under ``causal`` the mask is right-aligned:
     query i sees key j iff j <= i + (Sk - Sq), and a query that sees no
-    key gets 0."""
+    key gets 0.  On the card, D <= 128 runs K4-K6 (zero-padded to a
+    multiple of 8 where it is not one) and D > 128 raises ``ValueError``;
+    on the CPU any D (module note)."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     if scale is None:

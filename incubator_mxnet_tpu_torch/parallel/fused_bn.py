@@ -9,9 +9,11 @@ cotangent, its two reductions and dX (+ dR) in another (K2,
 PyTorch versions (:func:`_gbn_fwd_plain`, :func:`_gbn_bwd_plain`, ports of
 ``_gbn_ref`` and ``_gbn_bwd_jnp``); on a CUDA tensor they launch the
 kernels or raise.  :func:`bn_copy` (K7, ``csrc/bn_copy.cu``, port of
-``tools/bn_kernel_bench.py``'s ``_call_copy``) copies an activation with
-K1's grid and slice walk: the bandwidth yardstick of K1 in
-``tools/bn_kernel_bench_torch.py``.
+``tools/bn_kernel_bench.py``'s ``_call_copy``) copies an activation over
+ghost-BN blocks with the walk of ``csrc/ghost_bn_walk.cuh`` (contiguous
+runs of a few channels, 16 bytes a thread): the ceiling of that walk,
+the yardstick of K1 and K2 in ``tools/bn_kernel_bench_torch.py`` and the
+walk they are to take next.
 
 The group size is the reference's, not a free choice: the TPU plan picks
 it from the divisors of N under the caller's cap, shaped by the TPU's
@@ -25,7 +27,7 @@ import torch
 from .. import _kernels
 
 __all__ = ["ghost_bn_act", "ghost_bn_stats_merge", "ghost_group",
-           "ghost_bn_fwd", "ghost_bn_bwd", "bn_copy"]
+           "ghost_bn_fwd", "ghost_bn_bwd", "bn_copy", "bn_copy_channels"]
 
 # ---------------------------------------------------------------------------
 # the reference's group selection (fused_bn.py _plan, _gbn_ref)
@@ -272,11 +274,23 @@ def ghost_bn_bwd(gy, gy2, x, y, gamma, beta, mean, var, eps, act, ng):
     return dx, dg.sum(0), db.sum(0), dr
 
 
+def bn_copy_channels(x, ng):
+    """The channels ``kc`` a block of K7 copies for ``x`` at ghost group
+    ``ng``, as the built kernel picks them (``walk_channels`` of
+    ``csrc/ghost_bn_walk.cuh``, through the ``bn_copy_channels`` entry).
+    Builds the library if needed; launches nothing."""
+    n, c, h, w = x.shape
+    return _kernels.query("bn_copy_channels", _DTYPE_CODE[x.dtype], n // ng,
+                          c, h * w, ng)
+
+
 def bn_copy(x, ng):
-    """A copy of the NCHW activation ``x`` (K7, ``csrc/bn_copy.cu``): the
-    bandwidth yardstick of K1, which it copies with K1's grid and slice
-    walk at ghost group ``ng``.  CUDA tensors go through K7; CPU tensors
-    through the plain version, ``x.clone()``."""
+    """A copy of the NCHW activation ``x`` (K7, ``csrc/bn_copy.cu``) at
+    ghost group ``ng``: block (cb, g) copies the ng contiguous runs of
+    :func:`bn_copy_channels` channels of ghost group g, 16 bytes a thread.  It
+    is the ceiling of that walk, the bandwidth yardstick of K1 and K2.
+    CUDA tensors go through K7; CPU tensors through the plain version,
+    ``x.clone()``."""
     _check_act(x, {}, ng)
     if x.device.type == "cpu":
         return x.clone()

@@ -47,7 +47,7 @@ import torch
 
 __all__ = ["CudaModule", "CudaKernel", "PallasModule", "parse_signature",
            "USER_KERNELS", "user_source", "scale_plain", "mm_plain",
-           "launch_scale", "launch_mm"]
+           "scale_grid", "launch_scale", "launch_mm"]
 
 # ---------------------------------------------------------------------------
 # the signature grammar (python/mxnet/rtc.py)
@@ -521,6 +521,10 @@ USER_KERNELS = {
 MM_TILE = 128
 MM_THREADS = 256
 MM_SMEM_BYTES = 3 * (128 * 20 + 16 * 136) * 4
+#: scale_kernel's threads a block and blocks an SM: the #defines
+#: SCALE_THREADS and SCALE_BLOCKS_PER_SM of csrc/rtc/scale_kernel.cu
+SCALE_THREADS = 256
+SCALE_BLOCKS_PER_SM = 4
 
 
 def user_source(name):
@@ -538,14 +542,27 @@ def mm_plain(a, b):
     return a @ b
 
 
+def _sm_count(ctx):
+    """The streaming multiprocessors of ``ctx``'s card."""
+    return torch.cuda.get_device_properties(_device(ctx)).multi_processor_count
+
+
+def scale_grid(n, ctx):
+    """R1's grid for n values: ``SCALE_BLOCKS_PER_SM`` blocks an SM of the
+    card, fewer where the n / 4 float4 need fewer threads."""
+    return (min(_sm_count(ctx) * SCALE_BLOCKS_PER_SM,
+                max(1, -(-n // (4 * SCALE_THREADS)))), 1, 1)
+
+
 def launch_scale(kernel, x, ctx):
-    """``y = 2x + 1`` through R1: one thread an element, 256 a block."""
+    """``y = 2x + 1`` through R1 (float4 accesses in a grid-stride loop) on
+    :func:`scale_grid` blocks of ``SCALE_THREADS``."""
     from .ndarray import NDArray
 
     y = NDArray(torch.empty_like(x._data,
                                  memory_format=torch.contiguous_format))
     n = x.size
-    kernel.launch([x, y, n], ctx, (max(1, -(-n // 256)), 1, 1), (256, 1, 1))
+    kernel.launch([x, y, n], ctx, scale_grid(n, ctx), (SCALE_THREADS, 1, 1))
     return y
 
 

@@ -12,8 +12,9 @@ two sides compute in f32 may land one bf16 step apart); the f32 sums
 dgamma and dbeta 1e-3 of it.  Max pooling is exact.  Flash attention
 (K4-K6): O and LSE 1e-4 in f32 and 2^-7 in bf16, dQ/dK/dV 1e-3 in f32
 (sums over every key or query) and 2^-6 in bf16; rows that see no key
-exactly 0 in O and dQ.  K7 (``bn_copy``) and R1 (``scale_kernel``)
-exact; R2 (``mm_kernel``) 1e-4 of max |a @ b| (f32 sums in another order
+exactly 0 in O and dQ; head dims off the kernels' grid (zero-padded to
+a multiple of 8) as the rest.  K7 (``bn_copy``) and R1
+(``scale_kernel``) exact; R2 (``mm_kernel``) 1e-4 of max |a @ b| (f32 sums in another order
 than cuBLAS's); the nd attention layer card against CPU 1e-4 relative.
 """
 import importlib
@@ -152,6 +153,72 @@ def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
         assert after[name] == before[name] + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d", [
+    (3, 100, 100, 20),       # padded to 24
+    (2, 96, 40, 4),          # padded to 8; 56 rows see no key
+    (2, 130, 130, 124),      # padded to 128
+    (70000, 16, 16, 32),     # b*h over 65535 (the grid's x)
+])
+def test_flash_head_dims_and_many_heads(dev, dtype, bh, sq, sk, d):
+    """Head dims off the kernels' grid, zero-padded along D (K4-K6
+    launched once each), and b*h beyond 65535.  Against the plain versions on the unpadded inputs, at
+    the tolerances of test_flash_kernels_match_plain."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(bh, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(bh, sk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(bh, sk, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(bh, sq, d, generator=g, device=dev).to(dtype)
+    scale = d ** -0.5
+    before = _kernels.launch_counts()
+    out, lse = fa.flash_fwd(q, k, v, scale, True)
+    outp, lsep = fa._flash_fwd_plain(q, k, v, scale, True)
+    delta = (do.float() * outp.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lsep, delta, scale, True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lsep, delta, scale, True)
+    dqp, dkp, dvp = fa._flash_bwd_plain(q, k, v, do, lsep, delta, scale,
+                                        True)
+    torch.cuda.synchronize()
+    after = _kernels.launch_counts()
+    assert out.shape == q.shape and dq.shape == q.shape
+    assert dk.shape == k.shape and dv.shape == v.shape
+    _close(out, outp, _out_tol(dtype))
+    seen = lsep > -5e29
+    _close(lse[seen], lsep[seen], 1e-4)
+    gtol = 1e-3 if dtype == torch.float32 else 2.0 ** -6
+    for got, want in ((dq, dqp), (dk, dkp), (dv, dvp)):
+        _close(got, want, gtol)
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("d", [4, 20, 60])
+def test_flash_attention_any_head_dim_on_card(dev, monkeypatch, d):
+    """The public function at head dims 4, 20 and 60 (padded once for the
+    whole call: one launch of each kernel) against the dense reference:
+    forward and gradients, f32, TF32 off."""
+    from incubator_mxnet_tpu_torch.parallel import flash_attention
+    from incubator_mxnet_tpu_torch.parallel.ring_attention import \
+        attention_reference
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=dev).manual_seed(10)
+    qkv = [torch.randn(2, 3, 144, d, generator=g, device=dev,
+                       requires_grad=True) for _ in range(3)]
+    w = torch.randn(2, 3, 144, d, generator=g, device=dev)
+    grads = []
+    before = _kernels.launch_counts()
+    for fn in (flash_attention, attention_reference):
+        out = fn(*qkv, causal=True)
+        grads.append((out,) + torch.autograd.grad((out * w).sum(), qkv))
+    after = _kernels.launch_counts()
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        assert after[name] == before[name] + 1
+    for a, b in zip(*grads):
+        assert a.shape == b.shape
+        _close(a, b, 1e-3)
+
+
 def test_flash_attention_autograd_on_card(dev, monkeypatch):
     """The public function's forward and gradients on the card against the
     dense reference (f32, TF32 off in the einsums)."""
@@ -214,12 +281,16 @@ def test_cuda_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q, q.transpose(1, 2).contiguous().transpose(1, 2), q,
                      1.0, False)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_fwd(q[..., :60].contiguous(), q[..., :60].contiguous(),
-                     q[..., :60].contiguous(), 1.0, False)
     big = torch.zeros(2, 16, 136, device=dev)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_fwd(big, big, big, 1.0, False)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(big[None], big[None], big[None])
+    # more than 65535 row tiles of 128 along the grid's y (checked before
+    # the layout: the expanded tensor costs 32 bytes)
+    long = torch.zeros(1, 1, 8, device=dev).expand(1, 65535 * 128 + 1, 8)
+    with pytest.raises(ValueError, match="65535 tiles"):
+        fa.flash_fwd(long, long, long, 1.0, False)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_fwd(q.half(), q.half(), q.half(), 1.0, False)
 
@@ -265,17 +336,39 @@ def test_small_train_step_card_matches_cpu(dev, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,ng", [((32, 64, 28, 28), 16),
-                                      ((16, 2048, 7, 7), 8),
-                                      ((6, 3, 5, 5), 3)])
-def test_bn_copy_kernel_is_exact(dev, dtype, shape, ng):
+@pytest.mark.parametrize("shape,ng,offset", [
+    ((32, 64, 28, 28), 16, 0),
+    ((16, 2048, 7, 7), 8, 0),
+    ((6, 3, 5, 5), 3, 0),
+    ((48, 3, 1, 5), 16, 0),      # C 3, HW 5: runs of no whole vector
+    ((32, 64, 7, 7), 16, 0),     # C 64, HW 49: kc 8 (bf16) or 4 (f32)
+    ((32, 64, 7, 7), 16, 1),     # x off y's 16-byte grid: all scalar
+    ((6, 3, 5, 5), 3, 3),
+])
+def test_bn_copy_kernel_is_exact(dev, dtype, shape, ng, offset):
+    """K7 bit for bit against clone(), also where the runs need a scalar
+    head and tail and where x and y differ in alignment mod 16."""
     g = torch.Generator(device=dev).manual_seed(6)
-    x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    numel = shape[0] * shape[1] * shape[2] * shape[3]
+    x = torch.randn(numel + offset, generator=g, device=dev).to(dtype)
+    x = x[offset:].view(shape)
     before = _kernels.launch_counts()["bn_copy"]
     y = fused_bn.bn_copy(x, ng)
     torch.cuda.synchronize()
-    assert torch.equal(y, x.clone())
+    assert torch.equal(y.view(-1), x.clone().view(-1))
     assert _kernels.launch_counts()["bn_copy"] == before + 1
+
+
+@pytest.mark.parametrize("shape,kc", [
+    ((256, 64, 112, 112), 1), ((256, 256, 28, 28), 1),
+    ((256, 256, 14, 14), 4), ((256, 512, 7, 7), 8), ((256, 2048, 7, 7), 16)])
+def test_bn_copy_channels_come_from_the_kernel(dev, shape, kc):
+    """The channels a block of K7 copies, read from the built library at
+    ResNet-50 BN shapes in bf16, are the walk header's."""
+    n, c, h, w = shape
+    x = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    ng = fused_bn.ghost_group(n, c, h, w, 2, 16)
+    assert fused_bn.bn_copy_channels(x, ng) == kc
 
 
 @pytest.fixture
@@ -308,6 +401,34 @@ def test_rtc_kernels_match_plain(dev, rtc_kernels, monkeypatch):
     _close(c._data, rtc.mm_plain(a._data, b._data), 1e-4)
     assert rtc_kernels["scale_kernel"].launches == 1
     assert rtc_kernels["mm_kernel"].launches == 1
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 1000003])
+def test_rtc_scale_kernel_lengths_and_offsets(dev, rtc_kernels, n):
+    """R1 exact at ragged n, on x and y views 1-3 floats off the 16-byte
+    grid together (a scalar head, then float4) and on such an x alone
+    through launch_scale (x and y differ mod 16: every element scalar)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import rtc
+
+    r1 = rtc_kernels["scale_kernel"]
+    ctx = mx.gpu(0)
+    g = torch.Generator(device=dev).manual_seed(11)
+    for off in (0, 1, 2, 3):
+        xb = torch.randn(n + 4, generator=g, device=dev)
+        yb = torch.full((n + 4,), 7.0, device=dev)
+        x = mx.nd.NDArray(xb[off:off + n])
+        r1.launch([x, mx.nd.NDArray(yb[off:off + n]), n], ctx,
+                  rtc.scale_grid(n, ctx), (rtc.SCALE_THREADS, 1, 1))
+        y = rtc.launch_scale(r1, x, ctx)
+        torch.cuda.synchronize()
+        want = rtc.scale_plain(x._data)
+        assert torch.equal(yb[off:off + n], want)
+        assert torch.equal(yb[:off], torch.full((off,), 7.0, device=dev))
+        assert torch.equal(yb[off + n:], torch.full((4 - off,), 7.0,
+                                                    device=dev))
+        assert torch.equal(y._data, want)
+    assert r1.launches == 8
 
 
 @pytest.mark.parametrize("m,k,n", [

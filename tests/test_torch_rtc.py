@@ -243,3 +243,78 @@ def test_launch_mm_geometry_matches_the_source(m, k, n):
     assert smem == d["MM_SMEM_BYTES"]
     assert args[:3] == [a, b, c] and args[3:] == [m, n, k]
     assert c.shape == (m, n)
+
+
+def _scale_defines():
+    """The integer ``#define``s of ``csrc/rtc/scale_kernel.cu``."""
+    out = {}
+    for name, expr in re.findall(r"^#define (SCALE_\w+) (.+)$",
+                                 rtc.user_source("scale_kernel"), re.M):
+        out[name] = int(eval(expr, {}, dict(out)))
+    return out
+
+
+def _strided_cover(count, threads, unroll=1):
+    """How often ``for (v0 = tid; v0 < count; v0 += unroll * threads) for
+    u < unroll: v = v0 + u * threads; if (v < count)`` visits each index,
+    over the threads."""
+    hits = np.zeros(count, dtype=np.int64)
+    t = np.arange(threads)
+    for i in range(-(-count // (unroll * threads))):
+        v0 = t + i * unroll * threads
+        for u in range(unroll):
+            v = v0 + u * threads
+            hits[v[(v0 < count) & (v < count)]] += 1
+    return hits
+
+
+def _r1_writes(n, x_off, y_off, threads, unroll):
+    """How often R1 writes each of y's n elements, with x and y ``x_off``
+    and ``y_off`` floats past a 16-byte boundary, on ``threads`` threads
+    in all: scale_kernel's split, written out in numpy."""
+    if (x_off - y_off) % 4:
+        return _strided_cover(n, threads)       # every element scalar
+    head = min(n, (4 - y_off % 4) % 4)
+    nvec = (n - head) // 4
+    tail = head + 4 * nvec
+    hits = np.zeros(n, dtype=np.int64)
+    hits[:head] += _strided_cover(head, threads)
+    hits[tail:] += _strided_cover(n - tail, threads)
+    hits[head:tail] += np.repeat(_strided_cover(nvec, threads, unroll), 4)
+    return hits
+
+
+class _FakeScale:
+    def __init__(self):
+        self.calls = []
+
+    def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
+        self.calls.append((args, grid_dims, block_dims, shared_mem))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 8388608])
+def test_launch_scale_geometry_covers_every_element(monkeypatch, n):
+    """launch_scale's grid (SCALE_BLOCKS_PER_SM blocks of SCALE_THREADS an
+    SM, fewer for small n) and R1's head / float4 / tail split write each
+    element of y once, for x and y 0-3 floats off the 16-byte grid."""
+    d = _scale_defines()
+    assert (rtc.SCALE_THREADS, rtc.SCALE_BLOCKS_PER_SM) == (
+        d["SCALE_THREADS"], d["SCALE_BLOCKS_PER_SM"])
+    monkeypatch.setattr(rtc, "_sm_count", lambda ctx: 132)
+    fake = _FakeScale()
+    for off in range(4):
+        x = tmx.nd.NDArray(torch.zeros(n + 4)[off:off + n])
+        y = rtc.launch_scale(fake, x, CPU)
+        (args, grid, block, smem), = fake.calls[-1:]
+        assert args == [x, y, n] and y.shape == (n,)
+        assert y._data.data_ptr() % 16 == 0 and smem == 0
+    blocks = min(132 * d["SCALE_BLOCKS_PER_SM"],
+                 -(-n // (4 * d["SCALE_THREADS"])))
+    assert {c[1] for c in fake.calls} == {(blocks, 1, 1)}
+    assert grid == rtc.scale_grid(n, CPU)
+    assert block == (d["SCALE_THREADS"], 1, 1)
+    threads = blocks * d["SCALE_THREADS"]
+    for x_off in range(4):
+        for y_off in range(4):
+            hits = _r1_writes(n, x_off, y_off, threads, d["SCALE_UNROLL"])
+            assert np.all(hits == 1), (x_off, y_off)
