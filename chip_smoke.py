@@ -16,9 +16,11 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    at the stem on tie-heavy input; K4/K5/K6 (flash attention forward,
    dQ, dK/dV) at the LM's (4, 8, 2048, 128) causal and not, a ragged
    length (Sq = Sk = 1000, D 64), a cross length with empty rows (Sq 256,
-   Sk 128, causal, D 16), head dims 20 and 4 (zero-padded to 24 and 8)
-   and b*h = 70000 at S 16; each case's launches of K4-K6 counted; head
-   dim 256, which no kernel takes, refused with ValueError and no launch;
+   Sk 128, causal, D 16), head dims 20 and 4 (zero-padded to 24 and 8),
+   b*h = 70000 at S 16, and the D <= 256 form: D 136 (Sq 300, Sk 200,
+   causal), D 200 (Sq 200, Sk 300, dense) and D 256 at (4, 4, 2048)
+   causal; each case's launches of K4-K6 counted; head dim 264, which no
+   kernel takes, refused with ValueError and no launch;
 2c. K7 (``bn_copy``, the copy over ghost-BN blocks that K1 and K2 are
    read against) bit-exact against ``clone()`` at the 9 ResNet-50 BN
    shapes (batch 256, bf16) and, in bf16 and f32, at C 3 / HW 5 and C 64
@@ -40,7 +42,9 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    vocab 256, f32 (TF32 off), ``STEPS`` steps of its update (momentum
    0.9, lr ``LM_LR``) on its synthetic tokens, with the counters set to
    0 just before; every loss finite, the last below the first, exactly 2
-   launches per step of each of K4/K5/K6 and none of K1-K3;
+   launches per step of each of K4/K5/K6 and none of K1-K3; then the same
+   LM at 4 heads (head dim 256, the D <= 256 form of K4-K6): every loss
+   finite, 2/2/2 launches a step, ``lm_step_ms_d256``;
 3c. the imperative path: one causal attention layer of the LM at its
    width written with ``nd`` and ``autograd`` alone (x (4, 2048, 1024)
    from numpy seed 1; Wq, Wk, Wv, Wo (1024, 1024) from
@@ -53,14 +57,21 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    of K1-K3 or K7; loss and the four weight gradients within 1e-4
    (relative) of the same layer in plain torch autograd (dense
    ``attention_reference``); ``nd_step_ms`` the median of steps 2-6;
-4. time each kernel with CUDA events at the shapes the paths gave it
-   (K1 and K2 summed over one step's 53 layers; K4-K6 at one layer's
-   attention), beside its plain version, its bound and, where one
-   PyTorch call computes the same function, that call
-   (``F.max_pool2d`` for K3, ``F.scaled_dot_product_attention`` for K4,
-   its backward for K5 and K6 together); plus K4 and SDPA at
-   (1, 8, 8192, 128).  Bounds are the larger of bytes over 3.35 TB/s and
-   operations over the f32 CUDA cores' 67 TFLOP/s; K4-K6 also carry
+4. time each kernel at the shapes the paths gave it (K1 and K2 summed
+   over one step's 53 layers, each launch and its plain version by the
+   profiler's device time with the L2 flushed, as phase 4c; the others
+   by CUDA events; K4-K6 at one layer's attention), beside its plain
+   version, its bound and, where one PyTorch call computes the same
+   function, that call (``F.max_pool2d`` for K3,
+   ``F.scaled_dot_product_attention`` for K4, its backward for K5 and K6
+   together); plus K4 and SDPA at (1, 8, 8192, 128), and K4-K6 and SDPA
+   at (4, 4, 2048, 256) causal f32 (the D <= 256 form).  With
+   ``--before DIR`` (a tree unpacked there, as
+   ``tools/bn_kernel_bench_torch.py --before`` takes it) the K1 and K2
+   of that tree are built and summed over the same 53 layers on the same
+   clock, in the order before, now, now, before.  Bounds are the larger
+   of bytes over 3.35 TB/s and operations over the f32 CUDA cores' 67
+   TFLOP/s; K4-K6 also carry
    ``tc_bound_ms``, their 3xTF32 bound on the tensor cores (three TF32
    passes of every product at 495 TFLOP/s), and ``ms_over_library``
    (K5 and K6 each over SDPA's whole backward; a line gives K5 + K6 over
@@ -122,6 +133,8 @@ IMAGE = 224
 SEED = 0
 # the long-context LM at bench.py --mode attention's shapes
 LM = dict(vocab=256, dim=1024, heads=8, n_layers=2)
+# the same LM at head dim 256 (train_lm_torch.py --dim 1024 --heads 4)
+LM_HEADS_D256 = 4
 LM_SEQ, LM_BATCH = 2048, 4
 # the example's lr 0.05 suits its dim-128 default; at dim 1024 its update
 # (momentum 0.9) diverges by the third step, in the JAX example as in the
@@ -294,7 +307,12 @@ def check_flash(dev, errs):
              # b*h over 65535
              ("D20 padded", 8, 300, 300, 20, True),
              ("D4 padded 200/136", 8, 200, 136, 4, True),
-             ("b*h 70000 S16 D32", 70000, 16, 16, 32, True)]
+             ("b*h 70000 S16 D32", 70000, 16, 16, 32, True),
+             # the D <= 256 form: 64-row blocks, two warps per 16 rows
+             ("D136 300/200", 8, 300, 200, 136, True),
+             ("D200 dense 200/300", 8, 200, 300, 200, False),
+             ("D256 (4, 4, 2048)", LM_BATCH * LM_HEADS_D256, LM_SEQ, LM_SEQ,
+              LM["dim"] // LM_HEADS_D256, True)]
     for dtype in (torch.bfloat16, torch.float32):
         out_frac = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
         grad_frac = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-3
@@ -339,29 +357,31 @@ def check_flash(dev, errs):
                                      % (tag, got, want))
             del q, k, v, do, out, lse, outp, lsep, dq, dk, dv, dqp, dkp, dvp
         torch.cuda.empty_cache()
-    # D > 128: no form of K4-K6 takes it, and a card tensor never falls
+    # D > 256: no form of K4-K6 takes it, and a card tensor never falls
     # back to the plain version
     before = _kernels.launch_counts()
-    big = torch.zeros(8, 512, 256, device=dev)
+    big = torch.zeros(8, 512, 264, device=dev)
     for fn, args in ((fa.flash_fwd, (big, big, big, 0.0625, True)),
                      (fa.flash_attention, (big[None], big[None], big[None]))):
         try:
             fn(*args)
         except ValueError as e:
-            print("  %-44s refused: %s" % ("D256 " + fn.__name__, e),
+            print("  %-44s refused: %s" % ("D264 " + fn.__name__, e),
                   flush=True)
         else:
-            raise AssertionError("D256 %s was not refused" % fn.__name__)
+            raise AssertionError("D264 %s was not refused" % fn.__name__)
     if _kernels.launch_counts() != before:
-        raise AssertionError("D256: a kernel launched before the refusal")
+        raise AssertionError("D264: a kernel launched before the refusal")
 
 
 def _losses_ok(losses):
     return all(v == v and abs(v) != float("inf") for v in losses)
 
 
-def run_lm_path(dev):
-    """Phase 3b: returns (losses, step_ms list, counts)."""
+def run_lm_path(dev, heads=LM["heads"]):
+    """Phase 3b at ``heads`` heads: returns (losses, step_ms list,
+    counts).  The loss must fall at the LM's own 8 heads; at 4 (head dim
+    256) every loss must be finite."""
     import numpy as np
     import torch
 
@@ -370,8 +390,8 @@ def run_lm_path(dev):
     lmm = _lm_module()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(SEED)
-    lm = lmm.LongContextLM(LM["vocab"], LM["dim"], LM["heads"],
-                           LM["n_layers"], device=dev)
+    lm = lmm.LongContextLM(LM["vocab"], LM["dim"], heads, LM["n_layers"],
+                           device=dev)
     convert.lm_params_from_jax(lm, lmm.build_params(
         rng, LM["vocab"], LM["dim"], LM["n_layers"]))
     tokens = torch.from_numpy(lmm.synthetic_tokens(
@@ -393,7 +413,7 @@ def run_lm_path(dev):
           flush=True)
     if not _losses_ok(losses):
         raise AssertionError("non-finite loss on the LM path: %s" % losses)
-    if not losses[-1] < losses[0]:
+    if heads == LM["heads"] and not losses[-1] < losses[0]:
         raise AssertionError("the LM's loss did not fall: %s" % losses)
     want = {name: 0 for name in _kernels.launch_counts()}
     want.update({name: LM["n_layers"] * STEPS for name in FLASH})
@@ -467,18 +487,28 @@ def run_main_path(dev):
     # the net, the step and their buffers go out of scope here
 
 
-def time_kernels(dev, layers):
-    """Phase 4: per-kernel times summed over one step's launches."""
+def time_kernels(dev, layers, before=None):
+    """Phase 4: per-kernel times summed over one step's launches; K1 and K2
+    (and their plain versions) by the profiler's device time with the L2
+    flushed.  ``before``: the (fwd, bwd) of an earlier tree's K1 and K2
+    (``tools/bn_kernel_bench_torch.py::before_ghost_bn``), summed on the
+    same clock into ``before_ms`` (both of its passes)."""
     import torch
     import torch.nn.functional as F
 
     from incubator_mxnet_tpu_torch.parallel import fused_bn, maxpool_idx
 
+    tool = _bench_tool()
+
+    def flushed(fn, name=None, reps=10):
+        return tool.flushed_device_ms(fn, reps, dev, name)
+
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     distinct = {}
     for cfg in layers:
         distinct[cfg] = distinct.get(cfg, 0) + 1
-    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+               "before": [0.0, 0.0]}
            for k in ("ghost_bn_fwd", "ghost_bn_bwd")}
     for (shape, dtype, act, res, donate, dual, group, eps), k in \
             distinct.items():
@@ -498,23 +528,51 @@ def time_kernels(dev, layers):
         ys = y if res else None
         numel = x.numel()
         small = (2 * c + 2 * (n // ng) * c) * 4
+
+        def new_fwd():
+            return fused_bn.ghost_bn_fwd(x, gamma, beta, r, eps, act, ng)
+
+        def new_bwd():
+            return fused_bn.ghost_bn_bwd(gy, gy2, x, ys, gamma, beta, m, v,
+                                         eps, act, ng)
+
         f = tot["ghost_bn_fwd"]
-        f["ms"] += k * _time_ms(lambda: fused_bn.ghost_bn_fwd(
-            x, gamma, beta, r, eps, act, ng), 10)
-        f["plain_ms"] += k * _time_ms(lambda: fused_bn._gbn_fwd_plain(
-            x, gamma, beta, r, eps, act, ng), 3)
+        fwd_ms = flushed(new_fwd, "ghost_bn_fwd")
+        f["ms"] += k * fwd_ms
+        f["plain_ms"] += k * flushed(lambda: fused_bn._gbn_fwd_plain(
+            x, gamma, beta, r, eps, act, ng), None, 3)
         f["bytes"] += k * (numel * isz * (2 + res) + small)
         f["ops"] += k * numel * OPS_FWD
         b = tot["ghost_bn_bwd"]
-        b["ms"] += k * _time_ms(lambda: fused_bn.ghost_bn_bwd(
-            gy, gy2, x, ys, gamma, beta, m, v, eps, act, ng), 10)
-        b["plain_ms"] += k * _time_ms(lambda: fused_bn._gbn_bwd_plain(
-            gy, gy2, x, ys, gamma, beta, m, v, eps, act, ng), 3)
+        bwd_ms = flushed(new_bwd, "ghost_bn_bwd")
+        b["ms"] += k * bwd_ms
+        b["plain_ms"] += k * flushed(lambda: fused_bn._gbn_bwd_plain(
+            gy, gy2, x, ys, gamma, beta, m, v, eps, act, ng), None, 3)
         b["bytes"] += k * (numel * isz * (3 + dual + 2 * res) + small)
         b["ops"] += k * numel * OPS_BWD
-        print("  %-22s %-8s act=%-4s res=%d donate=%d dual=%d group=%d x%d"
-              % (shape, str(dtype).split(".")[1], act, res, donate, dual, ng,
-                 k), flush=True)
+        old = ""
+        if before is not None:
+            old_fwd, old_bwd = before
+            t = [flushed(lambda: old_fwd(x, gamma, beta, r, eps, act, ng),
+                         "ghost_bn_fwd"), fwd_ms,
+                 flushed(new_fwd, "ghost_bn_fwd"),
+                 flushed(lambda: old_fwd(x, gamma, beta, r, eps, act, ng),
+                         "ghost_bn_fwd")]
+            u = [flushed(lambda: old_bwd(gy, gy2, x, ys, gamma, beta, m, v,
+                                         eps, act, ng), "ghost_bn_bwd"),
+                 bwd_ms, flushed(new_bwd, "ghost_bn_bwd"),
+                 flushed(lambda: old_bwd(gy, gy2, x, ys, gamma, beta, m, v,
+                                         eps, act, ng), "ghost_bn_bwd")]
+            f["before"] = [a + k * bb for a, bb in zip(f["before"],
+                                                       (t[0], t[3]))]
+            b["before"] = [a + k * bb for a, bb in zip(b["before"],
+                                                       (u[0], u[3]))]
+            old = "  before K1 %.4f/%.4f K2 %.4f/%.4f" % (t[0], t[3], u[0],
+                                                          u[3])
+        print("  %-22s %-8s act=%-4s res=%d donate=%d dual=%d group=%d x%d  "
+              "K1 %.4f K2 %.4f%s" % (shape, str(dtype).split(".")[1], act,
+                                     res, donate, dual, ng, k, fwd_ms,
+                                     bwd_ms, old), flush=True)
         del x, r, y, gy, gy2, ys, m, v
     torch.cuda.empty_cache()
     rows = {}
@@ -525,6 +583,14 @@ def time_kernels(dev, layers):
                       "bound_ms": max(byte_ms, op_ms),
                       "bound_by": "bytes" if byte_ms >= op_ms
                       else "operations", "library_ms": None}
+        if before is not None:
+            rows[name]["before_ms"] = t["before"]
+        print("  %s over one step (flushed): %.4f ms, %.2fx its %.4f ms "
+              "bound%s" % (name, t["ms"], t["ms"] / rows[name]["bound_ms"],
+                           rows[name]["bound_ms"],
+                           "" if before is None else
+                           "; the earlier tree's %.4f/%.4f ms"
+                           % tuple(t["before"])), flush=True)
     # K3 at the stem: (256, 64, 112, 112) bf16 -> (256, 64, 56, 56)
     x = torch.clamp_min(torch.randn(BATCH, 64, IMAGE // 2, IMAGE // 2,
                                     generator=g, device=dev), 0)
@@ -654,7 +720,53 @@ def time_flash(dev):
              long_row["tc_bound_ms"]), flush=True)
     del ql, kl, vl, q4, k4, v4
     torch.cuda.empty_cache()
+    time_flash_d256(dev, g)
     return rows
+
+
+def time_flash_d256(dev, g):
+    """Phase 4, the D <= 256 form: K4, K5 and K6 at (4, 4, 2048, 256)
+    causal f32 (the LM at 4 heads), each beside its 3xTF32 bound, and
+    SDPA's forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = _flash_module()
+    b, h, s = LM_BATCH, LM_HEADS_D256, LM_SEQ
+    d = LM["dim"] // h
+    q, k, v, do = (torch.randn(b * h, s, d, generator=g, device=dev)
+                   for _ in range(4))
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, scale, True)
+    delta = (do * out).sum(-1)
+    pairs = b * h * _causal_pairs(s, s)
+    mat, row = b * h * s * d * 4, b * h * s * 4
+    ms = {"K4": _time_ms(lambda: fa.flash_fwd(q, k, v, scale, True), 10),
+          "K5": _time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                 scale, True), 10),
+          "K6": _time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  scale, True), 10)}
+    tc = {"K4": _bound(4 * mat + row, 3 * 4 * d * pairs, PEAK_TF32),
+          "K5": _bound(5 * mat + 2 * row, 3 * 6 * d * pairs, PEAK_TF32),
+          "K6": _bound(6 * mat + 2 * row, 3 * 8 * d * pairs, PEAK_TF32)}
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+    lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 10)
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, do4, retain_graph=True), 10)
+    for name in ("K4", "K5", "K6"):
+        print("  %s at (%d, %d, %d, %d) causal f32 (D <= 256 form): ms %.4f  "
+              "tc_bound_ms %.4f (%.2fx)" % (
+                  name, b, h, s, d, ms[name], tc[name]["bound_ms"],
+                  ms[name] / tc[name]["bound_ms"]), flush=True)
+    print("  SDPA at (%d, %d, %d, %d) causal f32: forward %.4f ms (K4/SDPA "
+          "%.3f), backward %.4f ms ((K5 + K6)/SDPA backward %.3f)" % (
+              b, h, s, d, lib_fwd, ms["K4"] / lib_fwd, lib_bwd,
+              (ms["K5"] + ms["K6"]) / lib_bwd), flush=True)
+    del q, k, v, do, out, lse, delta, q4, k4, v4, do4, leaves, lib_out
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1140,9 +1252,16 @@ def card_vs_cpu(dev):
     torch.backends.cudnn.allow_tf32 = True
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--before", default=None, metavar="DIR",
+                    help="also time the K1 and K2 of the tree unpacked under "
+                         "DIR in phase 4")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1182,6 +1301,15 @@ def main():
           % (lm_steady, STEPS, LM_BATCH * LM_SEQ / lm_steady * 1e3, card),
           flush=True)
     torch.cuda.empty_cache()
+    print("[3b] LM path at %d heads (head dim %d): the D <= 256 form of "
+          "K4-K6" % (LM_HEADS_D256, LM["dim"] // LM_HEADS_D256), flush=True)
+    _, d256_ms, d256_counts = run_lm_path(dev, LM_HEADS_D256)
+    counts.update({name: counts[name] + d256_counts[name] for name in FLASH})
+    d256_steady = sorted(d256_ms[1:])[len(d256_ms[1:]) // 2]
+    print("[3b] lm_step_ms_d256 %.2f (median of steps 2-%d)  %.1f tokens/s  "
+          "on %s" % (d256_steady, STEPS, LM_BATCH * LM_SEQ / d256_steady * 1e3,
+                     card), flush=True)
+    torch.cuda.empty_cache()
 
     print("[3c] nd path: one causal attention layer of the LM (x (%d, %d, "
           "%d), 4 weights (%d, %d), %d heads) with nd + autograd, f32, %d "
@@ -1194,9 +1322,13 @@ def main():
     print("[3c] nd_step_ms %.2f (median of steps 2-%d)  on %s"
           % (nd_steady, STEPS, card), flush=True)
 
-    print("[4] kernel times (CUDA events, K1/K2 summed over one step's 53 "
-          "layers, K4-K6 one layer's attention)", flush=True)
-    rows = time_kernels(dev, layers)
+    print("[4] kernel times (K1/K2 summed over one step's 53 layers, device "
+          "time with the L2 flushed; the others by CUDA events, K4-K6 one "
+          "layer's attention)", flush=True)
+    before = None
+    if args.before:
+        before = _bench_tool().before_ghost_bn(args.before, dev)
+    rows = time_kernels(dev, layers, before)
     rows.update(time_flash(dev))
     print("[4c] K7 at the 9 ResNet-50 BN shapes (batch 256, bf16) beside "
           "copy_, K1 and K2; R1 beside torch.add; R2 at the nd path's "

@@ -70,6 +70,11 @@ _SIGNATURES = {
 _QUERIES = {
     # dtype, G, C, HW, ng -> the channels a block of bn_copy copies
     "bn_copy_channels": [_I, _I, _I, _I, _I],
+    # dtype, G, C, HW, ng -> the channels a block of K1/K2 owns
+    "ghost_bn_channels": [_I, _I, _I, _I, _I],
+    # dtype, G, C, HW, ng, staged tensors -> the CTAs of a K1/K2 cluster
+    # (0: the two-read form)
+    "ghost_bn_cluster": [_I, _I, _I, _I, _I, _I],
 }
 
 _lock = threading.Lock()

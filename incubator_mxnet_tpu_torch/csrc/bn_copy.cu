@@ -7,9 +7,8 @@
 // ghost_bn_walk.cuh: block (cb, g) of a (C / kc, G) grid copies the ng
 // contiguous runs of kc channels of ghost group g, 16 bytes a thread, with
 // a scalar head and tail where a run is not 16-byte aligned.  So its time
-// is the ceiling of that walk: what K1 and K2 cost beyond K7 is what they
-// will cost beyond the walk once they take it (their own walk,
-// ghost_bn_slice.cuh, is still one block a channel, 2 or 4 bytes a thread).
+// is the ceiling of that walk: what K1 and K2 (ghost_bn.cu, on the same
+// walk) cost beyond K7 is what their sums and their staging cost.
 //
 // What bounds it on the H100: bytes, one read of x and one write of y.
 // At the ResNet-50 stem, (256, 64, 112, 112) bf16, that is 822 MB, 0.245

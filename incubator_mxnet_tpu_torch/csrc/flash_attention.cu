@@ -1,8 +1,8 @@
 // Flash attention for Hopper (sm_90a): forward (K4 flash_attn_fwd), dQ
 // (K5 flash_attn_bwd_dq) and dK/dV (K6 flash_attn_bwd_dkv).  Inputs are
-// (BH, S, D) contiguous, bf16 or f32, with D <= 128 and D % 8 == 0 (the
-// wrapper pads other head dims up to 128 to a multiple of 8 and refuses
-// D > 128); softmax, sums and outputs' arithmetic are f32.
+// (BH, S, D) contiguous, bf16 or f32, with D <= 256 and D % 8 == 0 (the
+// wrapper pads other head dims up to 256 to a multiple of 8 and refuses
+// D > 256); softmax, sums and outputs' arithmetic are f32.
 //
 // Replaces incubator_mxnet_tpu/parallel/flash_attention.py: `_fwd` (its
 // Pallas `_fwd_kernel`) and the two calls of `_bwd` (`_bwd_dq_kernel`,
@@ -18,7 +18,7 @@
 // On the TPU the K-tile axis is a sequential grid dimension that carries
 // m, l and the accumulator in VMEM scratch; here that carry is a loop
 // inside one block.  The wrapper's block_q/block_k tile only the plain
-// version; the tiles here are fixed.  Any Sq and Sk: a ragged last tile
+// version; the tiles here are fixed by D.  Any Sq and Sk: a ragged last tile
 // is zero-filled in shared memory and masked.  Every launch first raises
 // cudaFuncAttributeMaxDynamicSharedMemorySize above the 48 KB default.
 //
@@ -40,11 +40,21 @@
 // Resident tiles are loaded once; streamed tiles come in two stages by
 // 16-byte cp.async in the input's dtype (tile i + 1 loads while tile i
 // computes, one barrier a tile).  D pads to the 8-column fragment (D <= 32,
-// 64, 128 as 32, 64, 128) with zero columns in shared memory, at a row
-// pitch of 16 bytes more than that (conflict-free fragment reads).  Only
+// 64, 128, 256 as 32, 64, 128, 256: the accumulator width DC of
+// FLASH_DISPATCH) with zero columns in shared memory, at a row pitch of 16
+// bytes more than that (conflict-free fragment reads).  Only
 // tiles that cross the diagonal or the ragged edge are masked.  Exp is
 // __expf.  The grid is (b*h, tile), heaviest causal tile first across all
 // b*h, so the light tiles fill the tail.
+//
+// The D <= 128 forms (DC <= 8) take 128 rows a block, one warp per 16
+// rows.  The D <= 256 form (DC = 16) keeps every f32 tile of D = 128 in
+// shared memory by halving the rows a block (kBQ4W, kBRW: 64) and the
+// streamed tile (kBK4W 32, kBSW 16), and keeps the accumulators a thread
+// at D = 128's count by giving each 16 rows two warps: both form the
+// scores (S, dP) over all of D, each accumulates half of D's columns
+// (O, dQ, dK and dV).  The scores are computed twice; that form is for
+// D = 256 to run at all, not yet to be fast.
 //
 // K4: 128 query rows a block, Q resident, 64-key K/V tiles streamed up to
 // the last tile any of its rows can see; the running max and sum are quad
@@ -80,7 +90,9 @@
 // not timed).  K6 250 for f32 and 228 for bf16, no spills: the two
 // 64-register sums plus S^T, dP^T and the B splits of one 8-deep step;
 // 64-query tiles would need 32 more.  K4 179 for f32, no spills; 128 for
-// bf16, 24 bytes of spill stores.
+// bf16, 24 bytes of spill stores.  At D = 256 (the D <= 256 form): K4 165
+// for f32, no spills, 128 for bf16 with 28 bytes of spill stores and 28
+// of loads; K5 152 and 126, K6 226 and 216, no spills.
 //
 // What bounds them on the H100: operations.  At the LM's shapes (B 4, H 8,
 // S 2048, D 128, causal, f32) the 67.1 M visible (i, j) pairs cost 2 x D
@@ -101,11 +113,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;    // 8 warps, 16 rows a warp
+constexpr int kThreads = 256;    // 8 warps, 16 rows a warp (or 2 warps per 16 rows)
 constexpr int kBQ4 = 128;        // K4's query rows per block
 constexpr int kBK4 = 64;         // K4's keys per tile
 constexpr int kBR = 128;         // K5's query rows, K6's key rows per block
 constexpr int kBS = 32;          // K5's keys, K6's queries per streamed tile
+// the same at 128 < D <= 256 (DC = 16): half the rows, two warps per 16
+// rows, each owning half of D's accumulator columns
+constexpr int kBQ4W = 64;
+constexpr int kBK4W = 32;
+constexpr int kBRW = 64;
+constexpr int kBSW = 16;
 constexpr float kNegInf = -1e30f;
 
 // --- PTX wrappers ---------------------------------------------------------
@@ -283,11 +301,12 @@ __device__ __forceinline__ void zero(float (&x)[R][C]) {
     for (int j = 0; j < C; ++j) x[i][j] = 0.f;
 }
 
-// rows r0, r0 + 8 of a warp's (16, 8 NT) C-fragment tile into (S, D) at
-// out; rows at or past S and columns at or past D are not stored
+// rows r0, r0 + 8 of a warp's (16, 8 NT) C-fragment tile, columns c0 ..
+// c0 + 8 NT - 1, into (S, D) at out; rows at or past S and columns at or
+// past D are not stored
 template <typename T, int NT>
 __device__ __forceinline__ void store_rows(T* out, const float (&o)[NT][4], int r0, int S,
-                                           int D) {
+                                           int D, int c0) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -295,8 +314,8 @@ __device__ __forceinline__ void store_rows(T* out, const float (&o)[NT][4], int 
     if (row >= S) continue;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      if (n * 8 >= D) break;
-      const int64_t i = static_cast<int64_t>(row) * D + n * 8 + 2 * t;
+      if (c0 + n * 8 >= D) break;
+      const int64_t i = static_cast<int64_t>(row) * D + c0 + n * 8 + 2 * t;
       store(out, i, o[n][2 * h]);
       store(out, i + 1, o[n][2 * h + 1]);
     }
@@ -305,44 +324,49 @@ __device__ __forceinline__ void store_rows(T* out, const float (&o)[NT][4], int 
 
 // --- K4: forward ----------------------------------------------------------
 
-// f32 tiles take 198 KB of shared memory at D = 128: one block an SM,
-// with the registers left to the compiler; bf16 tiles take 102 KB, and two
-// blocks fit an SM when a thread keeps to 128 registers
-template <typename T, int DC>
+// kRows query rows a block, kTile-key tiles (kBQ4, kBK4; kBQ4W, kBK4W at
+// DC = 16).  At D = 128 f32 tiles take 198 KB of shared memory: one block
+// an SM, with the registers left to the compiler; bf16 tiles take 102 KB,
+// and two blocks fit an SM when a thread keeps to 128 registers.  At
+// D = 256: 64 rows and 2 x 2 stages of 32 keys, 195 KB f32, 99 KB bf16.
+template <typename T, int DC, int kRows, int kTile>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 1 : 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
                  int Sq, int Sk, int D, float scale, int causal) {
-  constexpr int NT = 2 * DC;       // 8-column fragments of O
-  constexpr int DP = 8 * NT;       // D padded to them (DP >= D)
-  constexpr int KT = kBK4 / 8;     // 8-key fragments of S
+  constexpr int kSplit = kThreads / 2 / kRows;  // warps per 16 rows
+  constexpr int NT = 2 * DC / kSplit;  // 8-column fragments of O a warp holds
+  constexpr int DP = 16 * DC;      // D padded to the fragments (DP >= D)
+  constexpr int KT = kTile / 8;    // 8-key fragments of S
   constexpr int ld = DP + 16 / static_cast<int>(sizeof(T));  // row pitch
   extern __shared__ float4 smem4[];
   T* sQ = reinterpret_cast<T*>(smem4);
-  T* sK = sQ + kBQ4 * ld;          // two stages each of K and V
-  T* sV = sK + 2 * kBK4 * ld;
+  T* sK = sQ + kRows * ld;         // two stages each of K and V
+  T* sV = sK + 2 * kTile * ld;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int rw = warp / kSplit;            // the warp's 16 rows
+  const int c0 = warp % kSplit * NT * 8;   // and its first output column
   // blocks start in the order of their linear index, x fastest: the query
   // tile is y, heaviest (causal: last) first, so the tail is light
-  const int nq = (Sq + kBQ4 - 1) / kBQ4;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kBQ4;
+  const int nq = (Sq + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kRows;
   const int64_t bh = blockIdx.x;
   const int offset = Sk - Sq;
   const T* kb = k + bh * Sk * D;
   const T* vb = v + bh * Sk * D;
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  const T* qw = sQ + warp * 16 * ld;
+  const int r0 = q0 + rw * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const T* qw = sQ + rw * 16 * ld;
 
   float o[NT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   zero(o);
-  zero_pad<T, DP>(sQ, kBQ4 + 4 * kBK4, D, ld);
-  const int nk = key_tiles(q0, Sq, Sk, causal, kBQ4, kBK4);
+  zero_pad<T, DP>(sQ, kRows + 4 * kTile, D, ld);
+  const int nk = key_tiles(q0, Sq, Sk, causal, kRows, kTile);
   if (nk > 0) {
-    async_tile<kBQ4>(sQ, q + bh * Sq * D, q0, Sq, D, ld);
-    async_tile<kBK4>(sK, kb, 0, Sk, D, ld);
-    async_tile<kBK4>(sV, vb, 0, Sk, D, ld);
+    async_tile<kRows>(sQ, q + bh * Sq * D, q0, Sq, D, ld);
+    async_tile<kTile>(sK, kb, 0, Sk, D, ld);
+    async_tile<kTile>(sV, vb, 0, Sk, D, ld);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -350,22 +374,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
     if (kt + 1 < nk) {  // tile kt + 1 loads into kt - 1's stage while kt computes
       const int nb = (kt + 1) & 1;
-      async_tile<kBK4>(sK + nb * kBK4 * ld, kb, (kt + 1) * kBK4, Sk, D, ld);
-      async_tile<kBK4>(sV + nb * kBK4 * ld, vb, (kt + 1) * kBK4, Sk, D, ld);
+      async_tile<kTile>(sK + nb * kTile * ld, kb, (kt + 1) * kTile, Sk, D, ld);
+      async_tile<kTile>(sV + nb * kTile * ld, vb, (kt + 1) * kTile, Sk, D, ld);
       cp_async_commit();
     }
-    const T* sk = sK + (kt & 1) * kBK4 * ld;
-    const T* sv = sV + (kt & 1) * kBK4 * ld;
-    const int k0 = kt * kBK4;
+    const T* sk = sK + (kt & 1) * kTile * ld;
+    const T* sv = sV + (kt & 1) * kTile * ld;
+    const int k0 = kt * kTile;
 
-    // S = Q K^T: the warp's 16 rows x 64 keys
+    // S = Q K^T over all of D: the warp's 16 rows x kTile keys (at kSplit 2
+    // both warps of the rows form it)
     float s[KT][4];
     zero(s);
     product_abt<T, DP, KT>(s, qw, sk, ld);
 
     // scale and mask; thread t holds keys 2t and 2t + 1 of each fragment,
     // and a row's 4 threads (one quad) reduce by shuffles
-    const bool full = k0 + kBK4 <= Sk && (!causal || k0 + kBK4 - 1 <= q0 + offset);
+    const bool full = k0 + kTile <= Sk && (!causal || k0 + kTile - 1 <= q0 + offset);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < KT; ++j)
@@ -407,7 +432,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o[n][2] *= alpha[1];
       o[n][3] *= alpha[1];
     }
-    product_pv<T, NT, KT>(o, s, sv, ld);  // O += P V, P from registers
+    product_pv<T, NT, KT>(o, s, sv + c0, ld);  // O += P V, P from registers
   }
 
 #pragma unroll
@@ -421,43 +446,49 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o[n][2 * h + 1] /= lf;
     }
     const int row = r0 + 8 * h;
-    if (t == 0 && row < Sq) lse[bh * Sq + row] = m[h] + logf(lf);
+    if (t == 0 && c0 == 0 && row < Sq) lse[bh * Sq + row] = m[h] + logf(lf);
   }
-  store_rows<T, NT>(out + bh * Sq * D, o, r0, Sq, D);
+  store_rows<T, NT>(out + bh * Sq * D, o, r0, Sq, D, c0);
 }
 
 // --- K5: dQ ---------------------------------------------------------------
 
-// f32 tiles take 198 KB of shared memory at D = 128, so one block an SM;
-// bf16 tiles 102 KB, so two at 128 registers a thread
-template <typename T, int DC>
+// kRows query rows a block, kTile-key tiles (kBR, kBS; kBRW, kBSW at
+// DC = 16).  At D = 128 f32 tiles take 198 KB of shared memory, so one
+// block an SM; bf16 tiles 102 KB, so two at 128 registers a thread.  At
+// D = 256: 64 rows each of Q and dO and 2 x 2 stages of 16 keys, 195 KB
+// f32, 99 KB bf16.
+template <typename T, int DC, int kRows, int kTile>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 1 : 2)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int Sq, int Sk, int D, float scale, int causal) {
-  constexpr int NT = 2 * DC;       // 8-column fragments of dQ
-  constexpr int DP = 8 * NT;       // D padded to them
-  constexpr int KT = kBS / 8;      // 8-key fragments of S, dP and dS
+  constexpr int kSplit = kThreads / 2 / kRows;  // warps per 16 rows
+  constexpr int NT = 2 * DC / kSplit;  // 8-column fragments of dQ a warp holds
+  constexpr int DP = 16 * DC;      // D padded to the fragments
+  constexpr int KT = kTile / 8;    // 8-key fragments of S, dP and dS
   constexpr int ld = DP + 16 / static_cast<int>(sizeof(T));
   extern __shared__ float4 smem4[];
   T* sQ = reinterpret_cast<T*>(smem4);
-  T* sdO = sQ + kBR * ld;
-  T* sK = sdO + kBR * ld;          // two stages each of K and V
-  T* sV = sK + 2 * kBS * ld;
+  T* sdO = sQ + kRows * ld;
+  T* sK = sdO + kRows * ld;        // two stages each of K and V
+  T* sV = sK + 2 * kTile * ld;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int nq = (Sq + kBR - 1) / kBR;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kBR;  // heaviest first
+  const int rw = warp / kSplit;            // the warp's 16 rows
+  const int c0 = warp % kSplit * NT * 8;   // and its first dQ column
+  const int nq = (Sq + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kRows;  // heaviest first
   const int64_t bh = blockIdx.x;
   const int offset = Sk - Sq;
   const T* kb = k + bh * Sk * D;
   const T* vb = v + bh * Sk * D;
-  const int w0 = q0 + warp * 16;   // the warp's first row
+  const int w0 = q0 + rw * 16;     // the warp's first row
   const int r0 = w0 + g;           // this thread's rows: r0 and r0 + 8
-  const T* qw = sQ + warp * 16 * ld;
-  const T* dw = sdO + warp * 16 * ld;
+  const T* qw = sQ + rw * 16 * ld;
+  const T* dw = sdO + rw * 16 * ld;
 
   float lse_r[2], delta_r[2], acc[NT][4];
 #pragma unroll
@@ -467,14 +498,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     delta_r[h] = row < Sq ? delta[bh * Sq + row] : 0.f;
   }
   zero(acc);
-  zero_pad<T, DP>(sQ, 2 * kBR + 4 * kBS, D, ld);
-  const int nk = key_tiles(q0, Sq, Sk, causal, kBR, kBS);
-  const int nk_warp = w0 < Sq ? key_tiles(w0, Sq, Sk, causal, 16, kBS) : 0;
+  zero_pad<T, DP>(sQ, 2 * kRows + 4 * kTile, D, ld);
+  const int nk = key_tiles(q0, Sq, Sk, causal, kRows, kTile);
+  const int nk_warp = w0 < Sq ? key_tiles(w0, Sq, Sk, causal, 16, kTile) : 0;
   if (nk > 0) {
-    async_tile<kBR>(sQ, q + bh * Sq * D, q0, Sq, D, ld);
-    async_tile<kBR>(sdO, dout + bh * Sq * D, q0, Sq, D, ld);
-    async_tile<kBS>(sK, kb, 0, Sk, D, ld);
-    async_tile<kBS>(sV, vb, 0, Sk, D, ld);
+    async_tile<kRows>(sQ, q + bh * Sq * D, q0, Sq, D, ld);
+    async_tile<kRows>(sdO, dout + bh * Sq * D, q0, Sq, D, ld);
+    async_tile<kTile>(sK, kb, 0, Sk, D, ld);
+    async_tile<kTile>(sV, vb, 0, Sk, D, ld);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -482,14 +513,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
     if (kt + 1 < nk) {
       const int nb = (kt + 1) & 1;
-      async_tile<kBS>(sK + nb * kBS * ld, kb, (kt + 1) * kBS, Sk, D, ld);
-      async_tile<kBS>(sV + nb * kBS * ld, vb, (kt + 1) * kBS, Sk, D, ld);
+      async_tile<kTile>(sK + nb * kTile * ld, kb, (kt + 1) * kTile, Sk, D, ld);
+      async_tile<kTile>(sV + nb * kTile * ld, vb, (kt + 1) * kTile, Sk, D, ld);
       cp_async_commit();
     }
     if (kt >= nk_warp) continue;  // the warp's rows see no key of this tile
-    const T* sk = sK + (kt & 1) * kBS * ld;
-    const T* sv = sV + (kt & 1) * kBS * ld;
-    const int k0 = kt * kBS;
+    const T* sk = sK + (kt & 1) * kTile * ld;
+    const T* sv = sV + (kt & 1) * kTile * ld;
+    const int k0 = kt * kTile;
 
     float s[KT][4], dp[KT][4];
     zero(s);
@@ -498,7 +529,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     product_abt<T, DP, KT>(dp, dw, sv, ld);  // dP = dO V^T
     // dS = P (dP - delta) scale in place of S; P is 0 where the mask fills
     // the score, which also keeps rows that see no key at exactly 0
-    const bool full = k0 + kBS <= Sk && (!causal || k0 + kBS - 1 <= w0 + offset);
+    const bool full = k0 + kTile <= Sk && (!causal || k0 + kTile - 1 <= w0 + offset);
 #pragma unroll
     for (int j = 0; j < KT; ++j)
 #pragma unroll
@@ -510,98 +541,104 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = seen ? __expf(s[j][e] * scale - lse_r[h]) : 0.f;
         s[j][e] = p * (dp[j][e] - delta_r[h]) * scale;
       }
-    product_pv<T, NT, KT>(acc, s, sk, ld);  // dQ += dS K
+    product_pv<T, NT, KT>(acc, s, sk + c0, ld);  // dQ += dS K
   }
-  store_rows<T, NT>(dq + bh * Sq * D, acc, r0, Sq, D);
+  store_rows<T, NT>(dq + bh * Sq * D, acc, r0, Sq, D, c0);
 }
 
 // --- K6: dK and dV --------------------------------------------------------
 
-// the LSE and delta of queries [q0, q0 + kBS) into sl and sd; rows at or
+// the LSE and delta of queries [q0, q0 + kTile) into sl and sd; rows at or
 // past Sq get 0 (they are masked)
+template <int kTile>
 __device__ __forceinline__ void stage_rows(float* sl, float* sd, const float* lse,
                                            const float* delta, int q0, int Sq) {
   const int i = threadIdx.x;
-  if (i < kBS) {
+  if (i < kTile) {
     sl[i] = q0 + i < Sq ? lse[q0 + i] : 0.f;
-  } else if (i < 2 * kBS) {
-    sd[i - kBS] = q0 + i - kBS < Sq ? delta[q0 + i - kBS] : 0.f;
+  } else if (i < 2 * kTile) {
+    sd[i - kTile] = q0 + i - kTile < Sq ? delta[q0 + i - kTile] : 0.f;
   }
 }
 
-// one block an SM in both dtypes: the dK and dV sums take 2 x 4 NT
-// registers a thread besides S^T, dP^T and the splits
-template <typename T, int DC>
+// kRows key rows a block, kTile-query tiles (kBR, kBS; kBRW, kBSW at
+// DC = 16).  One block an SM in both dtypes: the dK and dV sums take
+// 2 x 4 NT registers a thread besides S^T, dP^T and the splits (at
+// D = 256 two warps share 16 keys, so 2 x 64 as at D = 128)
+template <typename T, int DC, int kRows, int kTile>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int D,
                      float scale, int causal) {
-  constexpr int NT = 2 * DC;       // 8-column fragments of dK and dV
-  constexpr int DP = 8 * NT;
-  constexpr int QT = kBS / 8;      // 8-query fragments of S^T, dP^T and dS^T
+  constexpr int kSplit = kThreads / 2 / kRows;  // warps per 16 keys
+  constexpr int NT = 2 * DC / kSplit;  // 8-column fragments of dK, dV a warp holds
+  constexpr int DP = 16 * DC;
+  constexpr int QT = kTile / 8;    // 8-query fragments of S^T, dP^T and dS^T
   constexpr int ld = DP + 16 / static_cast<int>(sizeof(T));
   extern __shared__ float4 smem4[];
   T* sK = reinterpret_cast<T*>(smem4);
-  T* sV = sK + kBR * ld;
-  T* sQ = sV + kBR * ld;           // two stages each of Q and dO
-  T* sdO = sQ + 2 * kBS * ld;
-  float* sL = reinterpret_cast<float*>(sdO + 2 * kBS * ld);  // two stages of LSE
-  float* sDelta = sL + 2 * kBS;                              // and of delta
+  T* sV = sK + kRows * ld;
+  T* sQ = sV + kRows * ld;         // two stages each of Q and dO
+  T* sdO = sQ + 2 * kTile * ld;
+  float* sL = reinterpret_cast<float*>(sdO + 2 * kTile * ld);  // two stages of LSE
+  float* sDelta = sL + 2 * kTile;                              // and of delta
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.y * kBR;  // the first key tiles (causal: heaviest) first
+  const int k0 = blockIdx.y * kRows;  // the first key tiles (causal: heaviest) first
   const int64_t bh = blockIdx.x;
   const int offset = Sk - Sq;
   const T* qb = q + bh * Sq * D;
   const T* db = dout + bh * Sq * D;
   const float* lb = lse + bh * Sq;
   const float* deb = delta + bh * Sq;
-  const int w0 = k0 + warp * 16;   // the warp's first key
+  const int rw = warp / kSplit;            // the warp's 16 keys
+  const int c0 = warp % kSplit * NT * 8;   // and its first dK, dV column
+  const int w0 = k0 + rw * 16;     // the warp's first key
   const int key0 = w0 + g;         // this thread's keys: key0 and key0 + 8
-  const T* kw = sK + warp * 16 * ld;
-  const T* vw = sV + warp * 16 * ld;
+  const T* kw = sK + rw * 16 * ld;
+  const T* vw = sV + rw * 16 * ld;
 
   float acc_k[NT][4], acc_v[NT][4];
   zero(acc_k);
   zero(acc_v);
-  zero_pad<T, DP>(sK, 2 * kBR + 4 * kBS, D, ld);
-  const int nq = (Sq + kBS - 1) / kBS;
+  zero_pad<T, DP>(sK, 2 * kRows + 4 * kTile, D, ld);
+  const int nq = (Sq + kTile - 1) / kTile;
   // the first query that sees key j is j - offset
-  const int qt0 = causal ? max(0, k0 - offset) / kBS : 0;
-  const int qt_warp = w0 >= Sk ? nq : causal ? max(0, w0 - offset) / kBS : 0;
-  async_tile<kBR>(sK, k + bh * Sk * D, k0, Sk, D, ld);
-  async_tile<kBR>(sV, v + bh * Sk * D, k0, Sk, D, ld);
-  async_tile<kBS>(sQ, qb, qt0 * kBS, Sq, D, ld);
-  async_tile<kBS>(sdO, db, qt0 * kBS, Sq, D, ld);
+  const int qt0 = causal ? max(0, k0 - offset) / kTile : 0;
+  const int qt_warp = w0 >= Sk ? nq : causal ? max(0, w0 - offset) / kTile : 0;
+  async_tile<kRows>(sK, k + bh * Sk * D, k0, Sk, D, ld);
+  async_tile<kRows>(sV, v + bh * Sk * D, k0, Sk, D, ld);
+  async_tile<kTile>(sQ, qb, qt0 * kTile, Sq, D, ld);
+  async_tile<kTile>(sdO, db, qt0 * kTile, Sq, D, ld);
   cp_async_commit();
-  stage_rows(sL, sDelta, lb, deb, qt0 * kBS, Sq);
+  stage_rows<kTile>(sL, sDelta, lb, deb, qt0 * kTile, Sq);
   for (int qt = qt0; qt < nq; ++qt) {
     const int st = (qt - qt0) & 1;
     cp_async_wait<0>();
     __syncthreads();  // tile qt is in; every warp is done with tile qt - 1
     if (qt + 1 < nq) {
       const int nb = st ^ 1;
-      async_tile<kBS>(sQ + nb * kBS * ld, qb, (qt + 1) * kBS, Sq, D, ld);
-      async_tile<kBS>(sdO + nb * kBS * ld, db, (qt + 1) * kBS, Sq, D, ld);
+      async_tile<kTile>(sQ + nb * kTile * ld, qb, (qt + 1) * kTile, Sq, D, ld);
+      async_tile<kTile>(sdO + nb * kTile * ld, db, (qt + 1) * kTile, Sq, D, ld);
       cp_async_commit();
-      stage_rows(sL + nb * kBS, sDelta + nb * kBS, lb, deb, (qt + 1) * kBS, Sq);
+      stage_rows<kTile>(sL + nb * kTile, sDelta + nb * kTile, lb, deb, (qt + 1) * kTile, Sq);
     }
     if (qt < qt_warp) continue;  // no query of this tile sees the warp's keys
-    const T* sq = sQ + st * kBS * ld;
-    const T* sd = sdO + st * kBS * ld;
-    const float* tl = sL + st * kBS;
-    const float* td = sDelta + st * kBS;
-    const int q0 = qt * kBS;
+    const T* sq = sQ + st * kTile * ld;
+    const T* sd = sdO + st * kTile * ld;
+    const float* tl = sL + st * kTile;
+    const float* td = sDelta + st * kTile;
+    const int q0 = qt * kTile;
 
     // P^T = exp(S^T scale - LSE) with S^T = K Q^T: rows are the warp's
     // keys, columns the tile's queries (thread t: 2t, 2t + 1 of each 8)
     float s[QT][4];
     zero(s);
     product_abt<T, DP, QT>(s, kw, sq, ld);
-    const bool full = q0 + kBS <= Sq && w0 + 16 <= Sk &&
+    const bool full = q0 + kTile <= Sq && w0 + 16 <= Sk &&
                       (!causal || w0 + 15 <= q0 + offset);
 #pragma unroll
     for (int j = 0; j < QT; ++j)
@@ -613,7 +650,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    (!causal || key <= q0 + col + offset));
         s[j][e] = seen ? __expf(s[j][e] * scale - tl[col]) : 0.f;
       }
-    product_pv<T, NT, QT>(acc_v, s, sd, ld);  // dV += P^T dO
+    product_pv<T, NT, QT>(acc_v, s, sd + c0, ld);  // dV += P^T dO
 
     float dp[QT][4];
     zero(dp);
@@ -625,10 +662,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = j * 8 + 2 * t + (e & 1);
         s[j][e] *= (dp[j][e] - td[col]) * scale;  // dS^T
       }
-    product_pv<T, NT, QT>(acc_k, s, sq, ld);  // dK += dS^T Q
+    product_pv<T, NT, QT>(acc_k, s, sq + c0, ld);  // dK += dS^T Q
   }
-  store_rows<T, NT>(dk + bh * Sk * D, acc_k, key0, Sk, D);
-  store_rows<T, NT>(dv + bh * Sk * D, acc_v, key0, Sk, D);
+  store_rows<T, NT>(dk + bh * Sk * D, acc_k, key0, Sk, D, c0);
+  store_rows<T, NT>(dv + bh * Sk * D, acc_v, key0, Sk, D, c0);
 }
 
 // --- launch ---------------------------------------------------------------
@@ -651,18 +688,23 @@ size_t tile_bytes(int rows) {
 
 // b*h is the grid's x (up to 2^31 - 1); the grid's y, `tiles` row tiles of
 // the launch, is at most 65535.  The wrapper pads other head dims up to
-// 128 to a multiple of 8 and refuses D > 128.
+// 256 to a multiple of 8 and refuses D > 256.
 bool bad_shape(int BH, int Sq, int Sk, int D, int tiles) {
-  return BH < 1 || Sq < 1 || Sk < 1 || D < 8 || D > 128 || D % 8 || tiles > 65535;
+  return BH < 1 || Sq < 1 || Sk < 1 || D < 8 || D > 256 || D % 8 || tiles > 65535;
 }
+
+// rows a block of K4 and of K5/K6 at head dim D (the wide tiles above 128)
+int rows_q4(int D) { return D > 128 ? kBQ4W : kBQ4; }
+int rows_r(int D) { return D > 128 ? kBRW : kBR; }
 
 template <typename T, int DC>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse, int BH, int Sq,
         int Sk, int D, float scale, int causal, cudaStream_t s) {
+  constexpr int R = DC <= 8 ? kBQ4 : kBQ4W, K = DC <= 8 ? kBK4 : kBK4W;
   // the Q tile and two stages each of K and V
-  const size_t smem = tile_bytes<T, DC>(kBQ4 + 4 * kBK4);
-  const dim3 grid(BH, (Sq + kBQ4 - 1) / kBQ4);
-  return launch(flash_fwd_kernel<T, DC>, grid, smem, s, static_cast<const T*>(q),
+  const size_t smem = tile_bytes<T, DC>(R + 4 * K);
+  const dim3 grid(BH, (Sq + R - 1) / R);
+  return launch(flash_fwd_kernel<T, DC, R, K>, grid, smem, s, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
                 static_cast<float*>(lse), Sq, Sk, D, scale, causal);
 }
@@ -671,10 +713,11 @@ template <typename T, int DC>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dq, int BH, int Sq, int Sk, int D, float scale,
            int causal, cudaStream_t s) {
+  constexpr int R = DC <= 8 ? kBR : kBRW, S = DC <= 8 ? kBS : kBSW;
   // Q and dO, and two stages each of K and V
-  const size_t smem = tile_bytes<T, DC>(2 * kBR + 4 * kBS);
-  const dim3 grid(BH, (Sq + kBR - 1) / kBR);
-  return launch(flash_bwd_dq_kernel<T, DC>, grid, smem, s, static_cast<const T*>(q),
+  const size_t smem = tile_bytes<T, DC>(2 * R + 4 * S);
+  const dim3 grid(BH, (Sq + R - 1) / R);
+  return launch(flash_bwd_dq_kernel<T, DC, R, S>, grid, smem, s, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, D, scale,
@@ -685,10 +728,11 @@ template <typename T, int DC>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
             const void* delta, void* dk, void* dv, int BH, int Sq, int Sk, int D,
             float scale, int causal, cudaStream_t s) {
+  constexpr int R = DC <= 8 ? kBR : kBRW, S = DC <= 8 ? kBS : kBSW;
   // K and V, two stages each of Q and dO, and two of the LSE and delta
-  const size_t smem = tile_bytes<T, DC>(2 * kBR + 4 * kBS) + 4 * kBS * sizeof(float);
-  const dim3 grid(BH, (Sk + kBR - 1) / kBR);
-  return launch(flash_bwd_dkv_kernel<T, DC>, grid, smem, s, static_cast<const T*>(q),
+  const size_t smem = tile_bytes<T, DC>(2 * R + 4 * S) + 4 * S * sizeof(float);
+  const dim3 grid(BH, (Sk + R - 1) / R);
+  return launch(flash_bwd_dkv_kernel<T, DC, R, S>, grid, smem, s, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<T*>(dk),
@@ -696,9 +740,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 }
 
 // the accumulator width (DC: 8-column fragments / 2; D padded to 16 DC)
-#define FLASH_DISPATCH(fn, T, D, ...)                            \
-  ((D) <= 32 ? fn<T, 2>(__VA_ARGS__)                             \
-             : (D) <= 64 ? fn<T, 4>(__VA_ARGS__) : fn<T, 8>(__VA_ARGS__))
+#define FLASH_DISPATCH(fn, T, D, ...)                                      \
+  ((D) <= 32    ? fn<T, 2>(__VA_ARGS__)                                    \
+   : (D) <= 64  ? fn<T, 4>(__VA_ARGS__)                                    \
+   : (D) <= 128 ? fn<T, 8>(__VA_ARGS__)                                    \
+                : fn<T, 16>(__VA_ARGS__))
 
 }  // namespace
 
@@ -708,7 +754,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k, const void* v,
                               void* out, void* lse, int BH, int Sq, int Sk, int D,
                               float scale, int causal, void* stream) {
-  if (bad_shape(BH, Sq, Sk, D, (Sq - 1) / kBQ4 + 1))
+  if (bad_shape(BH, Sq, Sk, D, (Sq - 1) / rows_q4(D) + 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
@@ -723,7 +769,7 @@ extern "C" int flash_attn_bwd_dq(int dtype, const void* q, const void* k, const 
                                  const void* dout, const void* lse, const void* delta,
                                  void* dq, int BH, int Sq, int Sk, int D, float scale,
                                  int causal, void* stream) {
-  if (bad_shape(BH, Sq, Sk, D, (Sq - 1) / kBR + 1))
+  if (bad_shape(BH, Sq, Sk, D, (Sq - 1) / rows_r(D) + 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
@@ -738,7 +784,7 @@ extern "C" int flash_attn_bwd_dkv(int dtype, const void* q, const void* k, const
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int BH, int Sq, int Sk, int D,
                                   float scale, int causal, void* stream) {
-  if (bad_shape(BH, Sq, Sk, D, (Sk - 1) / kBR + 1))
+  if (bad_shape(BH, Sq, Sk, D, (Sk - 1) / rows_r(D) + 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0

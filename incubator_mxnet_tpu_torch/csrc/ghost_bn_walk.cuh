@@ -1,6 +1,6 @@
-// The walk of a ghost-BN block over contiguous runs, 16 bytes a thread.
-// K7 (bn_copy.cu) copies with it; it is the walk that K1 and K2
-// (ghost_bn.cu, still on ghost_bn_slice.cuh) are to take next.
+// The walk of a ghost-BN block over contiguous runs, 16 bytes a thread,
+// shared by K7 (bn_copy.cu), which copies with it, and K1/K2
+// (ghost_bn.cu), which stage their slice with it.
 //
 // Block (cb, g) of a (C / kc, G) grid owns the kc consecutive channels
 // cb * kc .. cb * kc + kc - 1 of ghost group g.  For each of the group's ng
@@ -10,19 +10,21 @@
 // vectors and whose block reads at least WALK_MIN_BLOCK_BYTES, unless that
 // leaves fewer than WALK_MIN_BLOCKS blocks (a few waves of the H100's 132
 // SMs): then the largest such kc below it.  When no divisor gives whole
-// vectors, kc = 1.  At ResNet-50's BN shapes (C a multiple of 64) the runs
-// then also start on 16 bytes: kc = 1 at the stem (25 KB runs, 401 KB a
-// block, 1024 blocks), kc = 4 at 14x14, kc = 8 and 16 at 7x7.
+// vectors, kc = 1.  K1 and K2 cap kc at max_kc (their per-channel tables
+// are static); K7 takes any kc.  At ResNet-50's BN shapes (C a multiple of
+// 64) the runs then also start on 16 bytes: kc = 1 at the stem (25 KB
+// runs, 401 KB a block, 1024 blocks), kc = 4 at 14x14, kc = 8 and 16 at
+// 7x7.
 //
 // copy_runs moves a block's runs in 16-byte vectors, WALK_UNROLL loads in
 // flight a thread before its stores.  When x and y start on 16 bytes and
 // the runs and planes are whole vectors (every ResNet shape), the vectors
-// of all ng runs form one sequence that the threads stride through, so a
-// run shorter than the block (49 or 98 vectors at 7x7 to 28x28) leaves no
-// thread idle.  Otherwise copy_run takes one run at a time: a scalar head
-// up to the destination's 16-byte boundary, vectors, a scalar tail (the
-// odd shapes, C = 3 or HW = 5); every element is scalar where source and
-// destination differ in alignment mod 16.
+// of all ng runs form one sequence that the threads stride through
+// (RunIter), so a run shorter than the block (49 or 98 vectors at 7x7 to
+// 28x28) leaves no thread idle.  Otherwise copy_run takes one run at a
+// time: a scalar head up to the destination's 16-byte boundary, vectors, a
+// scalar tail (the odd shapes, C = 3 or HW = 5); every element is scalar
+// where source and destination differ in alignment mod 16.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, variants built side by
 // side: 8 loads in flight a thread beat 4 at the large shapes, 16 lost to
@@ -33,14 +35,11 @@
 // device-to-device memcpy (Tensor.copy_) at the stem (chip_smoke.py phase
 // 4c, PERF.md).
 //
-// What K1 and K2 need beyond a copy (for the redesign that gives them this
-// walk): a 16-byte vector straddles two channels when HW is not a multiple
-// of its elements (HW = 49 and 196 at ResNet's 7x7 and 14x14), so each
-// element's channel is (its index in the run) / HW, and the per-channel
-// sums of a block are kc partials reduced across the block, not one.  K1
-// and K2 read their slice twice (the sums, then the outputs), so a block's
-// kc * ng * HW elements (25 KB at 28x28, 401 KB at the stem) have to stay
-// in L2 or in shared memory between the two passes.
+// What K1 and K2 add to the walk is in ghost_bn.cu: each element's channel
+// is (its index in the run) / HW, since a 16-byte vector straddles two
+// channels at HW = 49 and 196; a block makes kc partial sums; and the
+// block's runs are staged once in shared memory (split over a thread-block
+// cluster where they exceed one SM), so the second pass reads no HBM.
 
 #pragma once
 
@@ -55,10 +54,10 @@
 namespace {
 
 // kc for C channels of HW elements of `esize` bytes, ng images a group and
-// G groups (see the note above).
-inline int walk_channels(int C, int HW, int esize, int ng, int G) {
+// G groups, at most max_kc (see the note above).
+inline int walk_channels(int C, int HW, int esize, int ng, int G, int max_kc = 1 << 30) {
   int best = 0;
-  for (int kc = 1; kc <= C; ++kc) {
+  for (int kc = 1; kc <= C && kc <= max_kc; ++kc) {
     if (C % kc || (static_cast<int64_t>(kc) * HW * esize) % WALK_VEC_BYTES) continue;
     if (best && static_cast<int64_t>(C / kc) * G < WALK_MIN_BLOCKS) break;
     best = kc;

@@ -22,24 +22,26 @@ through the plain versions.
 
 ``block_q``/``block_k`` tile the plain versions as they tile the Pallas
 grid (clamped to divisors of the lengths, :func:`_fit_block`).  The CUDA
-kernels use their own tiles, fixed in the source (128 rows a block; 64-key
-tiles in K4, 32-row streamed tiles in K5 and K6), and mask the ragged edge
-themselves.  The result does not depend on either tiling.
+kernels use their own tiles, fixed in the source by D: up to D = 128, 128
+rows a block, 64-key tiles in K4, 32-row streamed tiles in K5 and K6;
+above it, 64 rows a block and 32- and 16-row tiles.  They mask the ragged
+edge themselves.  The result does not depend on either tiling.
 
-The kernels take head dims D <= 128 with D % 8 == 0.  Other head dims are
+The kernels take head dims D <= 256 with D % 8 == 0.  Other head dims are
 routed by shape before any launch, never after a kernel fails:
 
-- D <= 128 otherwise: q, k, v (and dO) are zero-padded along D to the next
+- D <= 256 otherwise: q, k, v (and dO) are zero-padded along D to the next
   multiple of 8 (at least 8), the kernels run on the padded tensors and
   the outputs are sliced back.  This is exact: zero columns add zero to
   every q.k and leave the real columns of P V alone; the softmax scale is
   fixed from the unpadded D before the padding.  :func:`flash_attention`
   pads once per call on the card, so its forward and backward see the
   same tensors.
-- D > 128: refused on the card with ``ValueError``.  No resident tile of
-  K4-K6 fits (K5 holds Q and dO, 132 KB f32 at D = 128), and a CUDA tensor
-  never falls back to the plain version; a D <= 256 form of the kernels
-  is still to be written.  The CPU path takes any D.
+- D > 256: refused on the card with ``ValueError``.  The D <= 256 form
+  keeps 64 rows of Q and of dO (K5) in shared memory, 130 KB f32 at
+  D = 256, which leaves no room at a larger D; a form that streams D in
+  chunks would take it.  A CUDA tensor never falls back to the plain
+  version.  The CPU path takes any D.
 """
 from __future__ import annotations
 
@@ -53,11 +55,13 @@ __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernels keep up to 128 f32 accumulators per row (csrc note)
-_MAX_HEAD_DIM = 128
-#: rows a block of K4 (kBQ4) and of K5/K6 (kBR) in csrc/flash_attention.cu:
-#: the tile count along the grid's y, which is at most 65535
+#: the widest form of the kernels pads D to 256 (csrc note)
+_MAX_HEAD_DIM = 256
+#: rows a block of K4 (kBQ4) and of K5/K6 (kBR) in csrc/flash_attention.cu
+#: at D <= 128, and (kBQ4W, kBRW) above it: the tile count along the
+#: grid's y, which is at most 65535
 _BLOCK_ROWS = 128
+_BLOCK_ROWS_WIDE = 64
 _MAX_GRID_Y = 65535
 
 
@@ -259,7 +263,7 @@ def _check(q, k, v, do=None, lse=None, delta=None):
 
 def _kernel_dim(d):
     """The head dim the kernels run ``d`` at: the next multiple of 8, at
-    least 8.  Raises above 128, which no kernel takes (module note)."""
+    least 8.  Raises above 256, which no kernel takes (module note)."""
     if d > _MAX_HEAD_DIM:
         raise ValueError("the flash attention kernels take head dims <= %d "
                          "on the card, got %d" % (_MAX_HEAD_DIM, d))
@@ -274,7 +278,7 @@ def _pad(t, d):
 
 def _padded(*ts):
     """``ts`` zero-padded along D to the head dim the kernels run the
-    first one's D at (:func:`_kernel_dim`, which refuses D > 128)."""
+    first one's D at (:func:`_kernel_dim`, which refuses D > 256)."""
     dp = _kernel_dim(ts[0].shape[-1])
     return [_pad(t, dp) for t in ts]
 
@@ -283,13 +287,15 @@ def _unpad(t, d):
     return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
-def _check_cuda(tiles, tensors):
+def _check_cuda(s, d, tensors):
     """What the kernels take beyond the head dim: at most 65535 row tiles
-    of 128 along the grid's y (b*h is its x, up to 2^31 - 1), contiguous
-    inputs on 16-byte boundaries (they load 16 bytes a thread)."""
+    (of :func:`_rows` rows, over a length ``s``) along the grid's y (b*h
+    is its x, up to 2^31 - 1), contiguous inputs on 16-byte boundaries
+    (they load 16 bytes a thread)."""
+    tiles = -(-s // _rows(d))
     if tiles > _MAX_GRID_Y:
         raise ValueError("at most %d tiles of %d rows per launch, got %d"
-                         % (_MAX_GRID_Y, _BLOCK_ROWS, tiles))
+                         % (_MAX_GRID_Y, _rows(d), tiles))
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
@@ -297,14 +303,15 @@ def _check_cuda(tiles, tensors):
             raise ValueError("%s must start on a 16-byte boundary" % name)
 
 
-def _tiles(s):
-    return -(-s // _BLOCK_ROWS)
+def _rows(d):
+    """Rows a block of the kernels at head dim ``d`` (already padded)."""
+    return _BLOCK_ROWS if d <= 128 else _BLOCK_ROWS_WIDE
 
 
 def _launch_fwd(q, k, v, scale, causal):
     """K4 on card tensors whose D the kernel takes: ``(out, lse)``."""
     bh, sq, d = q.shape
-    _check_cuda(_tiles(sq), {"q": q, "k": k, "v": v})
+    _check_cuda(sq, d, {"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     _kernels.KERNELS["flash_attn_fwd"].launch(
@@ -317,8 +324,8 @@ def _launch_fwd(q, k, v, scale, causal):
 def _launch_bwd_dq(q, k, v, do, lse, delta, scale, causal):
     """K5 on card tensors whose D the kernel takes: dq."""
     bh, sq, d = q.shape
-    _check_cuda(_tiles(sq), {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                             "delta": delta})
+    _check_cuda(sq, d, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                        "delta": delta})
     dq = torch.empty_like(q)
     _kernels.KERNELS["flash_attn_bwd_dq"].launch(
         q.device, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -332,8 +339,8 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
     """K6 on card tensors whose D the kernel takes: ``(dk, dv)``."""
     bh, sq, d = q.shape
     sk = k.shape[1]
-    _check_cuda(_tiles(sk), {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                             "delta": delta})
+    _check_cuda(sk, d, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                        "delta": delta})
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _kernels.KERNELS["flash_attn_bwd_dkv"].launch(
@@ -352,7 +359,7 @@ def _on_card(t):
 
 def flash_fwd(q, k, v, scale, causal, block_q=128, block_k=128):
     """``(out, lse)`` over (BH, S, D) tensors.  CUDA tensors go through K4,
-    zero-padded along D to a multiple of 8 (D > 128 is refused; module
+    zero-padded along D to a multiple of 8 (D > 256 is refused; module
     note); CPU tensors through the plain version (tiled by
     block_q x block_k)."""
     _check(q, k, v)
@@ -432,8 +439,8 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
     Returns softmax(Q Kᵀ · scale [+ causal mask]) V, with ``scale``
     defaulting to 1/sqrt(D).  Under ``causal`` the mask is right-aligned:
     query i sees key j iff j <= i + (Sk - Sq), and a query that sees no
-    key gets 0.  On the card, D <= 128 runs K4-K6 (zero-padded to a
-    multiple of 8 where it is not one) and D > 128 raises ``ValueError``;
+    key gets 0.  On the card, D <= 256 runs K4-K6 (zero-padded to a
+    multiple of 8 where it is not one) and D > 256 raises ``ValueError``;
     on the CPU any D (module note)."""
     b, h, s, d = q.shape
     sk = k.shape[2]

@@ -8,12 +8,15 @@ cotangent, its two reductions and dX (+ dR) in another (K2,
 ``ghost_bn_bwd``).  On a CPU tensor the same functions run their plain
 PyTorch versions (:func:`_gbn_fwd_plain`, :func:`_gbn_bwd_plain`, ports of
 ``_gbn_ref`` and ``_gbn_bwd_jnp``); on a CUDA tensor they launch the
-kernels or raise.  :func:`bn_copy` (K7, ``csrc/bn_copy.cu``, port of
-``tools/bn_kernel_bench.py``'s ``_call_copy``) copies an activation over
-ghost-BN blocks with the walk of ``csrc/ghost_bn_walk.cuh`` (contiguous
-runs of a few channels, 16 bytes a thread): the ceiling of that walk,
-the yardstick of K1 and K2 in ``tools/bn_kernel_bench_torch.py`` and the
-walk they are to take next.
+kernels or raise.  Both kernels walk the contiguous runs of a few
+channels of ``csrc/ghost_bn_walk.cuh`` and stage a block's runs once in
+shared memory, split over a thread-block cluster where they exceed one
+SM (:func:`ghost_bn_plan`), so each input is read from device memory
+once; odd shapes take a two-read form of the same kernels (the note of
+``csrc/ghost_bn.cu``).  :func:`bn_copy` (K7, ``csrc/bn_copy.cu``, port
+of ``tools/bn_kernel_bench.py``'s ``_call_copy``) copies an activation
+over the same walk: the ceiling of that walk, the yardstick of K1 and K2
+in ``tools/bn_kernel_bench_torch.py``.
 
 The group size is the reference's, not a free choice: the TPU plan picks
 it from the divisors of N under the caller's cap, shaped by the TPU's
@@ -27,7 +30,8 @@ import torch
 from .. import _kernels
 
 __all__ = ["ghost_bn_act", "ghost_bn_stats_merge", "ghost_group",
-           "ghost_bn_fwd", "ghost_bn_bwd", "bn_copy", "bn_copy_channels"]
+           "ghost_bn_fwd", "ghost_bn_bwd", "ghost_bn_plan", "bn_copy",
+           "bn_copy_channels"]
 
 # ---------------------------------------------------------------------------
 # the reference's group selection (fused_bn.py _plan, _gbn_ref)
@@ -272,6 +276,19 @@ def ghost_bn_bwd(gy, gy2, x, y, gamma, beta, mean, var, eps, act, ng):
         _ptr(dg), _ptr(db), groups, c, h * w, ng, float(eps),
         1 if act == "relu" else 0)
     return dx, dg.sum(0), db.sum(0), dr
+
+
+def ghost_bn_plan(x, ng, tensors):
+    """``(kc, cs)`` of a K1/K2 launch on ``x`` at ghost group ``ng``, as the
+    built kernels plan it: the channels a block owns, and the CTAs of the
+    cluster that shares a block's runs of ``tensors`` staged tensors (K1 1;
+    K2 2, 3 with a second cotangent), 0 where the launch takes the
+    two-read form (for tensors that start on 16 bytes).  Builds the
+    library if needed; launches nothing."""
+    n, c, h, w = x.shape
+    args = (_DTYPE_CODE[x.dtype], n // ng, c, h * w, ng)
+    return (_kernels.query("ghost_bn_channels", *args),
+            _kernels.query("ghost_bn_cluster", *args, int(tensors)))
 
 
 def bn_copy_channels(x, ng):

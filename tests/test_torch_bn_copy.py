@@ -186,15 +186,16 @@ def _walk_defines():
     return out
 
 
-def _walk_channels(c, hw, itemsize, ng, groups):
+def _walk_channels(c, hw, itemsize, ng, groups, max_kc=None):
     """The test's model of ``walk_channels`` in the walk header: the
-    smallest divisor kc of C whose run of kc * HW elements is whole 16-byte
-    vectors and whose block reads at least WALK_MIN_BLOCK_BYTES, unless the
-    grid (C / kc, G) would fall below WALK_MIN_BLOCKS blocks: then the
-    largest such divisor below it; 1 when no divisor gives whole vectors."""
+    smallest divisor kc of C (at most ``max_kc``) whose run of kc * HW
+    elements is whole 16-byte vectors and whose block reads at least
+    WALK_MIN_BLOCK_BYTES, unless the grid (C / kc, G) would fall below
+    WALK_MIN_BLOCKS blocks: then the largest such divisor below it; 1 when
+    no divisor gives whole vectors."""
     d = _walk_defines()
     best = 0
-    for kc in range(1, c + 1):
+    for kc in range(1, min(c, max_kc or c) + 1):
         if c % kc or kc * hw * itemsize % d["WALK_VEC_BYTES"]:
             continue
         if best and (c // kc) * groups < d["WALK_MIN_BLOCKS"]:
@@ -300,7 +301,8 @@ def test_walk_constants_match_the_header():
     src = open(WALK).read()
     body = src[src.index("inline int walk_channels("):]
     body = body[:body.index("\n}\n")]
-    for line in ("if (C % kc || (static_cast<int64_t>(kc) * HW * esize) % "
+    for line in ("for (int kc = 1; kc <= C && kc <= max_kc; ++kc) {",
+                 "if (C % kc || (static_cast<int64_t>(kc) * HW * esize) % "
                  "WALK_VEC_BYTES) continue;",
                  "if (best && static_cast<int64_t>(C / kc) * G < "
                  "WALK_MIN_BLOCKS) break;",
@@ -353,3 +355,213 @@ def test_k7_geometry_at_odd_shapes(shape, ng, x_offset, itemsize):
         hits[b + tl:b + run] += 1                 # the scalar tail
         assert (tl - hd) % vec == 0
     assert np.all(hits == 1)
+
+
+# ---------------------------------------------------------------------------
+# K1/K2's geometry (csrc/ghost_bn.cu): the same walk, per-channel sums, the
+# slice staged once over a cluster of CTAs
+# ---------------------------------------------------------------------------
+
+GBN = os.path.join(ROOT, "incubator_mxnet_tpu_torch", "csrc", "ghost_bn.cu")
+
+
+def _gbn_defines():
+    out = dict(_walk_defines())
+    with open(GBN) as f:
+        for name, expr in re.findall(r"^#define (GBN_\w+) (.+)$", f.read(),
+                                     re.M):
+            out[name] = int(eval(expr, {}, dict(out)))
+    return out
+
+
+def _gbn_plan(c, hw, itemsize, ng, groups, tensors, share=None):
+    """The test's model of ``plan`` in ghost_bn.cu: ``(kc, cs, nbuf)``,
+    nbuf 0 for the two-read form.  kc is walk_channels' capped at
+    GBN_MAX_KC; a slice of ``tensors``
+    staged tensors whose runs are whole 16-byte vectors is split over the
+    smallest power-of-two cluster cs (dividing ng, at most
+    GBN_MAX_CLUSTER) that brings a CTA's share to GBN_SHARE_BYTES (or
+    ``share``), staged when that share is at most GBN_MAX_SHARE, in two
+    buffers when it is at most GBN_DOUBLE_BYTES."""
+    d = _gbn_defines()
+    share = share or d["GBN_SHARE_BYTES"]
+    kc = _walk_channels(c, hw, itemsize, ng, groups, d["GBN_MAX_KC"])
+    run_bytes = kc * hw * itemsize
+    if run_bytes % d["WALK_VEC_BYTES"]:
+        return kc, 1, 0
+    whole = ng * run_bytes * tensors
+    cs = 1
+    while whole // cs > share and 2 * cs <= d["GBN_MAX_CLUSTER"] \
+            and ng % (2 * cs) == 0:
+        cs *= 2
+    if whole // cs > d["GBN_MAX_SHARE"]:
+        return kc, 1, 0
+    return kc, cs, 2 if whole // cs <= d["GBN_DOUBLE_BYTES"] else 1
+
+
+def _span(i0, v, hw, kc):
+    """``Span``: the channels of the v elements of a unit at offset i0 of
+    a run: c0 = i0 / HW for the first nb, c0 + 1 for the rest, or each
+    its own where HW < v (a unit then spans more than two)."""
+    c0 = 0 if kc == 1 else i0 // hw
+    nb = v if kc == 1 else (c0 + 1) * hw - i0
+    few = kc == 1 or hw >= v
+    return [c0 if e < nb else (c0 + 1 if few else (i0 + e) // hw)
+            for e in range(v)]
+
+
+def test_gbn_constants_and_plan_match_the_source():
+    """The header's plan is the one modelled here: K1 stages x (+ r), K2
+    gy and x (+ gy2, + y); the grid is a slice a CTA (times the cluster),
+    capped at what fits on the card at once in the staged form."""
+    d = _gbn_defines()
+    assert (d["GBN_MAX_KC"], d["GBN_MAX_CLUSTER"], d["GBN_SHARE_BYTES"],
+            d["GBN_DOUBLE_BYTES"], d["GBN_MAX_SHARE"], d["GBN_THREADS"]) == \
+        (64, 8, 100 * 1024, 56 * 1024, 224 * 1024, 256)
+    src = open(GBN).read()
+    body = src[src.index("Plan plan(int esize"):]
+    body = body[:body.index("\n}\n")]
+    for line in ("walk_channels(C, HW, esize, ng, G, GBN_MAX_KC)",
+                 "if (!aligned || run_bytes % WALK_VEC_BYTES) return pl;",
+                 "while (slice / cs > GBN_SHARE_BYTES && 2 * cs <= "
+                 "GBN_MAX_CLUSTER && ng % (2 * cs) == 0)",
+                 "if (slice / cs > GBN_MAX_SHARE) return pl;",
+                 "pl.nbuf = pl.share <= GBN_DOUBLE_BYTES ? 2 : 1;"):
+        assert line in body, line
+    assert "plan(sizeof(T), r == nullptr ? 1 : 2, G, C, HW, ng," in src
+    assert "plan(sizeof(T), 2 + dual + res, G, C, HW, ng, aligned)" in src
+    assert "const int slices = (C / pl.kc) * G;" in src
+    assert "cfg.gridDim = dim3(slices * pl.cs);" in src
+    assert "dim3((resident < slices ? resident : slices) * pl.cs)" in src
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", _load("bn_kernel_bench_torch").SHAPES)
+def test_gbn_geometry_at_the_bn_shapes(shape, itemsize):
+    """At the 9 ResNet-50 BN shapes every form (1-4 staged tensors) stages
+    its slice (one read), a CTA's buffers fit its shared memory, the
+    cluster's CTAs hold whole runs that tile the group's ng, and kc is
+    K7's; in bf16 the stem and 56x56 take the clusters the source's note
+    gives."""
+    n, c, h, w = shape
+    d = _gbn_defines()
+    ng = fused_bn.ghost_group(n, c, h, w, itemsize, 16)
+    plans = [_gbn_plan(c, h * w, itemsize, ng, n // ng, t)
+             for t in (1, 2, 3, 4)]
+    for t, (kc, cs, nbuf) in zip((1, 2, 3, 4), plans):
+        assert nbuf and ng % cs == 0 and cs <= d["GBN_MAX_CLUSTER"]
+        assert kc == _walk_channels(c, h * w, itemsize, ng, n // ng)
+        assert nbuf * (ng * kc * h * w * itemsize * t // cs) <= \
+            d["GBN_MAX_SHARE"]
+        ranks = [range(r * (ng // cs), (r + 1) * (ng // cs))
+                 for r in range(cs)]
+        assert sorted(p for r in ranks for p in r) == list(range(ng))
+    if itemsize == 2 and (h, c) in ((112, 64), (56, 64), (56, 256)):
+        want = {(112, 64): (4, 8, 8, 8), (56, 64): (1, 2, 4, 4),
+                (56, 256): (1, 2, 4, 4)}[(h, c)]
+        assert tuple(p[1] for p in plans) == want
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("c,hw", [(64, 49), (256, 49), (1024, 196),
+                                  (256, 196), (64, 784), (16, 5)])
+def test_gbn_channel_of_each_element(c, hw, itemsize):
+    """The write pass's channel of each element of a run (Span over
+    16-byte units) is its index / HW, also where a unit straddles two
+    channels (HW 49 and 196 in bf16) or more (HW 5 in bf16); the sums'
+    pass reads channel by channel in 16-byte units where HW is whole
+    units, in 8-byte units where it is whole such units, else element by
+    element, and covers each element of each channel once."""
+    vec = _walk_defines()["WALK_VEC_BYTES"] // itemsize
+    kc, _, nbuf = _gbn_plan(c, hw, itemsize, 16, 16, 2)
+    assert nbuf
+    run = kc * hw
+    got = [ch for i0 in range(0, run, vec) for ch in _span(i0, vec, hw, kc)]
+    assert got == [i // hw for i in range(run)]
+    straddle = any(i0 // hw != (i0 + vec - 1) // hw
+                   for i0 in range(0, run, vec))
+    assert straddle == (kc > 1 and hw % vec != 0)
+    v = vec if hw % vec == 0 else vec // 2 if hw % (vec // 2) == 0 else 1
+    threads = _walk_defines()["WALK_THREADS"]
+    nl = 4
+    hits = np.zeros((nl, run), dtype=np.int64)
+    for ch in range(kc):
+        cover = _run_iter_cover(nl, hw // v, threads, 1)
+        assert np.all(cover == 1)
+        for j in range(v):
+            hits[:, ch * hw + np.arange(hw // v) * v + j] += cover
+    assert np.all(hits == 1)
+
+
+def _simulate_fwd(x, gamma, beta, ng, itemsize, share, eps=1e-5):
+    """K1's staged arithmetic over its geometry in numpy (f32 sums): for
+    each block, each CTA of its cluster sums its runs channel by channel,
+    the totals are the CTAs' partials added in rank order, and the write
+    pass maps each element of each 16-byte unit to its channel with
+    Span.  Returns (y, mean, var, writes a element)."""
+    n, c, h, w = x.shape
+    hw, groups = h * w, n // ng
+    kc, cs, nbuf = _gbn_plan(c, hw, itemsize, ng, groups, 1, share)
+    assert nbuf
+    vec = _walk_defines()["WALK_VEC_BYTES"] // itemsize
+    nl, run = ng // cs, kc * hw
+    flat = x.reshape(groups, ng, c // kc, run)
+    y = np.full_like(flat, np.nan)
+    hits = np.zeros(flat.shape, dtype=np.int64)
+    mean = np.zeros((groups, c), np.float32)
+    var = np.zeros((groups, c), np.float32)
+    chan = np.array([ch for i0 in range(0, run, vec)
+                     for ch in _span(i0, vec, hw, kc)])
+    cnt = np.float32(ng * hw)
+    for g in range(groups):
+        for cb in range(c // kc):
+            parts = []
+            for r in range(cs):
+                share_x = flat[g, r * nl:(r + 1) * nl, cb]      # (nl, run)
+                per = share_x.reshape(nl, kc, hw)
+                parts.append((per.sum(axis=(0, 2), dtype=np.float32),
+                              (per * per).sum(axis=(0, 2), dtype=np.float32)))
+            s = np.zeros(kc, np.float32)
+            ss = np.zeros(kc, np.float32)
+            for a, b in parts:                       # rank order
+                s, ss = s + a, ss + b
+            m = s / cnt
+            v = np.maximum(ss / cnt - m * m, 0).astype(np.float32)
+            rstd = 1 / np.sqrt(v + np.float32(eps))
+            gm = gamma[cb * kc:(cb + 1) * kc]
+            scale = gm * rstd
+            shift = beta[cb * kc:(cb + 1) * kc] - m * gm * rstd
+            mean[g, cb * kc:(cb + 1) * kc] = m
+            var[g, cb * kc:(cb + 1) * kc] = v
+            for r in range(cs):
+                sl = slice(r * nl, (r + 1) * nl)
+                y[g, sl, cb] = flat[g, sl, cb] * scale[chan] + shift[chan]
+                hits[g, sl, cb] += 1
+    return (np.maximum(y, 0).reshape(x.shape), mean, var,
+            hits.reshape(x.shape))
+
+
+@pytest.mark.parametrize("shape,itemsize,share,cs", [
+    ((32, 64, 7, 7), 2, 4096, 4),       # kc 8: 16-byte units straddle
+    ((32, 32, 14, 14), 2, 8192, 2),     # kc 4 at HW 196
+    ((32, 16, 12, 12), 4, 2048, 8),     # kc 1, the stem's form
+])
+def test_gbn_simulated_forward_matches_plain(shape, itemsize, share, cs):
+    """K1's geometry at small shapes, with a small share so that the slice
+    splits over a cluster as the stem's does: every element is written
+    once, and the simulated forward agrees with the plain version within
+    1e-5 (f32 sums in another order)."""
+    n, c, h, w = shape
+    rng = np.random.RandomState(0)
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    gamma = (rng.standard_normal(c) * 0.2 + 1).astype(np.float32)
+    beta = (rng.standard_normal(c) * 0.2).astype(np.float32)
+    assert _gbn_plan(c, h * w, itemsize, 16, n // 16, 1, share)[1] == cs
+    y, m, v, hits = _simulate_fwd(x, gamma, beta, 16, itemsize, share)
+    assert np.all(hits == 1)
+    yp, mp, vp = fused_bn._gbn_fwd_plain(
+        torch.from_numpy(x), torch.from_numpy(gamma), torch.from_numpy(beta),
+        None, 1e-5, "relu", 16)
+    np.testing.assert_allclose(y, yp.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(m, mp.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(v, vp.numpy(), rtol=1e-5, atol=1e-6)

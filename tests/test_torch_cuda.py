@@ -57,6 +57,17 @@ def _out_tol(dtype):
     ((32, 512, 14, 14), 8, "relu", True, False),
     ((32, 256, 7, 7), 16, "none", False, False),
     ((16, 2048, 7, 7), 16, "relu", True, False),
+    # the shapes that stage their slice over a cluster of CTAs
+    ((32, 64, 112, 112), 16, "relu", False, False),
+    ((32, 64, 56, 56), 16, "relu", False, False),
+    ((32, 256, 56, 56), 16, "relu", True, True),
+    # C 3, HW 5: runs of no whole vector, the two-read form
+    ((48, 3, 1, 5), 16, "relu", False, False),
+    ((48, 3, 1, 5), 16, "relu", True, True),
+    # C 16, HW 5: staged runs of 8 (bf16) or 4 (f32) channels, where a
+    # 16-byte unit spans up to three channels in bf16
+    ((32, 16, 1, 5), 16, "relu", True, True),
+    ((32, 16, 1, 5), 16, "none", False, False),
 ])
 def test_ghost_bn_kernels_match_plain(dev, dtype, shape, ng, act, res, dual):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -118,6 +129,14 @@ def test_maxpool_kernel_matches_plain(dev, dtype):
     (2, 200, 200, 128, True),     # Sq not a multiple of K4's 128-row tile
     (2, 300, 136, 128, True),     # ragged on K5/K6's 128- and 32-row tiles
                                   # both ways; 164 rows see no key
+    # the D <= 256 form: 64-row blocks, 32- and 16-row tiles, two warps per
+    # 16 rows; ragged on them both ways
+    (2, 100, 72, 136, True),
+    (2, 100, 72, 136, False),
+    (2, 72, 130, 200, True),
+    (2, 72, 130, 200, False),
+    (2, 130, 100, 256, True),     # 30 rows see no key
+    (2, 130, 100, 256, False),
 ])
 def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
     g = torch.Generator(device=dev).manual_seed(4)
@@ -281,11 +300,13 @@ def test_cuda_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q, q.transpose(1, 2).contiguous().transpose(1, 2), q,
                      1.0, False)
-    big = torch.zeros(2, 16, 136, device=dev)
+    big = torch.zeros(2, 16, 264, device=dev)
+    before = _kernels.launch_counts()
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_fwd(big, big, big, 1.0, False)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(big[None], big[None], big[None])
+    assert _kernels.launch_counts() == before
     # more than 65535 row tiles of 128 along the grid's y (checked before
     # the layout: the expanded tensor costs 32 bytes)
     long = torch.zeros(1, 1, 8, device=dev).expand(1, 65535 * 128 + 1, 8)
@@ -357,6 +378,27 @@ def test_bn_copy_kernel_is_exact(dev, dtype, shape, ng, offset):
     torch.cuda.synchronize()
     assert torch.equal(y.view(-1), x.clone().view(-1))
     assert _kernels.launch_counts()["bn_copy"] == before + 1
+
+
+@pytest.mark.parametrize("shape,tensors,bf16,f32", [
+    ((256, 64, 112, 112), 1, (1, 4), (1, 8)),
+    ((256, 64, 112, 112), 2, (1, 8), (1, 8)),
+    ((256, 64, 56, 56), 1, (1, 1), (1, 2)),
+    ((256, 64, 56, 56), 2, (1, 2), (1, 4)),
+    ((256, 256, 56, 56), 4, (1, 4), (1, 8)),
+    ((256, 512, 28, 28), 4, (1, 1), (1, 2)),
+    ((256, 256, 14, 14), 2, (4, 1), (2, 1)),
+    ((256, 2048, 7, 7), 4, (16, 1), (8, 1)),
+    ((48, 3, 1, 5), 2, (1, 0), (1, 0))])
+def test_ghost_bn_plan_comes_from_the_kernel(dev, shape, tensors, bf16, f32):
+    """The channels and the cluster of a K1/K2 block (``tensors`` staged
+    tensors: K1 x (+ r), K2 gy and x (+ gy2, + y); ghost group 16), read
+    from the built library at ResNet-50 BN shapes, are the header's (as
+    tests/test_torch_bn_copy.py models them); C 3 / HW 5 takes the
+    two-read form (cluster 0)."""
+    for dtype, want in ((torch.bfloat16, bf16), (torch.float32, f32)):
+        x = torch.empty(shape, dtype=dtype, device="meta")
+        assert fused_bn.ghost_bn_plan(x, 16, tensors) == want, dtype
 
 
 @pytest.mark.parametrize("shape,kc", [

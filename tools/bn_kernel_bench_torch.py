@@ -9,11 +9,9 @@ profiler's device time a launch with the L2 flushed before every launch
 * ``copy`` -- K7 ``bn_copy`` (``csrc/bn_copy.cu``): a copy of the
   activation over ghost-BN blocks with the walk of
   ``csrc/ghost_bn_walk.cuh`` (contiguous runs of a few channels, 16 bytes
-  a thread), so its time is the ceiling of the walk K1 and K2 are to
-  take;
+  a thread), so its time is the ceiling of the walk K1 and K2 take;
 * ``fwd`` -- K1 ``ghost_bn_fwd``, one read of X (and of the residual), one
-  write of Y; over ``copy`` it is what K1 costs beyond the walk it is to
-  take;
+  write of Y; over ``copy`` it is what K1 costs beyond the walk;
 * ``bwd`` -- K2 ``ghost_bn_bwd``;
 * ``plain_torch`` -- the plain PyTorch ghost BN (``fused_bn._gbn_fwd_plain``,
   and its autograd backward for ``plain_torch_fwd_bwd``) on the same
@@ -34,13 +32,15 @@ On the card, from the repository root::
 (K7's is ``x.clone()``): it checks the tool end to end, and its times are
 the CPU's, not the card's.
 
-``--before DIR`` times, instead, K7 and R1 (the rtc ``scale_kernel``) as
-the tree unpacked under DIR has them against this tree's, on the same
-flushed clock and in the order before, now, library call, now, before:
-K7 beside ``Tensor.copy_`` at the 9 shapes in bf16, R1 beside
-``torch.add(1, x, alpha=2)`` over (4, 8, 2048, 128) f32.  DIR's K7 is
-built by ``nvcc`` under ``build/before/``, its R1 by NVRTC, each launched
-on its own grid::
+``--before DIR`` times, instead, K7, K1, K2 and R1 (the rtc
+``scale_kernel``) as the tree unpacked under DIR has them against this
+tree's, on the same flushed clock and in the order before, now, library
+call, now, before: K7 beside ``Tensor.copy_`` at the 9 shapes in bf16,
+K1 and K2 at the 9 shapes in bf16 (no library call computes them: the
+order is before, now, now, before), R1 beside ``torch.add(1, x,
+alpha=2)`` over (4, 8, 2048, 128) f32.  DIR's K7, K1 and K2 are built by
+``nvcc`` under ``build/before/`` (through the same C entries as this
+tree's), its R1 by NVRTC, each launched on its own grid::
 
     git archive <commit> | tar -x -C build/before_tree
     python3 tools/bn_kernel_bench_torch.py --before build/before_tree
@@ -267,19 +267,74 @@ def bench_kernels(leg, device, iters=20, warmup=3):
     leg.put("bwd", ms, gb * ((6 if leg.dual else 5) if leg.residual else 3))
 
 
+def _before_lib(before, source):
+    """The ``ctypes`` library of ``csrc/<source>`` of the tree under
+    ``before``, built by nvcc into ``build/before/``."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    stem = os.path.splitext(source)[0]
+    out = os.path.join(root, "build", "before", stem + "_before.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    src = os.path.join(before, "incubator_mxnet_tpu_torch", "csrc", source)
+    subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS, "-shared", src,
+                    "-o", out], check=True)
+    return ctypes.CDLL(out)
+
+
+def _entry(lib, name):
+    fn = getattr(lib, name)
+    fn.argtypes = _kernels._SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def before_ghost_bn(before, device):
+    """``(fwd, bwd)`` through the K1 and K2 of the tree under ``before``
+    (same C entries as this tree's), with the signatures of
+    ``fused_bn.ghost_bn_fwd`` and ``ghost_bn_bwd`` on card tensors."""
+    lib = _before_lib(before, "ghost_bn.cu")
+    efwd, ebwd = _entry(lib, "ghost_bn_fwd"), _entry(lib, "ghost_bn_bwd")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def check(err, name):
+        if err:
+            raise RuntimeError("the earlier %s failed: CUDA error %d"
+                               % (name, err))
+
+    def fwd(x, gamma, beta, residual, eps, act, ng):
+        n, c, h, w = x.shape
+        y = torch.empty_like(x)
+        mean = torch.empty((n // ng, c), dtype=torch.float32, device=x.device)
+        var = torch.empty_like(mean)
+        check(efwd(fb._DTYPE_CODE[x.dtype], ptr(x), ptr(residual), ptr(gamma),
+                   ptr(beta), ptr(y), ptr(mean), ptr(var), n // ng, c, h * w,
+                   ng, float(eps), int(act == "relu"),
+                   torch.cuda.current_stream(device).cuda_stream),
+              "ghost_bn_fwd")
+        return y, mean, var
+
+    def bwd(gy, gy2, x, y, gamma, beta, mean, var, eps, act, ng):
+        n, c, h, w = x.shape
+        dx = torch.empty_like(x)
+        dr = torch.empty_like(x) if y is not None else None
+        dg = torch.empty((n // ng, c), dtype=torch.float32, device=x.device)
+        db = torch.empty_like(dg)
+        check(ebwd(fb._DTYPE_CODE[x.dtype], ptr(gy), ptr(gy2), ptr(x), ptr(y),
+                   ptr(gamma), ptr(beta), ptr(mean), ptr(var), ptr(dx),
+                   ptr(dr), ptr(dg), ptr(db), n // ng, c, h * w, ng,
+                   float(eps), int(act == "relu"),
+                   torch.cuda.current_stream(device).cuda_stream),
+              "ghost_bn_bwd")
+        return dx, dg.sum(0), db.sum(0), dr
+
+    return fwd, bwd
+
+
 def _before_k7(before, device):
     """``copy(x, ng)`` through the K7 of the tree under ``before`` (same C
     entry as this tree's), built by nvcc into ``build/before/``."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = os.path.join(root, "build", "before", "bn_copy_before.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    src = os.path.join(before, "incubator_mxnet_tpu_torch", "csrc",
-                       "bn_copy.cu")
-    subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS, "-shared", src,
-                    "-o", out], check=True)
-    entry = ctypes.CDLL(out).bn_copy
-    entry.argtypes = _kernels._SIGNATURES["bn_copy"]
-    entry.restype = ctypes.c_int
+    entry = _entry(_before_lib(before, "bn_copy.cu"), "bn_copy")
 
     def copy(x, ng):
         n, c, h, w = x.shape
@@ -301,6 +356,7 @@ def bench_before(before, device, iters):
     from incubator_mxnet_tpu_torch import ndarray as nd, rtc
 
     old_copy = _before_k7(before, device)
+    old_fwd, old_bwd = before_ghost_bn(before, device)
     rows = []
     for n, c, h, w in SHAPES:
         leg = Leg(n, c, h, w, torch.bfloat16, False, False, device)
@@ -319,6 +375,7 @@ def bench_before(before, device, iters):
                          dtype="bfloat16", before_ms=[t[0], t[4]],
                          now_ms=[t[1], t[3]], library="Tensor.copy_",
                          library_ms=t[2]))
+        rows.extend(_before_gbn_rows(leg, old_fwd, old_bwd, device, iters))
         del leg, x, dst
     ctx = context.gpu(device.index or 0)
     sig = rtc.USER_KERNELS["scale_kernel"]
@@ -363,6 +420,46 @@ def bench_before(before, device, iters):
     return rows
 
 
+def _before_gbn_rows(leg, old_fwd, old_bwd, device, iters):
+    """K1 and K2 of the earlier tree against this tree's on ``leg`` (relu,
+    no residual), in the order before, now, now, before; the two sides'
+    y must agree within 2^-7 and dx within 2^-6 of the largest magnitude
+    (bf16 outputs of f32 sums taken in another order)."""
+    x, gamma, beta, ng = leg.x, leg.gamma, leg.beta, leg.ng
+    out = []
+    y, m, v = fb.ghost_bn_fwd(x, gamma, beta, None, 1e-3, "relu", ng)
+    yo, mo, vo = old_fwd(x, gamma, beta, None, 1e-3, "relu", ng)
+    gy = x * 0.1
+    dx = fb.ghost_bn_bwd(gy, None, x, None, gamma, beta, m, v, 1e-3, "relu",
+                         ng)[0]
+    dxo = old_bwd(gy, None, x, None, gamma, beta, m, v, 1e-3, "relu", ng)[0]
+    scale = max(1.0, dxo.float().abs().max().item())
+    if (y.float() - yo.float()).abs().max().item() > 2.0 ** -7 * max(
+            1.0, yo.float().abs().max().item()) or \
+            (dx.float() - dxo.float()).abs().max().item() > 2.0 ** -6 * scale:
+        raise AssertionError("K1 or K2 disagrees with the earlier one at %s"
+                             % leg.row["shape"])
+    for kernel, new, old, name in (
+            ("ghost_bn_fwd",
+             lambda: fb.ghost_bn_fwd(x, gamma, beta, None, 1e-3, "relu", ng),
+             lambda: old_fwd(x, gamma, beta, None, 1e-3, "relu", ng),
+             "ghost_bn_fwd"),
+            ("ghost_bn_bwd",
+             lambda: fb.ghost_bn_bwd(gy, None, x, None, gamma, beta, m, v,
+                                     1e-3, "relu", ng),
+             lambda: old_bwd(gy, None, x, None, gamma, beta, m, v, 1e-3,
+                             "relu", ng),
+             "ghost_bn_bwd")):
+        t = [flushed_device_ms(old, iters, device, name),
+             flushed_device_ms(new, iters, device, name),
+             flushed_device_ms(new, iters, device, name),
+             flushed_device_ms(old, iters, device, name)]
+        out.append(dict(kernel=kernel, shape=leg.row["shape"],
+                        dtype="bfloat16", before_ms=[t[0], t[3]],
+                        now_ms=[t[1], t[2]], library=None, library_ms=None))
+    return out
+
+
 BEFORE_HEAD = "%-12s %-12s %15s %15s %9s %9s %9s %9s" % (
     "kernel", "shape", "before ms", "now ms", "lib ms", "before/lib",
     "now/lib", "before/now")
@@ -370,14 +467,17 @@ BEFORE_HEAD = "%-12s %-12s %15s %15s %9s %9s %9s %9s" % (
 
 def _before_line(row):
     """One row of ``--before``: both times of each side, the library
-    call's, and the ratios of the two sides' means."""
+    call's (where there is one), and the ratios of the two sides' means."""
     before = sum(row["before_ms"]) / 2
     now = sum(row["now_ms"]) / 2
-    return "%-12s %-12s %15s %15s %9.4f %9.3f %9.3f %9.3f" % (
+    lib = row["library_ms"]
+    return "%-12s %-12s %15s %15s %9s %9s %9s %9.3f" % (
         row["kernel"], row["shape"],
         "/".join("%.4f" % t for t in row["before_ms"]),
-        "/".join("%.4f" % t for t in row["now_ms"]), row["library_ms"],
-        before / row["library_ms"], now / row["library_ms"], before / now)
+        "/".join("%.4f" % t for t in row["now_ms"]),
+        "-" if lib is None else "%.4f" % lib,
+        "-" if lib is None else "%.3f" % (before / lib),
+        "-" if lib is None else "%.3f" % (now / lib), before / now)
 
 
 def _table_line(row):
@@ -413,7 +513,8 @@ def main(argv=None):
                     help="three tiny shapes on the CPU through the plain "
                          "versions (times are the CPU's, not the card's)")
     ap.add_argument("--before", default=None, metavar="DIR",
-                    help="time K7 and R1 of the tree unpacked under DIR "
+                    help="time K7, K1, K2 and R1 of the tree unpacked under "
+                         "DIR "
                          "against this tree's (module note)")
     args = ap.parse_args(argv)
     if args.before:
