@@ -13,14 +13,18 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    bf16 and f32: K1/K2 (ghost BN forward/backward) at the stem, a
    56x56x256 dual exit, a 28x28x512 donated downsample exit, a 28x28x512
    downsample BN and the 7x7x2048 final exit; K3 (max pool with index)
-   at the stem on tie-heavy input; K4/K5/K6 (flash attention forward,
+   at the stem on tie-heavy input, 2x2/2, 3x3/1 pad 1, 3x3/2 pad (1, 2),
+   W 113, a (2, 3, 300, 300) plane cut into bands, NaN inputs, an input
+   3 elements off the 16-byte grid and a permuted one (copied once), each
+   one launch; K4/K5/K6 (flash attention forward,
    dQ, dK/dV) at the LM's (4, 8, 2048, 128) causal and not, a ragged
    length (Sq = Sk = 1000, D 64), a cross length with empty rows (Sq 256,
    Sk 128, causal, D 16), head dims 20 and 4 (zero-padded to 24 and 8),
-   b*h = 70000 at S 16, and the D <= 256 form: D 136 (Sq 300, Sk 200,
+   b*h = 70000 at S 16, the D <= 256 form: D 136 (Sq 300, Sk 200,
    causal), D 200 (Sq 200, Sk 300, dense) and D 256 at (4, 4, 2048)
-   causal; each case's launches of K4-K6 counted; head dim 264, which no
-   kernel takes, refused with ValueError and no launch;
+   causal, and the D-streamed form: D 264 (Sq 300, Sk 200, causal), D 512
+   (Sq 200, Sk 300, dense) and D 512 at (4, 2, 2048) causal; each case's
+   launches of K4-K6 counted (one each);
 2c. K7 (``bn_copy``, the copy over ghost-BN blocks that K1 and K2 are
    read against) bit-exact against ``clone()`` at the 9 ResNet-50 BN
    shapes (batch 256, bf16) and, in bf16 and f32, at C 3 / HW 5 and C 64
@@ -43,8 +47,10 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    0.9, lr ``LM_LR``) on its synthetic tokens, with the counters set to
    0 just before; every loss finite, the last below the first, exactly 2
    launches per step of each of K4/K5/K6 and none of K1-K3; then the same
-   LM at 4 heads (head dim 256, the D <= 256 form of K4-K6): every loss
-   finite, 2/2/2 launches a step, ``lm_step_ms_d256``;
+   LM at 4 heads (head dim 256, the D <= 256 form of K4-K6) and at 2
+   heads (head dim 512, the D-streamed form), each with finite, falling
+   losses and 2/2/2 launches a step: ``lm_step_ms_d256`` and
+   ``lm_step_ms_d512``;
 3c. the imperative path: one causal attention layer of the LM at its
    width written with ``nd`` and ``autograd`` alone (x (4, 2048, 1024)
    from numpy seed 1; Wq, Wk, Wv, Wo (1024, 1024) from
@@ -58,18 +64,20 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    (relative) of the same layer in plain torch autograd (dense
    ``attention_reference``); ``nd_step_ms`` the median of steps 2-6;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
-   over one step's 53 layers, each launch and its plain version by the
-   profiler's device time with the L2 flushed, as phase 4c; the others
-   by CUDA events; K4-K6 at one layer's attention), beside its plain
-   version, its bound and, where one PyTorch call computes the same
-   function, that call (``F.max_pool2d`` for K3,
-   ``F.scaled_dot_product_attention`` for K4, its backward for K5 and K6
-   together); plus K4 and SDPA at (1, 8, 8192, 128), and K4-K6 and SDPA
-   at (4, 4, 2048, 256) causal f32 (the D <= 256 form).  With
-   ``--before DIR`` (a tree unpacked there, as
-   ``tools/bn_kernel_bench_torch.py --before`` takes it) the K1 and K2
-   of that tree are built and summed over the same 53 layers on the same
-   clock, in the order before, now, now, before.  Bounds are the larger
+   over one step's 53 layers, and K3 at the stem, each launch and its
+   plain version by the profiler's device time with the L2 flushed, as
+   phase 4c; the others by CUDA events; K4-K6 at one layer's attention),
+   beside its plain version, its bound and, where one PyTorch call
+   computes the same function, that call (``F.max_pool2d`` for K3, on
+   the flushed clock, ``F.scaled_dot_product_attention`` for K4, its
+   backward for K5 and K6 together); plus K4 and SDPA at (1, 8, 8192,
+   128), and K4-K6 and SDPA at (4, 4, 2048, 256) causal f32 (the D <= 256
+   form) and at (4, 2, 2048, 512) (the D-streamed form; the kernels SDPA
+   ran are named).  With ``--before DIR`` (a tree unpacked there, as
+   ``tools/bn_kernel_bench_torch.py --before`` takes it) the K1, K2 and
+   K3 of that tree are built; K1 and K2 are summed over the same 53
+   layers and K3 timed at the stem on the same clock, in the order
+   before, now, now, before.  Bounds are the larger
    of bytes over 3.35 TB/s and operations over the f32 CUDA cores' 67
    TFLOP/s; K4-K6 also carry
    ``tc_bound_ms``, their 3xTF32 bound on the tensor cores (three TF32
@@ -96,7 +104,8 @@ Tolerances of phase 2 (kernel against plain version on the same inputs):
 f32 outputs within 1e-4 of the reference's largest magnitude (sums in
 another order), bf16 outputs within 2^-7 of it (a value computed in f32
 on both sides may round one bf16 step apart), the f32 statistics and
-dgamma/dbeta sums within 1e-3 of it; max pooling exact.  Flash
+dgamma/dbeta sums within 1e-3 of it; max pooling exact (NaN where the
+plain version has NaN).  Flash
 attention: O and the LSE of rows that see a key as above; dQ, dK and dV
 within 1e-3 (f32: each sums up to 2048 products, in another order) or
 2^-6 (bf16: the gradient is rounded once, from a larger f32 sum);
@@ -133,8 +142,10 @@ IMAGE = 224
 SEED = 0
 # the long-context LM at bench.py --mode attention's shapes
 LM = dict(vocab=256, dim=1024, heads=8, n_layers=2)
-# the same LM at head dim 256 (train_lm_torch.py --dim 1024 --heads 4)
+# the same LM at head dim 256 (train_lm_torch.py --dim 1024 --heads 4) and
+# 512 (--heads 2)
 LM_HEADS_D256 = 4
+LM_HEADS_D512 = 2
 LM_SEQ, LM_BATCH = 2048, 4
 # the example's lr 0.05 suits its dim-128 default; at dim 1024 its update
 # (momentum 0.9) diverges by the third step, in the JAX example as in the
@@ -252,21 +263,75 @@ def check_kernels(dev, errs):
         torch.cuda.empty_cache()
         x = torch.clamp_min(torch.round(rnd(n, 64, 112, 112) * 2) / 2,
                             0).to(dtype)
-        cfg = ((1, 1, 3, 3), (1, 1, 2, 2), ((0, 0), (0, 0), (1, 1), (1, 1)))
-        out, idx = maxpool_idx.maxpool_with_index(x, *cfg)
-        outp, idxp = maxpool_idx._maxpool_plain(x, *cfg)
-        torch.cuda.synchronize()
-        ties = (idx != 0).float().mean().item()
-        err = _max_err(out, outp)
-        same_idx = torch.equal(idx, idxp)
-        print("  K3 stem %-35s max_abs_err %.3e  index equal %s  "
-              "(non-first winners %.3f)"
-              % (str(dtype).split(".")[1], err, same_idx, ties), flush=True)
-        if err != 0 or not same_idx:
-            raise AssertionError("K3 disagrees with its plain version")
-        errs["maxpool_idx_fwd"].append(err)
-        del x, out, idx, outp, idxp
+        errs["maxpool_idx_fwd"].append(_check_pool("stem", x, POOL_STEM))
+        del x
         torch.cuda.empty_cache()
+        for label, shape, cfg, layout in POOL_CASES:
+            x = torch.clamp_min(torch.round(rnd(
+                shape[0] * shape[1] * shape[2] * shape[3] + 3) * 2) / 2, 0)
+            x = x.to(dtype)
+            if layout == "offset":
+                x = x[3:].view(shape)
+            elif layout == "permuted":
+                x = x[3:].view(shape[0], shape[2], shape[3], shape[1]) \
+                    .permute(0, 3, 1, 2)
+            else:
+                x = x[:-3].view(shape).clone()
+                if layout == "nan":
+                    x.view(-1)[::97] = float("nan")
+            errs["maxpool_idx_fwd"].append(_check_pool(label, x, cfg))
+            del x
+        torch.cuda.empty_cache()
+
+
+#: 3x3/2 pad 1, the stem's max pool
+POOL_STEM = ((1, 1, 3, 3), (1, 1, 2, 2), ((0, 0), (0, 0), (1, 1), (1, 1)))
+#: K3 beyond the stem: (label, shape, (window, strides, padding), layout)
+POOL_CASES = [
+    ("2x2/2", (32, 64, 56, 56), ((1, 1, 2, 2), (1, 1, 2, 2),
+                                 ((0, 0), (0, 0), (0, 0), (0, 0))), None),
+    ("3x3/1 pad 1", (32, 64, 28, 28), ((1, 1, 3, 3), (1, 1, 1, 1),
+                                       ((0, 0), (0, 0), (1, 1), (1, 1))),
+     None),
+    ("3x3/2 pad (1, 2)", (32, 64, 30, 30), ((1, 1, 3, 3), (1, 1, 2, 2),
+                                            ((0, 0), (0, 0), (1, 2), (1, 2))),
+     None),
+    ("W 113", (8, 16, 113, 113), POOL_STEM, None),
+    ("300x300 (bands)", (2, 3, 300, 300), POOL_STEM, None),
+    ("NaN inputs", (8, 16, 56, 56), POOL_STEM, "nan"),
+    ("offset 3 elements", (8, 16, 57, 57), POOL_STEM, "offset"),
+    ("permuted (copied)", (8, 16, 56, 56), POOL_STEM, "permuted"),
+]
+
+
+def _check_pool(label, x, cfg):
+    """K3 against its plain version on ``x``: out (NaN where the plain
+    version has NaN) and idx exactly equal, one launch; returns 0.0."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.parallel import maxpool_idx
+
+    before = _kernels.launch_counts()["maxpool_idx_fwd"]
+    out, idx = maxpool_idx.maxpool_with_index(x, *cfg)
+    launched = _kernels.launch_counts()["maxpool_idx_fwd"] - before
+    outp, idxp = maxpool_idx._maxpool_plain(x, *cfg)
+    torch.cuda.synchronize()
+    nan = torch.isnan(outp)
+    same_out = torch.equal(torch.isnan(out), nan) and \
+        torch.equal(out[~nan], outp[~nan])
+    same_idx = torch.equal(idx, idxp)
+    ties = (idxp != 0).float().mean().item()
+    print("  K3 %-20s %-22s %-8s out equal %s  index equal %s  (non-first "
+          "winners %.3f%s)" % (label, tuple(x.shape),
+                               str(x.dtype).split(".")[1], same_out,
+                               same_idx, ties,
+                               ", %d NaN" % int(nan.sum()) if nan.any()
+                               else ""), flush=True)
+    if not (same_out and same_idx and launched == 1):
+        raise AssertionError("K3 disagrees with its plain version at %s "
+                             "(%d launches)" % (label, launched))
+    return 0.0
 
 
 def _flash_module():
@@ -312,7 +377,13 @@ def check_flash(dev, errs):
              ("D136 300/200", 8, 300, 200, 136, True),
              ("D200 dense 200/300", 8, 200, 300, 200, False),
              ("D256 (4, 4, 2048)", LM_BATCH * LM_HEADS_D256, LM_SEQ, LM_SEQ,
-              LM["dim"] // LM_HEADS_D256, True)]
+              LM["dim"] // LM_HEADS_D256, True),
+             # the D-streamed form: 128 output columns a block, the scores
+             # over 32-column chunks of D; a ragged chunk at 264
+             ("D264 300/200", 8, 300, 200, 264, True),
+             ("D512 dense 200/300", 8, 200, 300, 512, False),
+             ("D512 (4, 2, 2048)", LM_BATCH * LM_HEADS_D512, LM_SEQ, LM_SEQ,
+              LM["dim"] // LM_HEADS_D512, True)]
     for dtype in (torch.bfloat16, torch.float32):
         out_frac = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
         grad_frac = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-3
@@ -357,21 +428,6 @@ def check_flash(dev, errs):
                                      % (tag, got, want))
             del q, k, v, do, out, lse, outp, lsep, dq, dk, dv, dqp, dkp, dvp
         torch.cuda.empty_cache()
-    # D > 256: no form of K4-K6 takes it, and a card tensor never falls
-    # back to the plain version
-    before = _kernels.launch_counts()
-    big = torch.zeros(8, 512, 264, device=dev)
-    for fn, args in ((fa.flash_fwd, (big, big, big, 0.0625, True)),
-                     (fa.flash_attention, (big[None], big[None], big[None]))):
-        try:
-            fn(*args)
-        except ValueError as e:
-            print("  %-44s refused: %s" % ("D264 " + fn.__name__, e),
-                  flush=True)
-        else:
-            raise AssertionError("D264 %s was not refused" % fn.__name__)
-    if _kernels.launch_counts() != before:
-        raise AssertionError("D264: a kernel launched before the refusal")
 
 
 def _losses_ok(losses):
@@ -380,8 +436,7 @@ def _losses_ok(losses):
 
 def run_lm_path(dev, heads=LM["heads"]):
     """Phase 3b at ``heads`` heads: returns (losses, step_ms list,
-    counts).  The loss must fall at the LM's own 8 heads; at 4 (head dim
-    256) every loss must be finite."""
+    counts).  Every loss must be finite and the last below the first."""
     import numpy as np
     import torch
 
@@ -413,7 +468,7 @@ def run_lm_path(dev, heads=LM["heads"]):
           flush=True)
     if not _losses_ok(losses):
         raise AssertionError("non-finite loss on the LM path: %s" % losses)
-    if heads == LM["heads"] and not losses[-1] < losses[0]:
+    if not losses[-1] < losses[0]:
         raise AssertionError("the LM's loss did not fall: %s" % losses)
     want = {name: 0 for name in _kernels.launch_counts()}
     want.update({name: LM["n_layers"] * STEPS for name in FLASH})
@@ -487,12 +542,15 @@ def run_main_path(dev):
     # the net, the step and their buffers go out of scope here
 
 
-def time_kernels(dev, layers, before=None):
-    """Phase 4: per-kernel times summed over one step's launches; K1 and K2
-    (and their plain versions) by the profiler's device time with the L2
-    flushed.  ``before``: the (fwd, bwd) of an earlier tree's K1 and K2
+def time_kernels(dev, layers, before=None, before_pool=None):
+    """Phase 4: per-kernel times summed over one step's launches; K1, K2
+    and K3 (and their plain versions and ``F.max_pool2d``) by the
+    profiler's device time with the L2 flushed.  ``before``: the (fwd,
+    bwd) of an earlier tree's K1 and K2
     (``tools/bn_kernel_bench_torch.py::before_ghost_bn``), summed on the
-    same clock into ``before_ms`` (both of its passes)."""
+    same clock into ``before_ms`` (both of its passes); ``before_pool``:
+    that tree's K3 (``before_maxpool``), timed at the stem beside this
+    tree's in the order before, now, now, before."""
     import torch
     import torch.nn.functional as F
 
@@ -591,21 +649,39 @@ def time_kernels(dev, layers, before=None):
                            "" if before is None else
                            "; the earlier tree's %.4f/%.4f ms"
                            % tuple(t["before"])), flush=True)
-    # K3 at the stem: (256, 64, 112, 112) bf16 -> (256, 64, 56, 56)
+    # K3 at the stem: (256, 64, 112, 112) bf16 -> (256, 64, 56, 56), on
+    # the same flushed clock, beside the earlier tree's K3 (before_pool)
     x = torch.clamp_min(torch.randn(BATCH, 64, IMAGE // 2, IMAGE // 2,
                                     generator=g, device=dev), 0)
     x = x.to(torch.bfloat16)
-    cfg = ((1, 1, 3, 3), (1, 1, 2, 2), ((0, 0), (0, 0), (1, 1), (1, 1)))
     out_numel = BATCH * 64 * (IMAGE // 4) ** 2
-    byte_ms = (x.numel() * 2 + out_numel * (2 + 1)) / PEAK_BYTES * 1e3
-    op_ms = out_numel * 9 / PEAK_F32 * 1e3
-    rows["maxpool_idx_fwd"] = {
-        "ms": _time_ms(lambda: maxpool_idx.maxpool_with_index(x, *cfg), 20),
-        "plain_ms": _time_ms(lambda: maxpool_idx._maxpool_plain(x, *cfg), 3),
-        "bound_ms": max(byte_ms, op_ms),
-        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-        "library_ms": _time_ms(lambda: F.max_pool2d(
-            x, 3, 2, 1, return_indices=True), 20)}
+
+    def new_pool():
+        return maxpool_idx.maxpool_with_index(x, *POOL_STEM)
+
+    k3 = "maxpool_idx_kernel"
+    rows["maxpool_idx_fwd"] = dict(
+        ms=flushed(new_pool, k3, 20),
+        plain_ms=flushed(lambda: maxpool_idx._maxpool_plain(x, *POOL_STEM),
+                         None, 3),
+        library_ms=flushed(lambda: F.max_pool2d(x, 3, 2, 1,
+                                                return_indices=True), None,
+                           20),
+        **_bound(x.numel() * 2 + out_numel * (2 + 1), out_numel * 9))
+    r = rows["maxpool_idx_fwd"]
+    r["ms_over_library"] = r["ms"] / r["library_ms"]
+    old = ""
+    if before_pool is not None:
+        t = [flushed(lambda: before_pool(x, *POOL_STEM), k3, 20), r["ms"],
+             flushed(new_pool, k3, 20),
+             flushed(lambda: before_pool(x, *POOL_STEM), k3, 20)]
+        r["before_ms"] = [t[0], t[3]]
+        old = "; the earlier tree's K3 %.4f/%.4f ms (before, now, now, " \
+              "before: %s)" % (t[0], t[3], ["%.4f" % v for v in t])
+    print("  K3 at the stem (flushed): %.4f ms, %.2fx its %.4f ms bound, "
+          "F.max_pool2d(return_indices=True) %.4f (K3/library %.3f)%s"
+          % (r["ms"], r["ms"] / r["bound_ms"], r["bound_ms"], r["library_ms"],
+             r["ms_over_library"], old), flush=True)
     del x
     torch.cuda.empty_cache()
     return rows
@@ -720,19 +796,37 @@ def time_flash(dev):
              long_row["tc_bound_ms"]), flush=True)
     del ql, kl, vl, q4, k4, v4
     torch.cuda.empty_cache()
-    time_flash_d256(dev, g)
+    time_flash_wide(dev, g, LM_HEADS_D256, "the D <= 256 form")
+    time_flash_wide(dev, g, LM_HEADS_D512, "the D-streamed form")
     return rows
 
 
-def time_flash_d256(dev, g):
-    """Phase 4, the D <= 256 form: K4, K5 and K6 at (4, 4, 2048, 256)
-    causal f32 (the LM at 4 heads), each beside its 3xTF32 bound, and
-    SDPA's forward and backward."""
+def _kernel_names(fn):
+    """The names of the kernels one call of ``fn`` runs on the card, from
+    torch.profiler's CUDA trace (which backend a library call chose)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def time_flash_wide(dev, g, heads, form):
+    """Phase 4, a wider form of K4-K6 at the LM's (4, ``heads``, 2048,
+    1024 / heads) causal f32: each kernel beside its 3xTF32 bound, and
+    SDPA's forward and backward (the kernels SDPA ran named).  Returns
+    the three rows (ms, bound_ms, tc_bound_ms, library_ms,
+    ms_over_library)."""
     import torch
     import torch.nn.functional as F
 
     fa = _flash_module()
-    b, h, s = LM_BATCH, LM_HEADS_D256, LM_SEQ
+    b, h, s = LM_BATCH, heads, LM_SEQ
     d = LM["dim"] // h
     q, k, v, do = (torch.randn(b * h, s, d, generator=g, device=dev)
                    for _ in range(4))
@@ -746,9 +840,9 @@ def time_flash_d256(dev, g):
                                                  scale, True), 10),
           "K6": _time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                   scale, True), 10)}
-    tc = {"K4": _bound(4 * mat + row, 3 * 4 * d * pairs, PEAK_TF32),
-          "K5": _bound(5 * mat + 2 * row, 3 * 6 * d * pairs, PEAK_TF32),
-          "K6": _bound(6 * mat + 2 * row, 3 * 8 * d * pairs, PEAK_TF32)}
+    work = {"K4": (4 * mat + row, 4 * d * pairs),
+            "K5": (5 * mat + 2 * row, 6 * d * pairs),
+            "K6": (6 * mat + 2 * row, 8 * d * pairs)}
     q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
     lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), 10)
@@ -756,17 +850,27 @@ def time_flash_d256(dev, g):
     lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
     lib_bwd = _time_ms(lambda: torch.autograd.grad(
         lib_out, leaves, do4, retain_graph=True), 10)
+    rows = {}
     for name in ("K4", "K5", "K6"):
-        print("  %s at (%d, %d, %d, %d) causal f32 (D <= 256 form): ms %.4f  "
-              "tc_bound_ms %.4f (%.2fx)" % (
-                  name, b, h, s, d, ms[name], tc[name]["bound_ms"],
-                  ms[name] / tc[name]["bound_ms"]), flush=True)
+        lib = lib_fwd if name == "K4" else lib_bwd
+        rows[name] = dict(ms=ms[name], library_ms=lib, **_bound(*work[name]))
+        _tensor_core_row(rows[name], *work[name])
+        print("  %s at (%d, %d, %d, %d) causal f32 (%s): ms %.4f  bound_ms "
+              "%.4f (%s)  tc_bound_ms %.4f (%.2fx)  ms_over_library %.3f" % (
+                  name, b, h, s, d, form, ms[name], rows[name]["bound_ms"],
+                  rows[name]["bound_by"], rows[name]["tc_bound_ms"],
+                  ms[name] / rows[name]["tc_bound_ms"],
+                  rows[name]["ms_over_library"]), flush=True)
+    names = _kernel_names(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
     print("  SDPA at (%d, %d, %d, %d) causal f32: forward %.4f ms (K4/SDPA "
-          "%.3f), backward %.4f ms ((K5 + K6)/SDPA backward %.3f)" % (
+          "%.3f), backward %.4f ms ((K5 + K6)/SDPA backward %.3f); its "
+          "forward ran %s" % (
               b, h, s, d, lib_fwd, ms["K4"] / lib_fwd, lib_bwd,
-              (ms["K5"] + ms["K6"]) / lib_bwd), flush=True)
+              (ms["K5"] + ms["K6"]) / lib_bwd, names), flush=True)
     del q, k, v, do, out, lse, delta, q4, k4, v4, do4, leaves, lib_out
     torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1310,6 +1414,15 @@ def main(argv=None):
           "on %s" % (d256_steady, STEPS, LM_BATCH * LM_SEQ / d256_steady * 1e3,
                      card), flush=True)
     torch.cuda.empty_cache()
+    print("[3b] LM path at %d heads (head dim %d): the D-streamed form of "
+          "K4-K6" % (LM_HEADS_D512, LM["dim"] // LM_HEADS_D512), flush=True)
+    _, d512_ms, d512_counts = run_lm_path(dev, LM_HEADS_D512)
+    counts.update({name: counts[name] + d512_counts[name] for name in FLASH})
+    d512_steady = sorted(d512_ms[1:])[len(d512_ms[1:]) // 2]
+    print("[3b] lm_step_ms_d512 %.2f (median of steps 2-%d)  %.1f tokens/s  "
+          "on %s" % (d512_steady, STEPS, LM_BATCH * LM_SEQ / d512_steady * 1e3,
+                     card), flush=True)
+    torch.cuda.empty_cache()
 
     print("[3c] nd path: one causal attention layer of the LM (x (%d, %d, "
           "%d), 4 weights (%d, %d), %d heads) with nd + autograd, f32, %d "
@@ -1322,13 +1435,14 @@ def main(argv=None):
     print("[3c] nd_step_ms %.2f (median of steps 2-%d)  on %s"
           % (nd_steady, STEPS, card), flush=True)
 
-    print("[4] kernel times (K1/K2 summed over one step's 53 layers, device "
-          "time with the L2 flushed; the others by CUDA events, K4-K6 one "
-          "layer's attention)", flush=True)
-    before = None
+    print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
+          "at the stem, device time with the L2 flushed; K4-K6 one layer's "
+          "attention by CUDA events)", flush=True)
+    before = before_pool = None
     if args.before:
         before = _bench_tool().before_ghost_bn(args.before, dev)
-    rows = time_kernels(dev, layers, before)
+        before_pool = _bench_tool().before_maxpool(args.before, dev)
+    rows = time_kernels(dev, layers, before, before_pool)
     rows.update(time_flash(dev))
     print("[4c] K7 at the 9 ResNet-50 BN shapes (batch 256, bf16) beside "
           "copy_, K1 and K2; R1 beside torch.add; R2 at the nd path's "

@@ -75,6 +75,9 @@ _QUERIES = {
     # dtype, G, C, HW, ng, staged tensors -> the CTAs of a K1/K2 cluster
     # (0: the two-read form)
     "ghost_bn_cluster": [_I, _I, _I, _I, _I, _I],
+    # dtype, H, W, OH, kh, sh -> the output rows a band of K3 stages (0:
+    # unstaged)
+    "maxpool_idx_band_rows": [_I, _I, _I, _I, _I, _I],
 }
 
 _lock = threading.Lock()

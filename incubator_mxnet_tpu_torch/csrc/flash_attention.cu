@@ -1,8 +1,8 @@
 // Flash attention for Hopper (sm_90a): forward (K4 flash_attn_fwd), dQ
 // (K5 flash_attn_bwd_dq) and dK/dV (K6 flash_attn_bwd_dkv).  Inputs are
-// (BH, S, D) contiguous, bf16 or f32, with D <= 256 and D % 8 == 0 (the
-// wrapper pads other head dims up to 256 to a multiple of 8 and refuses
-// D > 256); softmax, sums and outputs' arithmetic are f32.
+// (BH, S, D) contiguous on 16 bytes, bf16 or f32, with D % 8 == 0 (the
+// wrapper pads other head dims to a multiple of 8 and copies other
+// layouts); softmax, sums and outputs' arithmetic are f32.
 //
 // Replaces incubator_mxnet_tpu/parallel/flash_attention.py: `_fwd` (its
 // Pallas `_fwd_kernel`) and the two calls of `_bwd` (`_bwd_dq_kernel`,
@@ -47,14 +47,22 @@
 // __expf.  The grid is (b*h, tile), heaviest causal tile first across all
 // b*h, so the light tiles fill the tail.
 //
-// The D <= 128 forms (DC <= 8) take 128 rows a block, one warp per 16
-// rows.  The D <= 256 form (DC = 16) keeps every f32 tile of D = 128 in
-// shared memory by halving the rows a block (kBQ4W, kBRW: 64) and the
-// streamed tile (kBK4W 32, kBSW 16), and keeps the accumulators a thread
-// at D = 128's count by giving each 16 rows two warps: both form the
-// scores (S, dP) over all of D, each accumulates half of D's columns
-// (O, dQ, dK and dV).  The scores are computed twice; that form is for
-// D = 256 to run at all, not yet to be fast.
+// Three forms, one launch of each kernel a call in all of them.  The
+// D <= 128 forms (DC <= 8) take 128 rows a block, one warp per 16 rows.
+// The D <= 256 form (DC = 16) keeps every f32 tile of D = 128 in shared
+// memory by halving the rows a block (kBQ4W, kBRW: 64) and the streamed
+// tile (kBK4W 32, kBSW 16), and keeps the accumulators a thread at
+// D = 128's count by giving each 16 rows two warps: both form the scores
+// (S, dP) over all of D, each accumulates half of D's columns (O, dQ, dK
+// and dV).  The scores are computed twice; that form is for D = 256 to
+// run at all, not yet to be fast.  Above 256 (DC = 0, the D-streamed
+// form) a row tile of D columns does not fit: a block owns kCW = 128
+// output columns (the grid's z, chunk 0 writing the LSE) of the D <= 128
+// form's 128 rows and tiles, and forms the scores over D by streaming
+// kDK = 32-column chunks of its operands in two cp.async stages, a ragged
+// last chunk zero-filled by the copies.  Every chunk block forms the
+// scores anew (at D = 512, four times), so that form too is for any D to
+// run, not yet to be fast.
 //
 // K4: 128 query rows a block, Q resident, 64-key K/V tiles streamed up to
 // the last tile any of its rows can see; the running max and sum are quad
@@ -668,6 +676,382 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, NT>(dv + bh * Sk * D, acc_v, key0, Sk, D, c0);
 }
 
+// --- the D-streamed form (D > 256) ----------------------------------------
+
+// No tile of D > 256 columns stays in shared memory, so a block owns kCW
+// output columns (the grid's z) of the D <= 128 form's rows (kBQ4, kBR)
+// and forms the scores (S, and dP in the backward) over all of D by
+// streaming kDK-column chunks of its operands: a tile of keys (K4, K5) or
+// queries (K6) takes nd = ceil(D / kDK) score steps, then one value step
+// that stages the tile's kCW columns the block accumulates.  The steps run
+// in two cp.async stages, one barrier a step.  Every chunk block forms the
+// scores anew (at D = 512, four times); the accumulators a thread are the
+// D = 128 form's (NT = 16).
+constexpr int kCW = 128;   // output columns a block
+constexpr int kDK = 32;    // D columns a score step stages
+
+// elements of one stage: the larger of a score step (score_rows rows of a
+// kDK chunk) and a value step (value_rows rows of a kCW chunk), each at
+// its pitch (16 bytes more than the chunk)
+template <typename T>
+__host__ __device__ constexpr int stream_stage(int score_rows, int value_rows) {
+  return score_rows * (kDK + 16 / static_cast<int>(sizeof(T))) >
+                 value_rows * (kCW + 16 / static_cast<int>(sizeof(T)))
+             ? score_rows * (kDK + 16 / static_cast<int>(sizeof(T)))
+             : value_rows * (kCW + 16 / static_cast<int>(sizeof(T)));
+}
+
+// rows [row0, row0 + kRows) x columns [c0, c0 + kW) of a (S, D) slice into
+// sm (pitch ld) by 16-byte cp.async; rows at or past S and columns at or
+// past D are zero-filled by the copy's source size (a ragged chunk's
+// padding is exact zeros)
+template <int kRows, int kW, typename T>
+__device__ __forceinline__ void async_chunk(T* sm, const T* g, int row0, int S, int D, int c0,
+                                            int ld) {
+  constexpr int kV = 16 / sizeof(T);
+  constexpr int per_row = kW / kV;
+  for (int v = threadIdx.x; v < kRows * per_row; v += kThreads) {
+    const int r = v / per_row;
+    const int c = (v - r * per_row) * kV;
+    const bool ok = row0 + r < S && c0 + c < D;
+    cp_async16(sm + r * ld + c, ok ? g + static_cast<int64_t>(row0 + r) * D + c0 + c : g,
+               ok ? 16 : 0);
+  }
+}
+
+// the step after (tile, j) of a walk of nd score steps and one value step
+// a tile
+__device__ __forceinline__ void next_step(int& tile, int& j, int nd) {
+  if (++j > nd) {
+    j = 0;
+    ++tile;
+  }
+}
+
+// K4, D-streamed: kBQ4 query rows x kCW columns of O a block, 64-key
+// tiles; a score step stages a chunk of Q and of K, the value step the
+// block's columns of V.  The LSE is the same for every chunk: chunk 0
+// writes it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ out,
+                          float* __restrict__ lse, int Sq, int Sk, int D, float scale,
+                          int causal) {
+  constexpr int kRows = kBQ4, kTile = kBK4;
+  constexpr int NT = kCW / 8, KT = kTile / 8;
+  constexpr int ldk = kDK + 16 / static_cast<int>(sizeof(T));
+  constexpr int ldc = kCW + 16 / static_cast<int>(sizeof(T));
+  constexpr int kStage = stream_stage<T>(kRows + kTile, kTile);
+  extern __shared__ float4 smem4[];
+  T* sm = reinterpret_cast<T*>(smem4);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (Sq + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kRows;  // heaviest first
+  const int c0 = blockIdx.z * kCW;
+  const int64_t bh = blockIdx.x;
+  const int offset = Sk - Sq;
+  const T* qb = q + bh * Sq * D;
+  const T* kb = k + bh * Sk * D;
+  const T* vb = v + bh * Sk * D;
+  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const int nd = (D + kDK - 1) / kDK;
+  const int nk = key_tiles(q0, Sq, Sk, causal, kRows, kTile);
+
+  auto issue = [&](int kt, int j, int stage) {
+    T* st = sm + stage * kStage;
+    if (j < nd) {
+      async_chunk<kRows, kDK>(st, qb, q0, Sq, D, j * kDK, ldk);
+      async_chunk<kTile, kDK>(st + kRows * ldk, kb, kt * kTile, Sk, D, j * kDK, ldk);
+    } else {
+      async_chunk<kTile, kCW>(st, vb, kt * kTile, Sk, D, c0, ldc);
+    }
+    cp_async_commit();
+  };
+
+  float o[NT][4], s[KT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  zero(o);
+  zero(s);
+  if (nk > 0) issue(0, 0, 0);
+  for (int kt = 0, j = 0, i = 0; kt < nk; next_step(kt, j, nd), ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // step i is in; every warp is done with step i - 1
+    int nkt = kt, nj = j;
+    next_step(nkt, nj, nd);
+    if (nkt < nk) issue(nkt, nj, (i + 1) & 1);
+    const T* st = sm + (i & 1) * kStage;
+    if (j < nd) {  // S += Q K^T over this chunk of D
+      product_abt<T, kDK, KT>(s, st + warp * 16 * ldk, st + kRows * ldk, ldk);
+      continue;
+    }
+    const int k0 = kt * kTile;
+    const bool full = k0 + kTile <= Sk && (!causal || k0 + kTile - 1 <= q0 + offset);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int jj = 0; jj < KT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + jj * 8 + 2 * t + (e & 1);
+        float x = s[jj][e] * scale;
+        if (!full && !(key < Sk && (!causal || key <= r0 + 8 * (e >> 1) + offset)))
+          x = kNegInf;
+        s[jj][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float m_new[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      m_new[h] = fmaxf(m[h], mx[h]);
+      alpha[h] = __expf(m[h] - m_new[h]);
+      m[h] = m_new[h];
+    }
+#pragma unroll
+    for (int jj = 0; jj < KT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p = m_new[h] > kNegInf / 2 ? __expf(s[jj][e] - m_new[h]) : 0.f;
+        s[jj][e] = p;
+        sum[h] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + sum[h];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    product_pv<T, NT, KT>(o, s, st, ldc);  // O += P V over the block's columns
+    zero(s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float lf = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][2 * h] /= lf;
+      o[n][2 * h + 1] /= lf;
+    }
+    const int row = r0 + 8 * h;
+    if (t == 0 && blockIdx.z == 0 && row < Sq) lse[bh * Sq + row] = m[h] + logf(lf);
+  }
+  store_rows<T, NT>(out + bh * Sq * D, o, r0, Sq, D, c0);
+}
+
+// K5, D-streamed: kBR query rows x kCW columns of dQ a block, 32-key
+// tiles; a score step stages a chunk each of Q, dO, K and V, the value
+// step the block's columns of K.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             T* __restrict__ dq, int Sq, int Sk, int D, float scale,
+                             int causal) {
+  constexpr int kRows = kBR, kTile = kBS;
+  constexpr int NT = kCW / 8, KT = kTile / 8;
+  constexpr int ldk = kDK + 16 / static_cast<int>(sizeof(T));
+  constexpr int ldc = kCW + 16 / static_cast<int>(sizeof(T));
+  constexpr int kStage = stream_stage<T>(2 * kRows + 2 * kTile, kTile);
+  extern __shared__ float4 smem4[];
+  T* sm = reinterpret_cast<T*>(smem4);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (Sq + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kRows;  // heaviest first
+  const int c0 = blockIdx.z * kCW;
+  const int64_t bh = blockIdx.x;
+  const int offset = Sk - Sq;
+  const T* qb = q + bh * Sq * D;
+  const T* db = dout + bh * Sq * D;
+  const T* kb = k + bh * Sk * D;
+  const T* vb = v + bh * Sk * D;
+  const int w0 = q0 + warp * 16;   // the warp's first row
+  const int r0 = w0 + g;           // this thread's rows: r0 and r0 + 8
+  const int nd = (D + kDK - 1) / kDK;
+
+  float lse_r[2], delta_r[2], acc[NT][4], s[KT][4], dp[KT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lse_r[h] = row < Sq ? lse[bh * Sq + row] : 0.f;
+    delta_r[h] = row < Sq ? delta[bh * Sq + row] : 0.f;
+  }
+  zero(acc);
+  zero(s);
+  zero(dp);
+  const int nk = key_tiles(q0, Sq, Sk, causal, kRows, kTile);
+  const int nk_warp = w0 < Sq ? key_tiles(w0, Sq, Sk, causal, 16, kTile) : 0;
+
+  auto issue = [&](int kt, int j, int stage) {
+    T* st = sm + stage * kStage;
+    if (j < nd) {
+      async_chunk<kRows, kDK>(st, qb, q0, Sq, D, j * kDK, ldk);
+      async_chunk<kRows, kDK>(st + kRows * ldk, db, q0, Sq, D, j * kDK, ldk);
+      async_chunk<kTile, kDK>(st + 2 * kRows * ldk, kb, kt * kTile, Sk, D, j * kDK, ldk);
+      async_chunk<kTile, kDK>(st + (2 * kRows + kTile) * ldk, vb, kt * kTile, Sk, D,
+                              j * kDK, ldk);
+    } else {
+      async_chunk<kTile, kCW>(st, kb, kt * kTile, Sk, D, c0, ldc);
+    }
+    cp_async_commit();
+  };
+
+  if (nk > 0) issue(0, 0, 0);
+  for (int kt = 0, j = 0, i = 0; kt < nk; next_step(kt, j, nd), ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // step i is in; every warp is done with step i - 1
+    int nkt = kt, nj = j;
+    next_step(nkt, nj, nd);
+    if (nkt < nk) issue(nkt, nj, (i + 1) & 1);
+    if (kt >= nk_warp) continue;  // the warp's rows see no key of this tile
+    const T* st = sm + (i & 1) * kStage;
+    if (j < nd) {  // S += Q K^T, dP += dO V^T over this chunk of D
+      product_abt<T, kDK, KT>(s, st + warp * 16 * ldk, st + 2 * kRows * ldk, ldk);
+      product_abt<T, kDK, KT>(dp, st + (kRows + warp * 16) * ldk,
+                              st + (2 * kRows + kTile) * ldk, ldk);
+      continue;
+    }
+    const int k0 = kt * kTile;
+    const bool full = k0 + kTile <= Sk && (!causal || k0 + kTile - 1 <= w0 + offset);
+#pragma unroll
+    for (int jj = 0; jj < KT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int key = k0 + jj * 8 + 2 * t + (e & 1);
+        const bool seen = full || (key < Sk && (!causal || key <= r0 + 8 * h + offset));
+        const float p = seen ? __expf(s[jj][e] * scale - lse_r[h]) : 0.f;
+        s[jj][e] = p * (dp[jj][e] - delta_r[h]) * scale;
+      }
+    product_pv<T, NT, KT>(acc, s, st, ldc);  // dQ += dS K over the block's columns
+    zero(s);
+    zero(dp);
+  }
+  store_rows<T, NT>(dq + bh * Sq * D, acc, r0, Sq, D, c0);
+}
+
+// K6, D-streamed: kBR key rows x kCW columns of dK and dV a block,
+// 32-query tiles; a score step stages a chunk each of K, V, Q and dO, the
+// value step the block's columns of dO and Q; the tile's LSE and delta
+// are staged with its first step, in two buffers by the tile's parity.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_streamed_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int D,
+                              float scale, int causal) {
+  constexpr int kRows = kBR, kTile = kBS;
+  constexpr int NT = kCW / 8, QT = kTile / 8;
+  constexpr int ldk = kDK + 16 / static_cast<int>(sizeof(T));
+  constexpr int ldc = kCW + 16 / static_cast<int>(sizeof(T));
+  constexpr int kStage = stream_stage<T>(2 * kRows + 2 * kTile, 2 * kTile);
+  extern __shared__ float4 smem4[];
+  T* sm = reinterpret_cast<T*>(smem4);
+  float* sL = reinterpret_cast<float*>(sm + 2 * kStage);  // two buffers of LSE
+  float* sDelta = sL + 2 * kTile;                         // and of delta
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.y * kRows;  // the first key tiles (causal: heaviest) first
+  const int c0 = blockIdx.z * kCW;
+  const int64_t bh = blockIdx.x;
+  const int offset = Sk - Sq;
+  const T* qb = q + bh * Sq * D;
+  const T* db = dout + bh * Sq * D;
+  const T* kb = k + bh * Sk * D;
+  const T* vb = v + bh * Sk * D;
+  const float* lb = lse + bh * Sq;
+  const float* deb = delta + bh * Sq;
+  const int w0 = k0 + warp * 16;   // the warp's first key
+  const int key0 = w0 + g;         // this thread's keys: key0 and key0 + 8
+  const int nd = (D + kDK - 1) / kDK;
+
+  float acc_k[NT][4], acc_v[NT][4], s[QT][4], dp[QT][4];
+  zero(acc_k);
+  zero(acc_v);
+  zero(s);
+  zero(dp);
+  const int nq = (Sq + kTile - 1) / kTile;
+  // the first query that sees key j is j - offset
+  const int qt0 = causal ? max(0, k0 - offset) / kTile : 0;
+  const int qt_warp = w0 >= Sk ? nq : causal ? max(0, w0 - offset) / kTile : 0;
+
+  auto issue = [&](int qt, int j, int stage) {
+    T* st = sm + stage * kStage;
+    if (j < nd) {
+      async_chunk<kRows, kDK>(st, kb, k0, Sk, D, j * kDK, ldk);
+      async_chunk<kRows, kDK>(st + kRows * ldk, vb, k0, Sk, D, j * kDK, ldk);
+      async_chunk<kTile, kDK>(st + 2 * kRows * ldk, qb, qt * kTile, Sq, D, j * kDK, ldk);
+      async_chunk<kTile, kDK>(st + (2 * kRows + kTile) * ldk, db, qt * kTile, Sq, D,
+                              j * kDK, ldk);
+    } else {
+      async_chunk<kTile, kCW>(st, db, qt * kTile, Sq, D, c0, ldc);
+      async_chunk<kTile, kCW>(st + kTile * ldc, qb, qt * kTile, Sq, D, c0, ldc);
+    }
+    cp_async_commit();
+    if (j == 0) {
+      const int b = (qt - qt0) & 1;
+      stage_rows<kTile>(sL + b * kTile, sDelta + b * kTile, lb, deb, qt * kTile, Sq);
+    }
+  };
+
+  if (qt0 < nq) issue(qt0, 0, 0);
+  for (int qt = qt0, j = 0, i = 0; qt < nq; next_step(qt, j, nd), ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // step i is in; every warp is done with step i - 1
+    int nqt = qt, nj = j;
+    next_step(nqt, nj, nd);
+    if (nqt < nq) issue(nqt, nj, (i + 1) & 1);
+    if (qt < qt_warp) continue;  // no query of this tile sees the warp's keys
+    const T* st = sm + (i & 1) * kStage;
+    if (j < nd) {  // S^T += K Q^T, dP^T += V dO^T over this chunk of D
+      product_abt<T, kDK, QT>(s, st + warp * 16 * ldk, st + 2 * kRows * ldk, ldk);
+      product_abt<T, kDK, QT>(dp, st + (kRows + warp * 16) * ldk,
+                              st + (2 * kRows + kTile) * ldk, ldk);
+      continue;
+    }
+    const float* tl = sL + ((qt - qt0) & 1) * kTile;
+    const float* td = sDelta + ((qt - qt0) & 1) * kTile;
+    const int q0 = qt * kTile;
+    const bool full = q0 + kTile <= Sq && w0 + 16 <= Sk && (!causal || w0 + 15 <= q0 + offset);
+#pragma unroll
+    for (int jj = 0; jj < QT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = jj * 8 + 2 * t + (e & 1);
+        const int key = key0 + 8 * (e >> 1);
+        const bool seen =
+            full || (q0 + col < Sq && key < Sk && (!causal || key <= q0 + col + offset));
+        s[jj][e] = seen ? __expf(s[jj][e] * scale - tl[col]) : 0.f;
+      }
+    product_pv<T, NT, QT>(acc_v, s, st, ldc);  // dV += P^T dO
+#pragma unroll
+    for (int jj = 0; jj < QT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = jj * 8 + 2 * t + (e & 1);
+        s[jj][e] *= (dp[jj][e] - td[col]) * scale;  // dS^T
+      }
+    product_pv<T, NT, QT>(acc_k, s, st + kTile * ldc, ldc);  // dK += dS^T Q
+    zero(s);
+    zero(dp);
+  }
+  store_rows<T, NT>(dk + bh * Sk * D, acc_k, key0, Sk, D, c0);
+  store_rows<T, NT>(dv + bh * Sk * D, acc_v, key0, Sk, D, c0);
+}
+
 // --- launch ---------------------------------------------------------------
 
 template <typename Kernel, typename... Args>
@@ -686,65 +1070,101 @@ size_t tile_bytes(int rows) {
   return static_cast<size_t>(rows) * (16 * DC + 16 / sizeof(T)) * sizeof(T);
 }
 
-// b*h is the grid's x (up to 2^31 - 1); the grid's y, `tiles` row tiles of
-// the launch, is at most 65535.  The wrapper pads other head dims up to
-// 256 to a multiple of 8 and refuses D > 256.
-bool bad_shape(int BH, int Sq, int Sk, int D, int tiles) {
-  return BH < 1 || Sq < 1 || Sk < 1 || D < 8 || D > 256 || D % 8 || tiles > 65535;
-}
+// rows a block of K4 and of K5/K6 at head dim D: the D <= 256 form's
+// 64-row tiles above 128, the 128-row tiles of the D <= 128 form below it
+// and in the D-streamed form above 256
+int rows_q4(int D) { return D > 128 && D <= 256 ? kBQ4W : kBQ4; }
+int rows_r(int D) { return D > 128 && D <= 256 ? kBRW : kBR; }
+// the kCW-column chunks of a launch (the grid's z): 1 up to D = 256
+int chunks(int D) { return D > 256 ? (D + kCW - 1) / kCW : 1; }
 
-// rows a block of K4 and of K5/K6 at head dim D (the wide tiles above 128)
-int rows_q4(int D) { return D > 128 ? kBQ4W : kBQ4; }
-int rows_r(int D) { return D > 128 ? kBRW : kBR; }
+// b*h is the grid's x (up to 2^31 - 1); the grid's y, `tiles` row tiles of
+// the launch, and its z, the column chunks, are at most 65535 each.  The
+// wrapper pads head dims to a multiple of 8.
+bool bad_shape(int BH, int Sq, int Sk, int D, int tiles) {
+  return BH < 1 || Sq < 1 || Sk < 1 || D < 8 || D % 8 || tiles > 65535 || chunks(D) > 65535;
+}
 
 template <typename T, int DC>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse, int BH, int Sq,
         int Sk, int D, float scale, int causal, cudaStream_t s) {
-  constexpr int R = DC <= 8 ? kBQ4 : kBQ4W, K = DC <= 8 ? kBK4 : kBK4W;
-  // the Q tile and two stages each of K and V
-  const size_t smem = tile_bytes<T, DC>(R + 4 * K);
-  const dim3 grid(BH, (Sq + R - 1) / R);
-  return launch(flash_fwd_kernel<T, DC, R, K>, grid, smem, s, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
-                static_cast<float*>(lse), Sq, Sk, D, scale, causal);
+  if constexpr (DC == 0) {  // the D-streamed form: two stages
+    const size_t smem = 2 * stream_stage<T>(kBQ4 + kBK4, kBK4) * sizeof(T);
+    const dim3 grid(BH, (Sq + kBQ4 - 1) / kBQ4, chunks(D));
+    return launch(flash_fwd_streamed_kernel<T>, grid, smem, s, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
+                  static_cast<float*>(lse), Sq, Sk, D, scale, causal);
+  } else {
+    constexpr int R = DC <= 8 ? kBQ4 : kBQ4W, K = DC <= 8 ? kBK4 : kBK4W;
+    // the Q tile and two stages each of K and V
+    const size_t smem = tile_bytes<T, DC>(R + 4 * K);
+    const dim3 grid(BH, (Sq + R - 1) / R);
+    return launch(flash_fwd_kernel<T, DC, R, K>, grid, smem, s, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
+                  static_cast<float*>(lse), Sq, Sk, D, scale, causal);
+  }
 }
 
 template <typename T, int DC>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dq, int BH, int Sq, int Sk, int D, float scale,
            int causal, cudaStream_t s) {
-  constexpr int R = DC <= 8 ? kBR : kBRW, S = DC <= 8 ? kBS : kBSW;
-  // Q and dO, and two stages each of K and V
-  const size_t smem = tile_bytes<T, DC>(2 * R + 4 * S);
-  const dim3 grid(BH, (Sq + R - 1) / R);
-  return launch(flash_bwd_dq_kernel<T, DC, R, S>, grid, smem, s, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, D, scale,
-                causal);
+  if constexpr (DC == 0) {
+    const size_t smem = 2 * stream_stage<T>(2 * kBR + 2 * kBS, kBS) * sizeof(T);
+    const dim3 grid(BH, (Sq + kBR - 1) / kBR, chunks(D));
+    return launch(flash_bwd_dq_streamed_kernel<T>, grid, smem, s, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, D, scale,
+                  causal);
+  } else {
+    constexpr int R = DC <= 8 ? kBR : kBRW, S = DC <= 8 ? kBS : kBSW;
+    // Q and dO, and two stages each of K and V
+    const size_t smem = tile_bytes<T, DC>(2 * R + 4 * S);
+    const dim3 grid(BH, (Sq + R - 1) / R);
+    return launch(flash_bwd_dq_kernel<T, DC, R, S>, grid, smem, s, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, D, scale,
+                  causal);
+  }
 }
 
 template <typename T, int DC>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
             const void* delta, void* dk, void* dv, int BH, int Sq, int Sk, int D,
             float scale, int causal, cudaStream_t s) {
-  constexpr int R = DC <= 8 ? kBR : kBRW, S = DC <= 8 ? kBS : kBSW;
-  // K and V, two stages each of Q and dO, and two of the LSE and delta
-  const size_t smem = tile_bytes<T, DC>(2 * R + 4 * S) + 4 * S * sizeof(float);
-  const dim3 grid(BH, (Sk + R - 1) / R);
-  return launch(flash_bwd_dkv_kernel<T, DC, R, S>, grid, smem, s, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dk),
-                static_cast<T*>(dv), Sq, Sk, D, scale, causal);
+  if constexpr (DC == 0) {
+    // two stages, and two buffers each of the LSE and delta
+    const size_t smem = 2 * stream_stage<T>(2 * kBR + 2 * kBS, 2 * kBS) * sizeof(T) +
+                        4 * kBS * sizeof(float);
+    const dim3 grid(BH, (Sk + kBR - 1) / kBR, chunks(D));
+    return launch(flash_bwd_dkv_streamed_kernel<T>, grid, smem, s, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dk),
+                  static_cast<T*>(dv), Sq, Sk, D, scale, causal);
+  } else {
+    constexpr int R = DC <= 8 ? kBR : kBRW, S = DC <= 8 ? kBS : kBSW;
+    // K and V, two stages each of Q and dO, and two of the LSE and delta
+    const size_t smem = tile_bytes<T, DC>(2 * R + 4 * S) + 4 * S * sizeof(float);
+    const dim3 grid(BH, (Sk + R - 1) / R);
+    return launch(flash_bwd_dkv_kernel<T, DC, R, S>, grid, smem, s, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dk),
+                  static_cast<T*>(dv), Sq, Sk, D, scale, causal);
+  }
 }
 
-// the accumulator width (DC: 8-column fragments / 2; D padded to 16 DC)
+// the accumulator width (DC: 8-column fragments / 2; D padded to 16 DC),
+// or 0: the D-streamed form
 #define FLASH_DISPATCH(fn, T, D, ...)                                      \
   ((D) <= 32    ? fn<T, 2>(__VA_ARGS__)                                    \
    : (D) <= 64  ? fn<T, 4>(__VA_ARGS__)                                    \
    : (D) <= 128 ? fn<T, 8>(__VA_ARGS__)                                    \
-                : fn<T, 16>(__VA_ARGS__))
+   : (D) <= 256 ? fn<T, 16>(__VA_ARGS__)                                   \
+                : fn<T, 0>(__VA_ARGS__))
 
 }  // namespace
 

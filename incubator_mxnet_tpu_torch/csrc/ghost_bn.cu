@@ -87,6 +87,7 @@
 
 #include <type_traits>
 
+#include "bulk_copy.cuh"
 #include "ghost_bn_walk.cuh"
 
 #define GBN_MAX_KC 64
@@ -130,47 +131,6 @@ __device__ __forceinline__ void st(T* p, const Pack<T, V>& v) {
 
 // ReLU that keeps NaN, like jnp.maximum(v, 0).
 __device__ __forceinline__ float relu_nan(float v) { return v < 0.f ? 0.f : v; }
-
-// --- PTX wrappers: mbarrier and 1D bulk copy ------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void bar_init(uint64_t* b) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(b)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void bar_expect(uint64_t* b, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(b)), "r"(bytes) : "memory");
-}
-// waits for the phase `parity` of b to complete; a copy that never lands
-// traps (a launch error) instead of hanging the card
-__device__ __forceinline__ void bar_wait(uint64_t* b, unsigned parity) {
-  unsigned done = 0;
-  for (unsigned tries = 0; !done; ++tries) {
-    if (tries == (1u << 24)) __trap();
-    asm volatile("{\n .reg .pred p;\n"
-                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_u32(b)), "r"(parity) : "memory");
-  }
-}
-// `bytes` (a multiple of 16) from global src to shared dst, both on 16
-// bytes; completes on the mbarrier b
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* b) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1], %2, [%3];\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(b))
-               : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// --- end of PTX wrappers --------------------------------------------------
 
 // Walks (p, v) pairs of nl runs of n units in row-major order, from
 // `start`, `step` pairs a step, without a division a step (32-bit: a

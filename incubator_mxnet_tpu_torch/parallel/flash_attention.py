@@ -24,24 +24,31 @@ through the plain versions.
 grid (clamped to divisors of the lengths, :func:`_fit_block`).  The CUDA
 kernels use their own tiles, fixed in the source by D: up to D = 128, 128
 rows a block, 64-key tiles in K4, 32-row streamed tiles in K5 and K6;
-above it, 64 rows a block and 32- and 16-row tiles.  They mask the ragged
-edge themselves.  The result does not depend on either tiling.
+up to D = 256, 64 rows a block and 32- and 16-row tiles; above it (the
+D-streamed form) the D <= 128 form's tiles again, with each block owning
+128 columns of the output (the grid's z).  They mask the ragged edge
+themselves.  The result does not depend on either tiling.
 
-The kernels take head dims D <= 256 with D % 8 == 0.  Other head dims are
-routed by shape before any launch, never after a kernel fails:
+The kernels take head dims with D % 8 == 0, in three forms: D <= 128 and
+D <= 256 keep a tile of every row across D in shared memory; over 256 no
+tile fits, and the D-streamed form forms the scores over D in 32-column
+chunks and accumulates 128 columns of the output a block.  Other head
+dims are routed by shape before any launch, never after a kernel fails:
+q, k, v (and dO) are zero-padded along D to the next multiple of 8 (at
+least 8), the kernels run on the padded tensors and the outputs are
+sliced back.  This is exact: zero columns add zero to every q.k and
+leave the real columns of P V alone; the softmax scale is fixed from the
+unpadded D before the padding.  :func:`flash_attention` pads once per
+call on the card, so its forward and backward see the same tensors.
 
-- D <= 256 otherwise: q, k, v (and dO) are zero-padded along D to the next
-  multiple of 8 (at least 8), the kernels run on the padded tensors and
-  the outputs are sliced back.  This is exact: zero columns add zero to
-  every q.k and leave the real columns of P V alone; the softmax scale is
-  fixed from the unpadded D before the padding.  :func:`flash_attention`
-  pads once per call on the card, so its forward and backward see the
-  same tensors.
-- D > 256: refused on the card with ``ValueError``.  The D <= 256 form
-  keeps 64 rows of Q and of dO (K5) in shared memory, 130 KB f32 at
-  D = 256, which leaves no room at a larger D; a form that streams D in
-  chunks would take it.  A CUDA tensor never falls back to the plain
-  version.  The CPU path takes any D.
+The kernels read (BH, S, D) tensors that are contiguous and start on 16
+bytes (they load 16 bytes a thread).  On the card every public function
+hands them such tensors: an input that is not (a view of a wider tensor,
+a permuted one, a storage offset off the 16-byte grid) is copied once
+into a fresh contiguous tensor, in the same copy as its padding where it
+has one (:func:`_pad`); a contiguous tensor on 16 bytes costs nothing.
+A CUDA tensor never falls back to the plain version, and the CPU path
+takes any D and any layout as it is.
 """
 from __future__ import annotations
 
@@ -55,14 +62,18 @@ __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the widest form of the kernels pads D to 256 (csrc note)
-_MAX_HEAD_DIM = 256
 #: rows a block of K4 (kBQ4) and of K5/K6 (kBR) in csrc/flash_attention.cu
-#: at D <= 128, and (kBQ4W, kBRW) above it: the tile count along the
-#: grid's y, which is at most 65535
+#: at D <= 128 and in the D-streamed form, and (kBQ4W, kBRW) of the
+#: D <= 256 form: the tile count along the grid's y, at most 65535
 _BLOCK_ROWS = 128
 _BLOCK_ROWS_WIDE = 64
 _MAX_GRID_Y = 65535
+#: the widest form that keeps D whole; above it the D-streamed form owns
+#: kCW output columns a block, the chunk count along the grid's z, at
+#: most 65535
+_MAX_RESIDENT_DIM = 256
+_CHUNK_COLS = 128
+_MAX_GRID_Z = 65535
 
 
 def _fit_block(size, block):
@@ -263,55 +274,77 @@ def _check(q, k, v, do=None, lse=None, delta=None):
 
 def _kernel_dim(d):
     """The head dim the kernels run ``d`` at: the next multiple of 8, at
-    least 8.  Raises above 256, which no kernel takes (module note)."""
-    if d > _MAX_HEAD_DIM:
-        raise ValueError("the flash attention kernels take head dims <= %d "
-                         "on the card, got %d" % (_MAX_HEAD_DIM, d))
+    least 8 (module note)."""
     return max(8, -(-d // 8) * 8)
 
 
 def _pad(t, d):
-    """``t`` zero-padded along its last axis to ``d`` columns."""
-    return t if t.shape[-1] == d else \
-        torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+    """``t`` as the kernels take it at ``d`` columns, at most one copy:
+    zero-padded along its last axis where it has fewer (a fresh tensor),
+    else ``t`` itself where it is contiguous and starts on 16 bytes, else
+    a contiguous copy (module note)."""
+    if t.shape[-1] < d:
+        return torch.nn.functional.pad(t, (0, d - t.shape[-1])).contiguous()
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _padded(*ts):
-    """``ts`` zero-padded along D to the head dim the kernels run the
-    first one's D at (:func:`_kernel_dim`, which refuses D > 256)."""
+    """``ts`` as the kernels take them (:func:`_pad`) at the head dim the
+    kernels run the first one's D at (:func:`_kernel_dim`)."""
     dp = _kernel_dim(ts[0].shape[-1])
     return [_pad(t, dp) for t in ts]
+
+
+def _row_stats(*ts):
+    """The (BH, Sq) f32 ``ts`` (lse, delta) as the kernels take them:
+    copied where their layout needs it (:func:`_pad`, never padded)."""
+    return [_pad(t, t.shape[-1]) for t in ts]
 
 
 def _unpad(t, d):
     return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
-def _check_cuda(s, d, tensors):
-    """What the kernels take beyond the head dim: at most 65535 row tiles
-    (of :func:`_rows` rows, over a length ``s``) along the grid's y (b*h
-    is its x, up to 2^31 - 1), contiguous inputs on 16-byte boundaries
-    (they load 16 bytes a thread)."""
+def _rows(d):
+    """Rows a block of the kernels at head dim ``d`` (already padded)."""
+    return _BLOCK_ROWS_WIDE if 128 < d <= _MAX_RESIDENT_DIM else _BLOCK_ROWS
+
+
+def _chunks(d):
+    """Output-column chunks of a launch at head dim ``d`` (the grid's z):
+    one up to 256, else one a ``_CHUNK_COLS`` columns."""
+    return 1 if d <= _MAX_RESIDENT_DIM else -(-d // _CHUNK_COLS)
+
+
+def _check_grid(s, d):
+    """What the kernels take beyond the layout, checked on the shape
+    before any copy: at most 65535 row tiles (of :func:`_rows` rows, over
+    a length ``s``) along the grid's y and 65535 column chunks along its z
+    at the padded head dim ``d`` (b*h is its x, up to 2^31 - 1)."""
     tiles = -(-s // _rows(d))
     if tiles > _MAX_GRID_Y:
         raise ValueError("at most %d tiles of %d rows per launch, got %d"
                          % (_MAX_GRID_Y, _rows(d), tiles))
+    if _chunks(d) > _MAX_GRID_Z:
+        raise ValueError("at most %d chunks of %d columns per launch, got %d"
+                         % (_MAX_GRID_Z, _CHUNK_COLS, _chunks(d)))
+
+
+def _check_cuda(tensors):
+    """The layout the kernels read: contiguous, on 16 bytes (the public
+    functions hand them nothing else, :func:`_pad`)."""
     for name, t in tensors.items():
-        if not t.is_contiguous():
-            raise ValueError("%s must be contiguous" % name)
-        if t.data_ptr() % 16:
-            raise ValueError("%s must start on a 16-byte boundary" % name)
-
-
-def _rows(d):
-    """Rows a block of the kernels at head dim ``d`` (already padded)."""
-    return _BLOCK_ROWS if d <= 128 else _BLOCK_ROWS_WIDE
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("%s must be contiguous on a 16-byte boundary"
+                             % name)
 
 
 def _launch_fwd(q, k, v, scale, causal):
     """K4 on card tensors whose D the kernel takes: ``(out, lse)``."""
     bh, sq, d = q.shape
-    _check_cuda(sq, d, {"q": q, "k": k, "v": v})
+    _check_cuda({"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     _kernels.KERNELS["flash_attn_fwd"].launch(
@@ -324,8 +357,8 @@ def _launch_fwd(q, k, v, scale, causal):
 def _launch_bwd_dq(q, k, v, do, lse, delta, scale, causal):
     """K5 on card tensors whose D the kernel takes: dq."""
     bh, sq, d = q.shape
-    _check_cuda(sq, d, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                        "delta": delta})
+    _check_cuda({"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                 "delta": delta})
     dq = torch.empty_like(q)
     _kernels.KERNELS["flash_attn_bwd_dq"].launch(
         q.device, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -339,8 +372,8 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
     """K6 on card tensors whose D the kernel takes: ``(dk, dv)``."""
     bh, sq, d = q.shape
     sk = k.shape[1]
-    _check_cuda(sk, d, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                        "delta": delta})
+    _check_cuda({"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                 "delta": delta})
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _kernels.KERNELS["flash_attn_bwd_dkv"].launch(
@@ -359,12 +392,13 @@ def _on_card(t):
 
 def flash_fwd(q, k, v, scale, causal, block_q=128, block_k=128):
     """``(out, lse)`` over (BH, S, D) tensors.  CUDA tensors go through K4,
-    zero-padded along D to a multiple of 8 (D > 256 is refused; module
-    note); CPU tensors through the plain version (tiled by
-    block_q x block_k)."""
+    zero-padded along D to a multiple of 8 and copied where their layout
+    needs it (module note); CPU tensors through the plain version (tiled
+    by block_q x block_k)."""
     _check(q, k, v)
     if not _on_card(q):
         return _flash_fwd_plain(q, k, v, scale, causal, block_q, block_k)
+    _check_grid(q.shape[1], _kernel_dim(q.shape[-1]))
     out, lse = _launch_fwd(*_padded(q, k, v), scale, causal)
     return _unpad(out, q.shape[-1]), lse
 
@@ -372,26 +406,30 @@ def flash_fwd(q, k, v, scale, causal, block_q=128, block_k=128):
 def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, block_q=128,
                  block_k=128):
     """dQ.  ``lse`` is the forward's, ``delta`` = rowsum(dO * O) in f32, both
-    (BH, Sq).  CUDA tensors go through K5, padded as :func:`flash_fwd`;
-    CPU tensors through the plain version."""
+    (BH, Sq).  CUDA tensors go through K5, padded and copied as
+    :func:`flash_fwd` (lse and delta copied where their layout needs
+    it); CPU tensors through the plain version."""
     _check(q, k, v, do, lse, delta)
     if not _on_card(q):
         return _flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal,
                                    block_q, block_k)
-    dq = _launch_bwd_dq(*_padded(q, k, v, do), lse, delta, scale, causal)
+    _check_grid(q.shape[1], _kernel_dim(q.shape[-1]))
+    dq = _launch_bwd_dq(*_padded(q, k, v, do), *_row_stats(lse, delta),
+                        scale, causal)
     return _unpad(dq, q.shape[-1])
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, block_q=128,
                   block_k=128):
-    """``(dk, dv)``.  CUDA tensors go through K6, padded as
-    :func:`flash_fwd`; CPU tensors through the plain version."""
+    """``(dk, dv)``.  CUDA tensors go through K6, padded and copied as
+    :func:`flash_bwd_dq`; CPU tensors through the plain version."""
     _check(q, k, v, do, lse, delta)
     if not _on_card(q):
         return _flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal,
                                     block_q, block_k)
-    dk, dv = _launch_bwd_dkv(*_padded(q, k, v, do), lse, delta, scale,
-                             causal)
+    _check_grid(k.shape[1], _kernel_dim(q.shape[-1]))
+    dk, dv = _launch_bwd_dkv(*_padded(q, k, v, do), *_row_stats(lse, delta),
+                             scale, causal)
     d = q.shape[-1]
     return _unpad(dk, d), _unpad(dv, d)
 
@@ -404,14 +442,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, block_q=128,
 class _FlashAttention(torch.autograd.Function):
     """Forward K4 (saving q, k, v, out, lse); backward delta in torch, as
     the reference computes it in jnp outside its kernels, then K5 and K6.
-    On the card a head dim off the kernels' grid is padded here, once for
-    the whole call (module note); the CPU's plain version takes it as it
-    is."""
+    On the card a head dim off the kernels' grid is padded, and a layout
+    the kernels cannot read copied, here, once for the whole call (module
+    note); the CPU's plain version takes them as they are."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, block_q, block_k):
         d = q.shape[-1]
         if _on_card(q):
+            _check_grid(max(q.shape[1], k.shape[1]), _kernel_dim(d))
             q, k, v = _padded(q, k, v)
         out, lse = flash_fwd(q, k, v, scale, causal, block_q, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -422,7 +461,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         d, scale, causal, block_q, block_k = ctx.cfg
-        do = _pad(g.contiguous(), q.shape[-1])
+        do = _pad(g, q.shape[-1]) if _on_card(q) else g.contiguous()
         delta = (do.float() * out.float()).sum(dim=-1)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, block_q,
                           block_k)
@@ -439,9 +478,9 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
     Returns softmax(Q Kᵀ · scale [+ causal mask]) V, with ``scale``
     defaulting to 1/sqrt(D).  Under ``causal`` the mask is right-aligned:
     query i sees key j iff j <= i + (Sk - Sq), and a query that sees no
-    key gets 0.  On the card, D <= 256 runs K4-K6 (zero-padded to a
-    multiple of 8 where it is not one) and D > 256 raises ``ValueError``;
-    on the CPU any D (module note)."""
+    key gets 0.  Any D: on the card K4-K6 run it (zero-padded to a
+    multiple of 8 where it is not one, strided inputs copied once), on
+    the CPU the plain versions (module note)."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     if scale is None:

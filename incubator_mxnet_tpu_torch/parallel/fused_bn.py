@@ -205,6 +205,25 @@ def _check_act(x, others, ng):
                                                        x.device))
 
 
+def _on_card(t):
+    """True where K1 and K2 run: a CUDA tensor."""
+    return t.device.type == "cuda"
+
+
+def _check_device(x):
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError("ghost BN runs on cuda or cpu, got %s" % x.device)
+
+
+def _dense(t):
+    """An NCHW operand as K1/K2 read it: ``t`` where it is contiguous
+    (None stays None), else one contiguous copy (a permuted or
+    ``channels_last`` tensor, a strided view: JAX arrays have no strides,
+    so the reference computes them).  A storage offset off the 16-byte
+    grid needs no copy: the kernels take it in their two-read form."""
+    return None if t is None else t.contiguous()
+
+
 def _check_cuda(device, tensors, vecs):
     """``tensors``: NCHW operands (None allowed); ``vecs``: name ->
     (tensor, shape) of the f32 per-channel or per-group operands."""
@@ -225,15 +244,17 @@ def _ptr(t):
 
 def ghost_bn_fwd(x, gamma, beta, residual, eps, act, ng):
     """``(y, mean, var)``: y in x's dtype, mean and var (N/ng, C) f32.
-    CUDA tensors go through K1; CPU tensors through the plain version."""
+    CUDA tensors go through K1 (x and the residual copied first where
+    they are not contiguous NCHW); CPU tensors through the plain
+    version."""
     _check_act(x, {"residual": residual}, ng)
     if act not in ("relu", "none"):
         raise ValueError("act must be 'relu' or 'none', got %r" % (act,))
-    if x.device.type == "cpu":
+    _check_device(x)
+    if not _on_card(x):
         return _gbn_fwd_plain(x, gamma, beta, residual, eps, act, ng)
-    if x.device.type != "cuda":
-        raise ValueError("ghost BN runs on cuda or cpu, got %s" % x.device)
     n, c, h, w = x.shape
+    x, residual = _dense(x), _dense(residual)
     _check_cuda(x.device, {"x": x, "residual": residual},
                 {"gamma": (gamma, (c,)), "beta": (beta, (c,))})
     groups = n // ng
@@ -254,15 +275,16 @@ def ghost_bn_bwd(gy, gy2, x, y, gamma, beta, mean, var, eps, act, ng):
     """``(dx, dgamma, dbeta, dr)``.  ``y`` is the saved output of a
     residual form (its ReLU mask; ``dr`` is then the masked cotangent),
     None otherwise; ``gy2`` is the dual exit's second cotangent or None.
-    CUDA tensors go through K2; CPU tensors through the plain version."""
+    CUDA tensors go through K2 (the NCHW operands copied first where they
+    are not contiguous); CPU tensors through the plain version."""
     _check_act(x, {"gy": gy, "gy2": gy2, "y": y}, ng)
-    if x.device.type == "cpu":
+    _check_device(x)
+    if not _on_card(x):
         return _gbn_bwd_plain(gy, gy2, x, y, gamma, beta, mean, var, eps,
                               act, ng)
-    if x.device.type != "cuda":
-        raise ValueError("ghost BN runs on cuda or cpu, got %s" % x.device)
     n, c, h, w = x.shape
     groups = n // ng
+    gy, gy2, x, y = _dense(gy), _dense(gy2), _dense(x), _dense(y)
     _check_cuda(x.device, {"gy": gy, "gy2": gy2, "x": x, "y": y},
                 {"gamma": (gamma, (c,)), "beta": (beta, (c,)),
                  "mean": (mean, (groups, c)), "var": (var, (groups, c))})

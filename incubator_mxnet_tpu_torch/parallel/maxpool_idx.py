@@ -5,9 +5,14 @@ The forward emits the pooled maximum (-inf padding) and an int8 plane
 holding the first row-major in-window argmax; the backward
 (:func:`indexed_unpool`) routes each output gradient to its winner from
 that plane alone, with no re-read of the input.  On a CUDA tensor the
-forward is the hand-written kernel K3 (``csrc/maxpool_idx.cu``); on a CPU
-tensor it is :func:`_maxpool_plain`, which repeats the reference
-kernel's arithmetic.
+forward is the hand-written kernel K3 (``csrc/maxpool_idx.cu``), which
+stages each band of a plane's input rows in shared memory with one bulk
+copy (:func:`band_rows`); on a CPU tensor it is :func:`_maxpool_plain`,
+which repeats the reference kernel's arithmetic.  K3 reads contiguous
+NCHW: on the card another layout (a permuted or ``channels_last``
+tensor, a strided view) is copied once into a fresh contiguous tensor
+first, as JAX arrays, which have no strides, compute it; a storage
+offset off the 16-byte grid needs no copy.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import torch
 from .. import _kernels
 
 __all__ = ["check_shape", "maxpool_with_index", "indexed_unpool",
-           "max_pool"]
+           "max_pool", "band_rows"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,21 +75,31 @@ def _maxpool_plain(data, window, strides, padding):
     return best.contiguous(), idx
 
 
+def _on_card(t):
+    """True where K3 runs: a CUDA tensor."""
+    return t.device.type == "cuda"
+
+
+def _dense(t):
+    """``t`` as K3 reads it: itself where it is contiguous NCHW, else one
+    contiguous copy (module note)."""
+    return t.contiguous()
+
+
 def maxpool_with_index(data, window, strides, padding):
     """``(out, idx)``: the pooled max in data's dtype and the int8 winner
-    slot.  CUDA tensors go through K3; CPU tensors through the plain
-    version."""
+    slot.  CUDA tensors go through K3 (copied first where they are not
+    contiguous NCHW); CPU tensors through the plain version."""
     if data.dtype not in _DTYPE_CODE:
         raise TypeError("max pooling with index takes float32 or bfloat16, "
                         "got %s" % data.dtype)
-    if data.device.type == "cpu":
-        return _maxpool_plain(data, window, strides, padding)
-    if data.device.type != "cuda":
+    if data.device.type not in ("cuda", "cpu"):
         raise ValueError("max pooling runs on cuda or cpu, got %s"
                          % data.device)
+    if not _on_card(data):
+        return _maxpool_plain(data, window, strides, padding)
     oh, ow = check_shape(data.shape, window, strides, padding)
-    if not data.is_contiguous():
-        raise ValueError("max pooling with index takes contiguous NCHW")
+    data = _dense(data)
     n, c, h, w = data.shape
     out = torch.empty((n, c, oh, ow), dtype=data.dtype, device=data.device)
     idx = torch.empty((n, c, oh, ow), dtype=torch.int8, device=data.device)
@@ -93,6 +108,18 @@ def maxpool_with_index(data, window, strides, padding):
         idx.data_ptr(), n, c, h, w, oh, ow, window[2], window[3], strides[2],
         strides[3], padding[2][0], padding[3][0])
     return out, idx
+
+
+def band_rows(data, window, strides, padding):
+    """The output rows a band of K3 stages for ``data`` (a whole plane's
+    ``OH`` where its input rows fit the kernel's stage), or 0 where the
+    launch reads device memory directly, as the built kernel plans it
+    (the ``maxpool_idx_band_rows`` entry).  Builds the library if needed;
+    launches nothing."""
+    oh, _ = check_shape(data.shape, window, strides, padding)
+    _, _, h, w = data.shape
+    return _kernels.query("maxpool_idx_band_rows", _DTYPE_CODE[data.dtype],
+                          h, w, oh, window[2], strides[2])
 
 
 def indexed_unpool(first, g, in_shape, window, strides, padding):

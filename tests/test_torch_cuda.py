@@ -104,18 +104,99 @@ def test_ghost_bn_kernels_match_plain(dev, dtype, shape, ng, act, res, dual):
     assert after["ghost_bn_bwd"] == before["ghost_bn_bwd"] + 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_maxpool_kernel_matches_plain(dev, dtype):
-    g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.clamp_min(torch.round(torch.randn(8, 64, 56, 56, generator=g,
+_STEM = ((1, 1, 3, 3), (1, 1, 2, 2), ((0, 0), (0, 0), (1, 1), (1, 1)))
+
+
+def _pool_input(shape, dtype, g, dev, offset=0):
+    """Tie-heavy values (a coarse grid, half clipped to 0 as after a
+    ReLU), ``offset`` elements into a fresh buffer (off its 16-byte grid
+    for offset > 0)."""
+    numel = shape[0] * shape[1] * shape[2] * shape[3]
+    x = torch.clamp_min(torch.round(torch.randn(numel + offset, generator=g,
                                                 device=dev) * 2) / 2, 0)
-    x = x.to(dtype)
-    cfg = ((1, 1, 3, 3), (1, 1, 2, 2), ((0, 0), (0, 0), (1, 1), (1, 1)))
+    return x.to(dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,shape,cfg", [
+    # the stem at batch 8: one band a whole plane
+    ("stem", (8, 64, 112, 112), _STEM),
+    ("2x2/2", (4, 16, 56, 56), ((1, 1, 2, 2), (1, 1, 2, 2),
+                                ((0, 0), (0, 0), (0, 0), (0, 0)))),
+    ("3x3/1 pad 1", (4, 16, 28, 28), ((1, 1, 3, 3), (1, 1, 1, 1),
+                                      ((0, 0), (0, 0), (1, 1), (1, 1)))),
+    ("3x3/2 pad (1, 2)", (4, 16, 30, 30), ((1, 1, 3, 3), (1, 1, 2, 2),
+                                           ((0, 0), (0, 0), (1, 2), (1, 2)))),
+    # odd W: bf16 planes off the 16-byte grid, a scalar head and tail
+    ("W 113", (2, 8, 113, 113), _STEM),
+    # planes larger than a stage in f32 (360 KB): bands of fewer rows that
+    # overlap by kh - sh input rows
+    ("300x300", (2, 3, 300, 300), _STEM),
+    # a 1x5 window, 5 slots: the generic (not unrolled) window
+    ("1x5/1x3", (2, 4, 17, 40), ((1, 1, 1, 5), (1, 1, 1, 3),
+                                 ((0, 0), (0, 0), (0, 0), (2, 2)))),
+    # rows of 6000: one output row a band in bf16; in f32 three input rows
+    # exceed a stage, so the walk reads device memory (unstaged)
+    ("W 6000", (1, 2, 8, 6000), _STEM),
+])
+def test_maxpool_kernel_matches_plain(dev, dtype, case, shape, cfg):
+    """K3 bit-exact (out and idx) against its plain version on tie-heavy
+    input, one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = _pool_input(shape, dtype, g, dev)
+    before = _kernels.launch_counts()["maxpool_idx_fwd"]
     out, idx = maxpool_idx.maxpool_with_index(x, *cfg)
     outp, idxp = maxpool_idx._maxpool_plain(x, *cfg)
     torch.cuda.synchronize()
-    assert torch.equal(out, outp)
+    assert torch.equal(out, outp), case
+    assert torch.equal(idx, idxp), case
+    assert _kernels.launch_counts()["maxpool_idx_fwd"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nan", "offset", "permuted"])
+def test_maxpool_kernel_odd_inputs(dev, dtype, layout):
+    """K3 against its plain version on NaN inputs (the max is NaN, the
+    index keeps its slot), on an input 1-3 elements off the 16-byte grid
+    (no copy: the kernel stages the aligned interior and loads the ends),
+    and on a permuted tensor (one contiguous copy, then the kernel)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    shape = (4, 8, 57, 57)
+    if layout == "nan":
+        x = _pool_input(shape, dtype, g, dev)
+        x.view(-1)[::97] = float("nan")
+    elif layout == "offset":
+        x = _pool_input(shape, dtype, g, dev, offset=3)
+        assert x.data_ptr() % 16
+    else:
+        x = _pool_input((shape[0], shape[2], shape[3], shape[1]), dtype, g,
+                        dev).permute(0, 3, 1, 2)
+        assert not x.is_contiguous()
+    before = _kernels.launch_counts()["maxpool_idx_fwd"]
+    out, idx = maxpool_idx.maxpool_with_index(x, *_STEM)
+    outp, idxp = maxpool_idx._maxpool_plain(x, *_STEM)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, outp, rtol=0, atol=0, equal_nan=True)
     assert torch.equal(idx, idxp)
+    if layout == "nan":
+        assert torch.isnan(out).any()
+    assert _kernels.launch_counts()["maxpool_idx_fwd"] == before + 1
+
+
+@pytest.mark.parametrize("shape,cfg,bf16,f32", [
+    ((256, 64, 112, 112), _STEM, 56, 28),
+    ((2, 8, 113, 113), _STEM, 57, 29),
+    ((2, 3, 300, 300), _STEM, 38, 19),
+    ((1, 1, 4, 6000), _STEM, 2, 0)])
+def test_maxpool_band_rows_come_from_the_kernel(dev, shape, cfg, bf16, f32):
+    """The output rows a band of K3 stages, read from the built library,
+    are those tests/test_torch_maxpool_idx.py models from the source's
+    MP_* defines: a whole plane at the stem in bf16, half of it in f32,
+    bands of 38 and 19 rows at 300x300, and the unstaged form (0) where
+    kh input rows exceed a stage."""
+    for dtype, want in ((torch.bfloat16, bf16), (torch.float32, f32)):
+        x = torch.empty(shape, dtype=dtype, device="meta")
+        assert maxpool_idx.band_rows(x, *cfg) == want, dtype
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -137,6 +218,15 @@ def test_maxpool_kernel_matches_plain(dev, dtype):
     (2, 72, 130, 200, False),
     (2, 130, 100, 256, True),     # 30 rows see no key
     (2, 130, 100, 256, False),
+    # the D-streamed form: 128-row blocks, 128 output columns a block (the
+    # grid's z), scores over 32-column chunks of D; ragged chunks at 264
+    # and 1000, ragged tiles both ways
+    (2, 100, 72, 264, True),      # 28 rows see no key
+    (2, 72, 130, 264, False),
+    (2, 130, 100, 512, True),
+    (2, 100, 100, 512, False),
+    (1, 70, 90, 1000, True),
+    (1, 90, 70, 1000, False),
 ])
 def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
     g = torch.Generator(device=dev).manual_seed(4)
@@ -283,35 +373,99 @@ def test_dual_cotangents_stay_apart_on_card(dev, monkeypatch):
     assert torch.equal(g1, gy) and torch.equal(g2, gy2)
 
 
+def test_strided_inputs_take_one_copy_on_card(dev):
+    """A D-sliced view, a permuted tensor and a storage offset off the
+    16-byte grid go through each kernel after at most one contiguous copy
+    (one launch a call), with the plain version's result on the same
+    inputs: flash attention (K4-K6), max pooling (K3) and ghost BN
+    (K1/K2, a channels_last and a permuted x)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    wide = torch.randn(2, 80, 96, generator=g, device=dev)
+    q = wide[..., :64]                                   # a D-sliced view
+    k = torch.randn(80, 2, 64, generator=g, device=dev).transpose(0, 1)
+    v = torch.randn(2 * 80 * 64 + 1, generator=g, device=dev)[1:] \
+        .view(2, 80, 64)                                 # 4 bytes off 16
+    do = torch.randn(2, 64, 80, generator=g, device=dev).transpose(1, 2)
+    assert not (q.is_contiguous() or k.is_contiguous() or do.is_contiguous())
+    assert v.data_ptr() % 16
+    before = _kernels.launch_counts()
+    out, lse = fa.flash_fwd(q, k, v, 0.125, True)
+    outp, lsep = fa._flash_fwd_plain(q, k, v, 0.125, True)
+    delta = (do * outp).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lsep, delta, 0.125, True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lsep, delta[:, :], 0.125, True)
+    want = fa._flash_bwd_plain(q, k, v, do, lsep, delta, 0.125, True)
+    torch.cuda.synchronize()
+    _close(out, outp, 1e-4)
+    _close(lse, lsep, 1e-4)
+    for got, ref in zip((dq, dk, dv), want):
+        _close(got, ref, 1e-3)
+    # the public function on leaves with the same strides: one launch of
+    # each kernel, the same gradients
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*(t[None] for t in qkv), causal=True, scale=0.125)
+    o.backward(do[None])
+    _close(o[0], outp, 1e-4)
+    for t, ref in zip(qkv, want):
+        _close(t.grad, ref, 1e-3)
+    after = _kernels.launch_counts()
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        assert after[name] == before[name] + 2
+
+    x = torch.randn(4, 16, 30, 30, generator=g, device=dev) \
+        .to(memory_format=torch.channels_last)
+    assert not x.is_contiguous()
+    gamma = torch.rand(16, generator=g, device=dev) + 0.5
+    beta = torch.randn(16, generator=g, device=dev)
+    before = _kernels.launch_counts()
+    y, m, var = fused_bn.ghost_bn_fwd(x, gamma, beta, None, 1e-5, "relu", 2)
+    yp, mp, vp = fused_bn._gbn_fwd_plain(x, gamma, beta, None, 1e-5, "relu",
+                                         2)
+    gy = torch.randn(4, 30, 30, 16, generator=g, device=dev) \
+        .permute(0, 3, 1, 2)
+    dx, dgam, dbet, _ = fused_bn.ghost_bn_bwd(gy, None, x, None, gamma, beta,
+                                              m, var, 1e-5, "relu", 2)
+    want = fused_bn._gbn_bwd_plain(gy, None, x, None, gamma, beta, m, var,
+                                   1e-5, "relu", 2)
+    torch.cuda.synchronize()
+    _close(y, yp, 1e-4)
+    _close(m, mp, 1e-4)
+    _close(var, vp, 1e-4)
+    _close(dx, want[0], 2e-4)
+    _close(dgam, want[1], 1e-3)
+    _close(dbet, want[2], 1e-3)
+    after = _kernels.launch_counts()
+    assert after["ghost_bn_fwd"] == before["ghost_bn_fwd"] + 1
+    assert after["ghost_bn_bwd"] == before["ghost_bn_bwd"] + 1
+
+
 def test_cuda_wrappers_refuse_bad_inputs(dev):
+    """What the card still refuses: ghost BN's per-channel vectors off
+    float32 or off the card, more than 65535 row tiles (the grid's y) or
+    column chunks (its z) of flash attention, checked on the shape before
+    any copy or launch, and dtypes no kernel takes.  A strided input is no
+    longer refused (test_strided_inputs_take_one_copy_on_card), nor a
+    head dim over 256 (test_flash_kernels_match_plain)."""
     x = torch.zeros(4, 8, 3, 3, device=dev)
     g = torch.ones(8, device=dev)
-    with pytest.raises(ValueError, match="contiguous"):
-        fused_bn.ghost_bn_fwd(x.transpose(2, 3), g, g, None, 1e-5, "relu", 2)
     with pytest.raises(ValueError, match="contiguous float32"):
         fused_bn.ghost_bn_fwd(x, g.bfloat16(), g, None, 1e-5, "relu", 2)
     with pytest.raises(ValueError, match="on cuda"):
         fused_bn.ghost_bn_fwd(x, g.cpu(), g, None, 1e-5, "relu", 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        maxpool_idx.maxpool_with_index(
-            x.transpose(2, 3), (1, 1, 2, 2), (1, 1, 2, 2),
-            ((0, 0), (0, 0), (0, 0), (0, 0)))
     q = torch.zeros(2, 16, 64, device=dev)
-    with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_fwd(q, q.transpose(1, 2).contiguous().transpose(1, 2), q,
-                     1.0, False)
-    big = torch.zeros(2, 16, 264, device=dev)
     before = _kernels.launch_counts()
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_fwd(big, big, big, 1.0, False)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention(big[None], big[None], big[None])
-    assert _kernels.launch_counts() == before
     # more than 65535 row tiles of 128 along the grid's y (checked before
     # the layout: the expanded tensor costs 32 bytes)
     long = torch.zeros(1, 1, 8, device=dev).expand(1, 65535 * 128 + 1, 8)
     with pytest.raises(ValueError, match="65535 tiles"):
         fa.flash_fwd(long, long, long, 1.0, False)
+    # more than 65535 chunks of 128 columns along the grid's z
+    wide = torch.zeros(1, 1, 1, device=dev).expand(1, 4, 65535 * 128 + 8)
+    with pytest.raises(ValueError, match="65535 chunks"):
+        fa.flash_fwd(wide, wide, wide, 1.0, False)
+    with pytest.raises(ValueError, match="65535 chunks"):
+        fa.flash_attention(wide[None], wide[None], wide[None])
+    assert _kernels.launch_counts() == before
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_fwd(q.half(), q.half(), q.half(), 1.0, False)
 

@@ -331,6 +331,32 @@ def before_ghost_bn(before, device):
     return fwd, bwd
 
 
+def before_maxpool(before, device):
+    """``pool(x, window, strides, padding) -> (out, idx)`` through the K3
+    of the tree under ``before`` (same C entry as this tree's), with the
+    signature of ``maxpool_idx.maxpool_with_index`` on contiguous card
+    tensors."""
+    from incubator_mxnet_tpu_torch.parallel import maxpool_idx
+
+    entry = _entry(_before_lib(before, "maxpool_idx.cu"), "maxpool_idx_fwd")
+
+    def pool(x, window, strides, padding):
+        n, c, h, w = x.shape
+        oh, ow = maxpool_idx.check_shape(x.shape, window, strides, padding)
+        out = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
+        idx = torch.empty((n, c, oh, ow), dtype=torch.int8, device=x.device)
+        err = entry(fb._DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+                    idx.data_ptr(), n, c, h, w, oh, ow, window[2], window[3],
+                    strides[2], strides[3], padding[2][0], padding[3][0],
+                    torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError("the earlier maxpool_idx_fwd failed: CUDA "
+                               "error %d" % err)
+        return out, idx
+
+    return pool
+
+
 def _before_k7(before, device):
     """``copy(x, ng)`` through the K7 of the tree under ``before`` (same C
     entry as this tree's), built by nvcc into ``build/before/``."""

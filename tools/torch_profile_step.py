@@ -49,9 +49,12 @@ CATEGORIES = {
         ("elementwise", ("elementwise", "vectorized", "unrolled")),
     ],
     "lm": [
-        ("K4 flash_attn_fwd", ("flash_fwd_kernel",)),
-        ("K5 flash_attn_bwd_dq", ("flash_bwd_dq_kernel",)),
-        ("K6 flash_attn_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+        ("K4 flash_attn_fwd", ("flash_fwd_kernel",
+                               "flash_fwd_streamed_kernel")),
+        ("K5 flash_attn_bwd_dq", ("flash_bwd_dq_kernel",
+                                  "flash_bwd_dq_streamed_kernel")),
+        ("K6 flash_attn_bwd_dkv", ("flash_bwd_dkv_kernel",
+                                   "flash_bwd_dkv_streamed_kernel")),
         ("gemm (cuBLAS, f32)", ("gemm", "cutlass", "cublas", "xmma",
                                 "sm90")),
         ("reduction", ("reduce", "Reduce")),
