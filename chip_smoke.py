@@ -63,6 +63,22 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    of K1-K3 or K7; loss and the four weight gradients within 1e-4
    (relative) of the same layer in plain torch autograd (dense
    ``attention_reference``); ``nd_step_ms`` the median of steps 2-6;
+3d. the ResNet path fed from RecordIO, as ``bench.py --data recordio``
+   composes it: a 512-record shard of 224x224x3 uint8 ``.npy`` payloads
+   (``bench.py``'s ``_synth_recordio``, numpy seed 0, label ``i % 1000``)
+   written by the port's ``recordio`` into a temporary directory, read by
+   ``io.ImageRecordUInt8Iter`` (shuffle, rand_mirror, 8 threads, prefetch
+   8) on the card, feeding phase 3's step with cuDNN held to deterministic
+   algorithms: run A takes ``STEPS`` steps (two batches an epoch, so two
+   epoch boundaries) and saves a checkpoint with the iterator's position
+   after step 3; run B, a net from another seed with a new step and
+   iterator, restores it (step 3) and takes steps 4-6.  Every loss finite,
+   exactly 53/53/1 launches of K1-K3 every step and nothing else, and run
+   B's losses and final state (params, running stats, optimizer state,
+   PRNG key, step counter, loss scale) equal run A's bit for bit;
+   ``recordio_step_ms`` (median of steps 2-6, ``next()`` included),
+   ``iter_ms`` (in ``next()``), ``h2d_ms`` (the batch's copies to the
+   card, device time), the save's ms and bytes and the restore's ms;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -132,8 +148,10 @@ tensors by O(1), which the median catches).
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 STEPS = 6          # main-path steps; the first is warm-up for the timing
@@ -540,6 +558,197 @@ def run_main_path(dev):
         raise AssertionError("recorded %d ghost-BN layers" % len(layers))
     return losses, step_ms, layers, counts
     # the net, the step and their buffers go out of scope here
+
+
+# phase 3d: the main path fed from a RecordIO shard, checkpointed and resumed
+RECORDS = 512      # bench.py --data recordio's shard (_synth_recordio)
+SAVE_AFTER = 3     # run A saves after this step; run B resumes from it
+MAIN_PATH = {"ghost_bn_fwd": 53, "ghost_bn_bwd": 53, "maxpool_idx_fwd": 1}
+
+
+def write_shard(directory):
+    """Phase 3d's shard, as ``bench.py``'s ``_synth_recordio`` writes it
+    with ``--record-format .npy``, through the port's ``recordio``:
+    returns (prefix, seconds, bytes written)."""
+    import numpy as np
+
+    from incubator_mxnet_tpu_torch import recordio
+
+    prefix = os.path.join(directory, "synth%d" % IMAGE)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(RECORDS):
+        img = rng.randint(0, 255, (IMAGE, IMAGE, 3), dtype=np.uint8)
+        rec.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(i % 1000), i, 0), img, quality=90,
+            img_fmt=".npy"))
+    rec.close()
+    seconds = time.perf_counter() - t0
+    return prefix, seconds, sum(os.path.getsize(prefix + ext)
+                                for ext in (".rec", ".idx"))
+
+
+def _recordio_run(dev, prefix, seed):
+    """Phase 3's net and step (Xavier from ``seed``) and the bench's
+    ``ImageRecordUInt8Iter`` over the shard, on the card."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import initializer, io
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from incubator_mxnet_tpu_torch.parallel import make_train_step
+
+    net = resnet.resnet50_v1(classes=1000, ghost_bn=16, device=dev)
+    initializer.initialize(net, initializer.Xavier(),
+                           torch.Generator(device=dev).manual_seed(seed))
+    step = make_train_step(net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                           learning_rate=0.1, momentum=0.9, wd=1e-4,
+                           multi_precision=True, loss_scale="dynamic",
+                           compute_dtype="bfloat16", device=dev)
+    it = io.ImageRecordUInt8Iter(
+        path_imgrec=prefix + ".rec", path_imgidx=prefix + ".idx",
+        data_shape=(3, IMAGE, IMAGE), batch_size=BATCH, shuffle=True,
+        rand_mirror=True, preprocess_threads=8, prefetch_buffer=8, seed=0,
+        ctx=dev)
+    return step, it
+
+
+def _drive(step, it, steps, after=None):
+    """``steps`` steps of ``b = next(it)`` (reset on ``StopIteration``, as
+    ``bench.py`` does) and ``step(b.data[0], b.label[0])``, the launch
+    counters set to 0 just before; every step must launch K1, K2 and K3
+    53, 53 and 1 times and nothing else.  ``after(i)`` runs after step
+    ``i`` (1-based), outside the timing.  Returns (losses, step_ms,
+    iter_ms, h2d_ms, counts)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+
+    losses, step_ms, iter_ms, h2d_ms = [], [], [], []
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    prev = _kernels.launch_counts()
+    for i in range(1, steps + 1):
+        t0 = time.perf_counter()
+        try:
+            b = next(it)
+        except StopIteration:
+            it.reset()
+            b = next(it)
+        t1 = time.perf_counter()
+        loss = step(b.data[0], b.label[0])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        iter_ms.append((t1 - t0) * 1e3)
+        h2d_ms.append(it.h2d_ms())
+        losses.append(loss)
+        counts = _kernels.launch_counts()
+        got = {k: counts[k] - prev[k] for k in counts}
+        want = {k: MAIN_PATH.get(k, 0) for k in counts}
+        if got != want:
+            raise AssertionError("step %d launched %s, want %s"
+                                 % (i, got, want))
+        prev = counts
+        if after is not None:
+            after(i)
+    return losses, step_ms, iter_ms, h2d_ms, prev
+
+
+def _host_state(step):
+    """The step's whole checkpointed state, copied to the host."""
+    from incubator_mxnet_tpu_torch.parallel import checkpoint
+
+    return [(k, v.detach().cpu().clone() if hasattr(v, "detach")
+             else v.copy())
+            for k, v in checkpoint._flatten(step._checkpoint_state())]
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def run_recordio_path(dev, directory):
+    """Phase 3d: run A feeds the main path's step from the shard through
+    ``ImageRecordUInt8Iter`` for ``STEPS`` steps and checkpoints after
+    step ``SAVE_AFTER`` (the iterator's position included); run B, a new
+    net from another seed, a new step and a new iterator, restores it and
+    takes the remaining steps, which must equal run A's bit for bit in
+    losses and in the whole state.  cuDNN is held to deterministic
+    algorithms in this phase.  Returns (metrics, run A's counts)."""
+    import numpy as np
+    import torch
+
+    prefix, write_s, shard_bytes = write_shard(directory)
+    print("  shard: %d records, %d bytes written in %.2f s"
+          % (RECORDS, shard_bytes, write_s), flush=True)
+    ckpt = os.path.join(directory, "ckpt")
+    cudnn = torch.backends.cudnn
+    modes = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    saved = {}
+
+    step, it = _recordio_run(dev, prefix, SEED)
+
+    def save(i):
+        if i == SAVE_AFTER:
+            t0 = time.perf_counter()
+            path = step.save_checkpoint(ckpt, data_iter=it)
+            saved["ms"] = (time.perf_counter() - t0) * 1e3
+            saved["bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                                 for f in os.listdir(path))
+
+    losses_a, step_ms, iter_ms, h2d_ms, counts = _drive(step, it, STEPS, save)
+    losses_a = [float(v) for v in losses_a]
+    final_a = _host_state(step)
+    it.close()
+    del step, it
+    torch.cuda.empty_cache()
+    print("  run A: losses %s  step_ms %s"
+          % (["%.5f" % v for v in losses_a], ["%.1f" % t for t in step_ms]),
+          flush=True)
+    if not _losses_ok(losses_a):
+        raise AssertionError("non-finite loss on the recordio path: %s"
+                             % losses_a)
+
+    step, it = _recordio_run(dev, prefix, SEED + 7)
+    t0 = time.perf_counter()
+    resumed = step.restore_checkpoint(ckpt, data_iter=it)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if resumed != SAVE_AFTER:
+        raise AssertionError("restored step %s, want %d"
+                             % (resumed, SAVE_AFTER))
+    losses_b = [float(v) for v in
+                _drive(step, it, STEPS - SAVE_AFTER)[0]]
+    final_b = _host_state(step)
+    it.close()
+    del step, it
+    torch.cuda.empty_cache()
+    cudnn.deterministic, cudnn.benchmark = modes
+    print("  run B (resumed at step %d): losses %s"
+          % (resumed, ["%.5f" % v for v in losses_b]), flush=True)
+    if losses_b != losses_a[SAVE_AFTER:]:
+        raise AssertionError("resumed losses %s, uninterrupted %s"
+                             % (losses_b, losses_a[SAVE_AFTER:]))
+    if [k for k, _ in final_a] != [k for k, _ in final_b]:
+        raise AssertionError("the resumed state has other leaves")
+    for (k, a), (_, b) in zip(final_a, final_b):
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) \
+            else np.array_equal(a, b)
+        if not same:
+            raise AssertionError("leaf %s differs after the resume" % k)
+    print("  resumed run equals the uninterrupted run bit for bit: losses "
+          "of steps %d-%d and all %d state leaves (step %s, loss scale "
+          "%s)" % (SAVE_AFTER + 1, STEPS, len(final_a),
+                   int(dict(final_b)["['step']"]),
+                   float(dict(final_b)["['loss_scale'][0]"])), flush=True)
+    metrics = {"recordio_step_ms": _median(step_ms[1:]),
+               "iter_ms": _median(iter_ms[1:]),
+               "h2d_ms": _median(h2d_ms[1:]),
+               "save_ms": saved["ms"], "save_bytes": saved["bytes"],
+               "restore_ms": restore_ms}
+    return metrics, counts
 
 
 def time_kernels(dev, layers, before=None, before_pool=None):
@@ -1434,6 +1643,26 @@ def main(argv=None):
     nd_steady = sorted(nd_ms[1:])[len(nd_ms[1:]) // 2]
     print("[3c] nd_step_ms %.2f (median of steps 2-%d)  on %s"
           % (nd_steady, STEPS, card), flush=True)
+
+    print("[3d] ResNet path fed from RecordIO: %d-record shard, "
+          "ImageRecordUInt8Iter, %d steps with a checkpoint after step %d, "
+          "resumed in a new net, step and iterator" % (RECORDS, STEPS,
+                                                        SAVE_AFTER),
+          flush=True)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_recordio_")
+    try:
+        rio, rio_counts = run_recordio_path(dev, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    for name in MAIN_PATH:
+        counts[name] += rio_counts[name]
+    print("[3d] recordio_step_ms %.2f (median of steps 2-%d, next() "
+          "included; phase 3's step_ms %.2f)  %.1f img/s  iter_ms %.2f  "
+          "h2d_ms %.3f  save %.0f ms (%d bytes)  restore %.0f ms  on %s"
+          % (rio["recordio_step_ms"], STEPS, steady,
+             BATCH / rio["recordio_step_ms"] * 1e3, rio["iter_ms"],
+             rio["h2d_ms"], rio["save_ms"], rio["save_bytes"],
+             rio["restore_ms"], card), flush=True)
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "

@@ -7,13 +7,15 @@ hand-written CUDA here (``csrc/``), built at first use by ``_kernels``;
 user kernels given as CUDA C at run time compile with NVRTC (``rtc``).
 
 The imperative API keeps the reference's names: ``mx.nd`` (NDArray and
-its operators), ``mx.autograd``, ``mx.random``, ``mx.cpu()``/``mx.gpu()``.
+its operators), ``mx.autograd``, ``mx.random``, ``mx.cpu()``/``mx.gpu()``,
+and the input path: ``mx.recordio`` and the iterators of ``mx.io``.
 """
-from . import (autograd, context, gluon, initializer, ndarray, parallel,
-               random, rtc)
+from . import (autograd, context, gluon, initializer, io, ndarray, parallel,
+               random, recordio, rtc)
 from . import ndarray as nd
 from .context import cpu, gpu
 from .ndarray import NDArray
 
-__all__ = ["autograd", "context", "gluon", "initializer", "ndarray", "nd",
-           "parallel", "random", "rtc", "cpu", "gpu", "NDArray"]
+__all__ = ["autograd", "context", "gluon", "initializer", "io", "ndarray",
+           "nd", "parallel", "random", "recordio", "rtc", "cpu", "gpu",
+           "NDArray"]

@@ -4,14 +4,20 @@ The port keeps its own copy: it never imports the JAX package.  A dtype
 may be given as a name (``"float32"``, ``"bfloat16"``, ...), a numpy
 dtype or type, or a ``torch.dtype``; :func:`torch_dtype` and
 :func:`np_dtype` map any of them to the one the caller needs.  ``None``
-is float32, as in the reference.
+is float32, as in the reference.  :class:`MXNetError` is the
+framework's error, as the reference's ``mxnet.base.MXNetError``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["np_dtype", "torch_dtype", "dtype_name"]
+__all__ = ["MXNetError", "np_dtype", "torch_dtype", "dtype_name"]
+
+
+class MXNetError(RuntimeError):
+    """Error raised by the framework (``mxnet.base.MXNetError``)."""
+
 
 _BY_NAME = {
     "float32": torch.float32,

@@ -19,16 +19,27 @@ One call runs forward, backward and the optimizer update:
 
 The finiteness flag, the counters and the scale stay tensors on the
 device: a step never waits for the host.
+
+The step takes tensors or the port's NDArrays (an iterator's batch:
+``step(b.data[0], b.label[0])``).  ``save_checkpoint`` /
+``restore_checkpoint`` / ``attach_checkpoint`` write and read the whole
+training state through :mod:`.checkpoint`, with the data iterator's
+position beside it, in the JAX package's state tree and format: the
+reference's ``TrainStep`` and this one restore each other's checkpoints.
 """
 from __future__ import annotations
 
+import warnings
 from typing import List
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from .. import context
+from ..ndarray import NDArray
 from ..ops import optimizer_ops as _oops
+from . import checkpoint as _ckpt
 
 __all__ = ["DynamicLossScale", "FunctionalOptimizer", "TrainStep",
            "make_train_step"]
@@ -154,6 +165,15 @@ class TrainStep:
         self._unskipped = torch.zeros((), dtype=torch.int32, device=dev)
         self._skipped = torch.zeros((), dtype=torch.int32, device=dev)
         self._step = torch.zeros((), dtype=torch.int32, device=dev)
+        # the reference's device PRNG key (uint32[2]); this step draws no
+        # random numbers, so the key only travels from restore to save
+        self._rng_key = np.zeros(2, np.uint32)
+        self._step_count = 0  # host mirror: calls, skipped steps included
+        self._ckpt_manager = None
+        self._ckpt_every = None
+        self._ckpt_prev_count = 0
+        self._ckpt_seen_request = 0
+        self._ckpt_data_iter = None
 
     def _cast_inputs(self, pv, x):
         cd = self.compute_dtype
@@ -172,6 +192,7 @@ class TrainStep:
         return loss
 
     def __call__(self, x, y):
+        x, y = (v._data if isinstance(v, NDArray) else v for v in (x, y))
         x = x.to(self.device, non_blocking=True)
         y = y.to(self.device, non_blocking=True)
         guard = self._scale_cfg is not None
@@ -181,7 +202,10 @@ class TrainStep:
             loss = self._loss(x, y)
             grads = torch.autograd.grad(loss, self._gp)
         with torch.no_grad():
-            return self._finish_step(loss.detach(), list(grads), old_aux)
+            loss = self._finish_step(loss.detach(), list(grads), old_aux)
+        self._step_count += 1
+        self._maybe_checkpoint()
+        return loss
 
     def _finish_step(self, loss, grads, old_aux):
         guard = old_aux is not None
@@ -231,6 +255,211 @@ class TrainStep:
     def step_count(self):
         """Applied updates (skipped steps excluded)."""
         return int(self._step)
+
+    # ------------------------------------------------------------------
+    # durable state (parallel/checkpoint.py)
+    def _checkpoint_state(self):
+        """The training state as the reference's tree: params and aux by
+        position, the per-parameter optimizer state, the PRNG key, the
+        applied-step counter and the loss-scale state (scale f32,
+        unskipped i32, skipped i32)."""
+        return {"params": list(self._gp), "aux": list(self._aux),
+                "opt_state": self._opt_state, "rng_key": self._rng_key,
+                "step": self._step,
+                "loss_scale": (self._scale, self._unskipped, self._skipped)}
+
+    @staticmethod
+    def _as_manager(directory_or_manager, keep_last=3):
+        if isinstance(directory_or_manager, _ckpt.CheckpointManager):
+            return directory_or_manager
+        return _ckpt.CheckpointManager(directory_or_manager,
+                                       keep_last=keep_last)
+
+    @staticmethod
+    def _topology():
+        """This step's training topology, stamped into every checkpoint's
+        meta: one card, the reference's single-device stamp."""
+        return {"mesh": None, "batch_axis": "dp", "zero": 0,
+                "pipeline_stages": None, "processes": 1}
+
+    def _elastic_policy(self):
+        """A tree congruent with :meth:`_checkpoint_state`: ``None`` where
+        a leaf must keep its saved shape, the logical leading dim where
+        the reference pads the optimizer state of a >= 1-d parameter
+        (ZeRO-1), so a padded checkpoint restores here."""
+        marks = [int(p.shape[0]) if p.dim() >= 1 else None for p in self._gp]
+        opt = [tuple(m for _ in s) if isinstance(s, tuple) else m
+               for s, m in zip(self._opt_state, marks)]
+        return {"params": [None] * len(self._gp),
+                "aux": [None] * len(self._aux), "opt_state": opt,
+                "rng_key": None, "step": None,
+                "loss_scale": (None, None, None)}
+
+    def save_checkpoint(self, directory_or_manager, keep_last=3,
+                        data_iter=None):
+        """Atomically checkpoint the whole training state; returns the
+        committed directory.  ``data_iter`` (default: the iterator bound
+        by :meth:`attach_checkpoint`) — its ``state_dict()`` rides the
+        manifest, so :meth:`restore_checkpoint` resumes the data stream
+        at the exact next batch."""
+        mgr = self._as_manager(directory_or_manager, keep_last)
+        if data_iter is None:
+            data_iter = self._ckpt_data_iter
+        meta = {"topology": self._topology()}
+        if data_iter is not None:
+            meta["data_iter"] = data_iter.state_dict()
+        return mgr.save(int(self._step), self._checkpoint_state(), meta=meta)
+
+    def restore_checkpoint(self, directory_or_manager, step=None,
+                           data_iter=None):
+        """Restore params, running stats, optimizer state, PRNG key, step
+        counter and loss scale from the newest intact checkpoint (or
+        ``step=``), each copied in place into the live tensor on the
+        step's device; returns the restored step number.  Training then
+        continues bit-identically to the uninterrupted run.
+
+        ``data_iter`` — restore the data stream too.  Raises
+        :class:`~.checkpoint.CheckpointError` when the checkpoint carries
+        no iterator state (resuming would replay the epoch); an iterator
+        bound by :meth:`attach_checkpoint` only warns then.  A checkpoint
+        with iterator state restored without an iterator warns."""
+        mgr = self._as_manager(directory_or_manager)
+        live = self._checkpoint_state()
+        step_no, state, meta = mgr.restore(
+            live, step=step, return_meta=True,
+            elastic=self._elastic_policy(), topology=self._topology())
+        saved_topo = (meta or {}).get("topology")
+        explicit_iter = data_iter is not None
+        if data_iter is None:
+            data_iter = self._ckpt_data_iter
+        if data_iter is not None:
+            iter_state = self._resolve_iter_state(meta, saved_topo)
+            if iter_state is None:
+                msg = ("checkpoint step %d carries no data-iterator state "
+                       "(saved without data_iter=) — restoring this "
+                       "iterator would silently replay the epoch from "
+                       "batch 0; re-save with save_checkpoint(..., "
+                       "data_iter=it) or restore without data_iter"
+                       % step_no)
+                if explicit_iter:
+                    raise _ckpt.CheckpointError(msg)
+                warnings.warn(msg + " (iterator left untouched)")
+            else:
+                try:
+                    data_iter.load_state_dict(iter_state)
+                except (ValueError, KeyError) as e:
+                    raise _ckpt.CheckpointTopologyError(
+                        "checkpoint step %d: the data iterator refused "
+                        "the checkpointed stream state: %s (saved "
+                        "topology: %s; current topology: %s)"
+                        % (step_no, e, saved_topo, self._topology())) \
+                        from e
+        elif (meta or {}).get("data_iter") is not None:
+            warnings.warn(
+                "checkpoint step %d carries data-iterator state but no "
+                "data_iter was passed or attached — the data stream "
+                "will replay its epoch from batch 0; pass "
+                "restore_checkpoint(..., data_iter=it) (or "
+                "attach_checkpoint(data_iter=it)) to resume mid-epoch"
+                % step_no)
+        pairs = list(zip(_ckpt._flatten(live), _ckpt._flatten(state)))
+        for (key, dst), (_, src) in pairs:
+            if dst.dtype != src.dtype:
+                raise _ckpt.CheckpointTopologyError(
+                    "checkpoint step %d: leaf %s is %s, this step's is %s"
+                    % (step_no, key, src.dtype, dst.dtype))
+        with torch.no_grad():
+            for (_, dst), (_, src) in pairs:
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+                else:
+                    np.copyto(dst, src)
+        self._step_count = int(step_no)
+        return step_no
+
+    def _resolve_iter_state(self, meta, saved_topo):
+        """The checkpointed data-stream state.  A multi-process save
+        carries one per process (``data_iter_parts``); re-splitting them
+        across another process count waits for ROADMAP A8."""
+        parts = (meta or {}).get("data_iter_parts")
+        if not parts:
+            return (meta or {}).get("data_iter")
+        if len(parts) == 1:
+            return next(iter(parts.values()))
+        raise _ckpt.CheckpointTopologyError(
+            "checkpoint carries the data streams of %d processes; "
+            "re-splitting them onto one process waits for ROADMAP A8 "
+            "(saved topology: %s; current topology: %s)"
+            % (len(parts), saved_topo, self._topology()))
+
+    def attach_checkpoint(self, directory_or_manager, every=None,
+                          keep_last=3, data_iter=None):
+        """Bind a checkpoint manager to the step loop: save at the next
+        step boundary whenever a checkpoint request is pending
+        (``checkpoint.install_preemption_hook`` / SIGTERM), and every
+        ``every`` steps if given.  ``data_iter`` rides every such save.
+        Returns the manager."""
+        from ..io.io import DataIter
+
+        if every is not None and int(every) < 1:
+            raise ValueError("every must be >= 1 or None")
+        if data_iter is not None:
+            # fail now: an iterator without the state protocol would
+            # raise at the preemption save, losing that checkpoint
+            sd = getattr(type(data_iter), "state_dict", None)
+            if sd is None or sd is DataIter.state_dict:
+                raise ValueError(
+                    "data_iter=%r does not implement the iterator-state "
+                    "protocol (state_dict/load_state_dict) — use a "
+                    "protocol-aware iterator (NDArrayIter, "
+                    "ImageRecordIter, ...) so boundary saves can carry "
+                    "the data position" % type(data_iter).__name__)
+        self._ckpt_manager = self._as_manager(directory_or_manager,
+                                              keep_last)
+        self._ckpt_every = int(every) if every else None
+        self._ckpt_data_iter = data_iter
+        self._ckpt_prev_count = self._step_count
+        # requests predating the attach are not ours to honor
+        self._ckpt_seen_request = _ckpt.request_seq()
+        return self._ckpt_manager
+
+    def _maybe_checkpoint(self):
+        """Step-boundary hook: honor a pending checkpoint request, and the
+        periodic schedule (off the host step mirror, no device sync),
+        against the attached manager."""
+        if self._ckpt_manager is None:
+            return
+        seq = _ckpt.request_seq()
+        requested = seq > self._ckpt_seen_request
+        due = requested
+        if self._ckpt_every:
+            prev, cur = self._ckpt_prev_count, self._step_count
+            self._ckpt_prev_count = cur
+            due = due or prev // self._ckpt_every != cur // self._ckpt_every
+        if not due:
+            return
+        try:
+            self.save_checkpoint(self._ckpt_manager)
+        except BaseException as e:
+            if requested:
+                # a failed preemption save: give the signal back its old
+                # disposition, so a repeated signal terminates instead of
+                # requesting another save that cannot succeed
+                warnings.warn(
+                    "preemption checkpoint save failed (%s: %s); "
+                    "restoring the previous signal disposition so a "
+                    "repeated preemption signal terminates instead "
+                    "of re-requesting a save that cannot succeed"
+                    % (type(e).__name__, e))
+                _ckpt.uninstall_preemption_hook()
+            else:
+                warnings.warn(
+                    "periodic checkpoint save failed (%s: %s); the "
+                    "last committed checkpoint is unchanged and the "
+                    "schedule will retry at the next boundary"
+                    % (type(e).__name__, e))
+            raise
+        self._ckpt_seen_request = seq
 
 
 def _tree_where(ok, new, old):

@@ -16,6 +16,8 @@ exactly 0 in O and dQ; head dims off the kernels' grid (zero-padded to
 a multiple of 8) as the rest.  K7 (``bn_copy``) and R1
 (``scale_kernel``) exact; R2 (``mm_kernel``) 1e-4 of max |a @ b| (f32 sums in another order
 than cuBLAS's); the nd attention layer card against CPU 1e-4 relative.
+The record iterator's batches on the card and checkpoints of card
+tensors are exact.
 """
 import importlib
 
@@ -730,3 +732,65 @@ def test_nd_attention_layer_card_matches_cpu(dev, monkeypatch):
         g_cpu = out["cpu"][1][n]
         err = np.abs(out["cuda"][1][n] - g_cpu).max()
         assert err <= 1e-4 * np.abs(g_cpu).max(), (n, err)
+
+
+def _uint8_shard(tmp_path, n=20, hw=32):
+    from incubator_mxnet_tpu_torch import recordio
+
+    prefix = str(tmp_path / "shard")
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    rng = np.random.RandomState(0)
+    for i in range(n):
+        img = rng.randint(0, 255, (hw, hw, 3)).astype(np.uint8)
+        rec.write_idx(i, recordio.pack_img(recordio.IRHeader(0, float(i), i, 0),
+                                           img, img_fmt=".npy"))
+    rec.close()
+    return prefix
+
+
+def test_record_iter_card_batches_match_cpu(dev, tmp_path):
+    """The uint8 iterator's batches on the card equal its ctx=cpu()
+    batches bitwise over three epochs (15 batches), while the hand-off's
+    ring recycles its 4 slots of pinned buffers."""
+    from incubator_mxnet_tpu_torch import cpu, io
+
+    prefix = _uint8_shard(tmp_path)
+    kw = dict(path_imgrec=prefix + ".rec", path_imgidx=prefix + ".idx",
+              data_shape=(3, 32, 32), batch_size=4, shuffle=True,
+              rand_mirror=True, preprocess_threads=2, prefetch_buffer=2)
+    its = [io.ImageRecordUInt8Iter(ctx=dev, **kw),
+           io.ImageRecordUInt8Iter(ctx=cpu(), **kw)]
+    pinned = set()
+    for epoch in range(3):
+        for card, host in zip(*its):
+            d = card.data[0]._data
+            assert d.device.type == "cuda" and d.dtype == torch.uint8
+            assert torch.equal(d.cpu(), host.data[0]._data)
+            assert torch.equal(card.label[0]._data.cpu(), host.label[0]._data)
+            pinned.update(b.data_ptr() for slot in its[0]._to_device._slots
+                          if slot for b in slot[0])
+        for it in its:
+            it.reset()
+    assert 0 < len(pinned) <= 2 * 4
+    assert its[0].h2d_ms() > 0 and its[1].h2d_ms() is None
+    for it in its:
+        it.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_round_trip_on_card(dev, tmp_path, dtype):
+    """Card tensors saved by the port's manager come back on the card,
+    bitwise, in their dtype."""
+    from incubator_mxnet_tpu_torch.parallel import checkpoint
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = {"w": [torch.randn(33, 17, generator=g, device=dev).to(dtype)],
+             "s": (torch.tensor(3, dtype=torch.int32, device=dev),)}
+    mgr = checkpoint.CheckpointManager(str(tmp_path))
+    mgr.save(1, state)
+    like = {"w": [torch.zeros(33, 17, dtype=dtype, device=dev)],
+            "s": (torch.zeros((), dtype=torch.int32, device=dev),)}
+    step, got = mgr.restore(like)
+    assert step == 1
+    for a, b in ((state["w"][0], got["w"][0]), (state["s"][0], got["s"][0])):
+        assert b.device == dev and b.dtype == a.dtype and torch.equal(a, b)
