@@ -15,8 +15,11 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    downsample BN and the 7x7x2048 final exit; K3 (max pool with index)
    at the stem on tie-heavy input, 2x2/2, 3x3/1 pad 1, 3x3/2 pad (1, 2),
    W 113, a (2, 3, 300, 300) plane cut into bands, NaN inputs, an input
-   3 elements off the 16-byte grid and a permuted one (copied once), each
-   one launch; K4/K5/K6 (flash attention forward,
+   3 elements off the 16-byte grid and a permuted one (copied once), and
+   every distinct max pool of the vision zoo at batch 32 (``ZOO_POOLS``:
+   the stems 3x3/2 pad 1, VGG's 2x2/2 at 224-14, AlexNet's 3x3/2 at 55,
+   27, 13, SqueezeNet's ceil-mode 3x3/2, Inception's 3x3/2 at 147, 71,
+   35, 17 px), each one launch; K4/K5/K6 (flash attention forward,
    dQ, dK/dV) at the LM's (4, 8, 2048, 128) causal and not, a ragged
    length (Sq = Sk = 1000, D 64), a cross length with empty rows (Sq 256,
    Sk 128, causal, D 16), head dims 20 and 4 (zero-padded to 24 and 8),
@@ -79,6 +82,22 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    ``recordio_step_ms`` (median of steps 2-6, ``next()`` included),
    ``iter_ms`` (in ``next()``), ``h2d_ms`` (the batch's copies to the
    card, device time), the save's ms and bytes and the restore's ms;
+3e. the ImageNet trainer's path: ``example/image_classification/
+   train_imagenet_torch.py`` at its defaults, built through its own
+   functions: stock-BN ``resnet50_v1``, batch 128, 224 px, bf16 compute,
+   f32 parameters, sgd momentum 0.9 / lr 0.1 / wd 1e-4; ``IMAGENET_STEPS``
+   steps from its synthetic resident batch (finite losses, a later one
+   below the first), then ``IMAGENET_RIO_STEPS`` fed from phase 3d's shard by
+   its ``ImageRecordIter``; with the counters set to 0 just before, every
+   step launches K3 once and nothing else (no K1/K2: stock BN is
+   PyTorch's ``native_batch_norm``); ``imagenet_step_ms`` (median of steps 3-8) and img/s;
+3f. one net of each other family of the zoo at full width, 1000
+   classes, batch ``ZOO_BATCH``, bf16, lr ``ZOO_LR``, ``ZOO_STEPS`` steps
+   (``ZOO_NETS``: resnet50_v2, resnet18_v1, resnet50_v1(s2d_stem=True),
+   vgg16_bn, alexnet, squeezenet1_1, densenet121, mobilenet1_0,
+   mobilenet_v2_1_0 at 224 px, inception_v3 at 299): each step launches
+   K3 once for each of the net's max pools and nothing else, losses
+   finite; each net's ``step_ms``;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -91,7 +110,11 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    form) and at (4, 2, 2048, 512) (the D-streamed form; the kernels SDPA
    ran are named).  With ``--before DIR`` (a tree unpacked there, as
    ``tools/bn_kernel_bench_torch.py --before`` takes it) the K1, K2 and
-   K3 of that tree are built; K1 and K2 are summed over the same 53
+   K3 of that tree are built; K3 is also timed at four zoo shapes
+   (``ZOO_TIMED``: VGG 2x2/2 at 224, AlexNet 3x3/2 at 55, SqueezeNet's
+   ceil mode at 111, Inception at 147; batch 32, bf16) beside its plain
+   version, ``F.max_pool2d(return_indices=True)`` and its byte bound, on
+   the flushed clock; K1 and K2 are summed over the same 53
    layers and K3 timed at the stem on the same clock, in the order
    before, now, now, before.  Bounds are the larger
    of bytes over 3.35 TB/s and operations over the f32 CUDA cores' 67
@@ -300,6 +323,16 @@ def check_kernels(dev, errs):
             errs["maxpool_idx_fwd"].append(_check_pool(label, x, cfg))
             del x
         torch.cuda.empty_cache()
+        for models, (c, h, w), k, s, p, ceil in ZOO_POOLS:
+            x = torch.clamp_min(torch.round(
+                rnd(ZOO_POOL_BATCH, c, h, w) * 2) / 2, 0).to(dtype)
+            label = "%s %dx%d/%d%s%s" % (models.split(",")[0], k, k, s,
+                                         " pad %d" % p if p else "",
+                                         " ceil" if ceil else "")
+            errs["maxpool_idx_fwd"].append(
+                _check_pool(label, x, zoo_pool_cfg(k, s, p, ceil)))
+            del x
+        torch.cuda.empty_cache()
 
 
 #: 3x3/2 pad 1, the stem's max pool
@@ -320,6 +353,44 @@ POOL_CASES = [
     ("offset 3 elements", (8, 16, 57, 57), POOL_STEM, "offset"),
     ("permuted (copied)", (8, 16, 56, 56), POOL_STEM, "permuted"),
 ]
+
+
+#: every distinct max pool of the vision zoo's 34 models (224 px, Inception
+#: 299): (models, (C, H, W), kernel, stride, pad, ceil mode); phase 2
+#: checks K3 at each at batch ZOO_POOL_BATCH in both dtypes, and
+#: tests/test_torch_pooling.py holds the table to the models
+ZOO_POOL_BATCH = 32
+ZOO_POOLS = [
+    ("resnet, densenet stem", (64, 112, 112), 3, 2, 1, False),
+    ("densenet161 stem", (96, 112, 112), 3, 2, 1, False),
+    ("vgg", (64, 224, 224), 2, 2, 0, False),
+    ("vgg", (128, 112, 112), 2, 2, 0, False),
+    ("vgg", (256, 56, 56), 2, 2, 0, False),
+    ("vgg", (512, 28, 28), 2, 2, 0, False),
+    ("vgg", (512, 14, 14), 2, 2, 0, False),
+    ("alexnet", (64, 55, 55), 3, 2, 0, False),
+    ("alexnet", (192, 27, 27), 3, 2, 0, False),
+    ("alexnet", (256, 13, 13), 3, 2, 0, False),
+    ("squeezenet1_0", (96, 109, 109), 3, 2, 0, True),
+    ("squeezenet1_0", (256, 54, 54), 3, 2, 0, True),
+    ("squeezenet1_0", (512, 27, 27), 3, 2, 0, True),
+    ("squeezenet1_1", (64, 111, 111), 3, 2, 0, True),
+    ("squeezenet1_1", (128, 55, 55), 3, 2, 0, True),
+    ("squeezenet1_1", (256, 27, 27), 3, 2, 0, True),
+    ("inception_v3", (64, 147, 147), 3, 2, 0, False),
+    ("inception_v3", (192, 71, 71), 3, 2, 0, False),
+    ("inception_v3", (288, 35, 35), 3, 2, 0, False),
+    ("inception_v3", (768, 17, 17), 3, 2, 0, False),
+]
+
+
+def zoo_pool_cfg(kernel, stride, pad, ceil):
+    """(window, strides, padding) of ``MaxPool2D(kernel, stride, pad,
+    ceil_mode=ceil)``: ceil mode pads the high edge by ``pad + stride -
+    1`` (``ops.nn.pooling``'s ``pooling_convention="full"``)."""
+    hi = pad + stride - 1 if ceil else pad
+    return ((1, 1, kernel, kernel), (1, 1, stride, stride),
+            ((0, 0), (0, 0), (pad, hi), (pad, hi)))
 
 
 def _check_pool(label, x, cfg):
@@ -751,6 +822,195 @@ def run_recordio_path(dev, directory):
     return metrics, counts
 
 
+# phase 3e: train_imagenet_torch.py's path at its defaults
+IMAGENET_STEPS = 8      # from the synthetic resident batch
+IMAGENET_RIO_STEPS = 4  # then fed from phase 3d's shard by ImageRecordIter
+IMAGENET_PATH = {"maxpool_idx_fwd": 1}
+
+
+def _imagenet_module():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "example", "image_classification",
+                        "train_imagenet_torch.py")
+    spec = importlib.util.spec_from_file_location("train_imagenet_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _drive_steps(step, src, steps, per_step):
+    """``steps`` steps of ``step(*next(src))``, each timed on the host
+    clock around a synchronize, each launching exactly ``per_step`` of the
+    port's kernels and nothing else.  Returns (losses, step_ms)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+
+    losses, step_ms = [], []
+    prev = _kernels.launch_counts()
+    for i in range(1, steps + 1):
+        t0 = time.perf_counter()
+        x, y = next(src)
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        counts = _kernels.launch_counts()
+        got = {k: counts[k] - prev[k] for k in counts}
+        want = {k: per_step.get(k, 0) for k in counts}
+        if got != want:
+            raise AssertionError("step %d launched %s, want %s"
+                                 % (i, got, want))
+        prev = counts
+    return losses, step_ms
+
+
+def run_imagenet_path(dev, prefix):
+    """Phase 3e: ``train_imagenet_torch.py`` at its defaults, built
+    through its own functions (``parse_args``, ``build_net``,
+    ``build_step``, ``batches``): stock ``resnet50_v1``, batch 128, 224
+    px, bf16 compute, sgd lr 0.1.  ``IMAGENET_STEPS`` steps from the
+    synthetic resident batch, then ``IMAGENET_RIO_STEPS`` from the shard
+    ``prefix`` by ``ImageRecordIter``, the counters set to 0 just before;
+    every step launches K3 once and nothing else.  Returns (metrics,
+    counts)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+
+    trainer = _imagenet_module()
+    torch.backends.cudnn.benchmark = True
+    args = trainer.parse_args([])
+    t0 = time.perf_counter()
+    net = trainer.build_net(args, dev)
+    step = trainer.build_step(net, args, dev)
+    build_s = time.perf_counter() - t0
+    pools = sum(type(m).__name__ == "MaxPool2D" for m in net.modules())
+    src = trainer.batches(args, dev)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    losses, step_ms = _drive_steps(step, src, IMAGENET_STEPS, IMAGENET_PATH)
+    src.close()
+    print("  %s, batch %d, %s px, %s, lr %g: %d max pool(s); built and "
+          "shapes resolved in %.1f s" % (args.network, args.batch_size,
+                                         args.image_shape, args.dtype,
+                                         args.lr, pools, build_s),
+          flush=True)
+    print("  resident batch: losses %s  step_ms %s"
+          % (["%.4f" % v for v in losses], ["%.1f" % t for t in step_ms]),
+          flush=True)
+    # lr 0.1 with momentum 0.9 from random init overshoots on a fixed
+    # batch: the loss falls at once, then swings above the first by steps
+    # 4-8 (7.50 -> 6.12 ... 8.44 at step 8 with cuDNN deterministic;
+    # phase 3's ghost-BN step 7.66 -> 6.00 -> 6.69), so the check is that
+    # it fell below the first, not that step 8 is below it
+    if not _losses_ok(losses) or not min(losses[1:]) < losses[0]:
+        raise AssertionError("imagenet path losses %s: not finite or "
+                             "never below the first" % losses)
+    rio_args = trainer.parse_args(["--data-train", prefix + ".rec",
+                                   "--data-train-idx", prefix + ".idx"])
+    src = trainer.batches(rio_args, dev)
+    rio_losses, rio_ms = _drive_steps(step, src, IMAGENET_RIO_STEPS,
+                                      IMAGENET_PATH)
+    src.close()
+    counts = _kernels.launch_counts()
+    print("  RecordIO (ImageRecordIter, phase 3d's shard): losses %s  "
+          "step_ms %s" % (["%.4f" % v for v in rio_losses],
+                          ["%.1f" % t for t in rio_ms]), flush=True)
+    if not _losses_ok(rio_losses):
+        raise AssertionError("imagenet path losses from RecordIO %s"
+                             % rio_losses)
+    print("  launches a step: K3 %d, K1 %d, K2 %d (%d steps: %s)"
+          % (IMAGENET_PATH["maxpool_idx_fwd"], 0, 0,
+             IMAGENET_STEPS + IMAGENET_RIO_STEPS, counts), flush=True)
+    steady = _median(step_ms[2:])
+    metrics = {"imagenet_step_ms": steady,
+               "img_s": args.batch_size / steady * 1e3,
+               "imagenet_rio_step_ms": _median(rio_ms[1:])}
+    del net, step
+    torch.cuda.empty_cache()
+    return metrics, counts
+
+
+# phase 3f: one network of each other family, full width, small batch
+ZOO_BATCH = 16
+ZOO_STEPS = 3
+ZOO_LR = 0.01
+#: (label, constructor name, constructor kwargs, image px)
+ZOO_NETS = [
+    ("resnet50_v2", "resnet50_v2", {}, 224),
+    ("resnet18_v1", "resnet18_v1", {}, 224),
+    ("resnet50_v1(s2d_stem=True)", "resnet50_v1", {"s2d_stem": True}, 224),
+    ("vgg16_bn", "vgg16_bn", {}, 224),
+    ("alexnet", "alexnet", {}, 224),
+    ("squeezenet1_1", "squeezenet1_1", {}, 224),
+    ("densenet121", "densenet121", {}, 224),
+    ("mobilenet1_0", "mobilenet1_0", {}, 224),
+    ("mobilenet_v2_1_0", "mobilenet_v2_1_0", {}, 224),
+    ("inception_v3", "inception_v3", {}, 299),
+]
+
+
+def run_zoo_nets(dev):
+    """Phase 3f: each of ``ZOO_NETS`` at full width (1000 classes),
+    batch ``ZOO_BATCH``, bf16 compute, sgd momentum 0.9 / lr ``ZOO_LR`` /
+    wd 1e-4, ``ZOO_STEPS`` steps on a synthetic batch, the counters set
+    to 0 just before: every step launches K3 once for each of the net's
+    max pools and nothing else; losses finite.  Returns (rows,
+    counts)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels, gluon, initializer
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    from incubator_mxnet_tpu_torch.parallel import make_train_step
+
+    torch.backends.cudnn.benchmark = True
+    total = {name: 0 for name in _kernels.launch_counts()}
+    rows = []
+    for label, name, kwargs, px in ZOO_NETS:
+        net = vision.get_model(name, classes=1000, device=dev, **kwargs)
+        initializer.initialize(net, initializer.Xavier(),
+                               torch.Generator(device=dev).manual_seed(SEED))
+        gluon.shape_init(net, (1, 3, px, px))
+        pools = sum(isinstance(m, gluon.nn.MaxPool2D) for m in net.modules())
+        step = make_train_step(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                               optimizer="sgd", learning_rate=ZOO_LR,
+                               momentum=0.9, wd=1e-4,
+                               compute_dtype="bfloat16", device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        x = torch.rand(ZOO_BATCH, 3, px, px, generator=g, device=dev)
+        y = torch.randint(0, 1000, (ZOO_BATCH,), generator=g,
+                          device=dev).float()
+
+        def batches():
+            while True:
+                yield x, y
+
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        losses, step_ms = _drive_steps(step, batches(), ZOO_STEPS,
+                                       {"maxpool_idx_fwd": pools})
+        counts = _kernels.launch_counts()
+        for k in total:
+            total[k] += counts[k]
+        ms = _median(step_ms[1:])
+        print("  %-28s %3d px  step_ms %8.2f  K3 launches %d (%d max "
+              "pools x %d steps)  losses %s" % (
+                  label, px, ms, counts["maxpool_idx_fwd"], pools,
+                  ZOO_STEPS, ["%.4f" % v for v in losses]), flush=True)
+        if not _losses_ok(losses):
+            raise AssertionError("%s: non-finite loss %s" % (label, losses))
+        rows.append({"net": label, "px": px, "step_ms": ms,
+                     "max_pools": pools,
+                     "k3_launches": counts["maxpool_idx_fwd"]})
+        del net, step, x, y
+        torch.cuda.empty_cache()
+    return rows, total
+
+
 def time_kernels(dev, layers, before=None, before_pool=None):
     """Phase 4: per-kernel times summed over one step's launches; K1, K2
     and K3 (and their plain versions and ``F.max_pool2d``) by the
@@ -894,6 +1154,57 @@ def time_kernels(dev, layers, before=None, before_pool=None):
     del x
     torch.cuda.empty_cache()
     return rows
+
+
+#: K3's zoo shapes timed in phase 4: (models of ZOO_POOLS, (C, H, W))
+ZOO_TIMED = [("vgg", (64, 224, 224)), ("alexnet", (64, 55, 55)),
+             ("squeezenet1_1", (64, 111, 111)),
+             ("inception_v3", (64, 147, 147))]
+
+
+def time_zoo_pools(dev):
+    """Phase 4: K3 at the zoo shapes of ``ZOO_TIMED`` (batch
+    ``ZOO_POOL_BATCH``, bf16, the trainer's dtype) beside its plain
+    version, ``F.max_pool2d(return_indices=True)`` and its byte bound,
+    all by the profiler's device time with the L2 flushed."""
+    import torch
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.parallel import maxpool_idx
+
+    tool = _bench_tool()
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    out = []
+    for models, chw in ZOO_TIMED:
+        (_, _, k, st, p, ceil), = [e for e in ZOO_POOLS
+                                   if e[0] == models and e[1] == chw]
+        cfg = zoo_pool_cfg(k, st, p, ceil)
+        x = torch.clamp_min(torch.randn((ZOO_POOL_BATCH,) + chw, generator=g,
+                                        device=dev), 0).to(torch.bfloat16)
+        oh, ow = maxpool_idx.check_shape(x.shape, *cfg)
+        out_numel = ZOO_POOL_BATCH * chw[0] * oh * ow
+        row = dict(
+            shape="%s %s %dx%d/%d%s" % (models, (ZOO_POOL_BATCH,) + chw, k,
+                                        k, st, " ceil" if ceil else ""),
+            ms=tool.flushed_device_ms(
+                lambda: maxpool_idx.maxpool_with_index(x, *cfg), 20, dev,
+                "maxpool_idx_kernel"),
+            plain_ms=tool.flushed_device_ms(
+                lambda: maxpool_idx._maxpool_plain(x, *cfg), 3, dev, None),
+            library_ms=tool.flushed_device_ms(
+                lambda: F.max_pool2d(x, k, st, p, ceil_mode=ceil,
+                                     return_indices=True), 20, dev, None),
+            **_bound(x.numel() * 2 + out_numel * (2 + 1), out_numel * k * k))
+        print("  K3 %-44s ms %.4f  bound %.4f (%s, %.2fx)  plain %.4f  "
+              "F.max_pool2d %.4f (K3/library %.3f)" % (
+                  row["shape"], row["ms"], row["bound_ms"], row["bound_by"],
+                  row["ms"] / row["bound_ms"], row["plain_ms"],
+                  row["library_ms"], row["ms"] / row["library_ms"]),
+              flush=True)
+        out.append(row)
+        del x
+    torch.cuda.empty_cache()
+    return out
 
 
 def _causal_pairs(sq, sk):
@@ -1652,17 +1963,36 @@ def main(argv=None):
     directory = tempfile.mkdtemp(prefix="chip_smoke_recordio_")
     try:
         rio, rio_counts = run_recordio_path(dev, directory)
+        for name in MAIN_PATH:
+            counts[name] += rio_counts[name]
+        print("[3d] recordio_step_ms %.2f (median of steps 2-%d, next() "
+              "included; phase 3's step_ms %.2f)  %.1f img/s  iter_ms %.2f  "
+              "h2d_ms %.3f  save %.0f ms (%d bytes)  restore %.0f ms  on %s"
+              % (rio["recordio_step_ms"], STEPS, steady,
+                 BATCH / rio["recordio_step_ms"] * 1e3, rio["iter_ms"],
+                 rio["h2d_ms"], rio["save_ms"], rio["save_bytes"],
+                 rio["restore_ms"], card), flush=True)
+
+        print("[3e] ImageNet trainer path: train_imagenet_torch.py at its "
+              "defaults (stock-BN resnet50_v1), %d steps from the resident "
+              "batch, then %d from phase 3d's shard by ImageRecordIter"
+              % (IMAGENET_STEPS, IMAGENET_RIO_STEPS), flush=True)
+        imagenet, in_counts = run_imagenet_path(
+            dev, os.path.join(directory, "synth%d" % IMAGE))
     finally:
         shutil.rmtree(directory, ignore_errors=True)
-    for name in MAIN_PATH:
-        counts[name] += rio_counts[name]
-    print("[3d] recordio_step_ms %.2f (median of steps 2-%d, next() "
-          "included; phase 3's step_ms %.2f)  %.1f img/s  iter_ms %.2f  "
-          "h2d_ms %.3f  save %.0f ms (%d bytes)  restore %.0f ms  on %s"
-          % (rio["recordio_step_ms"], STEPS, steady,
-             BATCH / rio["recordio_step_ms"] * 1e3, rio["iter_ms"],
-             rio["h2d_ms"], rio["save_ms"], rio["save_bytes"],
-             rio["restore_ms"], card), flush=True)
+    counts["maxpool_idx_fwd"] += in_counts["maxpool_idx_fwd"]
+    print("[3e] imagenet_step_ms %.2f (median of steps 3-%d)  %.1f img/s  "
+          "from RecordIO %.2f (median of its steps 2-%d)  on %s"
+          % (imagenet["imagenet_step_ms"], IMAGENET_STEPS,
+             imagenet["img_s"], imagenet["imagenet_rio_step_ms"],
+             IMAGENET_RIO_STEPS, card), flush=True)
+
+    print("[3f] the zoo: one net of each family, full width, batch %d, "
+          "bf16, lr %g, %d steps" % (ZOO_BATCH, ZOO_LR, ZOO_STEPS),
+          flush=True)
+    _, zoo_counts = run_zoo_nets(dev)
+    counts["maxpool_idx_fwd"] += zoo_counts["maxpool_idx_fwd"]
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "
@@ -1672,6 +2002,8 @@ def main(argv=None):
         before = _bench_tool().before_ghost_bn(args.before, dev)
         before_pool = _bench_tool().before_maxpool(args.before, dev)
     rows = time_kernels(dev, layers, before, before_pool)
+    print("[4] K3 at the zoo's pool shapes (flushed)", flush=True)
+    time_zoo_pools(dev)
     rows.update(time_flash(dev))
     print("[4c] K7 at the 9 ResNet-50 BN shapes (batch 256, bf16) beside "
           "copy_, K1 and K2; R1 beside torch.add; R2 at the nd path's "

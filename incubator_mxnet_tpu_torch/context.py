@@ -3,13 +3,20 @@
 The port runs on the card.  Its entry points take ``device=`` and resolve
 it here: ``None`` means :func:`default_device`, which is CUDA, and asking
 for CUDA on a host without a card raises.  Nothing falls back to the CPU
-unless the caller asked for ``"cpu"``.
+unless the caller asked for ``"cpu"``.  A model built inside
+:func:`device_scope` hands its device to every layer built there that is
+given none.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
-__all__ = ["cpu", "gpu", "default_device", "resolve"]
+__all__ = ["cpu", "gpu", "default_device", "resolve", "device_scope"]
+
+_SCOPE = threading.local()
 
 
 def cpu():
@@ -30,9 +37,11 @@ def default_device():
 
 
 def resolve(device=None):
-    """``device`` as a ``torch.device``; ``None`` is the default CUDA card."""
+    """``device`` as a ``torch.device``; ``None`` is the enclosing
+    :func:`device_scope`'s device, else the default CUDA card."""
     if device is None:
-        return default_device()
+        scoped = getattr(_SCOPE, "device", None)
+        return scoped if scoped is not None else default_device()
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device %s requested but no CUDA device is "
@@ -42,3 +51,16 @@ def resolve(device=None):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("the port runs on 'cuda' or 'cpu', got %s" % dev)
     return dev
+
+
+@contextlib.contextmanager
+def device_scope(device=None):
+    """Resolve ``device`` once and make it what :func:`resolve` returns for
+    ``None`` inside the block (this thread only): a model's constructor
+    builds its layers inside one."""
+    prev = getattr(_SCOPE, "device", None)
+    _SCOPE.device = resolve(device)
+    try:
+        yield _SCOPE.device
+    finally:
+        _SCOPE.device = prev

@@ -5,7 +5,10 @@ between nets built in one process, so the match is by position: the
 JAX net's ``collect_params()`` order, running stats included, against
 the port's modules in construction order, each module's parameters then
 its buffers.  The port builds its modules in the reference's
-registration order, so the two orders agree; shapes are checked.
+registration order, so the two orders agree; shapes are checked.  A
+parameter without gradient (a BN's gamma with ``scale=False``) keeps its
+place among the parameters, as in ``collect_params()``.  A net whose
+layers defer their widths is resolved first (``gluon.shape_init``).
 
 The long-context LM's parameters are a nested dict whose keys are stable
 (``embed``; ``l0`` ... ``lN`` with ``ln1_g ln1_b wq wk wv wo ln2_g ln2_b

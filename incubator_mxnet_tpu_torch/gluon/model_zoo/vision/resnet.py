@@ -1,29 +1,61 @@
-"""ResNet v1 with fused ghost batch norm (port of ``incubator_mxnet_tpu/
-gluon/model_zoo/vision/resnet.py``: ``GhostBNReLU``, ``GhostBN``,
-``BottleneckV1``, ``ResNetV1``, ``resnet50_v1``).
+"""ResNet v1 and v2 (port of ``incubator_mxnet_tpu/gluon/model_zoo/vision/
+resnet.py``): stock BatchNorm blocks, the fused ghost-BN form of v1
+(``ghost_bn=<group>``), the space-to-depth stem (``s2d_stem``), the
+thumbnail stem, ``resnet_spec``, ``get_resnet`` and the 10
+constructors.
 
-Only the ghost-BN form is ported.  ``ghost_bn=0`` (stock BatchNorm) and
-``s2d_stem=True`` (the space-to-depth stem) raise ``NotImplementedError``
-naming their ROADMAP items.  Modules are built in the reference's
-registration order, so ``convert.params_from_jax`` can carry weights
-across by position.
+Modules are built in the reference's registration order, so
+``convert.params_from_jax`` can carry weights across by position.  As
+in the reference, the stock form leaves most input widths to the first
+input (``gluon.shape_init``); the ghost form is given them all.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as tF
 from torch import nn as tnn
 
 from .... import context
 from ....ops import nn as ops
 from ... import nn
 
-__all__ = ["GhostBNReLU", "GhostBN", "BottleneckV1", "ResNetV1",
-           "resnet50_v1"]
+__all__ = ["GhostBNReLU", "GhostBN", "BasicBlockV1", "BottleneckV1",
+           "BasicBlockV2", "BottleneckV2", "ResNetV1", "ResNetV2",
+           "resnet_spec", "get_resnet", "resnet18_v1", "resnet34_v1",
+           "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
+           "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2"]
 
 
-def _conv3x3(channels, stride, in_channels, device):
+def _conv3x3(channels, stride, in_channels, device=None):
     return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
                      use_bias=False, in_channels=in_channels, device=device)
+
+
+class _S2DStemConv(tnn.Module):
+    """The 7x7 stride-2 pad-3 stem convolution computed as a 4x4 stride-1
+    convolution over the 2x2 space-to-depth packing of its padded input
+    (the same function): with ``ky = 2 kY + dy`` the kernel's taps become
+    ``(kY, dy)`` pairs over packed channel ``4 c + 2 dy + dx``.  The
+    weight keeps the (channels, in_channels, 7, 7) shape of the plain
+    stem and is rearranged in the forward.  The input's height and width
+    must be even."""
+
+    def __init__(self, channels, in_channels=3, device=None):
+        super().__init__()
+        self.weight = tnn.Parameter(torch.empty(
+            (channels, in_channels, 7, 7), device=context.resolve(device)))
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        x = tF.pad(x, (3, 3, 3, 3))
+        y, xx = (h + 6) // 2, (w + 6) // 2
+        x = x.reshape(n, c, y, 2, xx, 2).permute(0, 1, 3, 5, 2, 4) \
+            .reshape(n, 4 * c, y, xx)
+        o = self.weight.shape[0]
+        wt = tF.pad(self.weight, (0, 1, 0, 1))
+        wt = wt.reshape(o, c, 4, 2, 4, 2).permute(0, 1, 3, 5, 2, 4) \
+            .reshape(o, 4 * c, 4, 4)
+        return ops.convolution(x, wt)
 
 
 class GhostBNReLU(tnn.Module):
@@ -94,102 +126,322 @@ class GhostBN(GhostBNReLU):
     _act = "none"
 
 
+class BasicBlockV1(tnn.Module):
+    """ResNet v1 basic block: two 3x3 conv + BN pairs and the residual
+    add + ReLU; with ``ghost_bn`` the BNs are fused ghost BN, the exit
+    with the add and ReLU."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 ghost_bn=0, dual_out=False, device=None):
+        super().__init__()
+        self._ghost_bn = ghost_bn
+        if ghost_bn:
+            self.conv1 = _conv3x3(channels, stride, in_channels, device)
+            self.gbn1 = GhostBNReLU(group=ghost_bn, in_channels=channels,
+                                    device=device)
+            self.conv2 = _conv3x3(channels, 1, channels, device)
+            self.gbn2 = GhostBNReLU(group=ghost_bn, donate_residual=downsample,
+                                    dual_out=dual_out, in_channels=channels,
+                                    device=device)
+        else:
+            self.body = nn.HybridSequential(
+                _conv3x3(channels, stride, in_channels, device),
+                nn.BatchNorm(device=device), nn.Activation("relu"),
+                _conv3x3(channels, 1, channels, device),
+                nn.BatchNorm(device=device))
+        self.downsample = _downsample(channels, stride, in_channels, ghost_bn,
+                                      device) if downsample else None
+
+    def forward(self, x):
+        if self._ghost_bn:
+            x, shortcut = x if isinstance(x, tuple) else (x, x)
+            residual = shortcut
+            if self.downsample is not None:
+                residual = self.downsample(shortcut)
+            x = self.gbn1(self.conv1(x))
+            return self.gbn2(self.conv2(x), residual)
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(self.body(x) + residual)
+
+
+def _downsample(channels, stride, in_channels, ghost_bn, device):
+    """The v1 shortcut: 1x1 conv, then BN (ghost BN without activation in
+    the ghost form)."""
+    bn = GhostBN(group=ghost_bn, in_channels=channels, device=device) \
+        if ghost_bn else nn.BatchNorm(device=device)
+    return nn.HybridSequential(
+        nn.Conv2D(channels, kernel_size=1, strides=stride, use_bias=False,
+                  in_channels=in_channels, device=device), bn)
+
+
 class BottleneckV1(tnn.Module):
-    """ResNet v1 bottleneck in the ghost-BN layout: three conv ->
+    """ResNet v1 bottleneck: 1x1 (carrying the stride), 3x3 and 1x1 conv +
+    BN and the residual add + ReLU.  With ``ghost_bn``: three conv ->
     ghost-BN pairs, the exit fused with the residual add and ReLU."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  ghost_bn=0, dual_out=False, device=None):
         super().__init__()
-        if not ghost_bn:
-            raise NotImplementedError(
-                "stock BatchNorm (ghost_bn=0) is not ported yet: ROADMAP "
-                "Queue A, item A3b")
+        self._ghost_bn = ghost_bn
         mid = channels // 4
-        self.conv1 = nn.Conv2D(mid, kernel_size=1, strides=stride,
-                               use_bias=False, in_channels=in_channels,
-                               device=device)
-        self.gbn1 = GhostBNReLU(group=ghost_bn, in_channels=mid, device=device)
-        self.conv2 = _conv3x3(mid, 1, mid, device)
-        self.gbn2 = GhostBNReLU(group=ghost_bn, in_channels=mid, device=device)
-        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
-                               use_bias=False, in_channels=mid, device=device)
-        self.gbn3 = GhostBNReLU(group=ghost_bn, donate_residual=downsample,
-                                dual_out=dual_out, in_channels=channels,
-                                device=device)
-        if downsample:
-            self.downsample = nn.HybridSequential(
-                nn.Conv2D(channels, kernel_size=1, strides=stride,
-                          use_bias=False, in_channels=in_channels,
-                          device=device),
-                GhostBN(group=ghost_bn, in_channels=channels, device=device))
+        if ghost_bn:
+            self.conv1 = nn.Conv2D(mid, kernel_size=1, strides=stride,
+                                   use_bias=False, in_channels=in_channels,
+                                   device=device)
+            self.gbn1 = GhostBNReLU(group=ghost_bn, in_channels=mid,
+                                    device=device)
+            self.conv2 = _conv3x3(mid, 1, mid, device)
+            self.gbn2 = GhostBNReLU(group=ghost_bn, in_channels=mid,
+                                    device=device)
+            self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                                   use_bias=False, in_channels=mid,
+                                   device=device)
+            self.gbn3 = GhostBNReLU(group=ghost_bn, donate_residual=downsample,
+                                    dual_out=dual_out, in_channels=channels,
+                                    device=device)
         else:
-            self.downsample = None
+            self.body = nn.HybridSequential(
+                nn.Conv2D(mid, kernel_size=1, strides=stride, device=device),
+                nn.BatchNorm(device=device), nn.Activation("relu"),
+                _conv3x3(mid, 1, mid, device),
+                nn.BatchNorm(device=device), nn.Activation("relu"),
+                nn.Conv2D(channels, kernel_size=1, strides=1, device=device),
+                nn.BatchNorm(device=device))
+        self.downsample = _downsample(channels, stride, in_channels, ghost_bn,
+                                      device) if downsample else None
 
     def forward(self, x):
-        # a dual-output predecessor hands over (conv_path, shortcut)
-        x, shortcut = x if isinstance(x, tuple) else (x, x)
-        residual = shortcut
+        if self._ghost_bn:
+            # a dual-output predecessor hands over (conv_path, shortcut)
+            x, shortcut = x if isinstance(x, tuple) else (x, x)
+            residual = shortcut
+            if self.downsample is not None:
+                residual = self.downsample(shortcut)
+            x = self.gbn1(self.conv1(x))
+            x = self.gbn2(self.conv2(x))
+            return self.gbn3(self.conv3(x), residual)
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(self.body(x) + residual)
+
+
+class BasicBlockV2(tnn.Module):
+    """Pre-activation basic block: BN, ReLU, 3x3 conv, twice; the shortcut
+    (a 1x1 conv where it downsamples) taken after the first BN + ReLU."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 device=None):
+        super().__init__()
+        self.bn1 = nn.BatchNorm(device=device)
+        self.conv1 = _conv3x3(channels, stride, in_channels, device)
+        self.bn2 = nn.BatchNorm(device=device)
+        self.conv2 = _conv3x3(channels, 1, channels, device)
+        self.downsample = nn.Conv2D(
+            channels, 1, stride, use_bias=False, in_channels=in_channels,
+            device=device) if downsample else None
+
+    def forward(self, x):
+        residual = x
+        x = torch.relu(self.bn1(x))
         if self.downsample is not None:
-            residual = self.downsample(shortcut)
-        x = self.gbn1(self.conv1(x))
-        x = self.gbn2(self.conv2(x))
-        return self.gbn3(self.conv3(x), residual)
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.conv2(torch.relu(self.bn2(x)))
+        return x + residual
+
+
+class BottleneckV2(tnn.Module):
+    """Pre-activation bottleneck: BN, ReLU and conv three times (1x1, 3x3
+    carrying the stride, 1x1); the shortcut as in ``BasicBlockV2``."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 device=None):
+        super().__init__()
+        mid = channels // 4
+        self.bn1 = nn.BatchNorm(device=device)
+        self.conv1 = nn.Conv2D(mid, kernel_size=1, strides=1, use_bias=False,
+                               device=device)
+        self.bn2 = nn.BatchNorm(device=device)
+        self.conv2 = _conv3x3(mid, stride, mid, device)
+        self.bn3 = nn.BatchNorm(device=device)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False, device=device)
+        self.downsample = nn.Conv2D(
+            channels, 1, stride, use_bias=False, in_channels=in_channels,
+            device=device) if downsample else None
+
+    def forward(self, x):
+        residual = x
+        x = torch.relu(self.bn1(x))
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.conv2(torch.relu(self.bn2(x)))
+        x = self.conv3(torch.relu(self.bn3(x)))
+        return x + residual
+
+
+def _make_layer(block, layers, channels, stride, in_channels=0, ghost_bn=0,
+                last_stage=False, device=None):
+    """One stage: a block that may downsample, then ``layers - 1`` more.
+    In the ghost form every block exit but the net's last is
+    dual-output: the next block takes (conv_path, shortcut) and the
+    exit's backward sums the two cotangents."""
+    def kw(is_tail):
+        if not ghost_bn:
+            return {"device": device}
+        return {"ghost_bn": ghost_bn,
+                "dual_out": not (last_stage and is_tail), "device": device}
+    layer = nn.HybridSequential()
+    layer.add(block(channels, stride, channels != in_channels,
+                    in_channels=in_channels, **kw(layers == 1)))
+    for j in range(layers - 1):
+        layer.add(block(channels, 1, False, in_channels=channels,
+                        **kw(j == layers - 2)))
+    return layer
 
 
 class ResNetV1(tnn.Module):
-    def __init__(self, block, layers, channels, classes=1000, s2d_stem=False,
-                 ghost_bn=0, device=None):
+    """ResNet v1: the 7x7/2 stem (or its space-to-depth form, or a 3x3
+    thumbnail stem with no BN or pool), BN + ReLU, the 3x3/2 max pool,
+    the stages, global average pooling and the classifier."""
+
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 s2d_stem=False, ghost_bn=0, device=None):
         super().__init__()
         if len(layers) != len(channels) - 1:
             raise ValueError("need one channel count per stage plus the stem")
-        if not ghost_bn:
-            raise NotImplementedError(
-                "stock BatchNorm (ghost_bn=0) is not ported yet: ROADMAP "
-                "Queue A, item A3b")
-        if s2d_stem:
-            raise NotImplementedError(
-                "the space-to-depth stem is not ported yet: ROADMAP Queue "
-                "A, item A4b")
-        dev = context.resolve(device)
-        self.features = nn.HybridSequential(
-            nn.Conv2D(channels[0], 7, 2, 3, use_bias=False, in_channels=3,
-                      device=dev),
-            GhostBNReLU(group=ghost_bn, in_channels=channels[0], device=dev),
-            nn.MaxPool2D(3, 2, 1))
-        for i, num_layer in enumerate(layers):
-            stride = 1 if i == 0 else 2
-            self.features.add(self._make_layer(
-                block, num_layer, channels[i + 1], stride,
-                in_channels=channels[i], ghost_bn=ghost_bn,
-                last_stage=(i == len(layers) - 1), device=dev))
-        self.features.add(nn.GlobalAvgPool2D())
-        self.output = nn.Dense(classes, in_units=channels[-1], device=dev)
-
-    @staticmethod
-    def _make_layer(block, layers, channels, stride, in_channels=0,
-                    ghost_bn=0, last_stage=False, device=None):
-        # every block exit but the net's last is dual-output: the next
-        # block takes (conv_path, shortcut) and the exit's backward sums
-        # the two cotangents
-        def kw(is_tail):
-            return {"ghost_bn": ghost_bn,
-                    "dual_out": not (last_stage and is_tail),
-                    "device": device}
-        layer = nn.HybridSequential()
-        layer.add(block(channels, stride, channels != in_channels,
-                        in_channels=in_channels, **kw(layers == 1)))
-        for j in range(layers - 1):
-            layer.add(block(channels, 1, False, in_channels=channels,
-                            **kw(j == layers - 2)))
-        return layer
+        with context.device_scope(device) as dev:
+            self.features = nn.HybridSequential()
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0))
+            else:
+                if s2d_stem:
+                    self.features.add(_S2DStemConv(channels[0]))
+                else:
+                    self.features.add(nn.Conv2D(
+                        channels[0], 7, 2, 3, use_bias=False,
+                        in_channels=3 if ghost_bn else 0))
+                if ghost_bn:
+                    self.features.add(GhostBNReLU(
+                        group=ghost_bn, in_channels=channels[0]))
+                else:
+                    self.features.add(nn.BatchNorm(), nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1))
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(_make_layer(
+                    block, num_layer, channels[i + 1], stride,
+                    in_channels=channels[i], ghost_bn=ghost_bn,
+                    last_stage=(i == len(layers) - 1), device=dev))
+            self.features.add(nn.GlobalAvgPool2D())
+            self.output = nn.Dense(classes, in_units=channels[-1])
 
     def forward(self, x):
         x = self.features(x)
         return self.output(ops.flatten(x))
 
 
+class ResNetV2(tnn.Module):
+    """ResNet v2 (pre-activation): a BN without scale or shift on the
+    input (gamma and beta without gradient), the stem, the stages, BN +
+    ReLU, global average pooling and the classifier."""
+
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 device=None):
+        super().__init__()
+        if len(layers) != len(channels) - 1:
+            raise ValueError("need one channel count per stage plus the stem")
+        with context.device_scope(device) as dev:
+            self.features = nn.HybridSequential(
+                nn.BatchNorm(scale=False, center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False),
+                                  nn.BatchNorm(), nn.Activation("relu"),
+                                  nn.MaxPool2D(3, 2, 1))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(_make_layer(
+                    block, num_layer, channels[i + 1], stride,
+                    in_channels=in_channels, device=dev))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm(), nn.Activation("relu"),
+                              nn.GlobalAvgPool2D(), nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    def forward(self, x):
+        return self.output(self.features(x))
+
+
+resnet_spec = {
+    18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
+    34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
+    50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
+    101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
+    152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
+}
+resnet_net_versions = [ResNetV1, ResNetV2]
+resnet_block_versions = [
+    {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+    {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2},
+]
+
+
+def get_resnet(version, num_layers, pretrained=False, **kwargs):
+    """ResNet ``version`` (1 or 2) of ``num_layers`` (18, 34, 50, 101,
+    152); ``kwargs`` go to ``ResNetV1`` / ``ResNetV2`` (``classes``,
+    ``thumbnail``, ``device``; v1 also ``s2d_stem`` and ``ghost_bn``).
+    There are no pretrained weights."""
+    if num_layers not in resnet_spec:
+        raise ValueError("no ResNet of %r layers; the spec has %s"
+                         % (num_layers, sorted(resnet_spec)))
+    if version not in (1, 2):
+        raise ValueError("ResNet version is 1 or 2, got %r" % (version,))
+    if pretrained:
+        raise RuntimeError("pretrained weights are not available")
+    block_type, layers, channels = resnet_spec[num_layers]
+    block = resnet_block_versions[version - 1][block_type]
+    return resnet_net_versions[version - 1](block, layers, channels, **kwargs)
+
+
+def resnet18_v1(**kwargs):
+    return get_resnet(1, 18, **kwargs)
+
+
+def resnet34_v1(**kwargs):
+    return get_resnet(1, 34, **kwargs)
+
+
 def resnet50_v1(**kwargs):
-    """ResNet-50 v1 (``resnet_spec[50]`` of the reference)."""
-    return ResNetV1(BottleneckV1, [3, 4, 6, 3], [64, 256, 512, 1024, 2048],
-                    **kwargs)
+    return get_resnet(1, 50, **kwargs)
+
+
+def resnet101_v1(**kwargs):
+    return get_resnet(1, 101, **kwargs)
+
+
+def resnet152_v1(**kwargs):
+    return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

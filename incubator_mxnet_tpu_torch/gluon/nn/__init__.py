@@ -1,6 +1,10 @@
-"""Layers of the ResNet path."""
-from .basic_layers import Dense, Flatten, HybridSequential
-from .conv_layers import Conv2D, GlobalAvgPool2D, MaxPool2D
+"""Layers of the vision zoo."""
+from .activations import Activation
+from .basic_layers import (BatchNorm, Dense, Dropout, Flatten, HybridLambda,
+                           HybridSequential)
+from .conv_layers import (AvgPool2D, Conv2D, GlobalAvgPool2D,
+                          GlobalMaxPool2D, MaxPool2D)
 
-__all__ = ["Dense", "Flatten", "HybridSequential", "Conv2D",
-           "GlobalAvgPool2D", "MaxPool2D"]
+__all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Flatten",
+           "HybridLambda", "HybridSequential", "AvgPool2D", "Conv2D",
+           "GlobalAvgPool2D", "GlobalMaxPool2D", "MaxPool2D"]

@@ -1,55 +1,100 @@
-"""Convolution and pooling layers of the ResNet path (port of
-``incubator_mxnet_tpu/gluon/nn/conv_layers.py``): ``Conv2D``,
-``MaxPool2D`` and ``GlobalAvgPool2D``, NCHW, as ``nn.Module``s."""
+"""Convolution and pooling layers (port of ``incubator_mxnet_tpu/gluon/nn/
+conv_layers.py``): ``Conv2D``, ``MaxPool2D``, ``AvgPool2D``,
+``GlobalMaxPool2D`` and ``GlobalAvgPool2D``, NCHW, as ``nn.Module``s."""
 from __future__ import annotations
 
-import torch
 from torch import nn
 
 from ... import context
 from ...ops import nn as ops
+from ..block import Deferred
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
+           "GlobalAvgPool2D"]
 
 
 def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-class Conv2D(nn.Module):
-    """2-D convolution; weight (channels, in_channels, kh, kw)."""
+class Conv2D(Deferred, nn.Module):
+    """2-D convolution, weight (channels, in_channels / groups, kh, kw),
+    with ``dilation``, ``groups`` and an optional activation after it.
+    ``in_channels=0`` defers the weight's shape to the first input."""
 
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 use_bias=True, in_channels=0, device=None):
+                 dilation=(1, 1), groups=1, activation=None, use_bias=True,
+                 in_channels=0, device=None):
         super().__init__()
-        if in_channels <= 0:
-            raise ValueError("Conv2D needs in_channels: the port has no "
-                             "deferred shape inference")
         dev = context.resolve(device)
+        self._channels = channels
+        self._kernel = _pair(kernel_size)
         self._stride = _pair(strides)
         self._pad = _pair(padding)
-        self.weight = nn.Parameter(torch.empty(
-            (channels, in_channels) + _pair(kernel_size), device=dev))
-        self.bias = nn.Parameter(torch.zeros((channels,), device=dev)) \
-            if use_bias else None
+        self._dilate = _pair(dilation)
+        self._groups = int(groups)
+        self._activation = activation
+        self._param("weight", self._weight_shape(in_channels)
+                    if in_channels else None, dev)
+        if use_bias:
+            self._param("bias", (channels,), dev, fill=0.0)
+        else:
+            self.bias = None
+
+    def _weight_shape(self, in_channels):
+        return (self._channels, in_channels // self._groups) + self._kernel
+
+    def _infer_shapes(self, x):
+        return {"weight": self._weight_shape(x.shape[1])}
 
     def forward(self, x):
-        return ops.convolution(x, self.weight, self.bias, self._stride,
-                               self._pad)
+        out = ops.convolution(x, self.weight, self.bias, self._stride,
+                              self._pad, self._dilate, self._groups)
+        if self._activation:
+            out = ops.activation(out, self._activation)
+        return out
 
 
-class MaxPool2D(nn.Module):
-    def __init__(self, pool_size=(2, 2), strides=None, padding=0):
+class _Pooling(nn.Module):
+    def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
+                 pool_type, count_include_pad=True):
         super().__init__()
-        self._kernel = _pair(pool_size)
-        self._stride = _pair(strides) if strides is not None else self._kernel
-        self._pad = _pair(padding)
+        self._kwargs = {
+            "kernel": _pair(pool_size),
+            "stride": _pair(strides) if strides is not None
+            else _pair(pool_size),
+            "pad": _pair(padding),
+            "global_pool": global_pool,
+            "pool_type": pool_type,
+            "pooling_convention": "full" if ceil_mode else "valid",
+            "count_include_pad": count_include_pad,
+        }
 
     def forward(self, x):
-        return ops.pooling(x, self._kernel, "max", stride=self._stride,
-                           pad=self._pad)
+        return ops.pooling(x, **self._kwargs)
 
 
-class GlobalAvgPool2D(nn.Module):
-    def forward(self, x):
-        return ops.pooling(x, pool_type="avg", global_pool=True)
+class MaxPool2D(_Pooling):
+    """Max pooling through K3 on the card (``ops.pooling``);
+    ``ceil_mode`` is MXNet's ``pooling_convention="full"``."""
+
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 ceil_mode=False):
+        super().__init__(pool_size, strides, padding, ceil_mode, False, "max")
+
+
+class AvgPool2D(_Pooling):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 ceil_mode=False, count_include_pad=True):
+        super().__init__(pool_size, strides, padding, ceil_mode, False, "avg",
+                         count_include_pad)
+
+
+class GlobalMaxPool2D(_Pooling):
+    def __init__(self):
+        super().__init__((1, 1), (1, 1), (0, 0), False, True, "max")
+
+
+class GlobalAvgPool2D(_Pooling):
+    def __init__(self):
+        super().__init__((1, 1), (1, 1), (0, 0), False, True, "avg")

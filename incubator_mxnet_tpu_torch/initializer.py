@@ -13,6 +13,8 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.nn.modules.lazy import LazyModuleMixin
+from torch.nn.parameter import is_lazy
 
 __all__ = ["Initializer", "Zero", "One", "Xavier", "initialize"]
 
@@ -65,8 +67,16 @@ class Xavier(Initializer):
 def initialize(net, init=None, generator=None):
     """Fill every parameter and buffer of ``net`` (``net.initialize``):
     ``init`` (default ``Xavier()``) decides weights, the name rules the
-    rest.  ``generator`` must live on the parameters' device."""
+    rest.  ``generator`` must live on the parameters' device.  A tensor
+    whose shape is still deferred is filled when its layer resolves it
+    (``gluon.block.shape_init`` or the first forward), as the reference
+    defers the initialization of such a parameter."""
     init = init if init is not None else Xavier()
+    for mod in net.modules():
+        if isinstance(mod, LazyModuleMixin) and \
+                mod.has_uninitialized_params():
+            mod._pending_init = (init, generator)
     for name, t in list(net.named_parameters()) + list(net.named_buffers()):
-        init(name, t, generator)
+        if not is_lazy(t):
+            init(name, t, generator)
     return net

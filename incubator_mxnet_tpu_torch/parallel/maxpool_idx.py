@@ -89,15 +89,16 @@ def _dense(t):
 def maxpool_with_index(data, window, strides, padding):
     """``(out, idx)``: the pooled max in data's dtype and the int8 winner
     slot.  CUDA tensors go through K3 (copied first where they are not
-    contiguous NCHW); CPU tensors through the plain version."""
-    if data.dtype not in _DTYPE_CODE:
-        raise TypeError("max pooling with index takes float32 or bfloat16, "
-                        "got %s" % data.dtype)
+    contiguous NCHW), f32 or bf16; CPU tensors, of any floating dtype,
+    through the plain version."""
     if data.device.type not in ("cuda", "cpu"):
         raise ValueError("max pooling runs on cuda or cpu, got %s"
                          % data.device)
     if not _on_card(data):
         return _maxpool_plain(data, window, strides, padding)
+    if data.dtype not in _DTYPE_CODE:
+        raise TypeError("max pooling with index takes float32 or bfloat16, "
+                        "got %s" % data.dtype)
     oh, ow = check_shape(data.shape, window, strides, padding)
     data = _dense(data)
     n, c, h, w = data.shape

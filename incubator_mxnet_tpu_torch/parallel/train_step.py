@@ -4,9 +4,14 @@ train_step.py``: ``DynamicLossScale``, ``FunctionalOptimizer`` for sgd,
 
 One call runs forward, backward and the optimizer update:
 
+- the reference's split of the net's tensors: parameters with a
+  gradient are updated; running stats and parameters without gradient
+  (``requires_grad=False``, the reference's ``grad_req="null"``) form
+  the aux set, in ``collect_params()`` order;
 - the dtype policy of the reference's ``_cast_inputs``: every floating
-  parameter (BN gamma and beta too) is cast to the compute dtype for the
-  forward, the running stats are not, unsigned-int inputs are promoted;
+  trained parameter (BN gamma and beta too) is cast to the compute
+  dtype for the forward, the aux set is not, unsigned-int inputs are
+  promoted;
   gradients land in f32 on the master parameters through the cast;
 - the loss closure: ``loss_fn(net(x), y).mean()`` in f32, times the loss
   scale when one is set;
@@ -35,8 +40,10 @@ from typing import List
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.nn.parameter import is_lazy
 
 from .. import context
+from .. import convert as _convert
 from ..ndarray import NDArray
 from ..ops import optimizer_ops as _oops
 from . import checkpoint as _ckpt
@@ -154,10 +161,22 @@ class TrainStep:
                              "DynamicLossScale (static scales wait for "
                              "ROADMAP item A5b); got %r" % (loss_scale,))
         self._scale_cfg = loss_scale
-        named = list(net.named_parameters())
-        self._names = [n for n, _ in named]
-        self._gp = [p for _, p in named]
-        self._aux = list(net.buffers())
+        tensors = _convert.ordered_tensors(net)
+        lazy = [n for n, t in tensors if is_lazy(t)]
+        if lazy:
+            raise ValueError("%s and %d more have deferred shapes: resolve "
+                             "them first (gluon.shape_init)"
+                             % (lazy[0], len(lazy) - 1))
+        # the reference's split: a parameter without gradient
+        # (grad_req="null") sits with the running stats in the aux set,
+        # in collect_params() order; it gets no update and no state
+        trained = [(n, t) for n, t in tensors
+                   if isinstance(t, torch.nn.Parameter) and t.requires_grad]
+        self._names = [n for n, _ in trained]
+        self._gp = [p for _, p in trained]
+        self._aux = [t for _, t in tensors
+                     if not (isinstance(t, torch.nn.Parameter)
+                             and t.requires_grad)]
         self._opt_state = opt.init(self._gp)
         init_scale = 1.0 if loss_scale is None else loss_scale.init_scale
         dev = self.device

@@ -9,7 +9,9 @@ have).  Small shapes; the full-size checks are in ``chip_smoke.py``.
 Tolerances: f32 outputs 1e-4 of the reference's largest magnitude (sums
 in another order); bf16 outputs 2^-7 of it (one rounding of a value the
 two sides compute in f32 may land one bf16 step apart); the f32 sums
-dgamma and dbeta 1e-3 of it.  Max pooling is exact.  Flash attention
+dgamma and dbeta 1e-3 of it.  Max pooling is exact, also at every pool
+shape of the vision zoo.  A stock-BN train step on the card against the
+CPU is held to the CPU's own noise floor (``chip_smoke.py`` phase 5).  Flash attention
 (K4-K6): O and LSE 1e-4 in f32 and 2^-7 in bf16, dQ/dK/dV 1e-3 in f32
 (sums over every key or query) and 2^-6 in bf16; rows that see no key
 exactly 0 in O and dQ; head dims off the kernels' grid (zero-padded to
@@ -152,6 +154,53 @@ def test_maxpool_kernel_matches_plain(dev, dtype, case, shape, cfg):
     torch.cuda.synchronize()
     assert torch.equal(out, outp), case
     assert torch.equal(idx, idxp), case
+    assert _kernels.launch_counts()["maxpool_idx_fwd"] == before + 1
+
+
+#: every distinct max pool of the vision zoo (chip_smoke.ZOO_POOLS, whose
+#: table tests/test_torch_pooling.py holds to the models), at batch 2 and
+#: up to 32 channels: (label, (C, H, W), kernel, stride, pad, ceil mode)
+_ZOO_POOLS = [
+    ("resnet stem", (64, 112, 112), 3, 2, 1, False),
+    ("vgg", (64, 224, 224), 2, 2, 0, False),
+    ("vgg", (128, 112, 112), 2, 2, 0, False),
+    ("vgg", (256, 56, 56), 2, 2, 0, False),
+    ("vgg", (512, 28, 28), 2, 2, 0, False),
+    ("vgg", (512, 14, 14), 2, 2, 0, False),
+    ("alexnet", (64, 55, 55), 3, 2, 0, False),
+    ("alexnet", (192, 27, 27), 3, 2, 0, False),
+    ("alexnet", (256, 13, 13), 3, 2, 0, False),
+    ("squeezenet1_0", (96, 109, 109), 3, 2, 0, True),
+    ("squeezenet1_0", (256, 54, 54), 3, 2, 0, True),
+    ("squeezenet1_0", (512, 27, 27), 3, 2, 0, True),
+    ("squeezenet1_1", (64, 111, 111), 3, 2, 0, True),
+    ("squeezenet1_1", (128, 55, 55), 3, 2, 0, True),
+    ("squeezenet1_1", (256, 27, 27), 3, 2, 0, True),
+    ("inception_v3", (64, 147, 147), 3, 2, 0, False),
+    ("inception_v3", (192, 71, 71), 3, 2, 0, False),
+    ("inception_v3", (288, 35, 35), 3, 2, 0, False),
+    ("inception_v3", (768, 17, 17), 3, 2, 0, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("entry", _ZOO_POOLS,
+                         ids=lambda e: "%s-%d" % (e[0], e[1][1]))
+def test_maxpool_kernel_at_zoo_shapes(dev, dtype, entry):
+    """K3 bit-exact (out and idx) against its plain version at each pool
+    shape of the zoo (2x2 windows, no padding, ceil mode's high-edge
+    padding, odd planes), one launch a call."""
+    _, (c, h, w), k, s, p, ceil = entry
+    hi = p + s - 1 if ceil else p
+    cfg = ((1, 1, k, k), (1, 1, s, s), ((0, 0), (0, 0), (p, hi), (p, hi)))
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = _pool_input((2, min(c, 32), h, w), dtype, g, dev)
+    before = _kernels.launch_counts()["maxpool_idx_fwd"]
+    out, idx = maxpool_idx.maxpool_with_index(x, *cfg)
+    outp, idxp = maxpool_idx._maxpool_plain(x, *cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, outp)
+    assert torch.equal(idx, idxp)
     assert _kernels.launch_counts()["maxpool_idx_fwd"] == before + 1
 
 
@@ -505,6 +554,73 @@ def test_small_train_step_card_matches_cpu(dev, monkeypatch):
     for a, b in zip(convert.params_to_numpy(nets["cuda"]),
                     convert.params_to_numpy(nets["cpu"])):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+
+
+def test_stock_bn_step_card_matches_cpu(dev, monkeypatch):
+    """One f32 step (TF32 off) of a small stock-BN ResNet v1 (the 7x7/2
+    stem, BN, the max pool through K3, [1, 1, 1, 1] bottlenecks of
+    widths 16-256, 64 px, batch 4) on the card and on the CPU from the
+    same weights, with the noise floor of chip_smoke.py phase 5: the CPU
+    step again from weights nudged by 1e-6 (relative).  The loss within
+    1e-4 (relative) of the CPU's, the running stats within 1e-3 of each
+    tensor's largest magnitude, and the per-tensor relative update
+    differences card-vs-CPU at most 4x the nudged-vs-CPU ones plus 1e-3,
+    in median and in maximum."""
+    from incubator_mxnet_tpu_torch import convert, gluon, initializer
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from incubator_mxnet_tpu_torch.parallel import make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    where = {"cuda": dev, "cpu": "cpu", "cpu_nudged": "cpu"}
+    nets = {}
+    for name, d in where.items():
+        nets[name] = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                                     [16, 32, 64, 128, 256], classes=10,
+                                     device=d)
+        gluon.shape_init(nets[name], (1, 3, 64, 64))
+    initializer.initialize(nets["cuda"],
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    start = convert.params_to_numpy(nets["cuda"])
+    for name in ("cpu", "cpu_nudged"):
+        convert.params_from_jax(nets[name], start)
+    nudge = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in nets["cpu_nudged"].parameters():
+            p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=nudge))
+    is_param = [isinstance(t, torch.nn.Parameter)
+                for _, t in convert.ordered_tensors(nets["cpu"])]
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.normal(size=(4, 3, 64, 64)).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, 4).astype(np.float32))
+    losses, after = {}, {}
+    for name, net in nets.items():
+        before = convert.params_to_numpy(net)
+        step = make_train_step(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                               learning_rate=0.01, momentum=0.9, wd=1e-4,
+                               multi_precision=True, loss_scale="dynamic",
+                               device=where[name])
+        before_k3 = _kernels.launch_counts()["maxpool_idx_fwd"]
+        losses[name] = step(x, y).item()
+        if name == "cuda":
+            assert _kernels.launch_counts()["maxpool_idx_fwd"] == \
+                before_k3 + 1
+        after[name] = [(a, a - b) for a, b in
+                       zip(convert.params_to_numpy(net), before)]
+
+    def rel_update(name):
+        return np.array([float(np.abs(u - r).max())
+                         / max(float(np.abs(r).max()), 1e-30)
+                         for p, (_, u), (_, r) in zip(is_param, after[name],
+                                                      after["cpu"]) if p])
+
+    card, noise = rel_update("cuda"), rel_update("cpu_nudged")
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for p, (a, _), (b, _) in zip(is_param, after["cuda"], after["cpu"]):
+        if not p:
+            assert np.abs(a - b).max() <= 1e-3 * max(1.0, np.abs(b).max())
+    assert np.median(card) <= 4 * np.median(noise) + 1e-3
+    assert card.max() <= 4 * noise.max() + 1e-3
 
 
 # ---------------------------------------------------------------------------

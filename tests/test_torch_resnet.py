@@ -116,14 +116,6 @@ def test_resnet50_structure():
     assert n_params == 25557032
 
 
-@pytest.mark.parametrize("kwargs,item", [({"ghost_bn": 0}, "A3b"),
-                                         ({"ghost_bn": 16, "s2d_stem": True},
-                                          "A4b")])
-def test_resnet_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tres.resnet50_v1(device="cpu", **kwargs)
-
-
 def test_convert_copies_and_checks():
     _, tnet = build_pair(seed=2)
     arrays = convert.params_to_numpy(tnet)

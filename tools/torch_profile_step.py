@@ -14,11 +14,17 @@ traces ``STEPS`` steps with ``torch.profiler`` and prints:
 ``--model resnet`` (the default): ``resnet50_v1(ghost_bn=16)``, batch
 256, 224 px, bf16 compute, f32 master weights, sgd momentum 0.9 / lr 0.1
 / wd 1e-4, dynamic loss scale, synthetic data from a seed.
+``--model imagenet``: ``example/image_classification/
+train_imagenet_torch.py`` at its defaults, built through its own
+functions: stock-BN ``resnet50_v1``, batch 128, 224 px, bf16 compute,
+f32 parameters, sgd momentum 0.9 / lr 0.1 / wd 1e-4, the synthetic
+resident batch.
 ``--model lm``: ``example/long_context/train_lm_torch.py``'s
 ``LongContextLM`` at dim 1024, 8 heads, seq 2048, batch 4, 2 layers,
 vocab 256, f32 (TF32 off), its update at lr 0.01.
 
-Run on the card: ``python3 tools/torch_profile_step.py [--model lm]``.
+Run on the card: ``python3 tools/torch_profile_step.py [--model
+imagenet|lm]``.
 """
 import argparse
 import importlib.util
@@ -40,6 +46,17 @@ CATEGORIES = {
         ("K1 ghost_bn_fwd", ("ghost_bn_fwd_kernel",)),
         ("K2 ghost_bn_bwd", ("ghost_bn_bwd_kernel",)),
         ("K3 maxpool_idx_fwd", ("maxpool_idx_kernel",)),
+        ("layout transpose", ("nchwToNhwc", "nhwcToNchw", "nchw_to_nhwc",
+                              "nhwc_to_nchw", "transpose")),
+        ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit",
+                                 "wgrad", "dgrad", "fprop", "sm90")),
+        ("gemm", ("gemm", "cutlass", "cublas")),
+        ("reduction", ("reduce", "Reduce")),
+        ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ],
+    "imagenet": [
+        ("K3 maxpool_idx_fwd", ("maxpool_idx_kernel",)),
+        ("batch norm (torch)", ("batch_norm", "bn_fw", "bn_bw")),
         ("layout transpose", ("nchwToNhwc", "nhwcToNchw", "nchw_to_nhwc",
                               "nhwc_to_nchw", "transpose")),
         ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit",
@@ -94,6 +111,24 @@ def resnet_step(dev):
             "batch %d, %d px, bf16" % (BATCH, IMAGE))
 
 
+def imagenet_step(dev):
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "train_imagenet_torch",
+        os.path.join(ROOT, "example", "image_classification",
+                     "train_imagenet_torch.py"))
+    trainer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trainer)
+    torch.backends.cudnn.benchmark = True
+    args = trainer.parse_args([])
+    step = trainer.build_step(trainer.build_net(args, dev), args, dev)
+    x, y = next(trainer.batches(args, dev))
+    return (lambda: step(x, y),
+            "train_imagenet_torch.py defaults: %s, batch %d, %s px, %s"
+            % (args.network, args.batch_size, args.image_shape, args.dtype))
+
+
 def lm_step(dev):
     import numpy as np
     import torch
@@ -129,7 +164,8 @@ def main():
         print("torch_profile_step: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    run, label = (resnet_step if args.model == "resnet" else lm_step)(dev)
+    run, label = {"resnet": resnet_step, "imagenet": imagenet_step,
+                  "lm": lm_step}[args.model](dev)
     for _ in range(WARMUP):
         run()
     torch.cuda.synchronize()
