@@ -98,6 +98,20 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    mobilenet_v2_1_0 at 224 px, inception_v3 at 299): each step launches
    K3 once for each of the net's max pools and nothing else, losses
    finite; each net's ``step_ms``;
+3g. the Gluon training surface: ``example/gluon/image_classification_
+   torch.py``'s loop built through its own functions (``GLUON``:
+   ``resnet50_v1``, 224 px, 1000 classes, batch 64, ``hybridize()``,
+   ``Trainer("sgd", lr 0.05, momentum 0.9)`` over ``kv.create("device")``,
+   ``metric.Accuracy``) for 8 steps of its synthetic data, the counters
+   set to 0 just before: every loss finite, each step launches K3 once
+   and nothing else; ``gluon_step_ms`` (median of steps 3-8,
+   ``trainer.step`` included), img/s and ``trainer_step_ms`` (host time
+   in ``trainer.step`` alone: one update per parameter); then 3g-ii,
+   ``Trainer.make_fused_step`` on ``resnet50_v1(ghost_bn=16)`` (batch 64,
+   bf16, ``multi_precision``, dynamic loss scale) beside
+   ``make_train_step`` from the same weights and batches with cuDNN
+   deterministic, 3 steps: losses equal bit for bit, 53/53/1 launches of
+   K1-K3 a step on each side;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -137,6 +151,9 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    64 px on the card and on the CPU from the same weights and batch;
 5b. one f32 step of a small LM (dim 128, 8 heads, seq 256, batch 2, 2
    layers) on the card and on the CPU from the same weights;
+5c. one f32 step of the Gluon example's loop at ``resnet18_v1``, 32 px,
+   batch 16 on the card and on the CPU from the same weights (copied by
+   name), held to phase 5's noise floor;
 6. print the kernels' JSON line, the card line, and the result line.
 
 Tolerances of phase 2 (kernel against plain version on the same inputs):
@@ -1011,6 +1028,181 @@ def run_zoo_nets(dev):
     return rows, total
 
 
+# phase 3g: the Gluon example's loop and the fused step through Gluon
+GLUON = dict(model="resnet50_v1", batch=64, image=224, classes=1000,
+             steps=8, lr=0.05)
+GLUON_FUSED_BATCH = 64
+GLUON_FUSED_STEPS = 3
+
+
+def _gluon_module():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "example", "gluon", "image_classification_torch.py")
+    spec = importlib.util.spec_from_file_location(
+        "image_classification_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _gluon_args(ex, model, batch, image, classes, lr, samples):
+    return ex.parse_args(["--model", model, "--batch-size", str(batch),
+                          "--image-size", str(image), "--num-classes",
+                          str(classes), "--lr", str(lr), "--samples",
+                          str(samples)])
+
+
+def run_gluon_path(dev):
+    """Phase 3g-i: ``example/gluon/image_classification_torch.py``'s loop
+    built through its own functions (``build_net``, ``build_data``,
+    ``build_trainer``, ``train_batch``): stock-BN ``resnet50_v1``, 224
+    px, 1000 classes, batch 64, ``hybridize()``, ``Trainer("sgd", lr
+    0.05, momentum 0.9, kvstore=kv.create("device"))`` and
+    ``metric.Accuracy``, ``GLUON["steps"]`` steps of its synthetic data
+    (numpy seed 0), the counters set to 0 just before: every loss finite
+    and every step launches K3 once and nothing else.  Returns (metrics,
+    counts)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels, gluon, metric
+
+    ex = _gluon_module()
+    torch.backends.cudnn.benchmark = True
+    g = GLUON
+    args = _gluon_args(ex, g["model"], g["batch"], g["image"], g["classes"],
+                       g["lr"], g["batch"] * g["steps"])
+    t0 = time.perf_counter()
+    net = ex.build_net(args, dev)
+    it = ex.build_data(args, dev)
+    trainer = ex.build_trainer(net, args)
+    build_s = time.perf_counter() - t0
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    acc = metric.Accuracy()
+    host_ms = []
+    step_once = trainer.step
+
+    def timed_step(*a, **kw):
+        t = time.perf_counter()
+        step_once(*a, **kw)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+
+    trainer.step = timed_step
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    prev = _kernels.launch_counts()
+    for i, batch in enumerate(it, 1):
+        t = time.perf_counter()
+        loss = ex.train_batch(net, trainer, loss_fn, acc, batch.data[0],
+                              batch.label[0], args.batch_size)
+        losses.append(float(loss.asscalar()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = _kernels.launch_counts()
+        got = {k: counts[k] - prev[k] for k in counts}
+        want = {k: int(k == "maxpool_idx_fwd") for k in counts}
+        if got != want:
+            raise AssertionError("gluon step %d launched %s, want %s"
+                                 % (i, got, want))
+        prev = counts
+    if len(losses) != g["steps"] or not _losses_ok(losses):
+        raise AssertionError("gluon path losses %s" % losses)
+    trained = sum(p.grad_req != "null"
+                  for p in net.collect_params().values())
+    print("  %s, batch %d, %d px, %d classes, lr %g, hybridized: %d "
+          "parameters (%d trained); built in %.1f s" % (
+              args.model, args.batch_size, args.image_size,
+              args.num_classes, args.lr, len(net.collect_params()), trained,
+              build_s), flush=True)
+    print("  losses %s  %s  step_ms %s  trainer.step host ms %s"
+          % (["%.4f" % v for v in losses], acc.get(),
+             ["%.1f" % v for v in step_ms], ["%.1f" % v for v in host_ms]),
+          flush=True)
+    steady = _median(step_ms[2:])
+    metrics = {"gluon_step_ms": steady,
+               "img_s": args.batch_size / steady * 1e3,
+               "trainer_step_ms": _median(host_ms[2:]),
+               "trained": trained}
+    del net, it, trainer
+    torch.cuda.empty_cache()
+    return metrics, prev
+
+
+def run_gluon_fused(dev):
+    """Phase 3g-ii: ``Trainer.make_fused_step`` on ``resnet50_v1(ghost_bn=
+    16)`` (sgd momentum 0.9 / lr 0.1 / wd 1e-4, ``multi_precision``, bf16,
+    a dynamic loss scale) beside ``make_train_step``'s step from the same
+    weights and batches (batch ``GLUON_FUSED_BATCH``), cuDNN deterministic
+    as in phase 3d: ``GLUON_FUSED_STEPS`` steps each, losses equal bit for
+    bit, each step of each launching K1/K2/K3 53/53/1 times and nothing
+    else.  Returns (losses, counts of the fused step's launches)."""
+    import copy
+
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels, gluon, initializer
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from incubator_mxnet_tpu_torch.parallel import make_train_step
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = resnet.resnet50_v1(classes=1000, ghost_bn=16, device=dev)
+        initializer.initialize(net, initializer.Xavier(),
+                               torch.Generator(device=dev).manual_seed(SEED))
+        twin = copy.deepcopy(net)
+        opt = dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+                   multi_precision=True)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = gluon.Trainer(net.collect_params(), "sgd", dict(opt))
+        fused = trainer.make_fused_step(net, loss_fn,
+                                        compute_dtype="bfloat16",
+                                        loss_scale="dynamic", device=dev)
+        plain = make_train_step(twin, loss_fn, optimizer="sgd",
+                                compute_dtype="bfloat16",
+                                loss_scale="dynamic", device=dev, **opt)
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        batches = [(torch.randn(GLUON_FUSED_BATCH, 3, IMAGE, IMAGE,
+                                generator=g, device=dev),
+                    torch.randint(0, 1000, (GLUON_FUSED_BATCH,), generator=g,
+                                  device=dev).float())
+                   for _ in range(GLUON_FUSED_STEPS)]
+        losses = {"fused": [], "plain": []}
+        fused_counts = {name: 0 for name in _kernels.launch_counts()}
+        for x, y in batches:
+            for label, step in (("fused", fused), ("plain", plain)):
+                torch.cuda.synchronize()
+                _kernels.reset_launch_counts()
+                losses[label].append(step(x, y))
+                torch.cuda.synchronize()
+                counts = _kernels.launch_counts()
+                want = {k: MAIN_PATH.get(k, 0) for k in counts}
+                if counts != want:
+                    raise AssertionError("%s step launched %s, want %s"
+                                         % (label, counts, want))
+                if label == "fused":
+                    for k in fused_counts:
+                        fused_counts[k] += counts[k]
+        same = all(torch.equal(a, b) for a, b in zip(losses["fused"],
+                                                      losses["plain"]))
+        print("  fused through Gluon %s  make_train_step %s  bit-equal %s  "
+              "launches a step 53/53/1" % (
+                  ["%.6f" % float(v) for v in losses["fused"]],
+                  ["%.6f" % float(v) for v in losses["plain"]], same),
+              flush=True)
+        if not same or not _losses_ok([float(v) for v in losses["fused"]]):
+            raise AssertionError("the fused step through Gluon and "
+                                 "make_train_step disagree")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+    del net, twin, fused, plain
+    torch.cuda.empty_cache()
+    return [float(v) for v in losses["fused"]], fused_counts
+
+
 def time_kernels(dev, layers, before=None, before_pool=None):
     """Phase 4: per-kernel times summed over one step's launches; K1, K2
     and K3 (and their plain versions and ``F.max_pool2d``) by the
@@ -1857,10 +2049,24 @@ def card_vs_cpu(dev):
                            / max(float(np.abs(ref).max()), 1e-30))
         return np.array(out)
 
-    card, noise = rel_update("cuda"), rel_update("cpu_nudged")
+    _hold_to_noise_floor(losses, rel_update("cuda"),
+                         rel_update("cpu_nudged"),
+                         [(a, b) for n, (a, _), (b, _) in
+                          zip(names, after["cuda"], after["cpu"])
+                          if n not in is_param])
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def _hold_to_noise_floor(losses, card, noise, stats_pairs):
+    """Phase 5's gate: the card's loss within 1e-4 of the CPU's
+    (relative), its running stats within 1e-3 of each tensor's largest
+    magnitude, and its per-tensor relative update differences from the
+    CPU's at most 4x the nudged CPU run's plus 1e-3, in median and in
+    maximum."""
+    import numpy as np
+
     stats = max(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
-                for n, (a, _), (b, _) in zip(names, after["cuda"], after["cpu"])
-                if n not in is_param)
+                for a, b in stats_pairs)
     lrel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     print("  loss card %.6f cpu %.6f  rel diff %.3e (limit 1e-4)"
           % (losses["cuda"], losses["cpu"], lrel), flush=True)
@@ -1873,6 +2079,65 @@ def card_vs_cpu(dev):
             and np.median(card) <= 4 * np.median(noise) + 1e-3
             and card.max() <= 4 * noise.max() + 1e-3):
         raise AssertionError("card and CPU steps disagree")
+
+
+def gluon_card_vs_cpu(dev):
+    """Phase 5c: one f32 step (TF32 off) of the Gluon example's loop at
+    ``resnet18_v1``, 32 px, batch 16, built through its functions, on the
+    card and on the CPU from the card's weights (copied by name), and on
+    the CPU with every weight nudged by 1e-6: held to phase 5's noise
+    floor."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import convert, gluon, metric, nd
+
+    ex = _gluon_module()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    args = _gluon_args(ex, "resnet18_v1", 16, 32, 10, 0.05, 16)
+    where = {"cuda": dev, "cpu": "cpu", "cpu_nudged": "cpu"}
+    nets = {d: ex.build_net(args, w) for d, w in where.items()}
+    start = {k: p.data().asnumpy()
+             for k, p in nets["cuda"].collect_params().items()}
+    nudge = np.random.RandomState(SEED + 3)
+    for d in ("cpu", "cpu_nudged"):
+        arrays = start
+        if d == "cpu_nudged":
+            arrays = {k: (v * (1 + 1e-6 * nudge.normal(size=v.shape)))
+                      .astype(np.float32) if v.dtype == np.float32 else v
+                      for k, v in start.items()}
+        convert.params_from_gluon(nets[d], arrays)
+    rng = np.random.RandomState(SEED)
+    xb = rng.rand(16, 3, 32, 32).astype(np.float32)
+    yb = rng.randint(0, 10, 16).astype(np.float32)
+    losses, after, trained = {}, {}, []
+    for d, net in nets.items():
+        params = list(net.collect_params().values())
+        before = [p.data().asnumpy() for p in params]
+        trained = [p.grad_req != "null" for p in params]
+        loss = ex.train_batch(net, ex.build_trainer(net, args),
+                              gluon.loss.SoftmaxCrossEntropyLoss(),
+                              metric.Accuracy(),
+                              nd.array(xb, ctx=where[d]),
+                              nd.array(yb, ctx=where[d]), args.batch_size)
+        losses[d] = float(loss.asscalar())
+        after[d] = [(p.data().asnumpy(), p.data().asnumpy() - b)
+                    for p, b in zip(params, before)]
+
+    def rel_update(d):
+        return np.array([
+            float(np.abs(upd - ref).max()) / max(float(np.abs(ref).max()),
+                                                 1e-30)
+            for t, (_, upd), (_, ref) in zip(trained, after[d], after["cpu"])
+            if t])
+
+    _hold_to_noise_floor(losses, rel_update("cuda"),
+                         rel_update("cpu_nudged"),
+                         [(a, b) for t, (a, _), (b, _) in
+                          zip(trained, after["cuda"], after["cpu"])
+                          if not t])
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -1994,6 +2259,28 @@ def main(argv=None):
     _, zoo_counts = run_zoo_nets(dev)
     counts["maxpool_idx_fwd"] += zoo_counts["maxpool_idx_fwd"]
 
+    print("[3g] Gluon example's loop: image_classification_torch.py "
+          "through its functions, %s, batch %d, %d px, %d classes, "
+          "hybridized, Trainer sgd lr %g over kv.create('device'), "
+          "Accuracy, %d steps" % (GLUON["model"], GLUON["batch"],
+                                  GLUON["image"], GLUON["classes"],
+                                  GLUON["lr"], GLUON["steps"]), flush=True)
+    gl, gl_counts = run_gluon_path(dev)
+    counts["maxpool_idx_fwd"] += gl_counts["maxpool_idx_fwd"]
+    print("[3g] gluon_step_ms %.2f (median of steps 3-%d, trainer.step "
+          "included)  %.1f img/s  trainer_step_ms %.2f (host time in "
+          "trainer.step, %d parameters a step)  K3 launches %d  on %s"
+          % (gl["gluon_step_ms"], GLUON["steps"], gl["img_s"],
+             gl["trainer_step_ms"], gl["trained"],
+             gl_counts["maxpool_idx_fwd"], card), flush=True)
+    print("[3g-ii] Trainer.make_fused_step on resnet50_v1(ghost_bn=16), "
+          "batch %d, bf16, multi_precision, dynamic loss scale, beside "
+          "make_train_step, %d steps, cuDNN deterministic"
+          % (GLUON_FUSED_BATCH, GLUON_FUSED_STEPS), flush=True)
+    _, fused_counts = run_gluon_fused(dev)
+    for name in MAIN_PATH:
+        counts[name] += fused_counts[name]
+
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "
           "attention by CUDA events)", flush=True)
@@ -2025,6 +2312,9 @@ def main(argv=None):
     print("[5b] one f32 step of the LM at dim 128, seq 256: card against CPU",
           flush=True)
     lm_card_vs_cpu(dev)
+    print("[5c] one f32 step of the Gluon example's loop at resnet18_v1, "
+          "32 px, batch 16: card against CPU", flush=True)
+    gluon_card_vs_cpu(dev)
 
     here = os.path.dirname(os.path.abspath(__file__))
     meta = {

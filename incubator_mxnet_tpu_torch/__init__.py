@@ -8,14 +8,23 @@ user kernels given as CUDA C at run time compile with NVRTC (``rtc``).
 
 The imperative API keeps the reference's names: ``mx.nd`` (NDArray and
 its operators), ``mx.autograd``, ``mx.random``, ``mx.cpu()``/``mx.gpu()``,
-and the input path: ``mx.recordio`` and the iterators of ``mx.io``.
+the input path (``mx.recordio`` and the iterators of ``mx.io``) and the
+Gluon training surface: ``mx.gluon`` (``Parameter``, ``Block``/
+``HybridBlock``, ``Trainer``, layers, losses, the model zoo),
+``mx.init``, ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric`` and
+``mx.kv``.
 """
-from . import (autograd, context, gluon, initializer, io, ndarray, parallel,
-               random, recordio, rtc)
+from . import ops  # noqa: F401  (first: parallel.train_step imports ndarray)
+from . import (autograd, context, gluon, initializer, io, kvstore,
+               lr_scheduler, metric, ndarray, optimizer, parallel, random,
+               recordio, rtc)
+from . import initializer as init
+from . import kvstore as kv
 from . import ndarray as nd
 from .context import cpu, gpu
 from .ndarray import NDArray
 
-__all__ = ["autograd", "context", "gluon", "initializer", "io", "ndarray",
-           "nd", "parallel", "random", "recordio", "rtc", "cpu", "gpu",
-           "NDArray"]
+__all__ = ["autograd", "context", "gluon", "init", "initializer", "io",
+           "kv", "kvstore", "lr_scheduler", "metric", "ndarray", "nd",
+           "optimizer", "parallel", "random", "recordio", "rtc", "cpu",
+           "gpu", "NDArray"]

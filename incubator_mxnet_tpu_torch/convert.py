@@ -10,6 +10,13 @@ parameter without gradient (a BN's gamma with ``scale=False``) keeps its
 place among the parameters, as in ``collect_params()``.  A net whose
 layers defer their widths is resolved first (``gluon.shape_init``).
 
+:func:`params_from_gluon` is the copy by name: the reference net's
+``collect_params()`` as ``{name: array}`` into the port net's
+``collect_params()``.  A name's counters (``conv2d17_``) count every
+block built before it in its process, so each package's names are
+first renumbered from the net's own first block of each kind
+(:func:`canonical_names`); the nets' structures must agree.
+
 The long-context LM's parameters are a nested dict whose keys are stable
 (``embed``; ``l0`` ... ``lN`` with ``ln1_g ln1_b wq wk wv wo ln2_g ln2_b
 w1 w2``; ``out``), so they are matched by key.  Not by position:
@@ -18,10 +25,13 @@ construction order.
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 __all__ = ["ordered_tensors", "params_from_jax", "params_to_numpy",
+           "canonical_names", "params_from_gluon",
            "lm_params_from_jax", "lm_params_to_numpy", "ndarrays_from_numpy"]
 
 
@@ -54,6 +64,46 @@ def params_from_jax(net, arrays):
                 raise ValueError("%s has shape %s, the array %s"
                                  % (name, tuple(t.shape), a.shape))
             t.copy_(torch.from_numpy(np.array(a, np.float32)).to(t.dtype))
+    return net
+
+
+_COUNTED = re.compile(r"([a-z_][a-z0-9_]*?)(\d+)_")
+
+
+def canonical_names(names):
+    """``names`` with each prefix counter (``conv2d17_``) renumbered by the
+    order in which ``names`` first show that kind's counters, so two
+    nets of one structure built at different counter states get the same
+    names (``conv2d0_weight``, ``conv2d1_weight``, ...)."""
+    seen = {}
+
+    def renumber(m):
+        hint, n = m.group(1), int(m.group(2))
+        ids = seen.setdefault(hint, {})
+        return "%s%d_" % (hint, ids.setdefault(n, len(ids)))
+
+    return [_COUNTED.sub(renumber, n) for n in names]
+
+
+def params_from_gluon(net, arrays):
+    """Copy ``arrays`` (``{name: numpy}``, e.g. the reference net's
+    ``{k: p.data().asnumpy() for k, p in collect_params().items()}``,
+    running stats included) into ``net``'s parameters by name, after
+    :func:`canonical_names` on both sides.  Missing or extra names and
+    shape mismatches raise."""
+    params = net.collect_params()
+    mine = dict(zip(canonical_names(list(params.keys())), params.values()))
+    theirs = dict(zip(canonical_names(list(arrays)), arrays.values()))
+    if set(mine) != set(theirs):
+        raise ValueError("names differ: %s only in the net, %s only in the "
+                         "arrays" % (sorted(set(mine) - set(theirs))[:4],
+                                     sorted(set(theirs) - set(mine))[:4]))
+    for name, p in mine.items():
+        a = np.asarray(theirs[name])
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError("%s has shape %s, the array %s"
+                             % (name, p.shape, a.shape))
+        p.set_data(torch.from_numpy(np.array(a, np.float32)))
     return net
 
 

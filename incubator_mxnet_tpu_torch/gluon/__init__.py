@@ -1,5 +1,13 @@
-"""Layers, losses and the model zoo as ``nn.Module``s (port of ``incubator_mxnet_tpu/gluon``)."""
-from . import block, loss, model_zoo, nn
-from .block import shape_init
+"""Gluon (port of ``incubator_mxnet_tpu/gluon``): ``Parameter``,
+``ParameterDict``, ``Constant``, ``Block``/``HybridBlock`` over
+``torch.nn.Module``, ``Trainer``, the layers, losses and the model
+zoo."""
+from . import block, loss, model_zoo, nn, parameter, trainer
+from .block import Block, HybridBlock, shape_init
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
+from .trainer import Trainer
 
-__all__ = ["block", "loss", "model_zoo", "nn", "shape_init"]
+__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
+           "DeferredInitializationError", "Trainer", "block", "loss",
+           "model_zoo", "nn", "parameter", "trainer", "shape_init"]

@@ -1,58 +1,335 @@
-"""Deferred shapes and the tensor-op namespace of the port's layers (the
-parts of ``incubator_mxnet_tpu/gluon/block.py`` that its layers use).
+"""Gluon ``Block`` and ``HybridBlock`` over ``torch.nn.Module`` (port of
+``incubator_mxnet_tpu/gluon/block.py``), with deferred shapes and the
+tensor-op namespace ``F`` of the port's layers.
+
+A ``Block`` is an ``nn.Module`` with the reference's names: a prefix from
+the reference's name scopes (``conv2d0_``, ``dense1_``, or the parent's
+prefix inside ``with self.name_scope():``), ``params`` (its
+:class:`ParameterDict`), ``collect_params``, ``initialize``, ``cast``,
+``hybridize``, ``save_parameters``/``load_parameters`` (structural
+names, ``features.0.weight``, the reference's file format) and
+``summary``.  Assigning a :class:`Parameter` to an attribute registers
+its tensor with PyTorch under that name, so ``named_parameters()`` and
+``named_buffers()`` list what ``collect_params()`` lists.
+
+Two ways to call a block:
+
+- on ``torch.Tensor`` inputs it is a plain ``nn.Module``: ``forward``
+  runs on tensors, train mode is ``module.train()``/``eval()`` (this is
+  what ``TrainStep`` calls);
+- on ``NDArray`` inputs (the reference's way), a ``HybridBlock`` runs
+  the same forward on the arrays' tensors with grad mode on only inside
+  ``autograd.record()`` and train mode from ``autograd.is_training()``
+  (BN batch statistics and Dropout inside ``record()``, inference
+  outside), and returns NDArrays whose ``backward()`` fills every
+  ``Parameter.grad()``.
+
+``hybridize`` runs eagerly: the CUDA-graph analogue of the reference's
+cached program is ROADMAP A5f.  A user ``HybridBlock`` implements
+``hybrid_forward(F, x, **params)``: ``F`` is the port's ops on tensors
+(the registered ops by name, and ``FullyConnected`` and ``Activation``
+in the reference's keywords),
+``params`` its registered parameters' tensors.
 
 A layer given no input width (``in_channels=0``, ``in_units=0``) creates
 its tensors as ``torch.nn.UninitializedParameter`` /
-``UninitializedBuffer`` on its device and resolves them from the first
-input it sees (PyTorch's ``LazyModuleMixin``), as the reference resolves
-deferred parameters.  :func:`initializer.initialize` run before that
-leaves such a layer a pending initializer, applied when its shapes are
-known; :func:`shape_init` resolves every such layer of a net at once.
+``UninitializedBuffer`` and resolves them from its first input
+(PyTorch's ``LazyModuleMixin``, :class:`Deferred`), as the reference
+resolves deferred parameters; :func:`shape_init` resolves every such
+layer of a net at once.
 """
 from __future__ import annotations
+
+import re
+import threading
 
 import torch
 from torch import nn
 from torch.nn.modules.lazy import LazyModuleMixin
 from torch.nn.parameter import is_lazy
 
-__all__ = ["Deferred", "shape_init", "F"]
+from .. import autograd
+from ..ndarray import NDArray
+from ..ops import nn as _ops
+from .parameter import Parameter, ParameterDict
+
+__all__ = ["Block", "HybridBlock", "Deferred", "shape_init", "F"]
+
+
+class _BlockScope:
+    """Name scoping for automatic prefixes: a global counter per hint
+    (``conv2d0_``) outside any scope, one per parent inside its
+    ``name_scope()``."""
+
+    _state = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def current():
+        return getattr(_BlockScope._state, "value", None)
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = _BlockScope.current()
+        if current is None:
+            if prefix is None:
+                if not hasattr(_BlockScope._state, "counter"):
+                    _BlockScope._state.counter = {}
+                count = _BlockScope._state.counter.get(hint, 0)
+                prefix = "%s%d_" % (hint, count)
+                _BlockScope._state.counter[hint] = count + 1
+            return prefix, ParameterDict(prefix, params)
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            prefix = "%s%d_" % (hint, count)
+            current._counter[hint] = count + 1
+        parent = current._block
+        full_prefix = parent.prefix + prefix
+        return full_prefix, ParameterDict(
+            full_prefix, params if params is not None
+            else parent._params._shared)
+
+    def __enter__(self):
+        self._old_scope = _BlockScope.current()
+        _BlockScope._state.value = self
+        return self
+
+    def __exit__(self, *exc):
+        _BlockScope._state.value = self._old_scope
+
+
+def _is_nd(v):
+    return isinstance(v, NDArray) or (
+        isinstance(v, (tuple, list)) and any(_is_nd(i) for i in v))
+
+
+def _to_tensors(v):
+    if isinstance(v, NDArray):
+        return v._data
+    if isinstance(v, (tuple, list)):
+        return type(v)(_to_tensors(i) for i in v)
+    return v
+
+
+def _to_nds(v):
+    if isinstance(v, torch.Tensor):
+        return NDArray(v)
+    if isinstance(v, (tuple, list)):
+        return type(v)(_to_nds(i) for i in v)
+    return v
+
+
+class Block(nn.Module):
+    """Base building block: an ``nn.Module`` with the reference's prefix,
+    parameters and persistence."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__()
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._reg_params = {}
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def params(self) -> ParameterDict:
+        return self._params
+
+    @property
+    def _children(self):
+        return {k: m for k, m in self._modules.items()
+                if isinstance(m, Block)}
+
+    def name_scope(self):
+        return self._scope
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Parameter):
+            reg = self.__dict__.get("_reg_params")
+            if reg is None:
+                raise AttributeError("assign parameters after "
+                                     "Block.__init__")
+            reg[name] = value
+            t = value._ensure_tensor(self.__dict__.get("_device"))
+            self._parameters.pop(name, None)
+            self._buffers.pop(name, None)
+            if value._buffer:
+                self.register_buffer(name, t)
+            else:
+                self.register_parameter(name, t)
+            return
+        super().__setattr__(name, value)
+
+    def register_child(self, block, name=None):
+        self.add_module(name or str(len(self._modules)), block)
+
+    def collect_params(self, select=None) -> ParameterDict:
+        """This block's and its children's parameters, optionally those
+        whose names match the regular expression ``select``."""
+        ret = ParameterDict(self._params.prefix)
+        pattern = re.compile(select) if select is not None else None
+        ret.update({k: v for k, v in self._params.items()
+                    if pattern is None or pattern.match(k)})
+        for p in self._reg_params.values():
+            if pattern is None or pattern.match(p.name):
+                ret._params.setdefault(p.name, p)
+        for child in self._children.values():
+            ret.update(child.collect_params(select)._params)
+        return ret
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        """Initialize every parameter (``ParameterDict.initialize``)."""
+        self.collect_params().initialize(init, ctx, verbose, force_reinit)
+
+    def cast(self, dtype):
+        for p in self.collect_params().values():
+            p.cast(dtype)
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """Structural parameter names (``features.0.weight``), stable
+        across nets of one structure: the names of ``.params`` files."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + name: p for name, p in self._reg_params.items()}
+        for cname, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + cname))
+        return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        from ..ndarray import save as nd_save
+
+        nd_save(filename, {name: p.data() for name, p in
+                           self._collect_params_with_prefix().items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a ``.params`` file saved by ``save_parameters`` of either
+        package (structural names), or one keyed by full names."""
+        from .. import context
+        from ..ndarray import load as nd_load
+
+        loaded = nd_load(filename, ctx=context.cpu())
+        params = self._collect_params_with_prefix()
+        if loaded and params and not any(k in params for k in loaded):
+            by_name = {p.name: p for p in params.values()}
+            params = {k: by_name[k] for k in loaded if k in by_name}
+        for name, p in params.items():
+            if name in loaded:
+                if cast_dtype and dtype_source == "saved":
+                    p.cast(loaded[name].dtype)
+                p.set_data(loaded[name])
+            elif not allow_missing:
+                raise RuntimeError("Parameter %s is missing in file %s"
+                                   % (name, filename))
+        if not ignore_extra:
+            extra = set(loaded) - set(params)
+            if extra:
+                raise RuntimeError("Parameters in file not in Block: %s"
+                                   % sorted(extra))
+
+    save_params = save_parameters
+    load_params = load_parameters
+
+    def summary(self, *inputs):
+        lines = ["%s summary:" % self.name]
+        for name, p in self.collect_params().items():
+            lines.append("  %-40s %s" % (name, p.shape))
+        s = "\n".join(lines)
+        print(s)
+        return s
+
+
+class HybridBlock(Block):
+    """A block whose forward runs on tensors: ``forward`` of a port
+    layer, or ``hybrid_forward(F, x, **params)`` of a user subclass.
+    Called on NDArrays, it returns NDArrays recorded on the port's
+    autograd (see the module docstring)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._flags = {}
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Mark the block hybridized.  The port runs it eagerly all the
+        same."""
+        self._active = active
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        if not (_is_nd(args) or _is_nd(tuple(kwargs.values()))):
+            return super().__call__(*args, **kwargs)
+        training = autograd.is_training()
+        was = self.training
+        if was != training:
+            self.train(training)
+        try:
+            with torch.set_grad_enabled(autograd.is_recording()):
+                out = super().__call__(*_to_tensors(args),
+                                       **{k: _to_tensors(v)
+                                          for k, v in kwargs.items()})
+        finally:
+            if was != training:
+                self.train(was)
+        return _to_nds(out)
+
+    def forward(self, x, *args, **kwargs):
+        params = {name: getattr(self, name) for name in self._reg_params}
+        return self.hybrid_forward(F, x, *args, **kwargs, **params)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):  # noqa: N803
+        raise NotImplementedError
+
+    def shape_init(self, *input_shapes, dtype="float32"):
+        """Resolve deferred shapes at ``input_shapes`` (see
+        :func:`shape_init`)."""
+        from ..base import torch_dtype
+
+        return shape_init(self, *input_shapes, dtype=torch_dtype(dtype))
+
+    def export(self, path, epoch=0):
+        raise NotImplementedError(
+            "export needs symbols, which are not in the port yet "
+            "(ROADMAP item 2, A15)")
 
 
 class Deferred(LazyModuleMixin):
     """Mixin of a layer whose tensor shapes may wait for its input.
 
-    The layer declares its tensors with :meth:`_param` / :meth:`_buffer`
-    (``shape`` None: deferred) and implements ``_infer_shapes(x)``,
-    returning ``{name: shape}``.  On the first forward the deferred
-    tensors are materialized with their ``fill`` (the layer's default
-    initializer: BN's ones and zeros) and, where
-    :func:`initializer.initialize` left one, the pending initializer
-    fills them."""
-
-    def _param(self, name, shape, device, fill=None, trainable=True):
-        if shape is None:
-            p = nn.UninitializedParameter(device=device,
-                                          requires_grad=trainable)
-            self._fill_later(name, fill)
-        else:
-            t = torch.empty(shape, device=device)
-            if fill is not None:
-                t.fill_(fill)
-            p = nn.Parameter(t, requires_grad=trainable)
-        self.register_parameter(name, p)
-
-    def _buffer(self, name, shape, device, fill):
-        if shape is None:
-            self.register_buffer(name, nn.UninitializedBuffer(device=device))
-            self._fill_later(name, fill)
-        else:
-            self.register_buffer(name, torch.full(shape, float(fill),
-                                                  device=device))
-
-    def _fill_later(self, name, fill):
-        if fill is not None:
-            self.__dict__.setdefault("_fills", {})[name] = fill
+    The layer makes its parameters with ``self.params.get`` (a 0 in a
+    shape: deferred) and implements ``_infer_shapes(x)``, returning
+    ``{name: shape}``.  On the first forward the deferred tensors are
+    materialized and each ``Parameter`` finishes: the initializer that
+    ``initialize`` left runs, or the pending one of
+    :func:`initializer.initialize`, or its constant default (BN's ones
+    and zeros)."""
 
     def initialize_parameters(self, x, *args, **kwargs):
         if not self.has_uninitialized_params():
@@ -64,15 +341,11 @@ class Deferred(LazyModuleMixin):
                 for name, t in kind.items():
                     if t is not None and is_lazy(t):
                         t.materialize(shapes[name])
-                        fill = self.__dict__.get("_fills", {}).get(name)
-                        if fill is not None:
-                            t.fill_(fill)
-                        made.append((name, t))
+                        made.append(name)
         pending = self.__dict__.pop("_pending_init", None)
-        if pending is not None:
-            init, generator = pending
-            for name, t in made:
-                init(name, t, generator)
+        with torch.no_grad():
+            for name in made:
+                self._reg_params[name]._materialized(name, pending)
 
 
 def shape_init(net, *input_shapes, dtype=torch.float32):
@@ -80,8 +353,8 @@ def shape_init(net, *input_shapes, dtype=torch.float32):
     forward in inference mode, without gradients, of zeros of the given
     shapes with the leading (batch) axis cut to 1, on the device of the
     net's first tensor.  No running stat is touched; a pending
-    initializer (``initializer.initialize`` run before) fills the
-    resolved tensors.  Returns ``net``."""
+    initializer (``initialize`` run before) fills the resolved tensors.
+    Returns ``net``."""
     tensors = list(net.parameters()) + list(net.buffers())
     device = tensors[0].device if tensors else torch.device("cpu")
     xs = [torch.zeros((1,) + tuple(s)[1:], dtype=dtype, device=device)
@@ -96,12 +369,30 @@ def shape_init(net, *input_shapes, dtype=torch.float32):
     return net
 
 
+def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                     flatten=True):
+    bias = None if no_bias else bias
+    if flatten:
+        return _ops.fully_connected(data, weight, bias)
+    return torch.nn.functional.linear(data, weight, bias)
+
+
+def _activation(data, act_type="relu"):
+    return _ops.activation(data, act_type)
+
+
+_NN_FORMS = {"FullyConnected": _fully_connected, "Activation": _activation}
+
+
 class _TensorOps:
-    """``F`` of a ``HybridLambda``: the registered ops of the port
-    (``ops/math.py``, ``ops/tensor.py``) by name, on tensors:
-    ``F.clip(x, 0, 6)``, ``F.Concat(a, b, dim=1)``."""
+    """``F`` of ``hybrid_forward`` and ``HybridLambda``: the registered
+    ops of the port (``ops/math.py``, ``ops/tensor.py``) by name, on
+    tensors (``F.clip(x, 0, 6)``, ``F.Concat(a, b, dim=1)``), and
+    ``FullyConnected`` and ``Activation`` in the reference's keywords."""
 
     def __getattr__(self, name):
+        if name in _NN_FORMS:
+            return _NN_FORMS[name]
         from ..ops import math, registry, tensor  # noqa: F401  (registers)
 
         return registry.get_op(name).fn

@@ -2,20 +2,19 @@
 alexnet.py``)."""
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from .... import context
 from ... import nn
+from ...block import HybridBlock
 
 __all__ = ["AlexNet", "alexnet"]
 
 
-class AlexNet(tnn.Module):
+class AlexNet(HybridBlock):
     """Five convolutions (three 3x3/2 max pools), two dense layers of 4096
     with dropout 0.5, the classifier.  Input widths are deferred."""
 
-    def __init__(self, classes=1000, device=None):
-        super().__init__()
+    def __init__(self, classes=1000, device=None, **kwargs):
+        super().__init__(**kwargs)
         with context.device_scope(device):
             self.features = nn.HybridSequential(
                 nn.Conv2D(64, kernel_size=11, strides=4, padding=2,

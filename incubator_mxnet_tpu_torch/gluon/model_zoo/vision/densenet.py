@@ -2,23 +2,21 @@
 model_zoo/vision/densenet.py``)."""
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from .... import context
 from ... import nn
-from ...block import F
+from ...block import F, HybridBlock
 
 __all__ = ["DenseNet", "densenet_spec", "densenet121", "densenet161",
            "densenet169", "densenet201"]
 
 
-class _DenseLayer(tnn.Module):
+class _DenseLayer(HybridBlock):
     """BN, ReLU, 1x1 conv (``bn_size * growth_rate``), BN, ReLU, 3x3 conv
     (``growth_rate``), optional dropout; the output is concatenated to the
     input on channels."""
 
-    def __init__(self, growth_rate, bn_size, dropout):
-        super().__init__()
+    def __init__(self, growth_rate, bn_size, dropout, **kwargs):
+        super().__init__(**kwargs)
         self.body = nn.HybridSequential(
             nn.BatchNorm(), nn.Activation("relu"),
             nn.Conv2D(bn_size * growth_rate, kernel_size=1, use_bias=False),
@@ -43,14 +41,14 @@ def _make_transition(num_output_features):
         nn.AvgPool2D(pool_size=2, strides=2))
 
 
-class DenseNet(tnn.Module):
+class DenseNet(HybridBlock):
     """7x7/2 stem, BN, ReLU, 3x3/2 max pool; dense blocks joined by
     transitions that halve the channels (1x1 conv, 2x2/2 average pool);
     BN, ReLU, global average pooling and the classifier."""
 
     def __init__(self, num_init_features, growth_rate, block_config,
-                 bn_size=4, dropout=0, classes=1000, device=None):
-        super().__init__()
+                 bn_size=4, dropout=0, classes=1000, device=None, **kwargs):
+        super().__init__(**kwargs)
         with context.device_scope(device):
             self.features = nn.HybridSequential(
                 nn.Conv2D(num_init_features, kernel_size=7, strides=2,

@@ -2,11 +2,9 @@
 inception.py``)."""
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from .... import context
 from ... import nn
-from ...block import F
+from ...block import F, HybridBlock
 
 __all__ = ["Inception3", "inception_v3"]
 
@@ -33,16 +31,22 @@ def _make_branch(use_pool, *conv_settings):
     return out
 
 
-class _Concurrent(tnn.ModuleList):
+class _Concurrent(HybridBlock):
     """Parallel branches on one input, concatenated on ``axis`` (gluon
     contrib's ``HybridConcurrent``)."""
 
-    def __init__(self, axis=1):
-        super().__init__()
+    def __init__(self, axis=1, **kwargs):
+        super().__init__(**kwargs)
         self._axis = axis
 
     def add(self, block):
-        self.append(block)
+        self.register_child(block)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
 
     def forward(self, x):
         return F.Concat(*[child(x) for child in self], dim=self._axis)
@@ -92,9 +96,9 @@ def _make_D():  # noqa: N802
     return out
 
 
-class _InceptionE(tnn.Module):
-    def __init__(self):
-        super().__init__()
+class _InceptionE(HybridBlock):
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
         self.branch1 = _make_branch(None, (320, 1, None, None))
         self.branch2_stem = _make_branch(None, (384, 1, None, None))
         self.branch2_a = _make_branch(None, (384, (1, 3), None, (0, 1)))
@@ -114,13 +118,13 @@ class _InceptionE(tnn.Module):
         return F.Concat(b1, b2, b3, self.branch4(x), dim=1)
 
 
-class Inception3(tnn.Module):
+class Inception3(HybridBlock):
     """Inception v3 for 299 px inputs: the stem (five conv + BN + ReLU,
     two 3x3/2 max pools), Inception A x3, B, C x4, D, E x2, an 8x8
     average pool, dropout 0.5 and the classifier."""
 
-    def __init__(self, classes=1000, device=None):
-        super().__init__()
+    def __init__(self, classes=1000, device=None, **kwargs):
+        super().__init__(**kwargs)
         with context.device_scope(device):
             self.features = nn.HybridSequential(
                 _make_basic_conv(channels=32, kernel_size=3, strides=2),

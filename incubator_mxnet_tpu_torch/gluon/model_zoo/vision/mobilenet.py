@@ -2,10 +2,9 @@
 ``incubator_mxnet_tpu/gluon/model_zoo/vision/mobilenet.py``)."""
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from .... import context
 from ... import nn
+from ...block import HybridBlock
 
 __all__ = ["MobileNet", "MobileNetV2", "mobilenet1_0", "mobilenet0_75",
            "mobilenet0_5", "mobilenet0_25", "mobilenet_v2_1_0",
@@ -31,13 +30,13 @@ def _add_conv_dw(out, dw_channels, channels, stride, relu6=False):
     _add_conv(out, channels, relu6=relu6)
 
 
-class LinearBottleneck(tnn.Module):
+class LinearBottleneck(HybridBlock):
     """MobileNet v2's inverted residual: 1x1 expansion by ``t``, 3x3
     depthwise (carrying the stride), 1x1 linear projection; the input is
     added where shapes allow."""
 
-    def __init__(self, in_channels, channels, t, stride):
-        super().__init__()
+    def __init__(self, in_channels, channels, t, stride, **kwargs):
+        super().__init__(**kwargs)
         self.use_shortcut = stride == 1 and in_channels == channels
         self.out = nn.HybridSequential()
         _add_conv(self.out, in_channels * t, relu6=True)
@@ -50,12 +49,12 @@ class LinearBottleneck(tnn.Module):
         return out + x if self.use_shortcut else out
 
 
-class MobileNet(tnn.Module):
+class MobileNet(HybridBlock):
     """MobileNet v1: a 3x3/2 conv, 13 depthwise-separable pairs, global
     average pooling and the classifier; widths scaled by ``multiplier``."""
 
-    def __init__(self, multiplier=1.0, classes=1000, device=None):
-        super().__init__()
+    def __init__(self, multiplier=1.0, classes=1000, device=None, **kwargs):
+        super().__init__(**kwargs)
         with context.device_scope(device):
             self.features = nn.HybridSequential()
             _add_conv(self.features, channels=int(32 * multiplier),
@@ -77,13 +76,13 @@ class MobileNet(tnn.Module):
         return self.output(self.features(x))
 
 
-class MobileNetV2(tnn.Module):
+class MobileNetV2(HybridBlock):
     """MobileNet v2: a 3x3/2 conv, 17 linear bottlenecks, a 1x1 conv to
     1280 (scaled above multiplier 1), global average pooling and a 1x1
     classifier convolution; ReLU6 throughout."""
 
-    def __init__(self, multiplier=1.0, classes=1000, device=None):
-        super().__init__()
+    def __init__(self, multiplier=1.0, classes=1000, device=None, **kwargs):
+        super().__init__(**kwargs)
         with context.device_scope(device):
             self.features = nn.HybridSequential()
             _add_conv(self.features, int(32 * multiplier), kernel=3,

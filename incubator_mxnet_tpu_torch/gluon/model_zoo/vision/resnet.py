@@ -4,7 +4,8 @@ resnet.py``): stock BatchNorm blocks, the fused ghost-BN form of v1
 thumbnail stem, ``resnet_spec``, ``get_resnet`` and the 10
 constructors.
 
-Modules are built in the reference's registration order, so
+Blocks are ``HybridBlock``s built in the reference's registration
+order, so ``collect_params()`` names them as the reference does and
 ``convert.params_from_jax`` can carry weights across by position.  As
 in the reference, the stock form leaves most input widths to the first
 input (``gluon.shape_init``); the ghost form is given them all.
@@ -13,11 +14,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as tF
-from torch import nn as tnn
 
 from .... import context
 from ....ops import nn as ops
 from ... import nn
+from ...block import HybridBlock
 
 __all__ = ["GhostBNReLU", "GhostBN", "BasicBlockV1", "BottleneckV1",
            "BasicBlockV2", "BottleneckV2", "ResNetV1", "ResNetV2",
@@ -31,7 +32,7 @@ def _conv3x3(channels, stride, in_channels, device=None):
                      use_bias=False, in_channels=in_channels, device=device)
 
 
-class _S2DStemConv(tnn.Module):
+class _S2DStemConv(HybridBlock):
     """The 7x7 stride-2 pad-3 stem convolution computed as a 4x4 stride-1
     convolution over the 2x2 space-to-depth packing of its padded input
     (the same function): with ``ky = 2 kY + dy`` the kernel's taps become
@@ -40,10 +41,13 @@ class _S2DStemConv(tnn.Module):
     stem and is rearranged in the forward.  The input's height and width
     must be even."""
 
-    def __init__(self, channels, in_channels=3, device=None):
-        super().__init__()
-        self.weight = tnn.Parameter(torch.empty(
-            (channels, in_channels, 7, 7), device=context.resolve(device)))
+    def __init__(self, channels, in_channels=3, device=None, **kwargs):
+        super().__init__(**kwargs)
+        self._device = context.resolve(device)
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(channels, in_channels, 7, 7),
+                allow_deferred_init=True)
 
     def forward(self, x):
         n, c, h, w = x.shape
@@ -58,7 +62,7 @@ class _S2DStemConv(tnn.Module):
         return ops.convolution(x, wt)
 
 
-class GhostBNReLU(tnn.Module):
+class GhostBNReLU(HybridBlock):
     """Fused ghost BN (+residual add) + ReLU with running stats.
 
     Parameters gamma and beta, buffers running_mean and running_var.  In
@@ -71,22 +75,28 @@ class GhostBNReLU(tnn.Module):
     _act = "relu"
 
     def __init__(self, group=0, momentum=0.9, epsilon=1e-5, in_channels=0,
-                 donate_residual=False, dual_out=False, device=None):
-        super().__init__()
+                 donate_residual=False, dual_out=False, device=None,
+                 **kwargs):
+        super().__init__(**kwargs)
         if in_channels <= 0:
             raise ValueError("%s needs in_channels: the port has no deferred "
                              "shape inference" % type(self).__name__)
-        dev = context.resolve(device)
+        self._device = context.resolve(device)
         self._group = int(group)
         self._momentum = float(momentum)
         self._epsilon = float(epsilon)
         self._donate_residual = bool(donate_residual)
         self._dual_out = bool(dual_out)
-        self.gamma = tnn.Parameter(torch.ones(in_channels, device=dev))
-        self.beta = tnn.Parameter(torch.zeros(in_channels, device=dev))
-        self.register_buffer("running_mean",
-                             torch.zeros(in_channels, device=dev))
-        self.register_buffer("running_var", torch.ones(in_channels, device=dev))
+        shape = (in_channels,)
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=shape, init="ones")
+            self.beta = self.params.get("beta", shape=shape, init="zeros")
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=shape, init="zeros",
+                buffer=True)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=shape, init="ones",
+                buffer=True)
 
     def forward(self, x, residual=None):
         kw = {"eps": self._epsilon, "group": self._group,
@@ -126,14 +136,14 @@ class GhostBN(GhostBNReLU):
     _act = "none"
 
 
-class BasicBlockV1(tnn.Module):
+class BasicBlockV1(HybridBlock):
     """ResNet v1 basic block: two 3x3 conv + BN pairs and the residual
     add + ReLU; with ``ghost_bn`` the BNs are fused ghost BN, the exit
     with the add and ReLU."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 ghost_bn=0, dual_out=False, device=None):
-        super().__init__()
+                 ghost_bn=0, dual_out=False, device=None, **kwargs):
+        super().__init__(**kwargs)
         self._ghost_bn = ghost_bn
         if ghost_bn:
             self.conv1 = _conv3x3(channels, stride, in_channels, device)
@@ -174,14 +184,14 @@ def _downsample(channels, stride, in_channels, ghost_bn, device):
                   in_channels=in_channels, device=device), bn)
 
 
-class BottleneckV1(tnn.Module):
+class BottleneckV1(HybridBlock):
     """ResNet v1 bottleneck: 1x1 (carrying the stride), 3x3 and 1x1 conv +
     BN and the residual add + ReLU.  With ``ghost_bn``: three conv ->
     ghost-BN pairs, the exit fused with the residual add and ReLU."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 ghost_bn=0, dual_out=False, device=None):
-        super().__init__()
+                 ghost_bn=0, dual_out=False, device=None, **kwargs):
+        super().__init__(**kwargs)
         self._ghost_bn = ghost_bn
         mid = channels // 4
         if ghost_bn:
@@ -224,13 +234,13 @@ class BottleneckV1(tnn.Module):
         return torch.relu(self.body(x) + residual)
 
 
-class BasicBlockV2(tnn.Module):
+class BasicBlockV2(HybridBlock):
     """Pre-activation basic block: BN, ReLU, 3x3 conv, twice; the shortcut
     (a 1x1 conv where it downsamples) taken after the first BN + ReLU."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 device=None):
-        super().__init__()
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
         self.bn1 = nn.BatchNorm(device=device)
         self.conv1 = _conv3x3(channels, stride, in_channels, device)
         self.bn2 = nn.BatchNorm(device=device)
@@ -249,13 +259,13 @@ class BasicBlockV2(tnn.Module):
         return x + residual
 
 
-class BottleneckV2(tnn.Module):
+class BottleneckV2(HybridBlock):
     """Pre-activation bottleneck: BN, ReLU and conv three times (1x1, 3x3
     carrying the stride, 1x1); the shortcut as in ``BasicBlockV2``."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 device=None):
-        super().__init__()
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
         mid = channels // 4
         self.bn1 = nn.BatchNorm(device=device)
         self.conv1 = nn.Conv2D(mid, kernel_size=1, strides=1, use_bias=False,
@@ -300,14 +310,14 @@ def _make_layer(block, layers, channels, stride, in_channels=0, ghost_bn=0,
     return layer
 
 
-class ResNetV1(tnn.Module):
+class ResNetV1(HybridBlock):
     """ResNet v1: the 7x7/2 stem (or its space-to-depth form, or a 3x3
     thumbnail stem with no BN or pool), BN + ReLU, the 3x3/2 max pool,
     the stages, global average pooling and the classifier."""
 
     def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
-                 s2d_stem=False, ghost_bn=0, device=None):
-        super().__init__()
+                 s2d_stem=False, ghost_bn=0, device=None, **kwargs):
+        super().__init__(**kwargs)
         if len(layers) != len(channels) - 1:
             raise ValueError("need one channel count per stage plus the stem")
         with context.device_scope(device) as dev:
@@ -341,14 +351,14 @@ class ResNetV1(tnn.Module):
         return self.output(ops.flatten(x))
 
 
-class ResNetV2(tnn.Module):
+class ResNetV2(HybridBlock):
     """ResNet v2 (pre-activation): a BN without scale or shift on the
     input (gamma and beta without gradient), the stem, the stages, BN +
     ReLU, global average pooling and the classifier."""
 
     def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
-                 device=None):
-        super().__init__()
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
         if len(layers) != len(channels) - 1:
             raise ValueError("need one channel count per stage plus the stem")
         with context.device_scope(device) as dev:

@@ -2,21 +2,19 @@
 vision/squeezenet.py``)."""
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from .... import context
 from ... import nn
-from ...block import F
+from ...block import F, HybridBlock
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
 
 
-class _Fire(tnn.Module):
+class _Fire(HybridBlock):
     """1x1 squeeze, then 1x1 and 3x3 expands concatenated on channels."""
 
     def __init__(self, squeeze_channels, expand1x1_channels,
-                 expand3x3_channels):
-        super().__init__()
+                 expand3x3_channels, **kwargs):
+        super().__init__(**kwargs)
         self.squeeze = nn.Conv2D(squeeze_channels, kernel_size=1,
                                  activation="relu")
         self.expand1x1 = nn.Conv2D(expand1x1_channels, kernel_size=1,
@@ -29,12 +27,12 @@ class _Fire(tnn.Module):
         return F.Concat(self.expand1x1(x), self.expand3x3(x), dim=1)
 
 
-class SqueezeNet(tnn.Module):
+class SqueezeNet(HybridBlock):
     """Fire modules between 3x3/2 ceil-mode max pools, dropout 0.5, a 1x1
     classifier convolution and global average pooling."""
 
-    def __init__(self, version, classes=1000, device=None):
-        super().__init__()
+    def __init__(self, version, classes=1000, device=None, **kwargs):
+        super().__init__(**kwargs)
         if version not in ("1.0", "1.1"):
             raise ValueError("SqueezeNet version is '1.0' or '1.1', got %r"
                              % (version,))

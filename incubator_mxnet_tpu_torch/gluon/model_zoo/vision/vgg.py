@@ -2,10 +2,9 @@
 ``incubator_mxnet_tpu/gluon/model_zoo/vision/vgg.py``)."""
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from .... import context
 from ... import nn
+from ...block import HybridBlock
 
 __all__ = ["VGG", "vgg_spec", "get_vgg", "vgg11", "vgg13", "vgg16", "vgg19",
            "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn"]
@@ -18,13 +17,13 @@ vgg_spec = {
 }
 
 
-class VGG(tnn.Module):
+class VGG(HybridBlock):
     """Stages of 3x3 convolutions (+ BN) + ReLU, each closed by a 2x2/2 max
     pool; two dense layers of 4096 with dropout 0.5; the classifier."""
 
     def __init__(self, layers, filters, classes=1000, batch_norm=False,
-                 device=None):
-        super().__init__()
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
         if len(layers) != len(filters):
             raise ValueError("need one filter count per stage")
         with context.device_scope(device):

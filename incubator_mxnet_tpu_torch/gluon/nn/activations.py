@@ -2,20 +2,25 @@
 activations.py``): ``Activation``."""
 from __future__ import annotations
 
-from torch import nn
-
 from ...ops import nn as ops
+from ..block import HybridBlock
 
 __all__ = ["Activation"]
 
 
-class Activation(nn.Module):
+class Activation(HybridBlock):
     """``Activation(act_type)``: relu, sigmoid, tanh, softrelu or
     softsign (``ops.activation``)."""
 
-    def __init__(self, activation):
-        super().__init__()
+    def __init__(self, activation, **kwargs):
+        super().__init__(**kwargs)
         self._act_type = activation
+
+    def _alias(self):
+        # called by Block.__init__ before _act_type is set, as in the
+        # reference: the prefix is "activation<N>_"
+        return self._act_type if hasattr(self, "_act_type") \
+            else "activation"
 
     def forward(self, x):
         return ops.activation(x, self._act_type)

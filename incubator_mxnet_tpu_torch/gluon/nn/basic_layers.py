@@ -1,47 +1,78 @@
 """Basic layers (port of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``):
 ``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``, ``Flatten``
-and ``HybridLambda``, as ``nn.Module``s.  Parameters are created on
+and ``HybridLambda``, as ``HybridBlock``s.  Parameters are made inside
+``name_scope()`` with the reference's names and initializers, on
 ``device`` (default: the enclosing ``context.device_scope``, else the
-CUDA card) with no values; ``initializer.initialize`` fills them.  A
-width left at 0 is deferred to the first input (``gluon.block``)."""
+CUDA card); ``initialize`` fills them.  A width left at 0 is deferred to
+the first input (``gluon.block``)."""
 from __future__ import annotations
 
 import math
 
-from torch import nn
-
 from ... import context
 from ...ops import nn as ops
-from ..block import F, Deferred
+from ..block import F, Deferred, HybridBlock
 
 __all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "Flatten",
            "HybridLambda"]
 
 
-class HybridSequential(nn.Sequential):
+class HybridSequential(HybridBlock):
     """Children run in order; a tuple output (a dual block exit) is handed
-    to the next child as one value."""
+    to the next child as one value.  Blocks given positionally are
+    added."""
+
+    def __init__(self, *blocks, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.add(*blocks)
 
     def add(self, *blocks):
         for b in blocks:
-            self.append(b)
+            self.register_child(b)
+
+    def forward(self, x):
+        for child in self._modules.values():
+            x = child(x)
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())
+        if isinstance(key, slice):
+            return type(self)(*layers[key])
+        return layers[key]
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
 
-class Dense(Deferred, nn.Module):
+class Dense(Deferred, HybridBlock):
     """Fully connected layer over the flattened input: weight (units,
     in_units), bias (units,), an optional activation after it."""
 
-    def __init__(self, units, activation=None, use_bias=True, in_units=0,
-                 device=None):
-        super().__init__()
-        dev = context.resolve(device)
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, device=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        if not flatten:
+            raise NotImplementedError(
+                "Dense(flatten=False) waits for ROADMAP item 1d")
+        self._device = context.resolve(device)
         self._units = units
         self._activation = activation
-        self._param("weight", (units, in_units) if in_units else None, dev)
-        if use_bias:
-            self._param("bias", (units,), dev, fill=0.0)
-        else:
-            self.bias = None
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,), dtype=dtype,
+                    init=bias_initializer, allow_deferred_init=True)
+            else:
+                self.bias = None
 
     def _infer_shapes(self, x):
         return {"weight": (self._units, math.prod(x.shape[1:]))}
@@ -53,12 +84,12 @@ class Dense(Deferred, nn.Module):
         return out
 
 
-class Dropout(nn.Module):
+class Dropout(HybridBlock):
     """``Dropout(rate, axes)``: active in training mode only, drawing from
     the device generator of the port's ``random`` (``random.seed``)."""
 
-    def __init__(self, rate, axes=()):
-        super().__init__()
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
         self._rate = float(rate)
         self._axes = tuple(axes)
 
@@ -67,7 +98,7 @@ class Dropout(nn.Module):
                            training=self.training)
 
 
-class BatchNorm(Deferred, nn.Module):
+class BatchNorm(Deferred, HybridBlock):
     """Stock batch norm with running stats (the reference's ``BatchNorm``:
     axis 1, momentum 0.9, epsilon 1e-5).
 
@@ -75,24 +106,39 @@ class BatchNorm(Deferred, nn.Module):
     makes gamma (beta) a parameter without gradient, the reference's
     ``grad_req="null"``, and ``scale=False`` also normalizes with gamma
     taken as ones (``fix_gamma``).  running_mean and running_var are
-    buffers, moved in training mode only (and not with
-    ``use_global_stats``) by ``m * old + (1 - m) * batch``."""
+    ``grad_req="null"`` Parameters held as buffers, moved in training
+    mode only (and not with ``use_global_stats``) by
+    ``m * old + (1 - m) * batch``."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
-                 scale=True, use_global_stats=False, in_channels=0,
-                 device=None):
-        super().__init__()
-        dev = context.resolve(device)
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
+        self._device = context.resolve(device)
         self._axis = int(axis)
         self._momentum = float(momentum)
         self._epsilon = float(epsilon)
         self._scale = bool(scale)
         self._use_global_stats = bool(use_global_stats)
-        shape = (in_channels,) if in_channels else None
-        self._param("gamma", shape, dev, fill=1.0, trainable=self._scale)
-        self._param("beta", shape, dev, fill=0.0, trainable=bool(center))
-        self._buffer("running_mean", shape, dev, 0.0)
-        self._buffer("running_var", shape, dev, 1.0)
+        shape = (in_channels,)
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null", shape=shape,
+                init=gamma_initializer, allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null", shape=shape,
+                init=beta_initializer, allow_deferred_init=True)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=shape,
+                init=running_mean_initializer, allow_deferred_init=True,
+                buffer=True)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=shape,
+                init=running_variance_initializer, allow_deferred_init=True,
+                buffer=True)
 
     def _infer_shapes(self, x):
         c = (x.shape[self._axis],)
@@ -114,17 +160,20 @@ class BatchNorm(Deferred, nn.Module):
         return out
 
 
-class Flatten(nn.Module):
+class Flatten(HybridBlock):
     def forward(self, x):
         return ops.flatten(x)
 
 
-class HybridLambda(nn.Module):
+class HybridLambda(HybridBlock):
     """``HybridLambda(function)``: ``function(F, x)`` with ``F`` the port's
     registered ops on tensors (``F.clip``, ``F.Concat``, ...)."""
 
-    def __init__(self, function):
-        super().__init__()
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            raise NotImplementedError(
+                "a named-op HybridLambda waits for ROADMAP item 1d")
         self._func = function
 
     def forward(self, *args):

@@ -1,13 +1,12 @@
 """Convolution and pooling layers (port of ``incubator_mxnet_tpu/gluon/nn/
 conv_layers.py``): ``Conv2D``, ``MaxPool2D``, ``AvgPool2D``,
-``GlobalMaxPool2D`` and ``GlobalAvgPool2D``, NCHW, as ``nn.Module``s."""
+``GlobalMaxPool2D`` and ``GlobalAvgPool2D``, NCHW, as ``HybridBlock``s
+with the reference's parameter names and initializers."""
 from __future__ import annotations
-
-from torch import nn
 
 from ... import context
 from ...ops import nn as ops
-from ..block import Deferred
+from ..block import Deferred, HybridBlock
 
 __all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
            "GlobalAvgPool2D"]
@@ -17,16 +16,20 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-class Conv2D(Deferred, nn.Module):
+class Conv2D(Deferred, HybridBlock):
     """2-D convolution, weight (channels, in_channels / groups, kh, kw),
     with ``dilation``, ``groups`` and an optional activation after it.
     ``in_channels=0`` defers the weight's shape to the first input."""
 
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, activation=None, use_bias=True,
-                 in_channels=0, device=None):
-        super().__init__()
-        dev = context.resolve(device)
+                 dilation=(1, 1), groups=1, layout="NCHW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, device=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        if layout != "NCHW":
+            raise ValueError("the port's Conv2D is NCHW, got %r" % layout)
+        self._device = context.resolve(device)
         self._channels = channels
         self._kernel = _pair(kernel_size)
         self._stride = _pair(strides)
@@ -34,12 +37,16 @@ class Conv2D(Deferred, nn.Module):
         self._dilate = _pair(dilation)
         self._groups = int(groups)
         self._activation = activation
-        self._param("weight", self._weight_shape(in_channels)
-                    if in_channels else None, dev)
-        if use_bias:
-            self._param("bias", (channels,), dev, fill=0.0)
-        else:
-            self.bias = None
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=self._weight_shape(in_channels),
+                init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(channels,), init=bias_initializer,
+                    allow_deferred_init=True)
+            else:
+                self.bias = None
 
     def _weight_shape(self, in_channels):
         return (self._channels, in_channels // self._groups) + self._kernel
@@ -55,10 +62,10 @@ class Conv2D(Deferred, nn.Module):
         return out
 
 
-class _Pooling(nn.Module):
+class _Pooling(HybridBlock):
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, count_include_pad=True):
-        super().__init__()
+                 pool_type, count_include_pad=True, **kwargs):
+        super().__init__(**kwargs)
         self._kwargs = {
             "kernel": _pair(pool_size),
             "stride": _pair(strides) if strides is not None
@@ -79,22 +86,26 @@ class MaxPool2D(_Pooling):
     ``ceil_mode`` is MXNet's ``pooling_convention="full"``."""
 
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 ceil_mode=False):
-        super().__init__(pool_size, strides, padding, ceil_mode, False, "max")
+                 layout="NCHW", ceil_mode=False, **kwargs):
+        super().__init__(pool_size, strides, padding, ceil_mode, False, "max",
+                         **kwargs)
 
 
 class AvgPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 ceil_mode=False, count_include_pad=True):
+                 layout="NCHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
         super().__init__(pool_size, strides, padding, ceil_mode, False, "avg",
-                         count_include_pad)
+                         count_include_pad, **kwargs)
 
 
 class GlobalMaxPool2D(_Pooling):
-    def __init__(self):
-        super().__init__((1, 1), (1, 1), (0, 0), False, True, "max")
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__((1, 1), (1, 1), (0, 0), False, True, "max",
+                         **kwargs)
 
 
 class GlobalAvgPool2D(_Pooling):
-    def __init__(self):
-        super().__init__((1, 1), (1, 1), (0, 0), False, True, "avg")
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__((1, 1), (1, 1), (0, 0), False, True, "avg",
+                         **kwargs)

@@ -1,6 +1,6 @@
 """The training step on one device (port of ``incubator_mxnet_tpu/parallel/
-train_step.py``: ``DynamicLossScale``, ``FunctionalOptimizer`` for sgd,
-``TrainStep`` and ``make_train_step``).
+train_step.py``: ``DynamicLossScale``, ``FunctionalOptimizer`` over every
+registered optimizer, ``TrainStep`` and ``make_train_step``).
 
 One call runs forward, backward and the optimizer update:
 
@@ -15,12 +15,13 @@ One call runs forward, backward and the optimizer update:
   gradients land in f32 on the master parameters through the cast;
 - the loss closure: ``loss_fn(net(x), y).mean()`` in f32, times the loss
   scale when one is set;
-- ``_finish_step``: with a dynamic loss scale (which implies the
-  reference's ``nonfinite="skip"``), one finiteness reduction over all
-  gradients and a select that leaves params, running stats, optimizer
-  state and the step counter as they were on a non-finite step; the
-  scale halves on overflow and doubles after ``scale_window`` clean
-  steps.  Then unscale and update.
+- ``_finish_step``: with ``nonfinite="skip"`` or ``"raise"`` (implied
+  by a dynamic loss scale), one finiteness reduction over all gradients
+  and a select that leaves params, running stats, optimizer state and
+  the step counter as they were on a non-finite step; a dynamic scale
+  halves on overflow and doubles after ``scale_window`` clean steps.
+  Then unscale (static or dynamic scale) and update; ``"raise"`` raises
+  ``FloatingPointError`` after a skipped step.
 
 The finiteness flag, the counters and the scale stay tensors on the
 device: a step never waits for the host.
@@ -71,25 +72,62 @@ class DynamicLossScale:
 
 
 class FunctionalOptimizer:
-    """SGD in MXNet's update form, with momentum and ``multi_precision``
-    f32 master weights (the last leaf of each parameter's state).  The
-    other optimizers of the reference, gradient clipping and
-    ``rescale_grad`` wait for ROADMAP item A5b."""
+    """An optimizer of ``optimizer.create`` as a function of the step's
+    tensors: ``apply(params, grads, states, step_count)`` returns the new
+    parameters and states and writes nothing.
 
-    def __init__(self, name="sgd", learning_rate=0.01, momentum=0.9, wd=0.0,
-                 multi_precision=False):
-        if name != "sgd":
-            raise NotImplementedError(
-                "only sgd is ported; %r waits for ROADMAP item A5b" % (name,))
-        self.name = name
-        self.lr = learning_rate
-        self.momentum = momentum
-        self.wd = wd
+    sgd keeps MXNet's update form through the ``*sgd*`` update ops, with
+    momentum and ``multi_precision`` f32 master weights (the last leaf of
+    each parameter's state); adam keeps the reference's fused layout
+    (``(mean, var)``, with ``multi_precision`` ``(mean, var, w32)``, its
+    bias correction in f32 from the 1-based device step count).  Every
+    other registered optimizer runs its own ``_step`` (the update ops of
+    ``ops/optimizer_ops.py``), with ``multi_precision`` as
+    ``(state, w32)``.  ``rescale_grad`` multiplies and ``clip_gradient``
+    (>= 0) clips the gradients inside the update, as the reference's
+    ops do."""
+
+    def __init__(self, name="sgd", learning_rate=0.01, momentum=None, wd=0.0,
+                 multi_precision=False, clip_gradient=-1.0, rescale_grad=1.0,
+                 **opt_kwargs):
+        from .. import optimizer as _optimizer
+
+        if name.lower() == "sgd" and momentum is None:
+            momentum = 0.9
+        if momentum is not None:
+            opt_kwargs["momentum"] = momentum
+        clip = None if clip_gradient is None or clip_gradient < 0 \
+            else float(clip_gradient)
+        # the update rule (raises for a name no optimizer registered)
+        self._bind(_optimizer.create(
+            name, learning_rate=learning_rate, wd=wd,
+            rescale_grad=float(rescale_grad), clip_gradient=clip,
+            **opt_kwargs), multi_precision)
+
+    @classmethod
+    def of(cls, opt, multi_precision=False):
+        """The update rule of the optimizer instance ``opt``, with its
+        learning rate, weight decay, ``rescale_grad`` and
+        ``clip_gradient`` as they are now."""
+        self = cls.__new__(cls)
+        self._bind(opt, multi_precision)
+        return self
+
+    def _bind(self, opt, multi_precision):
+        self._opt = opt
+        self.name = type(opt).__name__.lower()
+        self.lr = opt.lr
+        self.wd = opt.wd
+        self.momentum = getattr(opt, "momentum", None)
+        self.clip_gradient = -1.0 if opt.clip_gradient is None \
+            else float(opt.clip_gradient)
+        self.rescale_grad = float(opt.rescale_grad)
         self.multi_precision = bool(multi_precision)
 
     @property
     def has_state(self):
-        return self.multi_precision or bool(self.momentum)
+        return self.multi_precision or self.name != "sgd" \
+            or bool(self.momentum)
 
     def init(self, param_vals: List[torch.Tensor]):
         """Fresh per-parameter state; accumulators and master weights are
@@ -97,35 +135,76 @@ class FunctionalOptimizer:
         def w32(p):
             return p.detach().to(torch.float32, copy=True)
 
-        if self.multi_precision:
-            if self.momentum:
-                return [(torch.zeros_like(p, dtype=torch.float32), w32(p))
-                        for p in param_vals]
-            return [w32(p) for p in param_vals]
-        if self.momentum:
-            return [torch.zeros_like(p) for p in param_vals]
-        return []
+        def z32(p):
+            return torch.zeros_like(p, dtype=torch.float32)
 
-    def apply_single(self, p, g, s):
-        """``(weight, grad, state)`` -> ``(new_weight, new_state)``."""
-        kw = {"lr": self.lr, "wd": self.wd}
-        if self.multi_precision:
+        mp = self.multi_precision
+        if self.name == "sgd":
+            if mp:
+                if self.momentum:
+                    return [(z32(p), w32(p)) for p in param_vals]
+                return [w32(p) for p in param_vals]
             if self.momentum:
-                mom32, w32 = s
-                w, m2, w32n = _oops.mp_sgd_mom_update(
-                    p, g, mom32, w32, momentum=self.momentum, **kw)
-                return w, (m2, w32n)
-            return _oops.mp_sgd_update(p, g, s, **kw)
-        g = g.to(p.dtype)
-        if self.momentum:
-            return _oops.sgd_mom_update(p, g, s, momentum=self.momentum, **kw)
-        return _oops.sgd_update(p, g, **kw), None
+                return [torch.zeros_like(p) for p in param_vals]
+            return []
+        if self.name == "adam":
+            if mp:
+                return [(z32(p), z32(p), w32(p)) for p in param_vals]
+            return [(torch.zeros_like(p), torch.zeros_like(p))
+                    for p in param_vals]
+        if mp:
+            return [(self._opt._state(w32(p)), w32(p)) for p in param_vals]
+        return [self._opt._state(p.detach()) for p in param_vals]
 
-    def apply(self, param_vals, grads, states):
+    def apply_single(self, p, g, s, step_count=None, index=None):
+        """``(weight, grad, state)`` -> ``(new_weight, new_state)``;
+        ``step_count`` is the 1-based count of applied steps (a tensor),
+        ``index`` the parameter's position (the index ``Trainer.step``
+        gives the optimizer)."""
+        kw = {"lr": self.lr, "wd": self.wd, "rescale_grad": self.rescale_grad,
+              "clip_gradient": self.clip_gradient}
+        mp = self.multi_precision
+        if not mp:
+            g = g.to(p.dtype)
+        if self.name == "sgd":
+            if mp:
+                if self.momentum:
+                    mom32, w32 = s
+                    w, m2, w32n = _oops.mp_sgd_mom_update(
+                        p, g, mom32, w32, momentum=self.momentum, **kw)
+                    return w, (m2, w32n)
+                return _oops.mp_sgd_update(p, g, s, **kw)
+            if self.momentum:
+                return _oops.sgd_mom_update(p, g, s, momentum=self.momentum,
+                                            **kw)
+            return _oops.sgd_update(p, g, **kw), None
+        opt = self._opt
+        if self.name == "adam":
+            t = step_count.float()
+            kw["lr"] = self.lr * torch.sqrt(1 - opt.beta2 ** t) \
+                / (1 - opt.beta1 ** t)
+            ab = dict(beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
+                      **kw)
+            if mp:
+                mean, var, w32 = s
+                w, m2, v2, w32n = _oops.mp_adam_update(p, g, mean, var, w32,
+                                                       **ab)
+                return w, (m2, v2, w32n)
+            mean, var = s
+            w, m2, v2 = _oops.adam_update(p, g, mean, var, **ab)
+            return w, (m2, v2)
+        if mp:
+            inner, w32 = s
+            w32n, inner2 = opt._step(w32, g.float(), inner, self.lr, self.wd,
+                                     step_count, index)
+            return w32n.to(p.dtype), (inner2, w32n)
+        return opt._step(p, g, s, self.lr, self.wd, step_count, index)
+
+    def apply(self, param_vals, grads, states, step_count=None):
         new_p, new_s = [], []
         for i, (p, g) in enumerate(zip(param_vals, grads)):
             w, s2 = self.apply_single(p, g, states[i] if self.has_state
-                                      else None)
+                                      else None, step_count, i)
             new_p.append(w)
             if self.has_state:
                 new_s.append(s2)
@@ -141,7 +220,8 @@ class TrainStep:
     """
 
     def __init__(self, net, loss_fn, opt: FunctionalOptimizer,
-                 compute_dtype=None, loss_scale=None, device=None):
+                 compute_dtype=None, loss_scale=None, nonfinite=None,
+                 device=None):
         self.device = context.resolve(device)
         for name, t in list(net.named_parameters()) + \
                 list(net.named_buffers()):
@@ -155,12 +235,28 @@ class TrainStep:
             if isinstance(compute_dtype, str) else compute_dtype
         if loss_scale == "dynamic":
             loss_scale = DynamicLossScale()
-        if loss_scale is not None and \
+        if isinstance(loss_scale, (int, float)) and \
+                not isinstance(loss_scale, bool):
+            if loss_scale <= 0:
+                raise ValueError("a static loss_scale must be positive, "
+                                 "got %r" % (loss_scale,))
+            loss_scale = float(loss_scale)
+        elif loss_scale is not None and \
                 not isinstance(loss_scale, DynamicLossScale):
-            raise ValueError("loss_scale must be None, 'dynamic' or a "
-                             "DynamicLossScale (static scales wait for "
-                             "ROADMAP item A5b); got %r" % (loss_scale,))
+            raise ValueError("loss_scale must be None, a positive number, "
+                             "'dynamic' or a DynamicLossScale; got %r"
+                             % (loss_scale,))
         self._scale_cfg = loss_scale
+        dynamic = isinstance(loss_scale, DynamicLossScale)
+        if nonfinite is None:
+            nonfinite = "skip" if dynamic else "off"
+        if nonfinite not in ("skip", "raise", "off"):
+            raise ValueError("nonfinite must be 'skip', 'raise' or 'off', "
+                             "got %r" % (nonfinite,))
+        if dynamic and nonfinite == "off":
+            raise ValueError("a dynamic loss scale skips overflowed steps: "
+                             "use nonfinite='skip' or 'raise', not 'off'")
+        self.nonfinite = nonfinite
         tensors = _convert.ordered_tensors(net)
         lazy = [n for n, t in tensors if is_lazy(t)]
         if lazy:
@@ -178,7 +274,8 @@ class TrainStep:
                      if not (isinstance(t, torch.nn.Parameter)
                              and t.requires_grad)]
         self._opt_state = opt.init(self._gp)
-        init_scale = 1.0 if loss_scale is None else loss_scale.init_scale
+        init_scale = 1.0 if loss_scale is None else loss_scale \
+            if isinstance(loss_scale, float) else loss_scale.init_scale
         dev = self.device
         self._scale = torch.tensor(init_scale, dtype=torch.float32, device=dev)
         self._unskipped = torch.zeros((), dtype=torch.int32, device=dev)
@@ -214,27 +311,35 @@ class TrainStep:
         x, y = (v._data if isinstance(v, NDArray) else v for v in (x, y))
         x = x.to(self.device, non_blocking=True)
         y = y.to(self.device, non_blocking=True)
-        guard = self._scale_cfg is not None
+        guard = self.nonfinite != "off"
         self.net.train()
         old_aux = [b.clone() for b in self._aux] if guard else None
         with torch.enable_grad():
             loss = self._loss(x, y)
             grads = torch.autograd.grad(loss, self._gp)
         with torch.no_grad():
-            loss = self._finish_step(loss.detach(), list(grads), old_aux)
+            loss, ok = self._finish_step(loss.detach(), list(grads), old_aux)
         self._step_count += 1
         self._maybe_checkpoint()
+        if self.nonfinite == "raise" and not bool(ok):
+            raise FloatingPointError(
+                "non-finite gradients after %d applied updates (call %d of "
+                "this step); params and optimizer state were left "
+                "unchanged (nonfinite='raise')"
+                % (int(self._step), self._step_count))
         return loss
 
     def _finish_step(self, loss, grads, old_aux):
         guard = old_aux is not None
         ok = _oops.tree_all_finite(grads) if guard else None
-        if guard:
+        if self._scale_cfg is not None:
             inv = 1.0 / self._scale
             grads = [(g.float() * inv).to(g.dtype) for g in grads]
             loss = loss * inv
+        # the 1-based count of applied steps, for the bias corrections
+        count = None if self.opt.name == "sgd" else self._step + 1
         new_p, new_s = self.opt.apply([p.detach() for p in self._gp], grads,
-                                      self._opt_state)
+                                      self._opt_state, count)
         if guard:
             new_p = [torch.where(ok, n, p) for n, p in zip(new_p, self._gp)]
             new_s = _tree_where(ok, new_s, self._opt_state)
@@ -242,6 +347,7 @@ class TrainStep:
                 b.copy_(torch.where(ok, b, old))
             self._step += ok.to(torch.int32)
             self._skipped += (~ok).to(torch.int32)
+        if isinstance(self._scale_cfg, DynamicLossScale):
             cfg = self._scale_cfg
             unsk = torch.where(ok, self._unskipped + 1,
                                torch.zeros_like(self._unskipped))
@@ -254,12 +360,12 @@ class TrainStep:
             self._scale.copy_(torch.where(ok, up, down))
             self._unskipped.copy_(torch.where(
                 grow, torch.zeros_like(unsk), unsk))
-        else:
+        if not guard:
             self._step += 1
         for p, n in zip(self._gp, new_p):
             p.copy_(n)
         self._opt_state = new_s
-        return loss
+        return loss, ok
 
     @property
     def loss_scale(self):
@@ -484,18 +590,26 @@ class TrainStep:
 def _tree_where(ok, new, old):
     if isinstance(new, (list, tuple)):
         return type(new)(_tree_where(ok, n, o) for n, o in zip(new, old))
-    return torch.where(ok, new, old)
+    return None if new is None else torch.where(ok, new, old)
 
 
 def make_train_step(net, loss_fn, optimizer="sgd", compute_dtype=None,
-                    loss_scale=None, device=None, **opt_kwargs) -> TrainStep:
+                    loss_scale=None, nonfinite=None, device=None,
+                    **opt_kwargs) -> TrainStep:
     """Build the train step (forward + backward + update per call).
 
-    ``optimizer="sgd"`` with ``learning_rate``, ``momentum``, ``wd`` and
-    ``multi_precision``.  ``loss_scale`` is None, ``"dynamic"`` or a
-    :class:`DynamicLossScale`; a dynamic scale skips non-finite steps
-    (the reference's ``nonfinite="skip"``).  ``device`` defaults to the
-    CUDA card and must hold the net's parameters."""
+    ``optimizer`` is any registered optimizer's name, with its keywords
+    (``learning_rate``, ``momentum``, ``wd``, ``multi_precision``,
+    ``clip_gradient``, ``rescale_grad``, ``beta1``, ...), see
+    :class:`FunctionalOptimizer`.  ``loss_scale`` is None, a positive
+    static scale, ``"dynamic"`` or a :class:`DynamicLossScale`.
+    ``nonfinite`` is what a step with a non-finite gradient does:
+    ``"skip"`` leaves params, running stats, optimizer state and the
+    step counter as they were, ``"raise"`` does so and raises
+    ``FloatingPointError``, ``"off"`` does not look (the default, but
+    ``"skip"`` under a dynamic scale, which needs it).  ``device``
+    defaults to the CUDA card and must hold the net's parameters."""
     opt = FunctionalOptimizer(optimizer, **opt_kwargs)
     return TrainStep(net, loss_fn, opt, compute_dtype=compute_dtype,
-                     loss_scale=loss_scale, device=device)
+                     loss_scale=loss_scale, nonfinite=nonfinite,
+                     device=device)

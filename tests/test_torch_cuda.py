@@ -556,6 +556,54 @@ def test_small_train_step_card_matches_cpu(dev, monkeypatch):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
 
 
+def test_gluon_fused_step_matches_train_step_on_card(dev, monkeypatch):
+    """``Trainer.make_fused_step`` on a small ghost-BN ResNet against
+    ``make_train_step`` from the same weights and batches on the card
+    (bf16 compute, ``multi_precision``, dynamic loss scale, cuDNN
+    deterministic): the losses are equal bit for bit over 3 steps, and
+    each side launches the same K1/K2/K3 counts a step."""
+    import copy
+
+    from incubator_mxnet_tpu_torch import gluon, initializer
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from incubator_mxnet_tpu_torch.parallel import make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                          [16, 32, 64, 128, 256], classes=10, ghost_bn=2,
+                          device=dev)
+    initializer.initialize(net,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    twin = copy.deepcopy(net)
+    opt = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4,
+           "multi_precision": True}
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    fused = gluon.Trainer(net.collect_params(), "sgd", opt).make_fused_step(
+        net, loss_fn, compute_dtype="bfloat16", loss_scale="dynamic",
+        device=dev)
+    plain = make_train_step(twin, loss_fn, optimizer="sgd",
+                            compute_dtype="bfloat16", loss_scale="dynamic",
+                            device=dev, **opt)
+    names = ("ghost_bn_fwd", "ghost_bn_bwd", "maxpool_idx_fwd")
+    rng = np.random.RandomState(0)
+    for _ in range(3):
+        x = torch.from_numpy(rng.normal(size=(8, 3, 64, 64))
+                             .astype(np.float32)).to(dev)
+        y = torch.from_numpy(rng.randint(0, 10, 8).astype(np.float32)) \
+            .to(dev)
+        counts = []
+        losses = []
+        for step in (fused, plain):
+            for n in names:
+                _kernels.KERNELS[n].launches = 0
+            losses.append(step(x, y))
+            torch.cuda.synchronize()
+            counts.append([_kernels.KERNELS[n].launches for n in names])
+        assert torch.equal(*losses)
+        assert counts[0] == counts[1] and min(counts[0]) > 0, counts
+
+
 def test_stock_bn_step_card_matches_cpu(dev, monkeypatch):
     """One f32 step (TF32 off) of a small stock-BN ResNet v1 (the 7x7/2
     stem, BN, the max pool through K3, [1, 1, 1, 1] bottlenecks of

@@ -26,6 +26,8 @@ for name in names:
 for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                    ("train_imagenet_torch",
                     "example/image_classification/train_imagenet_torch.py"),
+                   ("image_classification_torch",
+                    "example/gluon/image_classification_torch.py"),
                    ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
