@@ -12,7 +12,9 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16 and f32: K1/K2 (ghost BN forward/backward) at the stem, a
    56x56x256 dual exit, a 28x28x512 donated downsample exit, a 28x28x512
-   downsample BN and the 7x7x2048 final exit; K3 (max pool with index)
+   downsample BN and the 7x7x2048 final exit at batch ``BATCH``, and the
+   stem, the dual exit and the final exit at phase 3g-ii's batch
+   (``GLUON_FUSED_BATCH``); K3 (max pool with index)
    at the stem on tie-heavy input, 2x2/2, 3x3/1 pad 1, 3x3/2 pad (1, 2),
    W 113, a (2, 3, 300, 300) plane cut into bands, NaN inputs, an input
    3 elements off the 16-byte grid and a permuted one (copied once), and
@@ -286,6 +288,14 @@ def check_kernels(dev, errs):
               False, False),
              ("7x7x2048 final exit", (n, 2048, 7, 7), "relu", True, False,
               False)]
+    # phase 3g-ii's batch: a quarter of the ghost groups per channel
+    m = GLUON_FUSED_BATCH
+    cases += [("stem N=%d" % m, (m, 64, 112, 112), "relu", False, False,
+               False),
+              ("56x56x256 dual exit N=%d" % m, (m, 256, 56, 56), "relu",
+               True, False, True),
+              ("7x7x2048 final exit N=%d" % m, (m, 2048, 7, 7), "relu",
+               True, False, False)]
     for dtype in (torch.bfloat16, torch.float32):
         out_frac = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
         for label, shape, act, res, donate, dual in cases:

@@ -204,6 +204,8 @@ class Block(nn.Module):
             p.cast(dtype)
 
     def hybridize(self, active=True, **kwargs):
+        """A no-op that recurses into the children: the port runs every
+        block eagerly (a CUDA-graph form is ROADMAP A5f)."""
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
@@ -267,21 +269,6 @@ class HybridBlock(Block):
     layer, or ``hybrid_forward(F, x, **params)`` of a user subclass.
     Called on NDArrays, it returns NDArrays recorded on the port's
     autograd (see the module docstring)."""
-
-    def __init__(self, prefix=None, params=None):
-        super().__init__(prefix=prefix, params=params)
-        self._active = False
-        self._flags = {}
-
-    def hybridize(self, active=True, static_alloc=False, static_shape=False,
-                  **kwargs):
-        """Mark the block hybridized.  The port runs it eagerly all the
-        same."""
-        self._active = active
-        self._flags = dict(static_alloc=static_alloc,
-                           static_shape=static_shape, **kwargs)
-        super().hybridize(active, static_alloc=static_alloc,
-                          static_shape=static_shape, **kwargs)
 
     def __call__(self, *args, **kwargs):
         if not (_is_nd(args) or _is_nd(tuple(kwargs.values()))):

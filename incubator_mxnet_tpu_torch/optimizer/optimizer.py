@@ -254,17 +254,12 @@ class SGD(Optimizer):
             return self.update(index, weight, grad, state)
         mom, w32 = state
         # the reference reads lr before counting this update
-        kw = self._op_kwargs(self._get_lr(index), self._get_wd(index))
+        lr, wd = self._get_lr(index), self._get_wd(index)
         self._update_count(index)
-        if self.momentum != 0.0:
-            w, m, w32n = _oops.mp_sgd_mom_update(
-                weight._data, grad._data, mom._data, w32._data,
-                momentum=self.momentum, **kw)
-            mom._set_data(m)
-        else:
-            w, w32n = _oops.mp_sgd_update(weight._data, grad._data,
-                                          w32._data, **kw)
-        weight._set_data(w)
+        w32n, m = self._step(w32._data, grad._data.float(), _tensors(mom),
+                             lr, wd, self._index_update_count[index], index)
+        _assign(mom, m)
+        weight._set_data(w32n.to(weight._data.dtype))
         w32._set_data(w32n)
 
 

@@ -76,16 +76,15 @@ class FunctionalOptimizer:
     tensors: ``apply(params, grads, states, step_count)`` returns the new
     parameters and states and writes nothing.
 
-    sgd keeps MXNet's update form through the ``*sgd*`` update ops, with
-    momentum and ``multi_precision`` f32 master weights (the last leaf of
-    each parameter's state); adam keeps the reference's fused layout
-    (``(mean, var)``, with ``multi_precision`` ``(mean, var, w32)``, its
-    bias correction in f32 from the 1-based device step count).  Every
-    other registered optimizer runs its own ``_step`` (the update ops of
-    ``ops/optimizer_ops.py``), with ``multi_precision`` as
-    ``(state, w32)``.  ``rescale_grad`` multiplies and ``clip_gradient``
-    (>= 0) clips the gradients inside the update, as the reference's
-    ops do."""
+    Every registered optimizer runs its own ``_step`` (the update ops of
+    ``ops/optimizer_ops.py``); sgd keeps MXNet's update form, adam its
+    bias correction in f32 from the 1-based device step count.  With
+    ``multi_precision`` the update runs on f32 master weights and the
+    state is ``(state, w32)``, except for the reference's fused layouts,
+    which checkpoints keep: sgd without momentum holds ``w32`` alone and
+    adam ``(mean, var, w32)``.  ``rescale_grad`` multiplies and
+    ``clip_gradient`` (>= 0) clips the gradients inside the update, as
+    the reference's ops do."""
 
     def __init__(self, name="sgd", learning_rate=0.01, momentum=None, wd=0.0,
                  multi_precision=False, clip_gradient=-1.0, rescale_grad=1.0,
@@ -107,8 +106,8 @@ class FunctionalOptimizer:
     @classmethod
     def of(cls, opt, multi_precision=False):
         """The update rule of the optimizer instance ``opt``, with its
-        learning rate, weight decay, ``rescale_grad`` and
-        ``clip_gradient`` as they are now."""
+        learning rate and weight decay as they are now; ``rescale_grad``
+        and ``clip_gradient`` are read from ``opt`` at each update."""
         self = cls.__new__(cls)
         self._bind(opt, multi_precision)
         return self
@@ -118,42 +117,38 @@ class FunctionalOptimizer:
         self.name = type(opt).__name__.lower()
         self.lr = opt.lr
         self.wd = opt.wd
-        self.momentum = getattr(opt, "momentum", None)
-        self.clip_gradient = -1.0 if opt.clip_gradient is None \
-            else float(opt.clip_gradient)
-        self.rescale_grad = float(opt.rescale_grad)
         self.multi_precision = bool(multi_precision)
 
     @property
     def has_state(self):
         return self.multi_precision or self.name != "sgd" \
-            or bool(self.momentum)
+            or bool(self._opt.momentum)
+
+    def _pack(self, inner, w32):
+        if self.name == "sgd" and inner is None:
+            return w32
+        if self.name == "adam":
+            return (*inner, w32)
+        return (inner, w32)
+
+    def _unpack(self, s):
+        if self.name == "sgd" and not isinstance(s, tuple):
+            return None, s
+        if self.name == "adam":
+            return s[:2], s[2]
+        return s
 
     def init(self, param_vals: List[torch.Tensor]):
         """Fresh per-parameter state; accumulators and master weights are
         f32 whatever the parameter dtype."""
-        def w32(p):
-            return p.detach().to(torch.float32, copy=True)
-
-        def z32(p):
-            return torch.zeros_like(p, dtype=torch.float32)
-
-        mp = self.multi_precision
-        if self.name == "sgd":
-            if mp:
-                if self.momentum:
-                    return [(z32(p), w32(p)) for p in param_vals]
-                return [w32(p) for p in param_vals]
-            if self.momentum:
-                return [torch.zeros_like(p) for p in param_vals]
+        if not self.has_state:
             return []
-        if self.name == "adam":
-            if mp:
-                return [(z32(p), z32(p), w32(p)) for p in param_vals]
-            return [(torch.zeros_like(p), torch.zeros_like(p))
-                    for p in param_vals]
-        if mp:
-            return [(self._opt._state(w32(p)), w32(p)) for p in param_vals]
+        if self.multi_precision:
+            out = []
+            for p in param_vals:
+                w32 = p.detach().to(torch.float32, copy=True)
+                out.append(self._pack(self._opt._state(w32), w32))
+            return out
         return [self._opt._state(p.detach()) for p in param_vals]
 
     def apply_single(self, p, g, s, step_count=None, index=None):
@@ -161,44 +156,13 @@ class FunctionalOptimizer:
         ``step_count`` is the 1-based count of applied steps (a tensor),
         ``index`` the parameter's position (the index ``Trainer.step``
         gives the optimizer)."""
-        kw = {"lr": self.lr, "wd": self.wd, "rescale_grad": self.rescale_grad,
-              "clip_gradient": self.clip_gradient}
-        mp = self.multi_precision
-        if not mp:
-            g = g.to(p.dtype)
-        if self.name == "sgd":
-            if mp:
-                if self.momentum:
-                    mom32, w32 = s
-                    w, m2, w32n = _oops.mp_sgd_mom_update(
-                        p, g, mom32, w32, momentum=self.momentum, **kw)
-                    return w, (m2, w32n)
-                return _oops.mp_sgd_update(p, g, s, **kw)
-            if self.momentum:
-                return _oops.sgd_mom_update(p, g, s, momentum=self.momentum,
-                                            **kw)
-            return _oops.sgd_update(p, g, **kw), None
-        opt = self._opt
-        if self.name == "adam":
-            t = step_count.float()
-            kw["lr"] = self.lr * torch.sqrt(1 - opt.beta2 ** t) \
-                / (1 - opt.beta1 ** t)
-            ab = dict(beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
-                      **kw)
-            if mp:
-                mean, var, w32 = s
-                w, m2, v2, w32n = _oops.mp_adam_update(p, g, mean, var, w32,
-                                                       **ab)
-                return w, (m2, v2, w32n)
-            mean, var = s
-            w, m2, v2 = _oops.adam_update(p, g, mean, var, **ab)
-            return w, (m2, v2)
-        if mp:
-            inner, w32 = s
-            w32n, inner2 = opt._step(w32, g.float(), inner, self.lr, self.wd,
-                                     step_count, index)
-            return w32n.to(p.dtype), (inner2, w32n)
-        return opt._step(p, g, s, self.lr, self.wd, step_count, index)
+        if self.multi_precision:
+            inner, w32 = self._unpack(s)
+            w32n, inner2 = self._opt._step(w32, g.float(), inner, self.lr,
+                                           self.wd, step_count, index)
+            return w32n.to(p.dtype), self._pack(inner2, w32n)
+        return self._opt._step(p, g.to(p.dtype), s, self.lr, self.wd,
+                               step_count, index)
 
     def apply(self, param_vals, grads, states, step_count=None):
         new_p, new_s = [], []

@@ -78,13 +78,14 @@ def _batches(n, size=32, batch=4, classes=10, seed=3):
             for _ in range(n)]
 
 
-def _reference_loop(net, batches, lr, batch_size):
+def _reference_loop(net, batches, lr, batch_size, trainer=None,
+                    metric=None):
     """The reference example's loop, line for line, on its API."""
-    trainer = jgluon.Trainer(net.collect_params(), "sgd",
-                             {"learning_rate": lr, "momentum": 0.9},
-                             kvstore=jmx.kv.create("device"))
+    trainer = trainer or jgluon.Trainer(
+        net.collect_params(), "sgd", {"learning_rate": lr, "momentum": 0.9},
+        kvstore=jmx.kv.create("device"))
     loss_fn = jgluon.loss.SoftmaxCrossEntropyLoss()
-    metric = jmx.metric.Accuracy()
+    metric = metric or jmx.metric.Accuracy()
     losses = []
     for xb, yb in batches:
         x, y = jmx.nd.array(xb), jmx.nd.array(yb)
@@ -95,27 +96,27 @@ def _reference_loop(net, batches, lr, batch_size):
         trainer.step(batch_size)
         metric.update([y], [out])
         losses.append(float(loss.asscalar()))
-    return losses, metric.get()
+    return losses, metric, trainer
 
 
-def _port_loop(net, args, batches, dtype=np.float32):
-    trainer = EX.build_trainer(net, args)
+def _port_loop(net, args, batches, dtype=np.float32, trainer=None,
+               metric=None):
+    trainer = trainer or EX.build_trainer(net, args)
     loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
-    metric = tmx.metric.Accuracy()
+    metric = metric or tmx.metric.Accuracy()
     losses = []
     for xb, yb in batches:
         loss = EX.train_batch(net, trainer, loss_fn, metric,
                               tmx.nd.array(xb.astype(dtype), ctx=CPU),
                               tmx.nd.array(yb, ctx=CPU), args.batch_size)
         losses.append(float(loss.asscalar()))
-    return np.array(losses), metric.get()
+    return np.array(losses), metric, trainer
 
 
-@pytest.mark.parametrize("thumbnail", [True, False],
-                         ids=["thumbnail", "resnet18_v1"])
-def test_example_loop_matches_reference(thumbnail):
-    args = EX.parse_args(["--device", "cpu", "--batch-size", "4",
-                          "--lr", "1e-3"])
+def _zoo_pair(thumbnail, args):
+    """The reference's ``resnet18_v1`` (Xavier, hybridized) and the
+    port's, built as the port example builds it, with the reference's
+    weights copied by name."""
     jmx.random.seed(0)
     jnet = jvision.resnet18_v1(classes=10, thumbnail=thumbnail)
     jnet.initialize(init=jmx.init.Xavier())
@@ -134,18 +135,139 @@ def test_example_loop_matches_reference(thumbnail):
                                      jnet.collect_params().items()})
     assert convert.canonical_names(list(jnet.collect_params())) == \
         convert.canonical_names(list(tnet.collect_params()))
+    return jnet, tnet
+
+
+def _momenta(trainer, i):
+    return trainer._updaters[0].states[i].asnumpy()
+
+
+def _example_args():
+    return EX.parse_args(["--device", "cpu", "--batch-size", "4",
+                          "--lr", "1e-3"])
+
+
+@pytest.mark.parametrize("thumbnail", [True, False],
+                         ids=["thumbnail", "resnet18_v1"])
+def test_example_loop_matches_reference(thumbnail):
+    """One step of the example's loop against the reference's, then two
+    more.  After step 1 the momentum of each parameter is its update,
+    ``-lr * grad / batch_size`` with ``grad`` that of the averaged loss
+    (the batch divides twice, as in the reference), free of the
+    cancellation of ``after - before``; that difference must equal it
+    within half an ulp of the weight, so the update landed in the
+    module's tensor."""
+    args = _example_args()
+    jnet, tnet = _zoo_pair(thumbnail, args)
+    fresh = copy.deepcopy(tnet)
+    before = _values(tnet)
+    batches = _batches(3)
+    jlosses, jmetric, jtr = _reference_loop(jnet, batches[:1], 1e-3, 4)
+    tlosses, tmetric, ttr = _port_loop(tnet, args, batches[:1])
+    # measured: 8.9e-7 (thumbnail), 3.6e-7 (resnet18_v1)
+    np.testing.assert_allclose(tlosses[0], jlosses[0], rtol=1e-5)
+    jparams = list(jnet.collect_params().items())
+    tparams = list(tnet.collect_params().values())
+    for i, ((k, jp), tp, w0) in enumerate(zip(jparams, tparams, before)):
+        got, want = tp.data().asnumpy(), jp.data().asnumpy()
+        if tp.grad_req == "null":
+            # running stats come from the forward alone, which agrees
+            # to ~6e-6 relative
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+            continue
+        tm, jm = _momenta(ttr, i), _momenta(jtr, i)
+        step = got.astype(np.float64) - w0
+        assert np.all(np.abs(step - tm) <= 0.5 * np.spacing(
+            np.maximum(np.abs(w0), np.abs(got)))), k
+        if k.startswith("dense"):
+            # the output Dense's gradient depends on the forward alone
+            # (measured: 3.5e-5 of the largest element)
+            np.testing.assert_allclose(tm, jm, rtol=1e-4,
+                                       atol=1e-4 * np.abs(jm).max(),
+                                       err_msg=k)
+        else:
+            # below the output Dense the gradients are ill-conditioned
+            # here: a 1e-5 relative change of the input moves the
+            # port's own float64 gradients of the thumbnail net by
+            # percent (test_example_loop_gradients_are_ill_conditioned),
+            # and the reference's forward is 6e-6 from float64 (ROADMAP
+            # Queue C).  Measured: at most 1.5 %
+            # (thumbnail) and 2.3 % (resnet18_v1) by norm.  A
+            # misrouted, unscaled or missing gradient is off by its
+            # own size.
+            err = np.linalg.norm(tm - jm) / np.linalg.norm(jm)
+            assert err < 5e-2, (k, err)
+    # Trainer.step(batch_size) alone: the reference's gradients written
+    # into the port's gradient buffers give the reference's step,
+    # momentum and weights, bit for bit
+    ftr = EX.build_trainer(fresh, args)
+    fparams = list(fresh.collect_params().values())
+    for tp, (_, jp) in zip(fparams, jparams):
+        if tp.grad_req != "null":
+            tp.grad()._data = torch.from_numpy(jp.grad().asnumpy().copy())
+    ftr.step(args.batch_size)
+    for i, ((k, jp), tp) in enumerate(zip(jparams, fparams)):
+        if tp.grad_req == "null":
+            continue
+        np.testing.assert_array_equal(_momenta(ftr, i), _momenta(jtr, i),
+                                      err_msg=k)
+        np.testing.assert_array_equal(tp.data().asnumpy(),
+                                      jp.data().asnumpy(), err_msg=k)
+    # steps 2-3 (held to the port's float64 run below): the same
+    # accuracy as the reference's
+    _, jmetric, _ = _reference_loop(jnet, batches[1:], 1e-3, 4,
+                                    trainer=jtr, metric=jmetric)
+    _, tmetric, _ = _port_loop(tnet, args, batches[1:], trainer=ttr,
+                               metric=tmetric)
+    assert tmetric.get() == jmetric.get()
+
+
+def test_example_loop_gradients_are_ill_conditioned():
+    """The premise of the 5e-2 above: in float64, with no rounding to
+    speak of, a 1e-5 relative change of the input (the reference's
+    forward is 6e-6 from float64) moves the thumbnail net's gradients by
+    percent (measured: 0.19 %, 2.3 % and 8.4 % for 1e-6, 1e-5 and 1e-4,
+    worst parameter by norm)."""
+    _, tnet = _zoo_pair(True, _example_args())
+    tnet.cast("float64")
+    xb, yb = _batches(1)[0]
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def grads(x):
+        net = copy.deepcopy(tnet)
+        with tmx.autograd.record():
+            loss = loss_fn(net(tmx.nd.array(x, ctx=CPU)),
+                           tmx.nd.array(yb, ctx=CPU)).mean()
+        loss.backward()
+        return [p.grad().asnumpy() for p in net.collect_params().values()
+                if p.grad_req != "null"]
+
+    x = xb.astype(np.float64)
+    g0 = grads(x)
+    noise = np.random.RandomState(1).standard_normal(x.shape)
+    moved = [max(np.linalg.norm(a - b) / np.linalg.norm(b)
+                 for a, b in zip(grads(x * (1 + eps * noise)), g0))
+             for eps in (1e-6, 1e-5, 1e-4)]
+    assert moved[0] < moved[1] < moved[2]
+    assert moved[1] > 1e-2, moved
+
+
+@pytest.mark.parametrize("thumbnail", [True, False],
+                         ids=["thumbnail", "resnet18_v1"])
+def test_example_loop_steps_match_float64(thumbnail):
+    """The example's loop against the port's float64 run of it
+    (``cast("float64")``): 3 steps of the thumbnail net and one of
+    ``resnet18_v1`` (its 1x1 last stage over 4 samples is chaotic in
+    f32 beyond the first step: 3.5 % after 3), losses and parameters
+    within 1e-4 relative."""
+    args = _example_args()
+    _, tnet = _zoo_pair(thumbnail, args)
     t64 = copy.deepcopy(tnet)
     t64.cast("float64")
     batches = _batches(3 if thumbnail else 1)
-    jlosses, jacc = _reference_loop(jnet, _batches(3), 1e-3, 4)
-    tlosses, tacc = _port_loop(tnet, args, _batches(3))
-    np.testing.assert_allclose(tlosses[0], jlosses[0], rtol=1e-5)
-    assert tacc == jacc
-    # the steps against the port's f64 run of the same loop
-    tnet = copy.deepcopy(t64)
-    tnet.cast("float32")
-    tlosses, _ = _port_loop(tnet, args, batches)
-    losses64, _ = _port_loop(t64, args, batches, np.float64)
+    tlosses, _, _ = _port_loop(tnet, args, batches)
+    losses64, _, _ = _port_loop(t64, args, batches, np.float64)
     np.testing.assert_allclose(tlosses, losses64, rtol=1e-4)
     for (k, tp), p64 in zip(tnet.collect_params().items(),
                             t64.collect_params().values()):
