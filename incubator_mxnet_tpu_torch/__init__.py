@@ -12,19 +12,26 @@ the input path (``mx.recordio`` and the iterators of ``mx.io``) and the
 Gluon training surface: ``mx.gluon`` (``Parameter``, ``Block``/
 ``HybridBlock``, ``Trainer``, layers, losses, the model zoo),
 ``mx.init``, ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric`` and
-``mx.kv``.
+``mx.kv``; and the symbolic path: ``mx.sym`` (graphs of the registered
+ops), the ``Executor`` that ``bind``/``simple_bind`` make, ``mx.mod``
+(``Module``), ``mx.model`` (checkpoints), ``mx.callback``,
+``mx.monitor``, ``mx.name`` and ``mx.attribute``.
 """
 from . import ops  # noqa: F401  (first: parallel.train_step imports ndarray)
-from . import (autograd, context, gluon, initializer, io, kvstore,
-               lr_scheduler, metric, ndarray, optimizer, parallel, random,
-               recordio, rtc)
+from . import (attribute, autograd, callback, context, executor, gluon,
+               initializer, io, kvstore, lr_scheduler, metric, model, module,
+               monitor, name, ndarray, optimizer, parallel, random, recordio,
+               rtc, symbol)
 from . import initializer as init
 from . import kvstore as kv
+from . import module as mod
 from . import ndarray as nd
+from . import symbol as sym
 from .context import cpu, gpu
 from .ndarray import NDArray
 
-__all__ = ["autograd", "context", "gluon", "init", "initializer", "io",
-           "kv", "kvstore", "lr_scheduler", "metric", "ndarray", "nd",
-           "optimizer", "parallel", "random", "recordio", "rtc", "cpu",
-           "gpu", "NDArray"]
+__all__ = ["attribute", "autograd", "callback", "context", "executor",
+           "gluon", "init", "initializer", "io", "kv", "kvstore",
+           "lr_scheduler", "metric", "mod", "model", "module", "monitor",
+           "name", "ndarray", "nd", "optimizer", "parallel", "random",
+           "recordio", "rtc", "sym", "symbol", "cpu", "gpu", "NDArray"]

@@ -1,5 +1,8 @@
 // Max pooling that also stores the winning in-window slot (K3), for Hopper
-// (sm_90a).  NCHW-contiguous input, bf16 or f32.
+// (sm_90a).  NCHW-contiguous input, f32, bf16, f16 or f64 (the dtypes
+// the reference's Pallas kernel takes: its plan checks no dtype).  The
+// compares run in f32 (f64 for f64 input), where each input value is
+// exact, so the winner and the stored maximum are the input's own.
 //
 // Replaces incubator_mxnet_tpu/parallel/maxpool_idx.py maxpool_with_index
 // (its Pallas `_kernel`): the pooled maximum with -inf padding, plus an
@@ -54,6 +57,7 @@
 // Its times beside the parent's are in PERF.md (chip_smoke.py phase 4).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -70,10 +74,24 @@ namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ double to_f(double v) { return v; }
 __device__ __forceinline__ void store(float* p, int64_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
   p[i] = __float2bfloat16(v);
 }
+__device__ __forceinline__ void store(__half* p, int64_t i, float v) { p[i] = __float2half(v); }
+__device__ __forceinline__ void store(double* p, int64_t i, double v) { p[i] = v; }
+
+// the type a window's compares run in
+template <typename T>
+struct Acc {
+  using type = float;
+};
+template <>
+struct Acc<double> {
+  using type = double;
+};
 
 // Output rows [oy0, oy1) of plane p and the input rows [iy0, iy1) they
 // read; lo and hi bound those input rows in elements of the whole tensor.
@@ -115,6 +133,10 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
   return d;
 }
+// f64 has no max.NaN: the first NaN seen, else the larger
+__device__ __forceinline__ double max_nan(double a, double b) {
+  return isnan(a) ? a : isnan(b) ? b : fmax(a, b);
+}
 
 // One window's running maximum and first argmax over its slots in
 // row-major order, as the reference scans them: a slot wins only when it
@@ -123,20 +145,21 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 // later compare is false, so the index keeps the slot it had, and the
 // output is that NaN; `best` is the winning value itself (its sign of
 // zero included).
+template <typename A>
 struct Window {
-  float best, run;
+  A best, run;
   int win;
-  __device__ __forceinline__ void first(float v) {
+  __device__ __forceinline__ void first(A v) {
     best = run = v;
     win = 0;
   }
-  __device__ __forceinline__ void take(float v, int lin) {
+  __device__ __forceinline__ void take(A v, int lin) {
     const bool p = v > run;
     best = p ? v : best;
     win = p ? lin : win;
     run = max_nan(run, v);
   }
-  __device__ __forceinline__ float out() const { return isnan(run) ? run : best; }
+  __device__ __forceinline__ A out() const { return isnan(run) ? run : best; }
 };
 
 // The pooled maximum and first argmax of the band's outputs, from `src`,
@@ -148,6 +171,7 @@ template <typename T, int KH, int KW>
 __device__ __forceinline__ void pool_band(const T* src, const Band& bd, T* out, int8_t* idx,
                                           int H, int W, int OH, int OW, int kh_, int kw_,
                                           int sh, int sw, int ph, int pw) {
+  using A = typename Acc<T>::type;
   const int kh = KH ? KH : kh_, kw = KW ? KW : kw_;
   const int n = (bd.oy1 - bd.oy0) * OW;
   const int dy = MP_THREADS / OW, dx = MP_THREADS - dy * OW;
@@ -156,7 +180,7 @@ __device__ __forceinline__ void pool_band(const T* src, const Band& bd, T* out, 
   const int64_t ob = (bd.plane * OH + bd.oy0) * OW;
   for (int j = threadIdx.x; j < n; j += MP_THREADS) {
     const int y0 = oy * sh - ph, x0 = ox * sw - pw;
-    Window w;
+    Window<A> w;
 #pragma unroll
     for (int r = 0; r < (KH ? KH : 1); ++r) {
       for (int rr = 0; rr < (KH ? 1 : kh); ++rr) {
@@ -169,9 +193,9 @@ __device__ __forceinline__ void pool_band(const T* src, const Band& bd, T* out, 
           for (int cc = 0; cc < (KW ? 1 : kw); ++cc) {
             const int kx = KW ? c : cc;
             const int ix = x0 + kx;
-            const float v = row_in && static_cast<unsigned>(ix) < static_cast<unsigned>(W)
-                                ? to_f(row[ix])
-                                : -INFINITY;
+            const A v = row_in && static_cast<unsigned>(ix) < static_cast<unsigned>(W)
+                            ? to_f(row[ix])
+                            : static_cast<A>(-INFINITY);
             if (ky == 0 && kx == 0)
               w.first(v);
             else
@@ -206,6 +230,7 @@ template <typename T, int KH, int KW, int SH>
 __device__ __forceinline__ void pool_band_strips(const T* src, const Band& bd, T* out,
                                                  int8_t* idx, int H, int W, int OH, int OW,
                                                  int sw, int ph, int pw) {
+  using A = typename Acc<T>::type;
   const int rows = bd.oy1 - bd.oy0;
   out += (bd.plane * OH + bd.oy0) * OW;  // the band's outputs, 32-bit offsets
   idx += (bd.plane * OH + bd.oy0) * OW;
@@ -224,12 +249,13 @@ __device__ __forceinline__ void pool_band_strips(const T* src, const Band& bd, T
 #pragma unroll
       for (int c = 0; c < KW; ++c)
         col_in[c] = !kChecked || static_cast<unsigned>(x0 + c) < static_cast<unsigned>(W);
-      float v[KH][KW];
-      auto load_row = [&](float (&r)[KW], int iy) {
+      A v[KH][KW];
+      auto load_row = [&](A (&r)[KW], int iy) {
         const bool row_in = !kChecked || static_cast<unsigned>(iy) < static_cast<unsigned>(H);
         const T* row = src + (iy - bd.iy0) * W + x0;
 #pragma unroll
-        for (int c = 0; c < KW; ++c) r[c] = row_in && col_in[c] ? to_f(row[c]) : -INFINITY;
+        for (int c = 0; c < KW; ++c)
+          r[c] = row_in && col_in[c] ? to_f(row[c]) : static_cast<A>(-INFINITY);
       };
       int y0 = oya * SH - ph;
 #pragma unroll
@@ -237,7 +263,7 @@ __device__ __forceinline__ void pool_band_strips(const T* src, const Band& bd, T
       for (int oy = oya, o = (oya - bd.oy0) * OW + ox; oy < oyb; ++oy, y0 += SH, o += OW) {
 #pragma unroll
         for (int r = KH - SH; r < KH; ++r) load_row(v[r], y0 + r);
-        Window w;
+        Window<A> w;
         w.first(v[0][0]);
 #pragma unroll
         for (int lin = 1; lin < KH * KW; ++lin) w.take(v[lin / KW][lin % KW], lin);
@@ -395,16 +421,19 @@ int launch_window(const void* x, void* out, void* idx, int N, int C, int H, int 
   return launch<T, 0, 0, 0>(pl, nbands, s, xp, op, ip, H, W, OH, OW, kh, kw, sh, sw, ph, pw);
 }
 
+// bytes an element of a dtype code (below)
+int esize(int dtype) { return dtype == 0 ? 4 : dtype == 3 ? 8 : 2; }
+
 }  // namespace
 
 // The output rows a band of K3 takes for this shape (0: read from device
 // memory, unstaged, one row a band); launches nothing.
 extern "C" int maxpool_idx_band_rows(int dtype, int H, int W, int OH, int kh, int sh) {
-  const Plan pl = plan(dtype == 0 ? 4 : 2, H, W, OH, kh, sh);
+  const Plan pl = plan(esize(dtype), H, W, OH, kh, sh);
   return pl.staged ? pl.rows : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  ph/pw are the low-edge paddings; the
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16, 3 = float64.  ph/pw are the low-edge paddings; the
 // caller sizes OH/OW (the high edge may pad more).  Returns
 // cudaGetLastError() after the launch (or the error of sizing it).
 extern "C" int maxpool_idx_fwd(int dtype, const void* x, void* out, void* idx, int N,
@@ -412,8 +441,17 @@ extern "C" int maxpool_idx_fwd(int dtype, const void* x, void* out, void* idx, i
                                int sw, int ph, int pw, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N < 1 || C < 1 || OH < 1 || OW < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch_window<float>(x, out, idx, N, C, H, W, OH, OW, kh, kw, sh, sw, ph, pw, s);
-  return launch_window<__nv_bfloat16>(x, out, idx, N, C, H, W, OH, OW, kh, kw, sh, sw, ph,
-                                      pw, s);
+  switch (dtype) {
+    case 0:
+      return launch_window<float>(x, out, idx, N, C, H, W, OH, OW, kh, kw, sh, sw, ph, pw, s);
+    case 1:
+      return launch_window<__nv_bfloat16>(x, out, idx, N, C, H, W, OH, OW, kh, kw, sh, sw, ph,
+                                          pw, s);
+    case 2:
+      return launch_window<__half>(x, out, idx, N, C, H, W, OH, OW, kh, kw, sh, sw, ph, pw, s);
+    case 3:
+      return launch_window<double>(x, out, idx, N, C, H, W, OH, OW, kh, kw, sh, sw, ph, pw, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

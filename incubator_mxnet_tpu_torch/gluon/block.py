@@ -50,7 +50,6 @@ from torch.nn.parameter import is_lazy
 
 from .. import autograd
 from ..ndarray import NDArray
-from ..ops import nn as _ops
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "Deferred", "shape_init", "F"]
@@ -356,31 +355,14 @@ def shape_init(net, *input_shapes, dtype=torch.float32):
     return net
 
 
-def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
-                     flatten=True):
-    bias = None if no_bias else bias
-    if flatten:
-        return _ops.fully_connected(data, weight, bias)
-    return torch.nn.functional.linear(data, weight, bias)
-
-
-def _activation(data, act_type="relu"):
-    return _ops.activation(data, act_type)
-
-
-_NN_FORMS = {"FullyConnected": _fully_connected, "Activation": _activation}
-
-
 class _TensorOps:
     """``F`` of ``hybrid_forward`` and ``HybridLambda``: the registered
-    ops of the port (``ops/math.py``, ``ops/tensor.py``) by name, on
-    tensors (``F.clip(x, 0, 6)``, ``F.Concat(a, b, dim=1)``), and
-    ``FullyConnected`` and ``Activation`` in the reference's keywords."""
+    ops of the port (``ops/math.py``, ``ops/tensor.py``, ``ops/nn.py``'s
+    forms) by name, on tensors (``F.clip(x, 0, 6)``, ``F.Concat(a, b,
+    dim=1)``, ``F.FullyConnected(x, w, b, num_hidden=10)``)."""
 
     def __getattr__(self, name):
-        if name in _NN_FORMS:
-            return _NN_FORMS[name]
-        from ..ops import math, registry, tensor  # noqa: F401  (registers)
+        from ..ops import math, nn, registry, tensor  # noqa: F401  (registers)
 
         return registry.get_op(name).fn
 

@@ -49,19 +49,18 @@ class HybridSequential(HybridBlock):
 
 
 class Dense(Deferred, HybridBlock):
-    """Fully connected layer over the flattened input: weight (units,
-    in_units), bias (units,), an optional activation after it."""
+    """Fully connected layer over the flattened input (over the last axis
+    with ``flatten=False``): weight (units, in_units), bias (units,), an
+    optional activation after it."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
                  bias_initializer="zeros", in_units=0, device=None,
                  **kwargs):
         super().__init__(**kwargs)
-        if not flatten:
-            raise NotImplementedError(
-                "Dense(flatten=False) waits for ROADMAP item 1d")
         self._device = context.resolve(device)
         self._units = units
+        self._flatten = flatten
         self._activation = activation
         with self.name_scope():
             self.weight = self.params.get(
@@ -75,10 +74,11 @@ class Dense(Deferred, HybridBlock):
                 self.bias = None
 
     def _infer_shapes(self, x):
-        return {"weight": (self._units, math.prod(x.shape[1:]))}
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        return {"weight": (self._units, in_units)}
 
     def forward(self, x):
-        out = ops.fully_connected(x, self.weight, self.bias)
+        out = ops.fully_connected(x, self.weight, self.bias, self._flatten)
         if self._activation:
             out = ops.activation(out, self._activation)
         return out

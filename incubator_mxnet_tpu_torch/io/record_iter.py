@@ -13,8 +13,9 @@ load into each other.  The consumer's ``next()`` hands the batch to
 ``ctx`` (``None``: the CUDA card) through pinned memory
 (``io._HostToDevice``).
 
-``MNISTIter``, ``LibSVMIter`` and ``ImageDetRecordIter`` are not ported
-yet (ROADMAP A7).
+``MNISTIter`` reads idx files (the MNIST container) into an
+``NDArrayIter``.  ``LibSVMIter`` and ``ImageDetRecordIter`` are not
+ported yet (ROADMAP A7, A17).
 """
 from __future__ import annotations
 
@@ -31,11 +32,11 @@ from .. import context
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..recordio import MXIndexedRecordIO, MXRecordIO, unpack_img
-from .io import (DataBatch, DataDesc, DataIter, _HostToDevice,
+from .io import (DataBatch, DataDesc, DataIter, NDArrayIter, _HostToDevice,
                  _check_state_kind, _rng_state_from_json,
                  _rng_state_to_json)
 
-__all__ = ["ImageRecordIter", "ImageRecordUInt8Iter"]
+__all__ = ["ImageRecordIter", "ImageRecordUInt8Iter", "MNISTIter"]
 
 #: preprocess threads when neither the caller nor the environment says
 _DEFAULT_THREADS = 4
@@ -433,3 +434,51 @@ class ImageRecordUInt8Iter(ImageRecordIter):
                     "or use ImageRecordIter" % k)
         kwargs["dtype"] = "uint8"
         super().__init__(*args, **kwargs)
+
+
+class MNISTIter(DataIter):
+    """MNIST idx files as batches (``src/io/iter_mnist.cc``): images
+    scaled to [0, 1] f32, (N, 1, 28, 28) or flat (N, 784); labels f32;
+    every ``num_parts``-th sample from ``part_index``; the last batch
+    padded.  ``shuffle`` draws as the reference's ``NDArrayIter`` does
+    (its RNG seeded from numpy's global one).  Batches land on ``ctx``
+    (``None``: the card)."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True, flat=False,
+                 seed=0, silent=True, part_index=0, num_parts=1,
+                 data_name="data", label_name="softmax_label", ctx=None,
+                 **kwargs):
+        super().__init__(batch_size)
+        img = _read_idx_file(image).astype(np.float32) / 255.0
+        lab = _read_idx_file(label).astype(np.float32)
+        img = img[part_index::num_parts]
+        lab = lab[part_index::num_parts]
+        img = img.reshape(len(img), -1) if flat \
+            else img.reshape(len(img), 1, img.shape[1], img.shape[2])
+        self._inner = NDArrayIter({data_name: img}, {label_name: lab},
+                                  batch_size=batch_size, shuffle=shuffle,
+                                  last_batch_handle="pad", ctx=ctx)
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):  # noqa: A003
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+    def state_dict(self):
+        return {"iter": "MNISTIter", "inner": self._inner.state_dict()}
+
+    def load_state_dict(self, state):
+        _check_state_kind(state, "MNISTIter")
+        self._inner.load_state_dict(state["inner"])

@@ -65,6 +65,44 @@ for _name, _f in _CMP.items():
 
 
 # ---------------------------------------------------------------------------
+# scalar ops (math.py _scalar_op; the Symbol arithmetic emits them)
+# ---------------------------------------------------------------------------
+
+
+def _scalar_op(name, fn, reverse_fn=None, differentiable=True, aliases=()):
+    register(name, (lambda f: lambda data, scalar=1.0: f(data, scalar))(fn),
+             num_inputs=1, differentiable=differentiable, aliases=aliases)
+    if reverse_fn is not None:
+        register("_r" + name.lstrip("_"),
+                 (lambda f: lambda data, scalar=1.0: f(data, scalar))(
+                     reverse_fn),
+                 num_inputs=1, differentiable=differentiable)
+
+
+def _as_dtype_of(fn):
+    """A comparison as 0/1 in the input's type."""
+    return lambda x, s: fn(x, s).to(x.dtype)
+
+
+_scalar_op("_plus_scalar", lambda x, s: x + s, aliases=("_PlusScalar",))
+_scalar_op("_minus_scalar", lambda x, s: x - s, lambda x, s: s - x,
+           aliases=("_MinusScalar",))
+_scalar_op("_mul_scalar", lambda x, s: x * s, aliases=("_MulScalar",))
+_scalar_op("_div_scalar", lambda x, s: x / s, lambda x, s: s / x,
+           aliases=("_DivScalar",))
+_scalar_op("_power_scalar", torch.pow, lambda x, s: torch.pow(s, x))
+_scalar_op("_mod_scalar", torch.remainder, lambda x, s: torch.remainder(s, x))
+_scalar_op("_maximum_scalar", lambda x, s: torch.clamp_min(x, s))
+_scalar_op("_minimum_scalar", lambda x, s: torch.clamp_max(x, s))
+for _name, _f in (("_equal_scalar", torch.eq), ("_not_equal_scalar", torch.ne),
+                  ("_greater_scalar", torch.gt),
+                  ("_greater_equal_scalar", torch.ge),
+                  ("_lesser_scalar", torch.lt),
+                  ("_lesser_equal_scalar", torch.le)):
+    _scalar_op(_name, _as_dtype_of(_f), differentiable=False)
+
+
+# ---------------------------------------------------------------------------
 # unary (math.py _UNARY, _UNARY_NONDIFF)
 # ---------------------------------------------------------------------------
 

@@ -7,6 +7,15 @@ Plain functions on tensors.  Convolution, the dense product and stock
 batch norm are PyTorch's (XLA did them outside Pallas in the reference);
 max pooling and ghost BN go through the port's kernels
 (``parallel/maxpool_idx.py``, ``parallel/fused_bn.py``).
+
+The registry forms that ``sym.*`` and ``nd.*`` call by name
+(``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm``,
+``Activation``, ``Dropout``, ``SoftmaxOutput``) keep the reference's
+signatures: the same inputs in the same order, then the same attributes
+with the same defaults (the reference's PRNG ``key`` aside: Dropout draws
+from the port's generator).  Their training mode is
+``autograd.is_training()``, which the symbolic executor sets for its
+forward.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import fused_bn, maxpool_idx
+from .registry import register
 
 __all__ = ["convolution", "pooling", "fully_connected", "activation",
            "dropout", "flatten", "batch_norm", "batch_norm_stats",
@@ -24,11 +34,15 @@ __all__ = ["convolution", "pooling", "fully_connected", "activation",
            "ghost_bn_aux_update"]
 
 
+_CONV = {3: F.conv1d, 4: F.conv2d, 5: F.conv3d}
+
+
 def convolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0),
                 dilate=(1, 1), num_group=1):
-    """2-D NCHW convolution, weight (O, I / num_group, kh, kw)."""
-    return F.conv2d(data, weight, bias, tuple(stride), tuple(pad),
-                    tuple(dilate), int(num_group))
+    """NC(D)(H)W convolution over 1 to 3 spatial axes, weight (O, I /
+    num_group, k...)."""
+    return _CONV[data.dim()](data, weight, bias, tuple(stride), tuple(pad),
+                             tuple(dilate), int(num_group))
 
 
 def _window_sum(data, kernel, stride, padding):
@@ -42,12 +56,13 @@ def _window_sum(data, kernel, stride, padding):
 
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             pooling_convention="valid", stride=None, pad=None,
-            count_include_pad=True):
-    """NCHW pooling (the reference's ``_pooling``): max, avg or sum,
-    windowed or global.  ``pooling_convention="full"`` is ceil mode: the
-    high edge is padded by ``pad + stride - 1``.  Windowed max pooling
-    goes through the argmax-carrying forward of
-    ``parallel/maxpool_idx.py`` (K3 on the card)."""
+            count_include_pad=True, p_value=2):
+    """NCHW pooling (the reference's ``_pooling``): max, avg, sum or lp
+    (the ``p_value``-norm of each window), windowed or global.
+    ``pooling_convention="full"`` is ceil mode: the high edge is padded
+    by ``pad + stride - 1``.  Windowed max pooling goes through
+    ``maxpool_idx.max_pool``: K3 on the card where the reference places
+    its indexed kernel."""
     if global_pool:
         axes = tuple(range(2, data.dim()))
         if pool_type == "max":
@@ -56,6 +71,9 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
             return data.mean(dim=axes, keepdim=True)
         if pool_type == "sum":
             return data.sum(dim=axes, keepdim=True)
+        if pool_type == "lp":
+            return data.abs().pow(p_value).sum(dim=axes, keepdim=True) \
+                .pow(1.0 / p_value)
         raise ValueError("unknown pool_type %r" % (pool_type,))
     kernel = tuple(kernel)
     stride = tuple(stride) if stride else (1, 1)
@@ -79,12 +97,17 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
         ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
                           device=data.device)
         return summed / _window_sum(ones, kernel, stride, padding)
+    if pool_type == "lp":
+        return _window_sum(data.abs().pow(p_value), kernel, stride,
+                           padding).pow(1.0 / p_value)
     raise ValueError("unknown pool_type %r" % (pool_type,))
 
 
-def fully_connected(data, weight, bias=None):
-    """``flatten(data) @ weight.T + bias``; weight (num_hidden, input_dim)."""
-    return F.linear(flatten(data), weight, bias)
+def fully_connected(data, weight, bias=None, flatten=True):
+    """``data @ weight.T + bias`` over the last axis, ``data`` flattened
+    to (N, -1) first when ``flatten``; weight (num_hidden, input_dim)."""
+    x = data.reshape(data.shape[0], -1) if flatten else data
+    return F.linear(x, weight, bias)
 
 
 _ACTIVATIONS = {
@@ -113,7 +136,7 @@ def dropout(data, p=0.5, axes=(), training=True, generator=None):
     ``random.seed``)."""
     if p <= 0 or not training:
         return data
-    if generator is None:
+    if generator is None and data.device.type != "meta":
         from .. import random
 
         generator = random.generator(data.device)
@@ -269,3 +292,151 @@ def ghost_bn_aux_update(old_mean, old_var, batch_mean, batch_var,
     m = float(momentum)
     return ((m * old_mean.float() + (1 - m) * batch_mean).to(old_mean.dtype),
             (m * old_var.float() + (1 - m) * batch_var).to(old_var.dtype))
+
+
+# ---------------------------------------------------------------------------
+# registry forms (the reference's ops/nn.py registrations)
+# ---------------------------------------------------------------------------
+
+
+def _is_train():
+    from .. import autograd
+
+    return autograd.is_training()
+
+
+@register("FullyConnected", aliases=("fully_connected",))
+def _fully_connected_op(data, weight, bias=None, num_hidden=None,
+                        no_bias=False, flatten=True):
+    return fully_connected(data, weight, None if no_bias else bias, flatten)
+
+
+@register("Convolution", aliases=("conv",))
+def _convolution_op(data, weight, bias=None, kernel=None, stride=None,
+                    dilate=None, pad=None, num_filter=None, num_group=1,
+                    workspace=1024, no_bias=False, cudnn_tune=None,
+                    cudnn_off=False, layout=None):
+    if layout is not None and not layout.startswith("NC"):
+        raise NotImplementedError("Convolution takes NC* layouts, got %r"
+                                  % (layout,))
+    nspatial = data.dim() - 2
+    return convolution(data, weight, None if no_bias else bias,
+                       stride or (1,) * nspatial, pad or (0,) * nspatial,
+                       dilate or (1,) * nspatial, num_group)
+
+
+@register("Pooling", aliases=("pool",))
+def _pooling_op(data, kernel=None, pool_type="max", global_pool=False,
+                cudnn_off=False, pooling_convention="valid", stride=None,
+                pad=None, p_value=2, count_include_pad=True, layout=None):
+    return pooling(data, kernel, pool_type, global_pool, pooling_convention,
+                   stride, pad, count_include_pad, p_value)
+
+
+def _batch_norm_aux_update(in_vals, out_vals, momentum=0.9, axis=1,
+                           use_global_stats=False, **_):
+    """BatchNorm's running stats (inputs 3 and 4) after a training
+    forward (the reference's ``_batch_norm_aux_update``): the one-pass
+    batch statistics of :func:`batch_norm_stats`, MXNet's momentum."""
+    if use_global_stats and str(use_global_stats).lower() != "false":
+        return {}
+    mean, var = batch_norm_stats(in_vals[0], axis=int(axis))
+    new_m, new_v = batch_norm_aux_update(in_vals[3], in_vals[4], mean, var,
+                                         momentum)
+    return {3: new_m, 4: new_v}
+
+
+@register("BatchNorm", aliases=("batch_norm",),
+          aux_update=_batch_norm_aux_update)
+def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                   momentum=0.9, fix_gamma=True, use_global_stats=False,
+                   output_mean_var=False, axis=1, cudnn_off=False):
+    return batch_norm(data, gamma, beta, moving_mean, moving_var, eps,
+                      fix_gamma, use_global_stats, axis, _is_train(),
+                      output_mean_var)
+
+
+@register("Activation", num_inputs=1)
+def _activation_op(data, act_type="relu"):
+    return activation(data, act_type)
+
+
+@register("Dropout", num_inputs=1)
+def _dropout_op(data, p=0.5, mode="training", axes=(), cudnn_off=False):
+    return dropout(data, p, axes, training=mode == "always" or _is_train())
+
+
+def _softmax_fwd(d, multi_output, preserve_shape):
+    if multi_output:
+        return torch.softmax(d, dim=1)
+    if preserve_shape:
+        return torch.softmax(d, dim=-1)
+    return torch.softmax(d.reshape(d.shape[0], -1), dim=-1).reshape(d.shape)
+
+
+def _soft_onehot(label, k, dtype, smooth_alpha):
+    """One-hot rows of ``label`` over ``k`` classes (all zero for a label
+    out of range), smoothed by ``smooth_alpha``."""
+    oh = (label.to(torch.long)[..., None]
+          == torch.arange(k, device=label.device)).to(dtype)
+    if smooth_alpha:
+        oh = oh * (1.0 - smooth_alpha) + smooth_alpha / (k - 1) * (1.0 - oh)
+    return oh
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; backward ``(p - onehot(label)) * grad_scale``
+    (the reference's custom VJP, ``softmax_output.cc``), ignoring the
+    head gradient unless ``out_grad``."""
+
+    @staticmethod
+    def forward(ctx, data, label, cfg):
+        out = _softmax_fwd(data, cfg["multi_output"], cfg["preserve_shape"])
+        ctx.save_for_backward(out, label)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        cfg = ctx.cfg
+        ignore = label != cfg["ignore_label"]
+        if cfg["multi_output"]:
+            oh = _soft_onehot(label, out.shape[1], out.dtype, 0.0)
+            grad = out - oh.movedim(-1, 1)
+            if cfg["use_ignore"]:
+                grad = grad * ignore.to(out.dtype).unsqueeze(1)
+        elif cfg["preserve_shape"]:
+            grad = out - _soft_onehot(label, out.shape[-1], out.dtype,
+                                      cfg["smooth_alpha"])
+            if cfg["use_ignore"]:
+                grad = grad * ignore.to(out.dtype)[..., None]
+        else:
+            flat = out.reshape(out.shape[0], -1)
+            grad = (flat - _soft_onehot(label.reshape(-1), flat.shape[-1],
+                                        out.dtype, cfg["smooth_alpha"])
+                    ).reshape(out.shape)
+            if cfg["use_ignore"]:
+                grad = grad * ignore.reshape(-1).to(out.dtype).reshape(
+                    (-1,) + (1,) * (grad.dim() - 1))
+        scale = cfg["grad_scale"]
+        if cfg["normalization"] == "batch":
+            scale = scale / out.shape[0]
+        elif cfg["normalization"] == "valid" and cfg["use_ignore"]:
+            scale = scale / ignore.to(out.dtype).sum().clamp_min(1.0)
+        grad = grad * scale
+        if cfg["out_grad"]:
+            grad = grad * g
+        return grad, None, None
+
+
+@register("SoftmaxOutput", num_inputs=2, aliases=("Softmax", "softmax_output"))
+def _softmax_output_op(data, label, grad_scale=1.0, ignore_label=-1.0,
+                       multi_output=False, use_ignore=False,
+                       preserve_shape=False, normalization="null",
+                       out_grad=False, smooth_alpha=0.0):
+    cfg = dict(grad_scale=grad_scale, ignore_label=ignore_label,
+               multi_output=multi_output, use_ignore=use_ignore,
+               preserve_shape=preserve_shape, normalization=normalization,
+               out_grad=out_grad, smooth_alpha=smooth_alpha)
+    return _SoftmaxOutput.apply(data, label, cfg)

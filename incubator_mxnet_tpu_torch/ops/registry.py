@@ -8,12 +8,20 @@ requires a gradient.  Otherwise it runs under ``torch.no_grad()`` and its
 results are detached, so an array with ``attach_grad()`` used outside a
 recording scope builds no graph (PyTorch alone would record it).
 
+Shape and type inference (:meth:`Op.infer`, the reference's
+``jax.eval_shape``) runs ``fn`` on tensors of the ``meta`` device, which
+carry a shape and a dtype and no data; the kernels' wrappers answer them
+with empty outputs of the checked shape.  An op's ``aux_update`` is the
+functional form of the reference's ``FMutateInputs``: the symbolic
+executor commits what it returns after a training forward.
+
 The reference's eager jit cache (``_EAGER_JIT``) has no counterpart:
 PyTorch runs eagerly.  Its AMP input casts (``_amp_cast_inputs``) wait for
 the port's AMP (ROADMAP A13).
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Sequence
 
 import torch
@@ -31,19 +39,35 @@ class Op:
     fn : callable(*tensors, **attrs) -> tensor or tuple of tensors
     num_inputs : int or None (variadic)
     differentiable : False never records (argmax, comparisons, init ops)
+    aux_update : callable(in_vals, out_vals, **attrs) -> {input_idx:
+        new_val} or None: the new values of the mutated inputs after a
+        training forward (BatchNorm's running stats)
     """
 
     def __init__(self, name, fn, num_inputs=None, differentiable=True,
-                 aliases=(), doc=""):
+                 aliases=(), doc="", aux_update=None):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs
         self.differentiable = differentiable
         self.aliases = tuple(aliases)
         self.doc = doc or (fn.__doc__ or "")
+        self.aux_update = aux_update
 
     def __repr__(self):
         return "Op(%s)" % self.name
+
+    def infer(self, in_metas: Sequence[Any], **attrs):
+        """The outputs of ``fn`` on ``meta`` tensors (None for an absent
+        optional input), as a tuple of ``meta`` tensors: their shapes and
+        dtypes.  An op without tensor inputs that takes ``ctx`` builds
+        its output on the CPU, which is then dropped to ``meta``."""
+        if not in_metas and "ctx" in inspect.signature(self.fn).parameters:
+            attrs = dict(attrs, ctx="cpu")
+        with torch.no_grad():
+            out = self.fn(*in_metas, **attrs)
+        outs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+        return tuple(o.to("meta") for o in outs)
 
 
 def register(name, fn=None, **kwargs):

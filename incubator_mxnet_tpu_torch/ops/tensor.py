@@ -250,6 +250,15 @@ def _take(a, indices, axis=0, mode="clip"):
                        + tuple(a.shape[axis + 1:]))
 
 
+@register("pick", num_inputs=2)
+def _pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """``data``'s entry at ``index`` along ``axis``; indices are clipped
+    into range (the reference clips whatever ``mode`` says)."""
+    idx = index.to(torch.long).clamp(0, data.shape[axis] - 1)
+    out = torch.take_along_dim(data, idx.unsqueeze(axis), dim=axis)
+    return out if keepdims else out.squeeze(axis)
+
+
 @register("one_hot", num_inputs=1, differentiable=False)
 def _one_hot(indices, depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
     """Rows of out-of-range indices are all ``off_value``, as

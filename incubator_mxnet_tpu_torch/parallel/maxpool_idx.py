@@ -13,6 +13,13 @@ NCHW: on the card another layout (a permuted or ``channels_last``
 tensor, a strided view) is copied once into a fresh contiguous tensor
 first, as JAX arrays, which have no strides, compute it; a storage
 offset off the 16-byte grid needs no copy.
+
+:func:`max_pool` routes as the reference's ``plan``: 2 to 127 window
+slots in a floating dtype go through :func:`maxpool_with_index` (K3 on
+the card: f32, bf16, f16, f64); a 1-slot window, more than 127 slots
+or an integer dtype, which the reference pools outside its kernel, go
+through :func:`_maxpool_plain` on any device, with the same winner
+(int32 beyond 127 slots) and the same backward.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ from .. import _kernels
 __all__ = ["check_shape", "maxpool_with_index", "indexed_unpool",
            "max_pool", "band_rows"]
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.float64: 3}
 
 
 def check_shape(shape, window, strides, padding):
@@ -44,6 +52,10 @@ def check_shape(shape, window, strides, padding):
     if not 2 <= window[2] * window[3] <= 127:
         raise ValueError("max pooling with index takes 2 to 127 window "
                          "slots, got %d" % (window[2] * window[3]))
+    return _out_hw(shape, window, strides, padding)
+
+
+def _out_hw(shape, window, strides, padding):
     _, _, h, w = shape
     oh = (h + sum(padding[2]) - window[2]) // strides[2] + 1
     ow = (w + sum(padding[3]) - window[3]) // strides[3] + 1
@@ -52,26 +64,36 @@ def check_shape(shape, window, strides, padding):
     return oh, ow
 
 
-def _maxpool_plain(data, window, strides, padding):
-    """The reference kernel's arithmetic in torch: pad with -inf, visit
-    the window slots in row-major order, keep the earlier slot on ties
-    (strict >)."""
-    oh, ow = check_shape(data.shape, window, strides, padding)
+def _slot_views(data, window, strides, padding):
+    """For each window slot in row-major order, the strided view of
+    ``data`` padded with its dtype's lowest value (-inf for floats) that
+    the slot sees in every window."""
+    oh, ow = _out_hw(data.shape, window, strides, padding)
+    low = float("-inf") if data.is_floating_point() \
+        else torch.iinfo(data.dtype).min
     xp = torch.nn.functional.pad(
         data, (padding[3][0], padding[3][1], padding[2][0], padding[2][1]),
-        value=float("-inf"))
+        value=low)
     sh, sw = strides[2], strides[3]
-    best = idx = None
-    for lin, (i, j) in enumerate(itertools.product(range(window[2]),
-                                                   range(window[3]))):
-        xs = xp[:, :, i:i + (oh - 1) * sh + 1:sh, j:j + (ow - 1) * sw + 1:sw]
-        if best is None:
-            best = xs
-            idx = torch.zeros(xs.shape, dtype=torch.int8, device=data.device)
-        else:
-            idx = torch.where(xs > best, torch.full((), lin, dtype=torch.int8,
-                                                    device=data.device), idx)
-            best = torch.maximum(best, xs)
+    return [xp[:, :, i:i + (oh - 1) * sh + 1:sh, j:j + (ow - 1) * sw + 1:sw]
+            for i, j in itertools.product(range(window[2]), range(window[3]))]
+
+
+def _maxpool_plain(data, window, strides, padding):
+    """The reference kernel's arithmetic in torch: pad with the dtype's
+    lowest value (-inf for floats), visit the window slots in row-major
+    order, keep the earlier slot on ties (strict >).  Any number of
+    slots and any dtype; the winner plane is int8 up to 127 slots, as the
+    kernel's, else int32.  A window holding NaN pools to NaN and keeps
+    the slot it had, as the kernel does."""
+    views = _slot_views(data, window, strides, padding)
+    idx_dtype = torch.int8 if len(views) <= 127 else torch.int32
+    best = views[0]
+    idx = torch.zeros(best.shape, dtype=idx_dtype, device=data.device)
+    for lin, xs in enumerate(views[1:], 1):
+        idx = torch.where(xs > best, torch.full((), lin, dtype=idx_dtype,
+                                                device=data.device), idx)
+        best = torch.maximum(best, xs)
     return best.contiguous(), idx
 
 
@@ -89,21 +111,24 @@ def _dense(t):
 def maxpool_with_index(data, window, strides, padding):
     """``(out, idx)``: the pooled max in data's dtype and the int8 winner
     slot.  CUDA tensors go through K3 (copied first where they are not
-    contiguous NCHW), f32 or bf16; CPU tensors, of any floating dtype,
-    through the plain version."""
-    if data.device.type not in ("cuda", "cpu"):
+    contiguous NCHW), f32, bf16, f16 or f64; CPU tensors through the
+    plain version; ``meta`` tensors get empty outputs."""
+    if data.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError("max pooling runs on cuda or cpu, got %s"
                          % data.device)
+    oh, ow = check_shape(data.shape, window, strides, padding)
+    n, c, h, w = data.shape
+    if data.device.type == "meta":  # shape inference
+        return (torch.empty((n, c, oh, ow), dtype=data.dtype, device="meta"),
+                torch.empty((n, c, oh, ow), dtype=torch.int8, device="meta"))
     if not _on_card(data):
         return _maxpool_plain(data, window, strides, padding)
     if data.dtype not in _DTYPE_CODE:
-        raise TypeError("max pooling with index takes float32 or bfloat16, "
-                        "got %s" % data.dtype)
-    oh, ow = check_shape(data.shape, window, strides, padding)
-    data = _dense(data)
-    n, c, h, w = data.shape
+        raise TypeError("max pooling with index takes float32, bfloat16, "
+                        "float16 or float64, got %s" % data.dtype)
     out = torch.empty((n, c, oh, ow), dtype=data.dtype, device=data.device)
     idx = torch.empty((n, c, oh, ow), dtype=torch.int8, device=data.device)
+    data = _dense(data)
     _kernels.KERNELS["maxpool_idx_fwd"].launch(
         data.device, _DTYPE_CODE[data.dtype], data.data_ptr(), out.data_ptr(),
         idx.data_ptr(), n, c, h, w, oh, ow, window[2], window[3], strides[2],
@@ -144,10 +169,18 @@ def indexed_unpool(first, g, in_shape, window, strides, padding):
     return dxp[:, :, plo_h:plo_h + h, plo_w:plo_w + w]
 
 
+def _indexed(data, window):
+    """True where the reference's ``plan`` places its kernel: 2 to 127
+    window slots in a floating dtype."""
+    return 2 <= window[2] * window[3] <= 127 and data.is_floating_point()
+
+
 class _MaxPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, window, strides, padding):
-        out, idx = maxpool_with_index(data, window, strides, padding)
+        pool = maxpool_with_index if _indexed(data, window) \
+            else _maxpool_plain
+        out, idx = pool(data, window, strides, padding)
         ctx.save_for_backward(idx)
         ctx.cfg = (tuple(data.shape), window, strides, padding)
         return out
@@ -161,8 +194,10 @@ class _MaxPool(torch.autograd.Function):
 
 
 def max_pool(data, window, strides, padding):
-    """Differentiable max pooling: forward through :func:`maxpool_with_index`,
-    backward through :func:`indexed_unpool`."""
+    """Differentiable max pooling (module note): the pooled maximum and
+    its winner plane, from :func:`maxpool_with_index` where the
+    reference places its kernel and from :func:`_maxpool_plain`
+    elsewhere; the backward :func:`indexed_unpool` from that plane."""
     window = tuple(int(k) for k in window)
     strides = tuple(int(s) for s in strides)
     padding = tuple(tuple(int(p) for p in q) for q in padding)

@@ -19,7 +19,11 @@ a multiple of 8) as the rest.  K7 (``bn_copy``) and R1
 (``scale_kernel``) exact; R2 (``mm_kernel``) 1e-4 of max |a @ b| (f32 sums in another order
 than cuBLAS's); the nd attention layer card against CPU 1e-4 relative.
 The record iterator's batches on the card and checkpoints of card
-tensors are exact.
+tensors are exact.  The symbolic path: K3 exact at LeNet's two pool
+shapes; the max pools outside K3 (1 and 144 window slots, f16, int8)
+exact against the CPU with no K3 launch; one LeNet Module step on the
+card against the CPU within the noise floor of ``chip_smoke.py`` phase
+5d.
 """
 import importlib
 
@@ -121,7 +125,8 @@ def _pool_input(shape, dtype, g, dev, offset=0):
     return x.to(dtype)[offset:].view(shape)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64])
 @pytest.mark.parametrize("case,shape,cfg", [
     # the stem at batch 8: one band a whole plane
     ("stem", (8, 64, 112, 112), _STEM),
@@ -183,7 +188,8 @@ _ZOO_POOLS = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64])
 @pytest.mark.parametrize("entry", _ZOO_POOLS,
                          ids=lambda e: "%s-%d" % (e[0], e[1][1]))
 def test_maxpool_kernel_at_zoo_shapes(dev, dtype, entry):
@@ -204,7 +210,8 @@ def test_maxpool_kernel_at_zoo_shapes(dev, dtype, entry):
     assert _kernels.launch_counts()["maxpool_idx_fwd"] == before + 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64])
 @pytest.mark.parametrize("layout", ["nan", "offset", "permuted"])
 def test_maxpool_kernel_odd_inputs(dev, dtype, layout):
     """K3 against its plain version on NaN inputs (the max is NaN, the
@@ -244,8 +251,9 @@ def test_maxpool_band_rows_come_from_the_kernel(dev, shape, cfg, bf16, f32):
     are those tests/test_torch_maxpool_idx.py models from the source's
     MP_* defines: a whole plane at the stem in bf16, half of it in f32,
     bands of 38 and 19 rows at 300x300, and the unstaged form (0) where
-    kh input rows exceed a stage."""
-    for dtype, want in ((torch.bfloat16, bf16), (torch.float32, f32)):
+    kh input rows exceed a stage (f16 as bf16)."""
+    for dtype, want in ((torch.bfloat16, bf16), (torch.float16, bf16),
+                        (torch.float32, f32)):
         x = torch.empty(shape, dtype=dtype, device="meta")
         assert maxpool_idx.band_rows(x, *cfg) == want, dtype
 
@@ -958,3 +966,82 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path, dtype):
     assert step == 1
     for a, b in ((state["w"][0], got["w"][0]), (state["s"][0], got["s"][0])):
         assert b.device == dev and b.dtype == a.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the symbolic path: LeNet's pools, C4, a Module step
+# ---------------------------------------------------------------------------
+
+
+def _smoke():
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64])
+@pytest.mark.parametrize("shape", [(64, 20, 24, 24), (64, 50, 8, 8)])
+def test_maxpool_kernel_at_lenet_shapes(dev, shape, dtype):
+    """K3 bit-exact (out and idx) against its plain version at LeNet's
+    pools (train_mnist_torch.py's batch 64), one launch a call."""
+    cfg = _smoke().LENET_POOL
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _pool_input(shape, dtype, g, dev)
+    before = _kernels.launch_counts()["maxpool_idx_fwd"]
+    out, idx = maxpool_idx.maxpool_with_index(x, *cfg)
+    outp, idxp = maxpool_idx._maxpool_plain(x, *cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, outp) and torch.equal(idx, idxp)
+    assert _kernels.launch_counts()["maxpool_idx_fwd"] == before + 1
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.float32, (1, 1)), (torch.float32, (12, 12)),
+    (torch.float16, (1, 1)), (torch.float16, (12, 12)),
+    (torch.float64, (12, 12)), (torch.int8, (3, 3)),
+])
+def test_max_pool_outside_k3_on_card(dev, dtype, kernel):
+    """C4 on the card: the max pools the reference computes outside its
+    kernel (1 slot, more than 127, integers) run in stock torch ops,
+    equal to the CPU's, forward and gradient, with no K3 launch."""
+    from incubator_mxnet_tpu_torch.ops import nn as tops
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.clamp_min(torch.round(torch.randn(2, 3, 16, 16, generator=g)
+                                    * 4), 0).to(dtype)
+    floating = dtype.is_floating_point
+    kw = dict(kernel=kernel, pool_type="max", stride=(1, 1))
+    outs = {}
+    for where in ("cpu", dev):
+        xt = x.clone().to(where).requires_grad_(floating)
+        before = _kernels.launch_counts()["maxpool_idx_fwd"]
+        out = tops.pooling(xt, **kw)
+        grad = None
+        if floating:
+            out.backward(torch.linspace(-1, 1, out.numel()).reshape(
+                out.shape).to(dtype).to(where))
+            grad = xt.grad.cpu()
+        assert _kernels.launch_counts()["maxpool_idx_fwd"] == before
+        outs[str(where)] = (out.detach().cpu(), grad)
+    (a, ga), (b, gb) = outs.values()
+    assert torch.equal(a, b)
+    assert ga is None or torch.equal(ga, gb)
+
+
+def test_lenet_module_step_card_matches_cpu(dev, monkeypatch):
+    """chip_smoke.py phase 5d: one f32 LeNet Module step (batch 16) on the
+    card against the CPU, held to the CPU's nudged-weights noise floor,
+    and the same step with TF32 on failing those limits (two K3 launches
+    a card step)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    before = _kernels.launch_counts()["maxpool_idx_fwd"]
+    _smoke().mnist_card_vs_cpu(dev)
+    assert _kernels.launch_counts()["maxpool_idx_fwd"] == before + 4

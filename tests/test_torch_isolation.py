@@ -28,6 +28,8 @@ for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                     "example/image_classification/train_imagenet_torch.py"),
                    ("image_classification_torch",
                     "example/gluon/image_classification_torch.py"),
+                   ("train_mnist_torch",
+                    "example/image_classification/train_mnist_torch.py"),
                    ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -62,6 +64,23 @@ def _example_lm():
     return mod.LongContextLM
 
 
+def _example_mnist():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_train_mnist_torch", os.path.join(
+            ROOT, "example", "image_classification", "train_mnist_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fc():
+    from incubator_mxnet_tpu_torch import symbol
+
+    return symbol.FullyConnected(symbol.var("data"), num_hidden=2)
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -74,6 +93,10 @@ def _no_card(monkeypatch):
     lambda: tres.GhostBNReLU(group=2, in_channels=4),
     lambda: tres.resnet50_v1(ghost_bn=16),
     lambda: _example_lm()(64, 32, 2, 1),
+    lambda: __import__("incubator_mxnet_tpu_torch").mod.Module(_fc()),
+    lambda: _fc().simple_bind(None, data=(2, 3)),
+    lambda: _example_mnist().main(["--num-epochs", "1", "--data-dir",
+                                   "/nonexistent"]),
 ])
 def test_entry_points_refuse_cpu_without_asking(monkeypatch, build):
     _no_card(monkeypatch)

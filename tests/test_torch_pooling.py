@@ -17,6 +17,14 @@ scaled down to batch 2 and 4 channels, must take exactly one K3 launch
 down the card branch (``_on_card`` patched, a recording launcher in
 ``_kernels.KERNELS``) with the geometry the kernel needs.
 
+C4, max pooling that the reference computes outside its Pallas kernel:
+windows of 1 slot and of 144 slots (the index plane holds 2 to 127),
+and f64, f16 and int8, forward and first-argmax gradient against
+``_pooling`` on the CPU; routed down the card branch, those windows and
+int8 take no K3 launch (stock torch ops: ``maxpool_idx._maxpool_plain``),
+while every window of 2 to 127 slots in f32, bf16, f16 or f64, where
+the reference's ``plan`` places its kernel, launches K3.
+
 Tolerances: max pooling exact (the reference's first-argmax rule);
 average/sum and the activations 1e-6 absolute in f32 (sums of 9
 terms in another order), one bf16 step (2^-7 relative) in bf16.
@@ -198,3 +206,50 @@ def test_zoo_pool_takes_one_k3_launch(monkeypatch, entry):
     want_oh = -(-(h + 2 * p - k) // s) + 1 if ceil else \
         (h + 2 * p - k) // s + 1
     assert oh == want_oh
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float16", "int8"])
+@pytest.mark.parametrize("kernel,stride", [((1, 1), (1, 1)),
+                                           ((12, 12), (1, 1)),
+                                           ((2, 2), (2, 2))])
+def test_max_pool_outside_k3_matches_reference(dtype, kernel, stride):
+    """C4: the port computes every max pool the reference computes, bit
+    for bit, gradient included (ints have none)."""
+    x = np.round(np.random.RandomState(9).normal(size=(2, 3, 16, 16)) * 4)
+    x = np.maximum(x, 0).astype(dtype)
+    kw = dict(kernel=kernel, pool_type="max", stride=stride)
+    floating = dtype != "int8"
+    if floating:
+        jout, vjp = jax.vjp(lambda a: jops._pooling(a, **kw), jnp.asarray(x))
+        g = np.random.RandomState(10).normal(size=jout.shape).astype(dtype)
+        (jdx,) = vjp(jnp.asarray(g))
+    else:
+        jout = jops._pooling(jnp.asarray(x), **kw)
+    xt = torch.from_numpy(x).requires_grad_(floating)
+    tout = tops.pooling(xt, **kw)
+    assert tout.dtype == xt.dtype and tuple(tout.shape) == jout.shape
+    np.testing.assert_array_equal(tout.detach().numpy(), np.asarray(jout))
+    if floating:
+        tout.backward(torch.from_numpy(g))
+        np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(jdx))
+
+
+@pytest.mark.parametrize("dtype,kernel,launches", [
+    (torch.float32, (2, 2), 1), (torch.bfloat16, (2, 2), 1),
+    (torch.float32, (1, 1), 0), (torch.float32, (12, 12), 0),
+    (torch.float32, (11, 11), 1), (torch.float16, (2, 2), 1),
+    (torch.float64, (2, 2), 1), (torch.float16, (12, 12), 0),
+    (torch.int8, (2, 2), 0),
+])
+def test_card_routes_max_pool_as_the_reference_plans(monkeypatch, dtype,
+                                                     kernel, launches):
+    """Down the card branch, K3 takes the windows of 2 to 127 slots in
+    every floating dtype (121 slots: the largest square), and stock torch
+    ops the rest, with no retry."""
+    monkeypatch.setattr(maxpool_idx, "_on_card", lambda t: True)
+    rec = _Recorder()
+    monkeypatch.setitem(_kernels.KERNELS, "maxpool_idx_fwd", rec)
+    x = torch.zeros(2, 3, 16, 16, dtype=dtype)
+    out = tops.pooling(x, kernel=kernel, pool_type="max", stride=(1, 1))
+    assert tuple(out.shape) == (2, 3, 17 - kernel[0], 17 - kernel[1])
+    assert len(rec.calls) == launches
