@@ -127,6 +127,21 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    3-24 of ``forward_backward`` + ``update`` + ``update_metric``,
    synchronized on the host clock) and img/s of each net, and the
    phase's wall time;
+3i. the word LM: ``example/rnn/word_lm/train_torch.py`` through its own
+   functions at the upstream medium model's widths (``WORDLM``: vocab
+   10000, embedding and hidden 650, 2 LSTM layers, batch 32, bptt 35),
+   f32 with TF32 off, sgd lr 1.0, 10 steps of its synthetic corpus, the
+   counters set to 0 just before: every loss finite, the first window's
+   loss computed again after the steps below step 1's, no launch of
+   K1-K7, R1 or R2 (the path is cuDNN's RNN and cuBLAS);
+   ``wordlm_step_ms`` (median of steps 3-10) and tokens/s; 3i-ii,
+   ``BucketingModule`` over ``BucketSentenceIter`` at
+   ``lstm_bucketing.py``'s widths (``BUCKETING``: 2 layers, 200 hidden
+   and embedding, vocab 10000, batch 32, buckets 10-60, two batches a
+   bucket of synthetic sentences), ``Module.fit`` two epochs, with the
+   unrolled ``mx.rnn.LSTMCell`` stack and with ``FusedRNNCell``: losses
+   finite, all 6 buckets bound, no kernel launches; ``bucket_step_ms``
+   of each (median of the second epoch);
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -162,7 +177,10 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    launch; the K7 and R1 rows carry ``ms_over_library``.  R2 beside its
    bound and ``torch.matmul`` (TF32 off), both by the profiler's device
    time (unflushed), with ``tc_bound_ms`` and ``ms_over_library`` as K4;
-   K7's launches are those of this sweep;
+   K7's launches are those of this sweep; beside the kernel rows, the
+   fused ``RNN`` op at phase 3i's LSTM (forward plus backward through
+   cuDNN, held to its plain step loop at 1e-4 first) beside that loop,
+   ``torch.nn.LSTM`` on its own packed weights and the GEMM FLOP bound;
 5. one f32 step (TF32 off) of ``resnet50_v1(ghost_bn=16)`` at batch 16,
    64 px on the card and on the CPU from the same weights and batch;
 5b. one f32 step of a small LM (dim 128, 8 heads, seq 256, batch 2, 2
@@ -175,6 +193,11 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    weights: the outputs (as phase 5's running stats), their
    cross-entropy (as its loss), the parameter updates and the momentum
    held to phase 5's noise floor;
+5e. one f32 step (TF32 off) of ``train_torch.py``'s WordLM at vocab 256,
+   embedding 64, hidden 128, batch 8, bptt 16 on the card and on the CPU
+   from the same weights: the logits (within 1e-5), the loss and the
+   updates held to the noise floor (4x plus 1e-4); the same step with
+   TF32 on is printed beside it;
 6. print the kernels' JSON line, the card line, and the result line.
 
 Tolerances of phase 2 (kernel against plain version on the same inputs):
@@ -1367,6 +1390,284 @@ def run_mnist_path(dev, network):
     return metrics, counts
 
 
+# phase 3i: example/rnn/word_lm/train_torch.py at the upstream medium
+# model's widths (Apache MXNet example/rnn/word_lm: embedding and hidden
+# 650, 2 LSTM layers, bptt 35, batch 32, PTB's 10000 words), f32 with TF32
+# off, on the example's synthetic corpus
+WORDLM = dict(vocab=10000, emsize=650, nhid=650, nlayers=2, batch=32,
+              bptt=35, lr=1.0, steps=10)
+# phase 3i-ii: BucketingModule at example/rnn/bucketing/lstm_bucketing.py's
+# widths and defaults (its cudnn_lstm_bucketing.py for the fused cell)
+BUCKETING = dict(vocab=10000, num_hidden=200, num_embed=200, num_layers=2,
+                 batch=32, buckets=(10, 20, 30, 40, 50, 60), per_bucket=2,
+                 lr=0.01, wd=1e-5)
+
+
+def _word_lm_module():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "example", "rnn", "word_lm", "train_torch.py")
+    spec = importlib.util.spec_from_file_location("word_lm_train_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _word_lm_args(ex, cfg):
+    return ex.parse_args([
+        "--vocab", str(cfg["vocab"]), "--emsize", str(cfg["emsize"]),
+        "--nhid", str(cfg["nhid"]), "--nlayers", str(cfg["nlayers"]),
+        "--batch-size", str(cfg["batch"]), "--bptt", str(cfg["bptt"]),
+        "--lr", str(cfg.get("lr", 1.0))])
+
+
+def run_word_lm_path(dev):
+    """Phase 3i: ``example/rnn/word_lm/train_torch.py``'s loop through its
+    own functions (``build``: Xavier after ``random.seed(0)``,
+    ``shape_init``, ``Trainer("sgd", lr 1.0)``; ``batch``, ``train_step``:
+    ``autograd.record()``, ``SoftmaxCrossEntropyLoss``, ``backward``,
+    ``trainer.step(batch)``, the loss read back each step as the script
+    does) at ``WORDLM``, f32 (TF32 off), ``WORDLM["steps"]`` steps over
+    its synthetic corpus with the counters set to 0 just before: every
+    loss finite, no kernel of the port launched (the path is cuDNN's RNN
+    and cuBLAS), and the first window's loss, computed again after the
+    steps, below the first step's.  That window and not the last step's
+    loss: at the script's lr 1.0 over a mean loss and ``step(batch)``'s
+    1/32 the loss moves ~3e-6 a step, under the spread between windows.
+    Returns (metrics, counts)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+
+    ex = _word_lm_module()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _word_lm_args(ex, WORDLM)
+    data = ex.corpus_rows(args)
+    net, trainer, loss_fn = ex.build(args, dev)
+    x0, y0 = ex.batch(data, 0, args.bptt, dev)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    for lo in ex.windows(data, args.bptt)[:WORDLM["steps"]]:
+        t0 = time.perf_counter()
+        x, y = ex.batch(data, lo, args.bptt, dev)
+        losses.append(float(ex.train_step(net, trainer, loss_fn, x, y,
+                                          args).asscalar()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _kernels.launch_counts()
+    again = float(loss_fn(net(x0).reshape((-1, args.vocab)),
+                          y0.reshape((-1,))).mean().asscalar())
+    torch.backends.cudnn.allow_tf32 = True
+    print("  losses %s; first window again %.7f (step 1 %.7f)"
+          % (["%.7f" % v for v in losses], again, losses[0]), flush=True)
+    print("  step_ms %s" % ["%.2f" % v for v in step_ms], flush=True)
+    if not _losses_ok(losses + [again]) or not again < losses[0] or \
+            any(counts.values()):
+        raise AssertionError("word LM: losses %s, first window again %r, "
+                             "launches %s" % (losses, again, counts))
+    steady = _median(step_ms[2:])
+    tokens = args.batch_size * args.bptt
+    return {"wordlm_step_ms": steady, "tokens_s": tokens / steady * 1e3,
+            "first": losses[0], "again": again}, counts
+
+
+def _bucket_sym_gen(mx, fused):
+    """``lstm_bucketing.py``'s ``sym_gen`` (``cudnn_lstm_bucketing.py``'s
+    with ``fused``): embedding, the LSTM stack unrolled to the bucket's
+    length, a softmax over the vocabulary at every step."""
+    cfg = BUCKETING
+    if fused:
+        stack = mx.rnn.FusedRNNCell(cfg["num_hidden"], cfg["num_layers"],
+                                    mode="lstm", prefix="lstm_")
+    else:
+        stack = mx.rnn.SequentialRNNCell()
+        for i in range(cfg["num_layers"]):
+            stack.add(mx.rnn.LSTMCell(num_hidden=cfg["num_hidden"],
+                                      prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=cfg["vocab"],
+                                 output_dim=cfg["num_embed"], name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, cfg["num_hidden"]))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=cfg["vocab"],
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def bucket_sentences():
+    """``per_bucket`` batches of sentences for each bucket, lengths
+    uniform in (previous bucket, bucket], words uniform in [1, vocab)
+    (0 is the invalid label), from numpy seed ``SEED``."""
+    import numpy as np
+
+    cfg = BUCKETING
+    rng = np.random.RandomState(SEED)
+    sentences, low = [], 1
+    for b in cfg["buckets"]:
+        for _ in range(cfg["per_bucket"] * cfg["batch"]):
+            n = rng.randint(low + 1, b + 1)
+            sentences.append(rng.randint(1, cfg["vocab"], n).tolist())
+        low = b
+    return sentences
+
+
+def run_bucketing_path(dev, fused):
+    """Phase 3i-ii: ``BucketingModule`` over ``BucketSentenceIter``
+    (``bucket_sentences``, invalid label 0, on the card) at
+    ``BUCKETING``'s widths, ``Module.fit`` as ``lstm_bucketing.py`` calls
+    it (sgd lr 0.01, wd 1e-5, Xavier(in, 2.34), ``Perplexity(0)``) for two
+    epochs, the unrolled ``mx.rnn.LSTMCell`` stack or the
+    ``FusedRNNCell``, the counters set to 0 just before ``fit``: every
+    batch's loss (cross-entropy of the softmax outputs at the valid
+    labels, on the card) finite, every bucket bound, no kernel of the
+    port launched.  The step time is ``forward_backward`` + ``update`` +
+    ``update_metric`` on the host clock, synchronized on both ends;
+    ``bucket_step_ms`` is the median of the second epoch's steps (every
+    bucket bound), ``first_epoch_ms`` that of the first (a bucket's
+    first batch binds its ``Module``).  Returns (metrics, counts)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels
+
+    cfg = BUCKETING
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    random.seed(SEED)
+    np.random.seed(SEED)
+    t0 = time.perf_counter()
+    it = mx.rnn.BucketSentenceIter(bucket_sentences(), cfg["batch"],
+                                   buckets=list(cfg["buckets"]),
+                                   invalid_label=0, ctx=dev)
+    mx.random.seed(SEED)
+    mod = mx.mod.BucketingModule(_bucket_sym_gen(mx, fused),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=dev)
+    step_ms, losses, start = [], [], [0.0]
+    fwd_bwd = mod.forward_backward
+
+    def timed_forward_backward(batch):
+        torch.cuda.synchronize()
+        start[0] = time.perf_counter()
+        fwd_bwd(batch)
+
+    def step_end(param):
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start[0]) * 1e3)
+        prob = mod.get_outputs()[0].astorch()
+        label = param.locals["data_batch"].label[0].astorch().reshape(-1)
+        valid = label != 0
+        picked = prob.gather(1, label.long()[:, None])[:, 0][valid]
+        losses.append(float(-torch.log(picked.clamp_min(1e-30)).mean()))
+
+    mod.forward_backward = timed_forward_backward
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    mod.fit(it, eval_metric=mx.metric.Perplexity(0), optimizer="sgd",
+            optimizer_params={"learning_rate": cfg["lr"], "momentum": 0.0,
+                              "wd": cfg["wd"]},
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            num_epoch=2, batch_end_callback=[step_end])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    torch.backends.cudnn.allow_tf32 = True
+    per_epoch = cfg["per_bucket"] * len(cfg["buckets"])
+    print("  %s: %d steps, %d buckets bound; losses first %.4f last %.4f; "
+          "step_ms %s" % ("FusedRNNCell" if fused else "LSTMCell stack",
+                          len(step_ms), len(mod._buckets), losses[0],
+                          losses[-1], ["%.2f" % v for v in step_ms]),
+          flush=True)
+    if len(step_ms) != 2 * per_epoch or not _losses_ok(losses) or \
+            len(mod._buckets) != len(cfg["buckets"]) or any(counts.values()):
+        raise AssertionError("bucketing (fused=%s): %d steps, losses %s, "
+                             "buckets %s, launches %s"
+                             % (fused, len(step_ms), losses,
+                                sorted(mod._buckets), counts))
+    return {"bucket_step_ms": _median(step_ms[per_epoch:]),
+            "first_epoch_ms": _median(step_ms[:per_epoch]),
+            "steps": per_epoch, "buckets": len(mod._buckets),
+            "wall_s": wall_s}, counts
+
+
+def time_rnn_op(dev):
+    """Phase 4, beside the kernel rows: the fused ``RNN`` op at phase 3i's
+    LSTM (T 35, batch 32, 650 in, 650 hidden, 2 layers, f32, TF32 off),
+    forward plus backward (the gradients of input and flat parameters),
+    through cuDNN (``torch._VF.lstm`` on views of the flat vector, which
+    cuDNN copies into its own layout each call) beside the plain step
+    loop, ``torch.nn.LSTM`` (cuDNN over its own packed weights, the same
+    values) and the bound: the GEMM FLOPs (forward, and twice that
+    backward) over the f32 CUDA cores' 67 TFLOP/s; CUDA events.  The
+    cuDNN route is first held to the plain loop (1e-4 of each tensor's
+    largest magnitude)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, n, c, h, layers = (WORDLM["bptt"], WORDLM["batch"], WORDLM["emsize"],
+                          WORDLM["nhid"], WORDLM["nlayers"])
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    size = rnn_ops.rnn_param_size(layers, c, h, "lstm")
+    x = torch.randn(t, n, c, generator=g, device=dev).requires_grad_()
+    w = ((torch.rand(size, generator=g, device=dev) - 0.5) * 0.1) \
+        .requires_grad_()
+    h0 = torch.zeros(layers, n, h, device=dev)
+    gout = torch.randn(t, n, h, generator=g, device=dev)
+
+    def fwd_bwd(fn):
+        out = fn(x, w, h0, h0, h, layers, "lstm")
+        return (out,) + torch.autograd.grad(out, (x, w), gout)
+
+    for name, got, want in zip(("out", "dx", "dparams"),
+                               fwd_bwd(rnn_ops.rnn),
+                               fwd_bwd(rnn_ops.rnn_plain)):
+        _check("RNN op %s (cuDNN vs plain loop)" % name, got, want, 1e-4)
+    lib = torch.nn.LSTM(c, h, layers).to(dev)
+    with torch.no_grad():
+        flat = [p for layer in rnn_ops.unpack_params(w, layers, c, h, "lstm",
+                                                     1) for p in layer]
+        for p, v in zip(lib._flat_weights, flat):
+            p.copy_(v)
+
+    def library():
+        out = lib(x, (h0, h0))[0]
+        torch.autograd.grad(out, [x] + list(lib.parameters()), gout)
+
+    ms = _time_ms(lambda: fwd_bwd(rnn_ops.rnn), 20)
+    plain_ms = _time_ms(lambda: fwd_bwd(rnn_ops.rnn_plain), 3)
+    library_ms = _time_ms(library, 20)
+    flops = sum(2 * t * n * 4 * h * ((c if i == 0 else h) + h)
+                for i in range(layers)) * 3
+    row = dict(shape="LSTM T %d N %d C %d H %d x%d f32" % (t, n, c, h, layers),
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=flops / PEAK_F32 * 1e3, bound_by="operations",
+               gflop=flops / 1e9)
+    print("  RNN op %-30s ms %.4f  plain %.4f  nn.LSTM %.4f (op/library "
+          "%.3f)  bound %.4f (%.2f GFLOP, %.2fx)" % (
+              row["shape"], ms, plain_ms, library_ms, ms / library_ms,
+              row["bound_ms"], row["gflop"], ms / row["bound_ms"]),
+          flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    return row
+
+
 def time_lenet_pools(dev):
     """Phase 4: K3 at LeNet's two pool shapes (f32, batch 64) beside its
     plain version, ``F.max_pool2d(return_indices=True)`` and its byte
@@ -2433,6 +2734,78 @@ def mnist_card_vs_cpu(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+#: phase 5e's shapes: a small WordLM (the CPU runs it too)
+WORDLM_SMALL = dict(vocab=256, emsize=64, nhid=128, nlayers=2, batch=8,
+                    bptt=16)
+#: phase 5e's limits: logits within 1e-5 of their largest magnitude (at
+#: least 1), updates within 4x the nudged CPU run's plus 1e-4
+WORDLM_STATS_LIMIT, WORDLM_FLOOR_ADD = 1e-5, 1e-4
+
+
+def word_lm_card_vs_cpu(dev):
+    """Phase 5e: one f32 step (TF32 off) of ``train_torch.py``'s WordLM at
+    ``WORDLM_SMALL`` through its ``build`` and ``train_step`` on the card
+    and on the CPU from the card's weights (copied by name), and on the
+    CPU from weights nudged by 1e-6: the logits before the step, the loss
+    and the updates (sgd's: the gradients times -lr / batch, compared as
+    the gradients) held to the noise floor (``WORDLM_STATS_LIMIT``,
+    ``WORDLM_FLOOR_ADD``).  The same step with TF32 on is printed beside
+    it."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import convert
+
+    ex = _word_lm_module()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _word_lm_args(ex, WORDLM_SMALL)
+    data = ex.corpus_rows(args)
+    where = {"cuda": dev, "cuda_tf32": dev, "cpu": mx.cpu(),
+             "cpu_nudged": mx.cpu()}
+    built = {d: ex.build(args, w) for d, w in where.items()}
+    start = {k: p.data().asnumpy()
+             for k, p in built["cuda"][0].collect_params().items()}
+    nudge = np.random.RandomState(SEED + 3)
+    for d in ("cuda_tf32", "cpu", "cpu_nudged"):
+        arrays = start if d != "cpu_nudged" else {
+            k: (v * (1 + 1e-6 * nudge.normal(size=v.shape))).astype(v.dtype)
+            for k, v in start.items()}
+        convert.params_from_gluon(built[d][0], arrays)
+    losses, logits, after = {}, {}, {}
+    for d, (net, trainer, loss_fn) in built.items():
+        tf32 = d == "cuda_tf32"
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        x, y = ex.batch(data, 0, args.bptt, where[d])
+        logits[d] = net(x).asnumpy()
+        losses[d] = float(ex.train_step(net, trainer, loss_fn, x, y,
+                                        args).asscalar())
+        # sgd's update is -lr / batch times the gradient: compared as the
+        # gradient, free of the cancellation in after - before
+        after[d] = [p.grad().asnumpy()
+                    for p in net.collect_params().values()]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def rel(d):
+        return np.array([float(np.abs(a - b).max())
+                         / max(float(np.abs(b).max()), 1e-30)
+                         for a, b in zip(after[d], after["cpu"])])
+
+    limits = dict(stats_name="logits", stats_limit=WORDLM_STATS_LIMIT,
+                  floor_add=WORDLM_FLOOR_ADD)
+    _hold_to_noise_floor(losses, rel("cuda"), rel("cpu_nudged"),
+                         [(logits["cuda"], logits["cpu"])], **limits)
+    print("  the same step with TF32 on (printed, not gated):", flush=True)
+    passed = _noise_floor_gate(dict(losses, cuda=losses["cuda_tf32"]),
+                               rel("cuda_tf32"), rel("cpu_nudged"),
+                               [(logits["cuda_tf32"], logits["cpu"])],
+                               **limits)
+    print("  TF32 on %s phase 5e's limits" % ("passes" if passed else
+                                              "fails"), flush=True)
+
+
 def main(argv=None):
     import argparse
 
@@ -2591,6 +2964,42 @@ def main(argv=None):
     print("[3h] phase wall time %.2f s" % (time.perf_counter() - t_mnist),
           flush=True)
 
+    print("[3i] the word LM: example/rnn/word_lm/train_torch.py through its "
+          "functions, vocab %d, embedding %d, hidden %d, %d LSTM layers, "
+          "batch %d, bptt %d, f32 (TF32 off), sgd lr %g, %d steps"
+          % (WORDLM["vocab"], WORDLM["emsize"], WORDLM["nhid"],
+             WORDLM["nlayers"], WORDLM["batch"], WORDLM["bptt"],
+             WORDLM["lr"], WORDLM["steps"]), flush=True)
+    t_rnn = time.perf_counter()
+    wl, _ = run_word_lm_path(dev)
+    print("[3i] wordlm_step_ms %.2f (median of steps 3-%d, the loss read "
+          "back each step)  %.1f tokens/s  first window's loss %.7f -> %.7f "
+          "after the steps; no kernel launches  on %s"
+          % (wl["wordlm_step_ms"], WORDLM["steps"], wl["tokens_s"],
+             wl["first"], wl["again"], card), flush=True)
+    torch.cuda.empty_cache()
+    print("[3i-ii] BucketingModule over BucketSentenceIter: vocab %d, "
+          "embedding %d, hidden %d, %d LSTM layers, batch %d, buckets %s, "
+          "%d batches a bucket, Module.fit two epochs (sgd lr %g, wd %g, "
+          "Perplexity), the unrolled LSTMCell stack then FusedRNNCell"
+          % (BUCKETING["vocab"], BUCKETING["num_embed"],
+             BUCKETING["num_hidden"], BUCKETING["num_layers"],
+             BUCKETING["batch"], list(BUCKETING["buckets"]),
+             BUCKETING["per_bucket"], BUCKETING["lr"], BUCKETING["wd"]),
+          flush=True)
+    for fused in (False, True):
+        bk, _ = run_bucketing_path(dev, fused)
+        print("[3i-ii] %s bucket_step_ms %.2f (median of the second "
+              "epoch's %d steps, forward_backward + update + "
+              "update_metric; the first epoch's, binding included, %.2f)  "
+              "buckets bound %d  fit %.2f s  no kernel launches  on %s"
+              % ("FusedRNNCell" if fused else "LSTMCell stack",
+                 bk["bucket_step_ms"], bk["steps"], bk["first_epoch_ms"],
+                 bk["buckets"], bk["wall_s"], card), flush=True)
+    torch.cuda.empty_cache()
+    print("[3i] phases 3i and 3i-ii wall time %.2f s"
+          % (time.perf_counter() - t_rnn), flush=True)
+
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "
           "attention by CUDA events)", flush=True)
@@ -2603,6 +3012,10 @@ def main(argv=None):
     time_zoo_pools(dev)
     print("[4] K3 at LeNet's pool shapes (flushed)", flush=True)
     time_lenet_pools(dev)
+    print("[4] the fused RNN op at phase 3i's LSTM, forward + backward "
+          "(cuDNN through torch._VF: a library route, not a kernel row; "
+          "CUDA events)", flush=True)
+    time_rnn_op(dev)
     rows.update(time_flash(dev))
     print("[4c] K7 at the 9 ResNet-50 BN shapes (batch 256, bf16) beside "
           "copy_, K1 and K2; R1 beside torch.add; R2 at the nd path's "
@@ -2630,6 +3043,12 @@ def main(argv=None):
     print("[5d] one f32 step of train_mnist_torch.py's LeNet Module at "
           "batch 16: card against CPU", flush=True)
     mnist_card_vs_cpu(dev)
+    print("[5e] one f32 step of train_torch.py's WordLM (vocab %d, "
+          "embedding %d, hidden %d, batch %d, bptt %d): card against CPU"
+          % (WORDLM_SMALL["vocab"], WORDLM_SMALL["emsize"],
+             WORDLM_SMALL["nhid"], WORDLM_SMALL["batch"],
+             WORDLM_SMALL["bptt"]), flush=True)
+    word_lm_card_vs_cpu(dev)
 
     here = os.path.dirname(os.path.abspath(__file__))
     meta = {

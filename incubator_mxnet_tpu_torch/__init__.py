@@ -15,13 +15,15 @@ Gluon training surface: ``mx.gluon`` (``Parameter``, ``Block``/
 ``mx.kv``; and the symbolic path: ``mx.sym`` (graphs of the registered
 ops), the ``Executor`` that ``bind``/``simple_bind`` make, ``mx.mod``
 (``Module``), ``mx.model`` (checkpoints), ``mx.callback``,
-``mx.monitor``, ``mx.name`` and ``mx.attribute``.
+``mx.monitor``, ``mx.name`` and ``mx.attribute``; and the recurrent
+path: the fused ``RNN`` op, ``mx.gluon.rnn``, the legacy ``mx.rnn`` cells
+with ``BucketSentenceIter``, and ``mx.mod.BucketingModule``.
 """
 from . import ops  # noqa: F401  (first: parallel.train_step imports ndarray)
 from . import (attribute, autograd, callback, context, executor, gluon,
                initializer, io, kvstore, lr_scheduler, metric, model, module,
                monitor, name, ndarray, optimizer, parallel, random, recordio,
-               rtc, symbol)
+               rnn, rtc, symbol)
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -34,4 +36,4 @@ __all__ = ["attribute", "autograd", "callback", "context", "executor",
            "gluon", "init", "initializer", "io", "kv", "kvstore",
            "lr_scheduler", "metric", "mod", "model", "module", "monitor",
            "name", "ndarray", "nd", "optimizer", "parallel", "random",
-           "recordio", "rtc", "sym", "symbol", "cpu", "gpu", "NDArray"]
+           "recordio", "rnn", "rtc", "sym", "symbol", "cpu", "gpu", "NDArray"]

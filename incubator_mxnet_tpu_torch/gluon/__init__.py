@@ -1,8 +1,8 @@
 """Gluon (port of ``incubator_mxnet_tpu/gluon``): ``Parameter``,
 ``ParameterDict``, ``Constant``, ``Block``/``HybridBlock`` over
-``torch.nn.Module``, ``Trainer``, the layers, losses and the model
-zoo."""
-from . import block, loss, model_zoo, nn, parameter, trainer
+``torch.nn.Module``, ``Trainer``, the layers, the recurrent layers and
+cells (``gluon.rnn``), losses and the model zoo."""
+from . import block, loss, model_zoo, nn, parameter, rnn, trainer
 from .block import Block, HybridBlock, shape_init
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
@@ -10,4 +10,4 @@ from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError", "Trainer", "block", "loss",
-           "model_zoo", "nn", "parameter", "trainer", "shape_init"]
+           "model_zoo", "nn", "parameter", "rnn", "trainer", "shape_init"]

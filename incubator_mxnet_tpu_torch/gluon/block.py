@@ -272,15 +272,21 @@ class HybridBlock(Block):
     def __call__(self, *args, **kwargs):
         if not (_is_nd(args) or _is_nd(tuple(kwargs.values()))):
             return super().__call__(*args, **kwargs)
+        return self._on_tensors(super().__call__, args, kwargs)
+
+    def _on_tensors(self, fn, args, kwargs):
+        """``fn`` (this block's work on tensors) on the tensors of NDArray
+        arguments, with grad mode on only inside ``autograd.record()``
+        and train mode from ``autograd.is_training()``; its tensors come
+        back as NDArrays."""
         training = autograd.is_training()
         was = self.training
         if was != training:
             self.train(training)
         try:
             with torch.set_grad_enabled(autograd.is_recording()):
-                out = super().__call__(*_to_tensors(args),
-                                       **{k: _to_tensors(v)
-                                          for k, v in kwargs.items()})
+                out = fn(*_to_tensors(args),
+                         **{k: _to_tensors(v) for k, v in kwargs.items()})
         finally:
             if was != training:
                 self.train(was)

@@ -1,6 +1,7 @@
 """Basic layers (port of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``):
-``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``, ``Flatten``
-and ``HybridLambda``, as ``HybridBlock``s.  Parameters are made inside
+``Sequential`` and ``Lambda`` (``Block``s), ``HybridSequential``,
+``Dense``, ``Dropout``, ``BatchNorm``, ``Embedding``, ``Flatten`` and
+``HybridLambda``, as ``HybridBlock``s.  Parameters are made inside
 ``name_scope()`` with the reference's names and initializers, on
 ``device`` (default: the enclosing ``context.device_scope``, else the
 CUDA card); ``initialize`` fills them.  A width left at 0 is deferred to
@@ -11,29 +12,20 @@ import math
 
 from ... import context
 from ...ops import nn as ops
-from ..block import F, Deferred, HybridBlock
+from ...ops import tensor as tensor_ops
+from ..block import F, Block, Deferred, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "Flatten",
-           "HybridLambda"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "Embedding", "Flatten", "Lambda", "HybridLambda"]
 
 
-class HybridSequential(HybridBlock):
-    """Children run in order; a tuple output (a dual block exit) is handed
-    to the next child as one value.  Blocks given positionally are
-    added."""
-
-    def __init__(self, *blocks, prefix=None, params=None):
-        super().__init__(prefix=prefix, params=params)
-        self.add(*blocks)
+class _Stack:
+    """The children in order: ``add``, ``len``, indexing and slicing (a
+    slice is a new stack of the same type over the same blocks)."""
 
     def add(self, *blocks):
         for b in blocks:
             self.register_child(b)
-
-    def forward(self, x):
-        for child in self._modules.values():
-            x = child(x)
-        return x
 
     def __len__(self):
         return len(self._modules)
@@ -46,6 +38,36 @@ class HybridSequential(HybridBlock):
 
     def __iter__(self):
         return iter(self._modules.values())
+
+
+class Sequential(_Stack, Block):
+    """Children run in order, on whatever they are given (NDArrays: each
+    ``HybridBlock`` child records on the port's autograd).  Blocks given
+    positionally are added."""
+
+    def __init__(self, *blocks, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.add(*blocks)
+
+    def forward(self, x):
+        for child in self._modules.values():
+            x = child(x)
+        return x
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """Children run in order; a tuple output (a dual block exit) is handed
+    to the next child as one value.  Blocks given positionally are
+    added."""
+
+    def __init__(self, *blocks, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.add(*blocks)
+
+    def forward(self, x):
+        for child in self._modules.values():
+            x = child(x)
+        return x
 
 
 class Dense(Deferred, HybridBlock):
@@ -160,21 +182,62 @@ class BatchNorm(Deferred, HybridBlock):
         return out
 
 
+class Embedding(HybridBlock):
+    """Rows of ``weight`` (input_dim, output_dim) at the input's indices
+    (any dtype; the registered ``Embedding`` op, ``jnp.take``'s answers
+    out of range).  ``sparse_grad`` is accepted and the gradient stays
+    dense, as in the reference."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, device=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._device = context.resolve(device)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True)
+
+    def forward(self, x):
+        return tensor_ops._embedding(x, self.weight, self._input_dim,
+                                     self._output_dim)
+
+
 class Flatten(HybridBlock):
     def forward(self, x):
         return ops.flatten(x)
 
 
-class HybridLambda(HybridBlock):
-    """``HybridLambda(function)``: ``function(F, x)`` with ``F`` the port's
-    registered ops on tensors (``F.clip``, ``F.Concat``, ...)."""
+class Lambda(Block):
+    """``Lambda(function)``: ``function(*inputs)`` on what the block is
+    given; a string names an ``mx.nd`` function (``"tanh"``)."""
 
     def __init__(self, function, prefix=None):
         super().__init__(prefix=prefix)
         if isinstance(function, str):
-            raise NotImplementedError(
-                "a named-op HybridLambda waits for ROADMAP item 1d")
+            from ... import ndarray as nd
+
+            function = getattr(nd, function)
         self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``HybridLambda(function)``: ``function(F, x)`` with ``F`` the port's
+    registered ops on tensors (``F.clip``, ``F.Concat``, ...); a string
+    names the registered op to apply (``"tanh"``, ``"relu"``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            op = getattr(F, function)
+            self._func = lambda _f, *args: op(*args)
+        else:
+            self._func = function
 
     def forward(self, *args):
         return self._func(F, *args)

@@ -1,6 +1,7 @@
-"""``mx.mod``: the Module API (port of ``incubator_mxnet_tpu/module``).
-``BucketingModule`` waits for ROADMAP A16."""
+"""``mx.mod``: the Module API (port of ``incubator_mxnet_tpu/module``):
+``Module`` and ``BucketingModule``."""
 from .base_module import BaseModule, BatchEndParam
+from .bucketing_module import BucketingModule
 from .module import Module
 
-__all__ = ["BaseModule", "BatchEndParam", "Module"]
+__all__ = ["BaseModule", "BatchEndParam", "Module", "BucketingModule"]

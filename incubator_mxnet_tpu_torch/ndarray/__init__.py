@@ -26,7 +26,8 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "onehot_encode", "utils"]
 
 # optional tensor inputs the reference names in its signatures
-_OPTIONAL_INPUTS = ("bias", "gamma", "sequence_length", "label_lengths",
+_OPTIONAL_INPUTS = ("bias", "gamma", "state_cell", "sequence_length",
+                    "label_lengths",
                     "data_lengths", "r1_r2", "min_bias", "max_bias",
                     "valid_length", "max_time")
 

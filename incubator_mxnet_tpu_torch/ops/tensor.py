@@ -269,6 +269,41 @@ def _one_hot(indices, depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
     return oh * (on_value - off_value) + off_value
 
 
+@register("where", num_inputs=3)
+def _where(condition, x, y):
+    return torch.where(condition.to(torch.bool), x, y)
+
+
+def _fill_value(dtype):
+    """``jnp.take``'s fill for an index out of range: NaN for a floating
+    dtype, the most negative value for a signed one, the largest for an
+    unsigned one."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+@register("Embedding", num_inputs=2)
+def _embedding(data, weight, input_dim=None, output_dim=None,
+               dtype="float32", sparse_grad=False):
+    """Rows of ``weight`` at ``data`` (any dtype, truncated to an integer
+    as the reference's ``astype(int32)``): ``jnp.take(weight, idx,
+    axis=0)``, so an index in [-input_dim, 0) counts from the end and one
+    outside [-input_dim, input_dim) gives a row of NaN (of the most
+    negative integer for an integer weight), whose gradient is dropped.
+    ``sparse_grad`` is accepted; the gradient stays dense, as in the
+    reference."""
+    n = weight.shape[0]
+    idx = data.to(torch.int32).to(torch.long)
+    valid = (idx >= -n) & (idx < n)
+    safe = torch.where(valid, torch.remainder(idx, n), 0)
+    rows = torch.nn.functional.embedding(safe, weight)
+    return torch.where(valid.unsqueeze(-1), rows, torch.full(
+        (), _fill_value(weight.dtype), dtype=weight.dtype,
+        device=weight.device))
+
+
 # ---------------------------------------------------------------------------
 # init ops (tensor.py :334-370)
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Seeded random numbers (port of ``incubator_mxnet_tpu/rng.py``,
 ``random.py`` and the ``_random_uniform``/``_random_normal``/
-``_random_randint`` ops of ``ops/random_ops.py``).
+``_random_randint``/``bernoulli`` ops of ``ops/random_ops.py``).
 
 MXNet keeps one generator per device, seeded by ``mx.random.seed``; so
 does the port: one ``torch.Generator`` per ``torch.device``, made at
@@ -86,3 +86,12 @@ def _randint(low=0, high=1, shape=None, ctx=None, dtype="int32"):
     return torch.randint(int(low), int(high), _shape(shape),
                          generator=generator(dev), device=dev,
                          dtype=torch_dtype(dtype or "int32"))
+
+
+@register("bernoulli", num_inputs=0, differentiable=False)
+def _bernoulli(prob=0.5, shape=None, dtype="float32", ctx=None):
+    """1 with probability ``prob``, else 0 (the reference's
+    ``jax.random.bernoulli``), from the port's generator of ``ctx``."""
+    dev = context.resolve(ctx)
+    u = torch.rand(_shape(shape), generator=generator(dev), device=dev)
+    return (u < prob).to(_dtype(dtype))

@@ -41,6 +41,8 @@ def _compose_num_outputs(opname, attrs):
         return 2
     if opname in ("BatchNorm", "batch_norm") and attrs.get("output_mean_var"):
         return 3
+    if opname == "RNN" and attrs.get("state_outputs"):
+        return 3 if attrs.get("mode", "lstm") == "lstm" else 2
     return 1
 
 

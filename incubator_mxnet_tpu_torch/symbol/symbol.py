@@ -554,6 +554,8 @@ def _param_shape_rules(node: _Node, data_shape, known):
         c = data_shape[int(a.get("axis", 1))]
         out["gamma"] = out["beta"] = (c,)
         out["moving_mean"] = out["moving_var"] = (c,)
+    elif op == "Embedding":
+        out["weight"] = (int(a.get("input_dim")), int(a.get("output_dim")))
     elif op in ("SoftmaxOutput", "Softmax", "softmax_output"):
         if a.get("multi_output"):
             out["label"] = (data_shape[0],) + tuple(data_shape[2:])
@@ -561,6 +563,17 @@ def _param_shape_rules(node: _Node, data_shape, known):
             out["label"] = tuple(data_shape[:-1])
         else:
             out["label"] = (data_shape[0],)
+    elif op == "RNN":
+        from ..ops import rnn as rnn_ops
+
+        layers, hidden = int(a.get("num_layers", 1)), int(a.get("state_size"))
+        bidirectional = bool(a.get("bidirectional", False))
+        out["parameters"] = (rnn_ops.rnn_param_size(
+            layers, data_shape[-1], hidden, a.get("mode", "lstm"),
+            bidirectional),)
+        out["state"] = (layers * (2 if bidirectional else 1), data_shape[1],
+                        hidden)
+        out["state_cell"] = out["state"]
     return out
 
 

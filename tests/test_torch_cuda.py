@@ -23,7 +23,10 @@ tensors are exact.  The symbolic path: K3 exact at LeNet's two pool
 shapes; the max pools outside K3 (1 and 144 window slots, f16, int8)
 exact against the CPU with no K3 launch; one LeNet Module step on the
 card against the CPU within the noise floor of ``chip_smoke.py`` phase
-5d.
+5d.  The recurrent path: the fused ``RNN`` op through cuDNN against its
+plain step loop in every mode (1e-4, the same dropout masks), the
+``Embedding`` op's out-of-range rows, and one word-LM step card against
+CPU within the noise floor of phase 5e; none launches a kernel.
 """
 import importlib
 
@@ -1045,3 +1048,63 @@ def test_lenet_module_step_card_matches_cpu(dev, monkeypatch):
     before = _kernels.launch_counts()["maxpool_idx_fwd"]
     _smoke().mnist_card_vs_cpu(dev)
     assert _kernels.launch_counts()["maxpool_idx_fwd"] == before + 4
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_op_cudnn_matches_plain(dev, monkeypatch, mode):
+    """The fused RNN op through cuDNN against its plain step loop on the
+    card (f32, TF32 off): 2 layers, two directions, a batch-1 begin
+    state; output, final states and the gradients of input, flat vector
+    and states within 1e-4; with dropout in training both routes draw
+    the same masks from equal generators; no kernel of the port
+    launched."""
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=dev).manual_seed(3)
+    t, n, c, h = 7, 5, 9, 6
+    size = rnn_ops.rnn_param_size(2, c, h, mode, True)
+    x = torch.randn(t, n, c, generator=g, device=dev)
+    w = (torch.rand(size, generator=g, device=dev) - 0.5)
+    hs = torch.randn(4, 1, h, generator=g, device=dev)
+    cs = torch.randn(4, 1, h, generator=g, device=dev)
+    before = _kernels.launch_counts()
+    for p, training in ((0.0, False), (0.3, True)):
+        res = []
+        for fn in (rnn_ops.rnn, rnn_ops.rnn_plain):
+            ins = [v.clone().requires_grad_() for v in (x, w, hs, cs)]
+            outs = fn(*ins, state_size=h, num_layers=2, mode=mode,
+                      bidirectional=True, p=p, state_outputs=True,
+                      training=training,
+                      generator=torch.Generator(device=dev).manual_seed(9))
+            sum((o * torch.cos(o)).sum() for o in outs).backward()
+            res.append(list(outs) + [v.grad if v.grad is not None
+                                     else torch.zeros_like(v) for v in ins])
+        for a, b in zip(*res):
+            _close(a, b, 1e-4)
+    assert _kernels.launch_counts() == before
+
+
+def test_embedding_out_of_range_on_card(dev):
+    """Indices outside [-n, n) give NaN rows on the card too (no device
+    assert), negative ones count from the end; card equals CPU."""
+    from incubator_mxnet_tpu_torch.ops import tensor
+
+    w = torch.arange(12.0).reshape(4, 3)
+    idx = torch.tensor([[0.0, 3.5, -1.0], [4.0, -5.0, 2.0]])
+    cpu = tensor._embedding(idx, w)
+    card = tensor._embedding(idx.to(dev), w.to(dev)).cpu()
+    assert torch.equal(torch.isnan(card), torch.isnan(cpu))
+    assert torch.equal(card.nan_to_num(), cpu.nan_to_num())
+    assert torch.isnan(card[1, :2]).all() and torch.equal(card[0, 2], w[3])
+
+
+def test_word_lm_step_card_matches_cpu(dev):
+    """chip_smoke.py phase 5e: one f32 step of train_torch.py's WordLM
+    (vocab 256, 64/128 wide, batch 8, bptt 16) on the card against the
+    CPU, held to the CPU's nudged-weights noise floor; no kernel of the
+    port launched."""
+    before = _kernels.launch_counts()
+    _smoke().word_lm_card_vs_cpu(dev)
+    assert _kernels.launch_counts() == before

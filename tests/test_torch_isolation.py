@@ -30,6 +30,7 @@ for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                     "example/gluon/image_classification_torch.py"),
                    ("train_mnist_torch",
                     "example/image_classification/train_mnist_torch.py"),
+                   ("word_lm_train_torch", "example/rnn/word_lm/train_torch.py"),
                    ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -75,6 +76,28 @@ def _example_mnist():
     return mod
 
 
+def _example_word_lm():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_word_lm_train_torch", os.path.join(
+            ROOT, "example", "rnn", "word_lm", "train_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bucketing_bind():
+    from incubator_mxnet_tpu_torch import mod, symbol
+
+    def sym_gen(key):
+        return symbol.FullyConnected(symbol.var("data"), num_hidden=2), \
+            ("data",), ()
+
+    m = mod.BucketingModule(sym_gen, default_bucket_key=3)
+    m.bind(data_shapes=[("data", (2, 3))])
+
+
 def _fc():
     from incubator_mxnet_tpu_torch import symbol
 
@@ -97,6 +120,13 @@ def _no_card(monkeypatch):
     lambda: _fc().simple_bind(None, data=(2, 3)),
     lambda: _example_mnist().main(["--num-epochs", "1", "--data-dir",
                                    "/nonexistent"]),
+    lambda: _example_word_lm().main(["--epochs", "1"]),
+    lambda: __import__("incubator_mxnet_tpu_torch").gluon.rnn.LSTM(4),
+    lambda: __import__("incubator_mxnet_tpu_torch").gluon.rnn.GRUCell(4),
+    lambda: tnn.Embedding(5, 3),
+    lambda: __import__("incubator_mxnet_tpu_torch").rnn.BucketSentenceIter(
+        [[1, 2, 3], [2, 3, 4]], 2, buckets=[3]),
+    _bucketing_bind,
 ])
 def test_entry_points_refuse_cpu_without_asking(monkeypatch, build):
     _no_card(monkeypatch)

@@ -22,9 +22,13 @@ resident batch.
 ``--model lm``: ``example/long_context/train_lm_torch.py``'s
 ``LongContextLM`` at dim 1024, 8 heads, seq 2048, batch 4, 2 layers,
 vocab 256, f32 (TF32 off), its update at lr 0.01.
+``--model wordlm``: ``example/rnn/word_lm/train_torch.py``'s ``train_step``
+(``autograd.record()``, ``Trainer("sgd")``, the loss read back) at the
+upstream medium model's widths (vocab 10000, embedding and hidden 650, 2
+LSTM layers, batch 32, bptt 35), f32 (TF32 off), on its first window.
 
 Run on the card: ``python3 tools/torch_profile_step.py [--model
-imagenet|lm]``.
+imagenet|lm|wordlm]``.
 """
 import argparse
 import importlib.util
@@ -76,6 +80,16 @@ CATEGORIES = {
                                 "sm90")),
         ("reduction", ("reduce", "Reduce")),
         ("layout copy", ("copy", "transpose")),
+        ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ],
+    "wordlm": [
+        ("RNN (cuDNN)", ("RNN", "rnn", "LSTM", "lstm")),
+        ("gemm (cuBLAS, f32)", ("gemm", "cutlass", "cublas", "xmma",
+                                "sm90")),
+        ("embedding", ("embedding", "index")),
+        ("softmax, loss", ("softmax", "nll")),
+        ("reduction", ("reduce", "Reduce")),
+        ("layout copy", ("copy", "transpose", "cat")),
         ("elementwise", ("elementwise", "vectorized", "unrolled")),
     ],
 }
@@ -153,6 +167,28 @@ def lm_step(dev):
             % (LM["dim"], LM["heads"], LM_SEQ, LM_BATCH, LM["n_layers"]))
 
 
+def wordlm_step(dev):
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "word_lm_train_torch",
+        os.path.join(ROOT, "example", "rnn", "word_lm", "train_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = ex.parse_args(["--vocab", "10000", "--emsize", "650", "--nhid",
+                          "650", "--nlayers", "2", "--batch-size", "32",
+                          "--bptt", "35"])
+    data = ex.corpus_rows(args)
+    net, trainer, loss_fn = ex.build(args, dev)
+    x, y = ex.batch(data, 0, args.bptt, dev)
+    return (lambda: ex.train_step(net, trainer, loss_fn, x, y,
+                                  args).asscalar(),
+            "WordLM vocab 10000, embedding 650, hidden 650, 2 LSTM layers, "
+            "batch 32, bptt 35, f32")
+
+
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -165,7 +201,7 @@ def main():
         return 2
     dev = torch.device("cuda", 0)
     run, label = {"resnet": resnet_step, "imagenet": imagenet_step,
-                  "lm": lm_step}[args.model](dev)
+                  "lm": lm_step, "wordlm": wordlm_step}[args.model](dev)
     for _ in range(WARMUP):
         run()
     torch.cuda.synchronize()
