@@ -142,6 +142,24 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    unrolled ``mx.rnn.LSTMCell`` stack and with ``FusedRNNCell``: losses
    finite, all 6 buckets bound, no kernel launches; ``bucket_step_ms``
    of each (median of the second epoch);
+3j. SSD detection (graded config 5): ``example/ssd/train_torch.py``
+   through its own functions at the JAX example's defaults (``SSD``:
+   TinySSD, batch 16, 32 px, 192 anchors, 60 batches of its synthetic
+   data, sgd lr 0.05), f32 with TF32 off, the counters set to 0 just
+   before: every loss finite, the mean loss of the last 20 batches below
+   the first 20's, the decode (16, 192, 6) with rows kept, no launch of
+   K1-K7, R1 or R2 (the path is cuDNN and torch ops); ``ssd_step_ms``
+   (median of steps 3-60) and img/s; 3j-ii, the multibox head at the
+   graded config's scale (``SSD300``: SSD300 over vgg16_reduced, 8732
+   anchors from six ``MultiBoxPrior`` maps, batch 32, 21 classes, 1-40
+   synthetic boxes an image, ``MultiBoxTarget`` with 3:1 hard negatives,
+   softmax, ``MultiBoxDetection`` with NMS 0.45 over the top 400):
+   ``multibox_target_ms`` and ``multibox_detection_ms`` (CUDA events,
+   median of 5; detection also without NMS), the launches a call, the
+   counts of positives, mined negatives, ignored anchors and kept
+   detections; the card held to the CPU (positive masks and class
+   targets equal, loc targets within 1e-5, kept detections equal but
+   rows within 1e-6 of a threshold, counted);
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -198,6 +216,10 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    from the same weights: the logits (within 1e-5), the loss and the
    updates held to the noise floor (4x plus 1e-4); the same step with
    TF32 on is printed beside it;
+5f. one f32 step (TF32 off) of ``example/ssd/train_torch.py``'s TinySSD
+   at batch 16, 32 px on the card and on the CPU from the same weights:
+   the heads' outputs (within 1e-5), the loss and the gradients held to
+   the noise floor (4x plus 1e-4);
 6. print the kernels' JSON line, the card line, and the result line.
 
 Tolerances of phase 2 (kernel against plain version on the same inputs):
@@ -1604,6 +1626,363 @@ def run_bucketing_path(dev, fused):
             "wall_s": wall_s}, counts
 
 
+# phase 3j: example/ssd/train_torch.py at the JAX example's defaults
+SSD = dict(batch=16, batches=60, lr=0.05, anchors=192)
+# phase 3j-ii: the multibox head at the graded config's scale: Apache
+# MXNet example/ssd, SSD300 over vgg16_reduced (symbol/symbol_factory.py:
+# six feature maps, their sizes, ratios and steps; train.py's --nms 0.45
+# and --nms_topk 400; MultiBoxTarget's settings of symbol_builder.py),
+# batch 32, 20 classes plus background, synthetic boxes
+_R3, _R5 = (1.0, 2.0, 0.5), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)
+SSD300 = dict(maps=(38, 19, 10, 5, 3, 1),
+              sizes=((.1, .141), (.2, .272), (.37, .447), (.54, .619),
+                     (.71, .79), (.88, .961)),
+              ratios=(_R3, _R5, _R5, _R5, _R3, _R3),
+              steps=(8, 16, 32, 64, 100, 300), image=300, anchors=8732,
+              batch=32, classes=20, max_boxes=40,
+              target=dict(overlap_threshold=0.5, negative_mining_ratio=3,
+                          negative_mining_thresh=0.5,
+                          minimum_negative_samples=0),
+              detection=dict(nms_threshold=0.45, nms_topk=400,
+                             threshold=0.01),
+              reps=5)
+#: phase 3j-ii's limits: loc targets within 1e-5 of their largest
+#: magnitude (at least 1); a kept row matches within 1e-5; a row differs
+#: between card and CPU only if its score or an IoU lies within 1e-6 of a
+#: threshold
+SSD300_LOC_LIMIT, SSD300_ROW_TOL, SSD300_NEAR = 1e-5, 1e-5, 1e-6
+
+
+def _ssd_module():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "example", "ssd", "train_torch.py")
+    spec = importlib.util.spec_from_file_location("ssd_train_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ssd_args(ex, batch, batches):
+    return ex.parse_args(["--batch-size", str(batch), "--batches",
+                          str(batches), "--lr", str(SSD["lr"])])
+
+
+def run_ssd_path(dev, rtc_kernels):
+    """Phase 3j: ``example/ssd/train_torch.py``'s loop through its own
+    functions (``build_net``: Xavier after ``random.seed(0)``,
+    ``shape_init``, ``Trainer("sgd", lr 0.05)``; ``train_step``:
+    ``MultiBoxPrior``, ``MultiBoxTarget`` under ``autograd.pause()``, the
+    softmax cross-entropy plus the masked L1 location loss, ``backward``,
+    ``trainer.step``) at the JAX example's defaults (``SSD``: batch 16,
+    60 batches of its synthetic data from numpy seed 0, 32 px), f32 with
+    TF32 off, each step synchronized; then ``decode`` of one more batch.
+    The counters of K1-K7, R1 and R2 are set to 0 just before and must
+    stay 0; every loss finite, the mean of the last 20 below the first
+    20's; the decode (16, 192, 6), finite, some rows kept.  Returns
+    metrics."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels, nd
+
+    ex = _ssd_module()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _ssd_args(ex, SSD["batch"], SSD["batches"])
+    net, trainer, cls_loss = ex.build_net(args, dev)
+    rng = np.random.RandomState(0)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    for k in rtc_kernels.values():
+        k.launches = 0
+    for _ in range(args.batches):
+        t0 = time.perf_counter()
+        imgs, labels = ex.synthetic_batch(rng, args.batch_size)
+        losses.append(ex.train_step(net, trainer, cls_loss,
+                                    nd.array(imgs, ctx=dev),
+                                    nd.array(labels, ctx=dev)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    imgs, _ = ex.synthetic_batch(rng, args.batch_size)
+    t0 = time.perf_counter()
+    dets = ex.decode(net, imgs, dev)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    counts = _kernels.launch_counts()
+    counts.update({n: k.launches for n, k in rtc_kernels.items()})
+    torch.backends.cudnn.allow_tf32 = True
+    losses = [float(v.asscalar()) for v in losses]
+    dets = dets.asnumpy()
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    kept = int((dets[..., 0] >= 0).sum())
+    print("  losses every 10th %s; mean of the first 20 %.6f, of the last "
+          "20 %.6f" % (["%.6f" % v for v in losses[::10]], first, last),
+          flush=True)
+    print("  step_ms %s" % ["%.2f" % v for v in step_ms[:8]], flush=True)
+    print("  decode %s in %.2f ms (the first call of MultiBoxDetection "
+          "here): %d rows kept of %d; launches %s" % (
+              dets.shape, decode_ms, kept, dets.shape[0] * dets.shape[1],
+              counts), flush=True)
+    if not (_losses_ok(losses) and last < first
+            and dets.shape == (args.batch_size, SSD["anchors"], 6)
+            and np.isfinite(dets).all() and kept > 0
+            and not any(counts.values())):
+        raise AssertionError("SSD path: losses %s, decode %s kept %d, "
+                             "launches %s" % (losses, dets.shape, kept,
+                                              counts))
+    steady = _median(step_ms[2:])
+    return {"ssd_step_ms": steady, "img_s": args.batch_size / steady * 1e3,
+            "first": first, "last": last, "decode_ms": decode_ms}
+
+
+def ssd300_anchors(mx, ctx):
+    """The anchors of SSD300's six feature maps: one ``MultiBoxPrior`` a
+    map on zeros of its size, concatenated: (1, 8732, 4)."""
+    parts = []
+    for s, sizes, ratios, step in zip(SSD300["maps"], SSD300["sizes"],
+                                      SSD300["ratios"], SSD300["steps"]):
+        st = step / SSD300["image"]
+        parts.append(mx.nd.contrib.MultiBoxPrior(
+            mx.nd.zeros((1, 1, s, s), ctx=ctx), sizes=sizes, ratios=ratios,
+            steps=(st, st)))
+    return mx.nd.concat(*parts, dim=1)
+
+
+def ssd300_inputs():
+    """32 images' labels (1-40 synthetic boxes each of 20 classes, padded
+    with -1), class logits (32, 21, 8732) and location predictions (32,
+    8732 * 4), from numpy seed ``SEED + 5``."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 5)
+    n, m, a = SSD300["batch"], SSD300["max_boxes"], SSD300["anchors"]
+    labels = np.full((n, m, 5), -1.0, np.float32)
+    for i in range(n):
+        k = rng.randint(1, m + 1)
+        xy = rng.rand(k, 2) * 0.8
+        wh = rng.rand(k, 2) * 0.35 + 0.03
+        labels[i, :k, 0] = rng.randint(0, SSD300["classes"], k)
+        labels[i, :k, 1:3] = xy
+        labels[i, :k, 3:5] = np.minimum(xy + wh, 1.0)
+    cls_pred = rng.standard_normal(
+        (n, SSD300["classes"] + 1, a)).astype(np.float32)
+    loc_pred = (rng.standard_normal((n, a * 4)) * 0.5).astype(np.float32)
+    return labels, cls_pred, loc_pred
+
+
+def _multibox_head(mx, ctx, labels, cls_pred, loc_pred, nms=True):
+    """Phase 3j-ii's pipeline on ``ctx``: anchors, ``MultiBoxTarget``,
+    softmax, ``MultiBoxDetection`` (NMS off when ``nms`` is false)."""
+    anchors = ssd300_anchors(mx, ctx)
+    lab = mx.nd.array(labels, ctx=ctx)
+    cp = mx.nd.array(cls_pred, ctx=ctx)
+    lp = mx.nd.array(loc_pred, ctx=ctx)
+    target = mx.nd.contrib.MultiBoxTarget(anchors, lab, cp,
+                                          **SSD300["target"])
+    prob = mx.nd.softmax(cp, axis=1)
+    det = dict(SSD300["detection"])
+    if not nms:
+        det["nms_threshold"] = 0.0
+    dets = mx.nd.contrib.MultiBoxDetection(prob, lp, anchors, **det)
+    return anchors, target, dets
+
+
+def _np_iou(box, boxes):
+    import numpy as np
+
+    il = np.maximum(box[0], boxes[:, 0])
+    it = np.maximum(box[1], boxes[:, 1])
+    ir = np.minimum(box[2], boxes[:, 2])
+    ib = np.minimum(box[3], boxes[:, 3])
+    inter = np.maximum(ir - il, 0) * np.maximum(ib - it, 0)
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    union = (box[2] - box[0]) * (box[3] - box[1]) + area - inter
+    return np.where(union > 0, inter / np.where(union > 0, union, 1), 0)
+
+
+def detections_agree(card, cpu, cand):
+    """Hold the card's detections (N, A, 6) to the CPU's: each image's
+    kept rows must match one for one (the same class id, score and box
+    within ``SSD300_ROW_TOL``), except rows whose score lies within
+    ``SSD300_NEAR`` of the score threshold or of the top-k boundary (the
+    last candidate's score in ``cand``, the CPU's rows with NMS off), or
+    whose IoU with a candidate box of its class lies within
+    ``SSD300_NEAR`` of the NMS threshold.  Returns the count of those
+    rows; raises on any other difference."""
+    import numpy as np
+
+    thr = SSD300["detection"]["threshold"]
+    nms = SSD300["detection"]["nms_threshold"]
+    excused = 0
+    for i in range(card.shape[0]):
+        a = card[i][card[i, :, 0] >= 0]
+        b = list(cpu[i][cpu[i, :, 0] >= 0])
+        left = []
+        for row in a:
+            hit = next((j for j, r in enumerate(b) if r[0] == row[0] and
+                        np.abs(r - row).max() <= SSD300_ROW_TOL), None)
+            if hit is None:
+                left.append(row)
+            else:
+                b.pop(hit)
+        c = cand[i][cand[i, :, 0] >= 0]
+        for row in left + b:
+            same = c[c[:, 0] == row[0]]
+            near_iou = np.abs(_np_iou(row[2:], same[:, 2:]) - nms) \
+                <= SSD300_NEAR
+            if not (abs(row[1] - thr) <= SSD300_NEAR
+                    or abs(row[1] - c[-1, 1]) <= SSD300_NEAR
+                    or near_iou.any()):
+                raise AssertionError(
+                    "image %d: detection row %s differs between card and "
+                    "CPU away from every threshold" % (i, row.tolist()))
+            excused += 1
+    return excused
+
+
+def _launches(fn):
+    """CUDA activities (kernels, copies, fills) of one call of ``fn`` and
+    their summed device time in ms, from torch.profiler's CUDA trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return len(evs), sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
+
+
+def _event_ms(fn, reps):
+    """The median over ``reps`` calls of ``fn`` (after one more) of CUDA
+    event time: one call's time, host syncs inside it included."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return _median(out)
+
+
+def run_multibox_ssd300(dev):
+    """Phase 3j-ii: the multibox head at SSD300's scale (``SSD300``),
+    forward only, through ``mx.nd.contrib``: 8732 anchors from six
+    ``MultiBoxPrior`` calls; ``MultiBoxTarget`` (overlap 0.5, hard
+    negatives 3:1 below 0.5) of 32 images' synthetic boxes against
+    seeded logits; softmax; ``MultiBoxDetection`` (NMS 0.45, top 400).
+    Times each op by CUDA events (median of ``reps``) and counts its
+    launches in one call (the profiler's CUDA activities), then holds the
+    card to the port's CPU run of the same inputs: positive masks and
+    class targets equal, loc targets within ``SSD300_LOC_LIMIT``, kept
+    detections as :func:`detections_agree` says.  Returns metrics."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+
+    labels, cls_pred, loc_pred = ssd300_inputs()
+    anchors = ssd300_anchors(mx, dev)
+    if anchors.shape != (1, SSD300["anchors"], 4):
+        raise AssertionError("SSD300 anchors %s" % (anchors.shape,))
+    lab = mx.nd.array(labels, ctx=dev)
+    cp = mx.nd.array(cls_pred, ctx=dev)
+    lp = mx.nd.array(loc_pred, ctx=dev)
+    prob = mx.nd.softmax(cp, axis=1)
+    det_kw = dict(SSD300["detection"])
+    off_kw = dict(det_kw, nms_threshold=0.0)
+
+    def target():
+        return mx.nd.contrib.MultiBoxTarget(anchors, lab, cp,
+                                            **SSD300["target"])
+
+    def detection():
+        return mx.nd.contrib.MultiBoxDetection(prob, lp, anchors, **det_kw)
+
+    def detection_no_nms():
+        return mx.nd.contrib.MultiBoxDetection(prob, lp, anchors, **off_kw)
+
+    reps = SSD300["reps"]
+    m = {"multibox_target_ms": _event_ms(target, reps),
+         "multibox_detection_ms": _event_ms(detection, reps),
+         "multibox_detection_no_nms_ms": _event_ms(detection_no_nms, reps)}
+    for name, fn in (("target", target), ("detection", detection),
+                     ("detection_no_nms", detection_no_nms)):
+        m[name + "_launches"], m[name + "_busy_ms"] = _launches(fn)
+    scores = prob.asnumpy()[:, 1:].max(1)
+    valid = (scores >= det_kw["threshold"]).sum(1)
+    m["nms_rows"] = int(min(det_kw["nms_topk"], valid.max()))
+
+    _, (loc_t, loc_mask, cls_t), dets = _multibox_head(
+        mx, dev, labels, cls_pred, loc_pred)
+    _, (cloc_t, cloc_mask, ccls_t), cdets = _multibox_head(
+        mx, mx.cpu(), labels, cls_pred, loc_pred)
+    _, _, cand = _multibox_head(mx, mx.cpu(), labels, cls_pred, loc_pred,
+                                nms=False)
+    cls_t, ccls_t = cls_t.asnumpy(), ccls_t.asnumpy()
+    m.update(positives=int(loc_mask.asnumpy().sum()) // 4,
+             negatives=int((cls_t == 0).sum()),
+             ignored=int((cls_t == -1).sum()),
+             kept=int((dets.asnumpy()[..., 0] >= 0).sum()))
+    print("  anchors %d; per image: positives %.1f, mined negatives %.1f, "
+          "ignored %.1f; kept detections %d of %d rows "
+          "(NMS over the top %d rows)" % (
+              anchors.shape[1], m["positives"] / SSD300["batch"],
+              m["negatives"] / SSD300["batch"],
+              m["ignored"] / SSD300["batch"], m["kept"], dets.size // 6,
+              m["nms_rows"]), flush=True)
+    if not (np.array_equal(loc_mask.asnumpy(), cloc_mask.asnumpy())
+            and np.array_equal(cls_t, ccls_t)):
+        raise AssertionError("MultiBoxTarget: positive masks or class "
+                             "targets differ between card and CPU")
+    _check("MultiBoxTarget loc_target card vs CPU", loc_t._data.cpu(),
+           cloc_t._data, SSD300_LOC_LIMIT)
+    m["excused"] = detections_agree(dets.asnumpy(), cdets.asnumpy(),
+                                    cand.asnumpy())
+    # the hard negatives are ranked in f64: how far an f32 ranking (the
+    # reference's) would have agreed between card and CPU here
+    positive = torch.from_numpy(cloc_mask.asnumpy()[:, ::4] > 0)
+    num_neg = torch.from_numpy((ccls_t == 0).sum(1))
+    mined, bits = {}, {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        for dt in (torch.float32, torch.float64):
+            p = torch.softmax(cp._data.to(d, dt), dim=1)[:, 0].cpu()
+            bits[name, dt] = p
+            order = torch.sort(torch.where(positive, math.inf, p), dim=1,
+                               stable=True).indices
+            mined[name, dt] = [set(order[i, :int(num_neg[i])].tolist())
+                                 for i in range(order.shape[0])]
+    for dt in (torch.float32, torch.float64):
+        print("  background probabilities in %s: %d of %d differ card vs "
+              "CPU; ranked in %s, the mined sets of %d of %d images differ"
+              % (str(dt)[6:], int((bits["card", dt] != bits["cpu", dt])
+                                  .sum()), bits["cpu", dt].numel(),
+                 str(dt)[6:], sum(a != b for a, b in zip(
+                     mined["card", dt], mined["cpu", dt])),
+                 SSD300["batch"]), flush=True)
+    print("  positive masks and class targets equal; detections equal "
+          "but %d rows within %.0e of a threshold" % (m["excused"],
+                                                       SSD300_NEAR),
+          flush=True)
+    del anchors, lab, cp, lp, prob, loc_t, loc_mask, dets
+    torch.cuda.empty_cache()
+    return m
+
+
 def time_rnn_op(dev):
     """Phase 4, beside the kernel rows: the fused ``RNN`` op at phase 3i's
     LSTM (T 35, batch 32, 650 in, 650 hidden, 2 layers, f32, TF32 off),
@@ -2806,6 +3185,67 @@ def word_lm_card_vs_cpu(dev):
                                               "fails"), flush=True)
 
 
+#: phase 5f's limits: the heads' outputs within 1e-5 of their largest
+#: magnitude (at least 1), the gradients within 4x the nudged CPU run's
+#: differences plus 1e-4
+SSD_STATS_LIMIT, SSD_FLOOR_ADD = 1e-5, 1e-4
+
+
+def ssd_card_vs_cpu(dev):
+    """Phase 5f: one f32 step (TF32 off) of ``train_torch.py``'s TinySSD
+    at batch 16 through its ``build_net`` and ``train_step`` on the card
+    and on the CPU from the card's weights (copied by name), and on the
+    CPU from weights nudged by 1e-6: the class and location heads before
+    the step, the loss and the gradients (sgd's update is -lr / batch
+    times the gradient) held to the noise floor (``SSD_STATS_LIMIT``,
+    ``SSD_FLOOR_ADD``)."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import convert, nd
+
+    ex = _ssd_module()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _ssd_args(ex, SSD["batch"], 1)
+    where = {"cuda": dev, "cpu": mx.cpu(), "cpu_nudged": mx.cpu()}
+    built = {d: ex.build_net(args, w) for d, w in where.items()}
+    start = {k: p.data().asnumpy()
+             for k, p in built["cuda"][0].collect_params().items()}
+    nudge = np.random.RandomState(SEED + 3)
+    for d in ("cpu", "cpu_nudged"):
+        arrays = start if d == "cpu" else {
+            k: (v * (1 + 1e-6 * nudge.normal(size=v.shape))).astype(v.dtype)
+            for k, v in start.items()}
+        convert.params_from_gluon(built[d][0], arrays)
+    imgs, labels = ex.synthetic_batch(np.random.RandomState(SEED),
+                                      args.batch_size)
+    losses, heads, grads = {}, {}, {}
+    for d, (net, trainer, cls_loss) in built.items():
+        x = nd.array(imgs, ctx=where[d])
+        y = nd.array(labels, ctx=where[d])
+        _, cp, lp = ex.heads(net, x)
+        heads[d] = np.concatenate([cp.asnumpy().ravel(),
+                                   lp.asnumpy().ravel()])
+        losses[d] = float(ex.train_step(net, trainer, cls_loss, x,
+                                        y).asscalar())
+        grads[d] = [p.grad().asnumpy()
+                    for p in net.collect_params().values()]
+    torch.backends.cudnn.allow_tf32 = True
+
+    def rel(d):
+        return np.array([float(np.abs(a - b).max())
+                         / max(float(np.abs(b).max()), 1e-30)
+                         for a, b in zip(grads[d], grads["cpu"])])
+
+    _hold_to_noise_floor(losses, rel("cuda"), rel("cpu_nudged"),
+                         [(heads["cuda"], heads["cpu"])],
+                         stats_name="head outputs",
+                         stats_limit=SSD_STATS_LIMIT,
+                         floor_add=SSD_FLOOR_ADD)
+
+
 def main(argv=None):
     import argparse
 
@@ -3000,6 +3440,41 @@ def main(argv=None):
     print("[3i] phases 3i and 3i-ii wall time %.2f s"
           % (time.perf_counter() - t_rnn), flush=True)
 
+    print("[3j] SSD: example/ssd/train_torch.py through its functions at "
+          "the JAX example's defaults: TinySSD, batch %d, 32 px, %d "
+          "anchors, %d batches, sgd lr %g, f32 (TF32 off)"
+          % (SSD["batch"], SSD["anchors"], SSD["batches"], SSD["lr"]),
+          flush=True)
+    t_ssd = time.perf_counter()
+    ssd = run_ssd_path(dev, rtc_kernels)
+    print("[3j] ssd_step_ms %.2f (median of steps 3-%d, each synchronized)"
+          "  %.1f img/s  mean loss of the first 20 batches %.6f -> of the "
+          "last 20 %.6f; decode %.2f ms; no launch of K1-K7, R1, R2  on %s"
+          % (ssd["ssd_step_ms"], SSD["batches"], ssd["img_s"],
+             ssd["first"], ssd["last"], ssd["decode_ms"], card), flush=True)
+    print("[3j-ii] the multibox head at SSD300's scale, forward: %d "
+          "anchors (maps %s), batch %d, %d classes + background, 1-%d "
+          "boxes an image, MultiBoxTarget %s, softmax, MultiBoxDetection "
+          "%s" % (SSD300["anchors"], list(SSD300["maps"]), SSD300["batch"],
+                  SSD300["classes"], SSD300["max_boxes"], SSD300["target"],
+                  SSD300["detection"]), flush=True)
+    mb = run_multibox_ssd300(dev)
+    nms_ms = mb["multibox_detection_ms"] - mb["multibox_detection_no_nms_ms"]
+    print("[3j-ii] multibox_target_ms %.3f (%d launches a call, device "
+          "busy %.3f ms)  multibox_detection_ms %.3f (%d launches, busy "
+          "%.3f ms; without NMS %.3f ms, %d launches: the greedy pass over "
+          "%d rows %.3f ms, %.1f %% of the op)  (CUDA events, median of "
+          "%d)  on %s" % (
+              mb["multibox_target_ms"], mb["target_launches"],
+              mb["target_busy_ms"], mb["multibox_detection_ms"],
+              mb["detection_launches"], mb["detection_busy_ms"],
+              mb["multibox_detection_no_nms_ms"],
+              mb["detection_no_nms_launches"], mb["nms_rows"], nms_ms,
+              100.0 * nms_ms / mb["multibox_detection_ms"], SSD300["reps"],
+              card), flush=True)
+    print("[3j] phases 3j and 3j-ii wall time %.2f s"
+          % (time.perf_counter() - t_ssd), flush=True)
+
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "
           "attention by CUDA events)", flush=True)
@@ -3049,6 +3524,9 @@ def main(argv=None):
              WORDLM_SMALL["nhid"], WORDLM_SMALL["batch"],
              WORDLM_SMALL["bptt"]), flush=True)
     word_lm_card_vs_cpu(dev)
+    print("[5f] one f32 step of example/ssd/train_torch.py's TinySSD at "
+          "batch %d, 32 px: card against CPU" % SSD["batch"], flush=True)
+    ssd_card_vs_cpu(dev)
 
     here = os.path.dirname(os.path.abspath(__file__))
     meta = {

@@ -17,13 +17,16 @@ ops), the ``Executor`` that ``bind``/``simple_bind`` make, ``mx.mod``
 (``Module``), ``mx.model`` (checkpoints), ``mx.callback``,
 ``mx.monitor``, ``mx.name`` and ``mx.attribute``; and the recurrent
 path: the fused ``RNN`` op, ``mx.gluon.rnn``, the legacy ``mx.rnn`` cells
-with ``BucketSentenceIter``, and ``mx.mod.BucketingModule``.
+with ``BucketSentenceIter``, and ``mx.mod.BucketingModule``; and
+detection: the multibox, NMS and ROI ops (``mx.nd.contrib``,
+``mx.sym.contrib``), ``mx.image`` with ``ImageDetIter``, and
+``mx.io.ImageDetRecordIter``.
 """
 from . import ops  # noqa: F401  (first: parallel.train_step imports ndarray)
 from . import (attribute, autograd, callback, context, executor, gluon,
-               initializer, io, kvstore, lr_scheduler, metric, model, module,
-               monitor, name, ndarray, optimizer, parallel, random, recordio,
-               rnn, rtc, symbol)
+               image, initializer, io, kvstore, lr_scheduler, metric, model,
+               module, monitor, name, ndarray, optimizer, parallel, random,
+               recordio, rnn, rtc, symbol)
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -33,7 +36,7 @@ from .context import cpu, gpu
 from .ndarray import NDArray
 
 __all__ = ["attribute", "autograd", "callback", "context", "executor",
-           "gluon", "init", "initializer", "io", "kv", "kvstore",
+           "gluon", "image", "init", "initializer", "io", "kv", "kvstore",
            "lr_scheduler", "metric", "mod", "model", "module", "monitor",
            "name", "ndarray", "nd", "optimizer", "parallel", "random",
            "recordio", "rnn", "rtc", "sym", "symbol", "cpu", "gpu", "NDArray"]

@@ -13,9 +13,11 @@ load into each other.  The consumer's ``next()`` hands the batch to
 ``ctx`` (``None``: the CUDA card) through pinned memory
 (``io._HostToDevice``).
 
-``MNISTIter`` reads idx files (the MNIST container) into an
-``NDArrayIter``.  ``LibSVMIter`` and ``ImageDetRecordIter`` are not
-ported yet (ROADMAP A7, A17).
+``ImageDetRecordIter`` is ``ImageRecordIter`` over detection records:
+variable-length labels padded with -1 to one width, scanned from the
+record headers alone when no width is given.  ``MNISTIter`` reads idx
+files (the MNIST container) into an ``NDArrayIter``.  ``LibSVMIter`` is
+not ported yet (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -31,12 +33,14 @@ import numpy as np
 from .. import context
 from ..base import MXNetError
 from ..ndarray import NDArray
-from ..recordio import MXIndexedRecordIO, MXRecordIO, unpack_img
+from ..recordio import (MXIndexedRecordIO, MXRecordIO, _corrupt_record_error,
+                        _kMagic, _torn_final_record, unpack_img)
 from .io import (DataBatch, DataDesc, DataIter, NDArrayIter, _HostToDevice,
                  _check_state_kind, _rng_state_from_json,
                  _rng_state_to_json)
 
-__all__ = ["ImageRecordIter", "ImageRecordUInt8Iter", "MNISTIter"]
+__all__ = ["ImageRecordIter", "ImageRecordUInt8Iter", "ImageDetRecordIter",
+           "MNISTIter"]
 
 #: preprocess threads when neither the caller nor the environment says
 _DEFAULT_THREADS = 4
@@ -206,11 +210,23 @@ class ImageRecordIter(DataIter):
         return eidx, np.ascontiguousarray(img[..., :c]), \
             self._label_of(header)
 
+    #: what pads a label row shorter than ``label_width``, and whether a
+    #: longer one raises (``ImageDetRecordIter``) or is cut
+    label_pad_value = 0.0
+    _label_overflow_fatal = False
+
     def _label_of(self, header):
-        """A fixed-width label row, zero-padded."""
+        """A fixed-width label row, padded with ``label_pad_value``."""
         label = np.asarray(header.label, np.float32).reshape(-1)
         if label.size < self.label_width:
-            label = np.pad(label, (0, self.label_width - label.size))
+            label = np.pad(label, (0, self.label_width - label.size),
+                           constant_values=self.label_pad_value)
+        elif label.size > self.label_width and self._label_overflow_fatal:
+            raise MXNetError(
+                "label_pad_width %d smaller than this record's label "
+                "width %d: objects would be dropped "
+                "(iter_image_det_recordio.cc:334 raises here too)"
+                % (self.label_width, label.size))
         return label[: self.label_width]
 
     def _epoch(self):
@@ -390,6 +406,84 @@ class ImageRecordIter(DataIter):
     def close(self):
         self._prefetcher.stop()
         self._pool.shutdown(wait=False)
+
+
+class ImageDetRecordIter(ImageRecordIter):
+    """Detection record iterator (src/io/iter_image_det_recordio.cc).
+
+    Records carry variable-length labels ``[header_width, object_width,
+    extra..., (id, xmin, ymin, xmax, ymax, ...) * n_obj]`` (im2rec's
+    detection packing).  Each batch pads every label row to
+    ``label_pad_width`` with ``label_pad_value`` (-1, the invalid-object
+    marker that ``MultiBoxTarget`` masks out); a record wider than an
+    explicit ``label_pad_width`` raises.  Crops and mirrors that would
+    move the boxes (``rand_crop``, ``rand_mirror``) are refused: box-aware
+    augmentation is ``image.ImageDetIter``'s.
+    """
+
+    _label_overflow_fatal = True
+
+    def __init__(self, *args, label_pad_width=0, label_pad_value=-1.0,
+                 **kwargs):
+        self.label_pad_value = float(label_pad_value)
+        if not label_pad_width:
+            # unset: the widest record's label (iter_image_det_recordio.cc
+            # :337), from every record's header, so a wide record late in
+            # the file cannot overflow mid-epoch
+            label_pad_width = self._estimate_label_width(args, kwargs)
+        # set before the base constructor: its producer starts there
+        kwargs["label_width"] = int(label_pad_width)
+        super().__init__(*args, **kwargs)
+        if self.rand_crop or self.rand_mirror:
+            self.close()
+            raise ValueError(
+                "ImageDetRecordIter does not crop or mirror: the boxes "
+                "would be invalidated; use image.ImageDetIter's detection "
+                "augmenters")
+
+    @staticmethod
+    def _estimate_label_width(args, kwargs):
+        """The widest label over all records.  A label's width is the IR
+        header's ``flag`` (its count; 0 is a scalar label), so each
+        record's framing and first 4 payload bytes are read and the image
+        is skipped."""
+        path = kwargs.get("path_imgrec", args[0] if args else None)
+        width = 1
+        with open(path, "rb") as fh:
+            while True:
+                offset = fh.tell()
+                head = fh.read(8)
+                if len(head) == 0:
+                    break
+                if len(head) < 8:
+                    # a torn final record: the width of the intact part
+                    _torn_final_record(path, offset,
+                                       "only %d of 8 header bytes"
+                                       % len(head))
+                    break
+                magic, lrec = struct.unpack("<II", head)
+                if magic != _kMagic:
+                    raise _corrupt_record_error(
+                        path, offset,
+                        "invalid record magic 0x%08X (expected 0x%08X)"
+                        % (magic, _kMagic))
+                cflag = lrec >> 29
+                length = lrec & ((1 << 29) - 1)
+                skip = length + ((4 - (length & 3)) & 3)
+                if cflag in (0, 1) and length >= 4:
+                    # a whole record or the first part of a split one:
+                    # the IR header (flag = label count) leads the payload
+                    buf = fh.read(4)
+                    if len(buf) < 4:
+                        _torn_final_record(path, offset,
+                                           "payload cut inside the IR "
+                                           "header")
+                        break
+                    flag = struct.unpack("<I", buf)[0]
+                    width = max(width, flag if flag > 0 else 1)
+                    skip -= 4
+                fh.seek(skip, 1)  # continuation parts and image bytes
+        return width
 
 
 def _resize_shorter(img, size):

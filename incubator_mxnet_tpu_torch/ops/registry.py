@@ -38,17 +38,19 @@ class Op:
 
     fn : callable(*tensors, **attrs) -> tensor or tuple of tensors
     num_inputs : int or None (variadic)
+    num_outputs : int
     differentiable : False never records (argmax, comparisons, init ops)
     aux_update : callable(in_vals, out_vals, **attrs) -> {input_idx:
         new_val} or None: the new values of the mutated inputs after a
         training forward (BatchNorm's running stats)
     """
 
-    def __init__(self, name, fn, num_inputs=None, differentiable=True,
-                 aliases=(), doc="", aux_update=None):
+    def __init__(self, name, fn, num_inputs=None, num_outputs=1,
+                 differentiable=True, aliases=(), doc="", aux_update=None):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs
+        self.num_outputs = num_outputs
         self.differentiable = differentiable
         self.aliases = tuple(aliases)
         self.doc = doc or (fn.__doc__ or "")

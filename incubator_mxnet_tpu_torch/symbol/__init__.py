@@ -6,7 +6,7 @@ that composes a graph node, as the reference code-generates both ``nd``
 and ``sym`` from one registry.  Inputs not given are created as
 variables named ``<node>_<input>`` (``fc1_weight``, ``softmax_label``),
 as nnvm composition does; a bias with ``no_bias=True`` is bound to
-nothing.
+nothing.  ``mx.sym.contrib`` resolves the ``_contrib_`` names.
 """
 from __future__ import annotations
 
@@ -16,11 +16,13 @@ from typing import List, Optional
 from ..name import NameManager
 from ..ops import math as _math  # noqa: F401  (registers the ops)
 from ..ops import nn as _nn  # noqa: F401
+from ..ops import contrib as _contrib  # noqa: F401
 from ..ops import registry as _reg
 from ..ops import tensor as _tensor  # noqa: F401
 from .symbol import (AUX_SUFFIXES, PARAM_INPUT_NAMES, Group, Symbol, Variable,
                      _input_arg_names, _Node, _required_arg_names, load,
                      load_json, var)
+from . import contrib  # noqa: E402  (mx.sym.contrib)
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json", "zeros",
            "ones", "arange", "AUX_SUFFIXES"]
@@ -33,8 +35,11 @@ _NULL_NODE = _Node(None, "__null__")
 
 
 def _compose_num_outputs(opname, attrs):
-    """A new node's outputs, from its attributes (inference corrects a
-    node loaded without them)."""
+    """A new node's outputs, from the op's registration or its attributes
+    (inference corrects a node loaded without them)."""
+    op = _reg.OPS.get(opname)
+    if op is not None and op.num_outputs > 1:
+        return op.num_outputs
     if opname in ("SliceChannel", "split"):
         return int(attrs.get("num_outputs", 2))
     if opname == "topk" and attrs.get("ret_typ") == "both":

@@ -27,6 +27,13 @@ card against the CPU within the noise floor of ``chip_smoke.py`` phase
 plain step loop in every mode (1e-4, the same dropout masks), the
 ``Embedding`` op's out-of-range rows, and one word-LM step card against
 CPU within the noise floor of phase 5e; none launches a kernel.
+Detection: each contrib op (``MultiBoxPrior``, ``MultiBoxTarget``,
+``MultiBoxDetection``, ``box_iou``, ``box_nms`` with tied scores,
+``bipartite_matching``, ``ROIPooling``, ``ROIAlign``) on the card against
+the CPU: ids, masks, class targets, matches and kept rows equal, anchors
+and IoUs 1e-6, location targets, boxes and the ROI ops (with the input
+gradient) 1e-5; the SSD300 multibox head of phase 3j-ii and one TinySSD
+step within the noise floor of phase 5f; none launches a kernel.
 """
 import importlib
 
@@ -1107,4 +1114,120 @@ def test_word_lm_step_card_matches_cpu(dev):
     port launched."""
     before = _kernels.launch_counts()
     _smoke().word_lm_card_vs_cpu(dev)
+    assert _kernels.launch_counts() == before
+
+
+def _contrib_case(case):
+    """(op name, CPU inputs, attributes) of a small detection case."""
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    prior = registry.OPS["_contrib_MultiBoxPrior"].fn
+    rng = np.random.RandomState(8)
+    anchors = prior(torch.zeros(1, 3, 6, 6), sizes=(0.3, 0.5),
+                    ratios=(1.0, 2.0))
+    a = anchors.shape[1]
+    lab = np.full((3, 5, 5), -1.0, np.float32)
+    for i, k in enumerate((2, 0, 5)):
+        xy = rng.rand(k, 2) * 0.6
+        lab[i, :k] = np.concatenate([rng.randint(0, 3, (k, 1)), xy,
+                                     xy + rng.rand(k, 2) * 0.4 + 0.05], 1)
+    logits = torch.from_numpy(rng.randn(3, 4, a).astype(np.float32))
+    loc = torch.from_numpy((rng.randn(3, a * 4) * 0.3).astype(np.float32))
+    rows = np.concatenate([
+        rng.randint(0, 3, (2, 40, 1)), rng.rand(2, 40, 1),
+        rng.rand(2, 40, 2) * 0.5, rng.rand(2, 40, 2) * 0.5 + 0.3],
+        -1).astype(np.float32)
+    rows[:, 5:9] = rows[:, 0:4]            # tied scores on identical boxes
+    rows[:, 12, 1] = rows[:, 11, 1]        # tied scores, distinct boxes
+    data = torch.from_numpy(rng.randn(2, 3, 12, 14).astype(np.float32))
+    rois = torch.tensor([[0, 1, 2, 9, 10], [1, 0, 0, 13, 11],
+                         [0, 3.5, 2.2, 7.7, 6.1]])
+    boxes = torch.from_numpy(rng.rand(2, 6, 4).astype(np.float32))
+    return {
+        "prior": ("_contrib_MultiBoxPrior", [torch.zeros(2, 3, 5, 7)],
+                  dict(sizes=(0.2, 0.272), ratios=(1, 2, 0.5, 3, 1 / 3),
+                       steps=(0.125, 0.1), clip=True)),
+        "iou_center": ("_contrib_box_iou", [boxes, boxes[0]],
+                       dict(format="center")),
+        "target": ("_contrib_MultiBoxTarget",
+                   [anchors, torch.from_numpy(lab), logits], {}),
+        "target_mining": ("_contrib_MultiBoxTarget",
+                          [anchors, torch.from_numpy(lab), logits],
+                          dict(negative_mining_ratio=3.0)),
+        "detection": ("_contrib_MultiBoxDetection",
+                      [torch.softmax(logits, 1), loc, anchors],
+                      dict(nms_threshold=0.3)),
+        "detection_force_topk": ("_contrib_MultiBoxDetection",
+                                 [torch.softmax(logits, 1), loc, anchors],
+                                 dict(nms_threshold=0.3, force_suppress=True,
+                                      nms_topk=20)),
+        "nms_ties": ("_contrib_box_nms", [torch.from_numpy(rows)],
+                     dict(overlap_thresh=0.4, id_index=0, topk=12,
+                          out_format="center")),
+        "bipartite": ("_contrib_bipartite_matching",
+                      [torch.from_numpy(rows[..., 2:6])], dict(threshold=0.3)),
+        "roi_pooling": ("ROIPooling", [data, rois],
+                        dict(pooled_size=(3, 2), spatial_scale=0.9)),
+        "roi_align": ("_contrib_ROIAlign", [data, rois],
+                      dict(pooled_size=(3, 2), spatial_scale=0.9)),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "prior", "iou_center", "target", "target_mining", "detection",
+    "detection_force_topk", "nms_ties", "bipartite", "roi_pooling",
+    "roi_align"])
+def test_contrib_op_card_matches_cpu(dev, case):
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    name, ins, kw = _contrib_case(case)
+    fn = registry.OPS[name].fn
+    grad = name in ("ROIPooling", "_contrib_ROIAlign")
+    before = _kernels.launch_counts()
+    xs = {d: [t.detach().to(d).requires_grad_(grad and i == 0)
+              for i, t in enumerate(ins)] for d in ("cpu", dev)}
+    outs = {}
+    for d, args in xs.items():
+        out = fn(*args, **kw)
+        outs[d] = list(out) if isinstance(out, (tuple, list)) else [out]
+        if grad:
+            (outs[d][0] * torch.cos(outs[d][0].detach())).sum().backward()
+    got = [o.detach() for o in outs[dev]]
+    want = [o.detach() for o in outs["cpu"]]
+    assert [(g.device, g.dtype) for g in got] == [(dev, w.dtype)
+                                                  for w in want]
+    got = [g.cpu() for g in got]
+    if name in ("_contrib_MultiBoxPrior", "_contrib_box_iou"):
+        assert (got[0] - want[0]).abs().max().item() <= 1e-6
+    elif name == "_contrib_MultiBoxTarget":
+        _close(got[0], want[0], 1e-5)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    elif name in ("_contrib_MultiBoxDetection", "_contrib_box_nms"):
+        assert torch.equal(got[0][..., :2] == -1, want[0][..., :2] == -1)
+        assert torch.equal(got[0][..., 0], want[0][..., 0])
+        assert (got[0] - want[0]).abs().max().item() <= 1e-5
+    elif name == "_contrib_bipartite_matching":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        _close(got[0], want[0], 1e-5)
+    if grad:
+        _close(xs[dev][0].grad.cpu(), xs["cpu"][0].grad, 1e-5)
+    assert _kernels.launch_counts() == before
+
+
+def test_ssd300_multibox_head_card_matches_cpu(dev):
+    """chip_smoke.py phase 3j-ii: the SSD300 multibox head (8732 anchors,
+    batch 32) on the card against the CPU."""
+    before = _kernels.launch_counts()
+    m = _smoke().run_multibox_ssd300(dev)
+    assert m["positives"] > 0 and m["negatives"] > 0 and m["kept"] > 0
+    assert _kernels.launch_counts() == before
+
+
+def test_ssd_step_card_matches_cpu(dev):
+    """chip_smoke.py phase 5f: one f32 TinySSD step (batch 16) on the card
+    against the CPU, held to the CPU's nudged-weights noise floor; no
+    kernel of the port launched."""
+    before = _kernels.launch_counts()
+    _smoke().ssd_card_vs_cpu(dev)
     assert _kernels.launch_counts() == before

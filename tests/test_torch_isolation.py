@@ -31,6 +31,7 @@ for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                    ("train_mnist_torch",
                     "example/image_classification/train_mnist_torch.py"),
                    ("word_lm_train_torch", "example/rnn/word_lm/train_torch.py"),
+                   ("ssd_train_torch", "example/ssd/train_torch.py"),
                    ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -87,6 +88,17 @@ def _example_word_lm():
     return mod
 
 
+def _example_ssd():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_ssd_train_torch",
+        os.path.join(ROOT, "example", "ssd", "train_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _bucketing_bind():
     from incubator_mxnet_tpu_torch import mod, symbol
 
@@ -127,6 +139,9 @@ def _no_card(monkeypatch):
     lambda: __import__("incubator_mxnet_tpu_torch").rnn.BucketSentenceIter(
         [[1, 2, 3], [2, 3, 4]], 2, buckets=[3]),
     _bucketing_bind,
+    lambda: _example_ssd().main(["--batches", "1"]),
+    lambda: __import__("incubator_mxnet_tpu_torch").image.ImageDetIter(
+        2, (3, 8, 8), imglist=[([0, 0.1, 0.1, 0.5, 0.5], "a.png")]),
 ])
 def test_entry_points_refuse_cpu_without_asking(monkeypatch, build):
     _no_card(monkeypatch)

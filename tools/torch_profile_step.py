@@ -26,9 +26,13 @@ vocab 256, f32 (TF32 off), its update at lr 0.01.
 (``autograd.record()``, ``Trainer("sgd")``, the loss read back) at the
 upstream medium model's widths (vocab 10000, embedding and hidden 650, 2
 LSTM layers, batch 32, bptt 35), f32 (TF32 off), on its first window.
+``--model ssd``: ``example/ssd/train_torch.py``'s ``train_step``
+(TinySSD, ``MultiBoxPrior``, ``MultiBoxTarget``, the loss, ``backward``,
+``Trainer("sgd")``, the loss read back) at its defaults (batch 16, 32
+px, lr 0.05), f32 (TF32 off), on its first synthetic batch.
 
 Run on the card: ``python3 tools/torch_profile_step.py [--model
-imagenet|lm|wordlm]``.
+imagenet|lm|wordlm|ssd]``.
 """
 import argparse
 import importlib.util
@@ -89,6 +93,16 @@ CATEGORIES = {
         ("embedding", ("embedding", "index")),
         ("softmax, loss", ("softmax", "nll")),
         ("reduction", ("reduce", "Reduce")),
+        ("layout copy", ("copy", "transpose", "cat")),
+        ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ],
+    "ssd": [
+        ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit",
+                                 "wgrad", "dgrad", "fprop", "sm90")),
+        ("sort", ("sort", "Sort", "radix")),
+        ("index, gather, scatter", ("index", "gather", "scatter")),
+        ("softmax, loss", ("softmax", "nll")),
+        ("reduction", ("reduce", "Reduce", "arg")),
         ("layout copy", ("copy", "transpose", "cat")),
         ("elementwise", ("elementwise", "vectorized", "unrolled")),
     ],
@@ -189,6 +203,29 @@ def wordlm_step(dev):
             "batch 32, bptt 35, f32")
 
 
+def ssd_step(dev):
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import nd
+
+    spec = importlib.util.spec_from_file_location(
+        "ssd_train_torch", os.path.join(ROOT, "example", "ssd",
+                                        "train_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = ex.parse_args([])
+    net, trainer, cls_loss = ex.build_net(args, dev)
+    imgs, labels = ex.synthetic_batch(np.random.RandomState(0),
+                                      args.batch_size)
+    x, y = nd.array(imgs, ctx=dev), nd.array(labels, ctx=dev)
+    return (lambda: ex.train_step(net, trainer, cls_loss, x,
+                                  y).asscalar(),
+            "TinySSD batch %d, 32 px, 192 anchors, f32" % args.batch_size)
+
+
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -201,7 +238,8 @@ def main():
         return 2
     dev = torch.device("cuda", 0)
     run, label = {"resnet": resnet_step, "imagenet": imagenet_step,
-                  "lm": lm_step, "wordlm": wordlm_step}[args.model](dev)
+                  "lm": lm_step, "wordlm": wordlm_step,
+                  "ssd": ssd_step}[args.model](dev)
     for _ in range(WARMUP):
         run()
     torch.cuda.synchronize()
