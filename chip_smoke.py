@@ -160,6 +160,25 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    detections; the card held to the CPU (positive masks and class
    targets equal, loc targets within 1e-5, kept detections equal but
    rows within 1e-6 of a threshold, counted);
+3k. the symbolic deploy path (``SYMBOLIC``): ``resnet50_v1(ghost_bn=16)``
+   (batch 64, 224 px, f32, Xavier from the seeded generator, cuDNN
+   deterministic) exported into a temporary directory (ms, bytes of both
+   files); ``SymbolBlock.imports`` of the files in inference equal to
+   the Gluon net's eval output; ``model.load_checkpoint`` onto the card
+   and ``simple_bind``, whose shape inference runs K1/K2/K3's wrappers
+   on ``meta`` tensors and launches nothing; one Executor
+   ``forward(is_train=True)`` + ``backward(head)`` bit-equal to the Gluon
+   step on the same batch, weights and head gradient (output, 161
+   argument gradients, 106 running stats), each 53/53/1 launches;
+   ``symbol_step_ms`` and ``gluon_step_ms`` (medians of steps 2-5, host
+   clock between synchronizations, every step 53/53/1) and one more step
+   of each under the profiler (CUDA activities, busy ms); the exported
+   symbol under ``SoftmaxOutput`` fine-tuned by ``mx.mod.Module`` for 8
+   steps on one batch (sgd lr 0.01, momentum 0.9; 53/53/1 a step, the
+   last loss below the first); then an LSTM-like ``foreach``, a
+   ``while_loop`` and a ``cond`` (forward and backward) and
+   ``potrf``/``trsm``/``syevd``/``gelqf``/``slogdet`` card against CPU
+   (f32, TF32 off; the limits by ``CF_OUT_TOL``), launching nothing;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -1983,6 +2002,351 @@ def run_multibox_ssd300(dev):
     return m
 
 
+# phase 3k: the exported ghost-BN ResNet-50 through the symbolic path
+SYMBOLIC = dict(batch=64, image=224, classes=1000, steps=5, finetune_steps=8,
+                finetune_lr=0.01)
+#: phase 3k's control flow on the card: an LSTM-like foreach
+SYMBOLIC_LSTM = dict(seq=8, batch=32, input=64, hidden=128)
+#: phase 3k's limits, card against CPU in f32 with TF32 off: the foreach
+#: outputs within 1e-5 of their largest magnitude (at least 1; sums of 192
+#: products a gate), its gradients within 1e-4 (eight steps back), the
+#: while loop and cond within 1e-6 (a few adds and multiplies); the la_op
+#: results within 1e-4 (cuSOLVER against LAPACK, other orders of the same
+#: sums; eigenvectors compared as ``U^T diag(lam) U``)
+CF_OUT_TOL, CF_GRAD_TOL, CF_EXACT_TOL, LINALG_TOL = 1e-5, 1e-4, 1e-6, 1e-4
+
+
+def _counted(fn):
+    """``fn()`` with the launch counters set to 0 just before; returns
+    (its result, the counts just after)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _kernels.launch_counts()
+
+
+def _gate_step(label, counts, want):
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        raise AssertionError("%s launched %s, want %s" % (label, counts,
+                                                          full))
+
+
+def _timed_steps(label, fn, steps, want):
+    """``steps`` calls of ``fn``, each counted and gated against ``want``
+    and timed on the host clock between synchronizations; returns (ms of
+    each, summed counts)."""
+    import time as _time
+
+    import torch
+
+    ms, total = [], {}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        _, counts = _counted(fn)
+        ms.append((_time.perf_counter() - t0) * 1e3)
+        _gate_step(label, counts, want)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return ms, total
+
+
+def run_symbolic_path(dev, directory):
+    """Phase 3k: ``resnet50_v1(ghost_bn=16)`` built on the card (Xavier
+    from the seeded generator), ``export``ed into ``directory`` (ms and
+    bytes of both files); ``SymbolBlock.imports`` of the files on the
+    card in inference equal to the Gluon net's eval output; the files
+    through ``model.load_checkpoint`` (onto the card) and
+    ``simple_bind(data=(B, 3, 224, 224))``, whose shape inference runs the
+    ghost-BN ops and the stem pool on ``meta`` tensors (K1/K2/K3's
+    wrappers answer them; no launch); one ``forward(is_train=True)`` +
+    ``backward(head)`` of the Executor held bit for bit to the Gluon
+    net's step under ``record()`` on the same batch, weights and head
+    gradient (the output, every argument gradient, the running stats
+    after the step), each launching K1/K2/K3 53/53/1 times; ``steps``
+    more of each timed (``symbol_step_ms``, ``gluon_step_ms``: medians,
+    host clock between synchronizations); then the exported symbol under
+    a ``SoftmaxOutput`` head fine-tuned by ``mx.mod.Module``
+    (``forward_backward`` + ``update``, sgd momentum 0.9, on one fixed
+    batch): every step 53/53/1, the last loss below the first.  cuDNN
+    deterministic in this phase.  Returns (metrics, the counts of every
+    counted step)."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import initializer, nd
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+
+    cfg = SYMBOLIC
+    b, side, classes = cfg["batch"], cfg["image"], cfg["classes"]
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = resnet.resnet50_v1(classes=classes, ghost_bn=16, device=dev)
+        initializer.initialize(net, initializer.Xavier(),
+                               torch.Generator(device=dev).manual_seed(SEED))
+        prefix = os.path.join(directory, "resnet50_v1_ghost16")
+        t0 = time.perf_counter()
+        sym_file, params_file = net.export(prefix)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = (os.path.getsize(sym_file), os.path.getsize(params_file))
+        g = torch.Generator(device=dev).manual_seed(SEED + 5)
+        x = nd.NDArray(torch.randn(b, 3, side, side, generator=g,
+                                   device=dev))
+        head = nd.NDArray(torch.randn(b, classes, generator=g, device=dev))
+        labels = torch.randint(0, classes, (b,), generator=g,
+                               device=dev).float()
+
+        block = mx.gluon.SymbolBlock.imports(sym_file, ["data"], params_file,
+                                             ctx=dev)
+        block_eval = block(x)._data
+        gluon_eval = net(x)._data
+        eval_same = torch.equal(block_eval, gluon_eval)
+        print("  SymbolBlock.imports on the card, inference: equal to the "
+              "Gluon net's eval output %s (max abs diff %.3e)"
+              % (eval_same, _max_err(block_eval, gluon_eval)), flush=True)
+        if not eval_same:
+            raise AssertionError("SymbolBlock's inference differs from the "
+                                 "Gluon net's")
+        del block, block_eval, gluon_eval
+
+        t0 = time.perf_counter()
+        sym, args, aux = mx.model.load_checkpoint(prefix, 0, ctx=dev)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        exe, bind_counts = _counted(
+            lambda: sym.simple_bind(dev, data=(b, 3, side, side)))
+        bind_ms = (time.perf_counter() - t0) * 1e3
+        if any(bind_counts.values()):
+            raise AssertionError("simple_bind launched %s" % bind_counts)
+        exe.copy_params_from(args, aux)
+
+        def exe_step():
+            exe.forward(is_train=True, data=x)
+            exe.backward(head)
+
+        def gluon_step():
+            with mx.autograd.record():
+                y = net(x)
+            y.backward(head)
+            return y
+
+        _, c = _counted(exe_step)
+        _gate_step("the Executor's step", c, MAIN_PATH)
+        add(c)
+        y, c = _counted(gluon_step)
+        _gate_step("the Gluon step", c, MAIN_PATH)
+        add(c)
+        params = net.collect_params()
+        pairs = [("output", exe.outputs[0]._data, y._data)]
+        pairs += [(n, exe.grad_dict[n]._data, params[n].grad()._data)
+                  for n in exe.grad_dict if n != "data"]
+        pairs += [(n, exe.aux_dict[n]._data, params[n].data()._data)
+                  for n in exe.aux_dict]
+        worst = max(pairs, key=lambda p: _max_err(p[1], p[2]))
+        same = all(torch.equal(a, w) for _, a, w in pairs)
+        print("  Executor step against the Gluon step: output, %d argument "
+              "gradients, %d running stats bit-equal %s (largest "
+              "difference %.3e at %s); 53/53/1 launches each"
+              % (len(exe.grad_dict) - 1, len(exe.aux_dict), same,
+                 _max_err(worst[1], worst[2]), worst[0]), flush=True)
+        if not same:
+            raise AssertionError("the Executor's step differs from the "
+                                 "Gluon step")
+        del y, pairs, worst
+
+        exe_ms, c = _timed_steps("the Executor's step", exe_step,
+                                 cfg["steps"], MAIN_PATH)
+        add(c)
+        gl_ms, c = _timed_steps("the Gluon step", gluon_step, cfg["steps"],
+                                MAIN_PATH)
+        add(c)
+        # where the two steps differ: device activities and busy time
+        exe_acts, exe_busy = _launches(exe_step)
+        gl_acts, gl_busy = _launches(gluon_step)
+        print("  under the profiler: the Executor's step %d CUDA activities, "
+              "%.2f ms busy; the Gluon step %d, %.2f ms busy"
+              % (exe_acts, exe_busy, gl_acts, gl_busy), flush=True)
+        del exe
+        torch.cuda.empty_cache()
+
+        mod = mx.mod.Module(mx.sym.SoftmaxOutput(sym, name="softmax"),
+                            context=dev)
+        mod.bind(data_shapes=[("data", (b, 3, side, side))],
+                 label_shapes=[("softmax_label", (b,))])
+        mod.init_params(arg_params=args, aux_params=aux)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+            learning_rate=cfg["finetune_lr"], momentum=0.9))
+        batch = mx.io.DataBatch([x], [nd.NDArray(labels)])
+        rows = torch.arange(b, device=dev)
+        losses = []
+
+        def finetune_step():
+            mod.forward_backward(batch)
+            mod.update()
+            p = mod.get_outputs()[0]._data
+            losses.append(float(-p[rows, labels.long()].clamp_min(1e-30)
+                                .log().mean()))
+
+        ft_ms, c = _timed_steps("a Module step", finetune_step,
+                                cfg["finetune_steps"], MAIN_PATH)
+        add(c)
+        print("  Module fine-tune under SoftmaxOutput: losses %s  "
+              "(forward_backward + update, median %.2f ms)"
+              % (["%.6f" % v for v in losses], _median(ft_ms)), flush=True)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError("the fine-tune's loss did not fall: %s"
+                                 % losses)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+    del net, mod
+    torch.cuda.empty_cache()
+    return dict(export_ms=export_ms, symbol_bytes=nbytes[0],
+                params_bytes=nbytes[1], load_ms=load_ms, bind_ms=bind_ms,
+                symbol_step_ms=_median(exe_ms[1:]),
+                gluon_step_ms=_median(gl_ms[1:]), symbol_busy_ms=exe_busy,
+                gluon_busy_ms=gl_busy, symbol_activities=exe_acts,
+                gluon_activities=gl_acts,
+                finetune_step_ms=_median(ft_ms[1:]),
+                losses=losses), counts
+
+
+def _lstm_like(S, hidden):
+    """A ``foreach`` over an LSTM-like cell (states h and c; input and
+    recurrent products, four gates), the reference's
+    ``test_control_flow.py`` scan at an LSTM's shape."""
+    data, h0, c0 = S.var("data"), S.var("h0"), S.var("c0")
+    wx, bx = S.var("i2h_weight"), S.var("i2h_bias")
+    wh, bh = S.var("h2h_weight"), S.var("h2h_bias")
+
+    def body(x, states):
+        h, c = states
+        gates = S.FullyConnected(x, wx, bx, num_hidden=4 * hidden) \
+            + S.FullyConnected(h, wh, bh, num_hidden=4 * hidden)
+        i, f, g, o = list(S.SliceChannel(gates, num_outputs=4, axis=1))
+        c2 = S.Activation(f, act_type="sigmoid") * c \
+            + S.Activation(i, act_type="sigmoid") \
+            * S.Activation(g, act_type="tanh")
+        h2 = S.Activation(o, act_type="sigmoid") \
+            * S.Activation(c2, act_type="tanh")
+        return h2, [h2, c2]
+
+    outs, (h, c) = S.contrib.foreach(body, data, [h0, c0])
+    return S.Group([outs, h, c])
+
+
+def _doubling_loop(S):
+    x = S.var("x")
+    _, final = S.contrib.while_loop(lambda v: S.sum(v) < 100,
+                                    lambda v: (v * 2, [v * 2]), [x],
+                                    max_iterations=3)
+    return S.Group([final[0], S.contrib.cond(
+        lambda: S.sum(x) > 1, lambda: x * 10, lambda: x - 1)])
+
+
+def control_flow_linalg_card_vs_cpu(dev):
+    """Phase 3k, last: the LSTM-like ``foreach`` (``SYMBOLIC_LSTM``,
+    forward and backward), a ``while_loop`` and a ``cond`` (forward and
+    backward) through the Executor, and ``potrf``, ``trsm``, ``syevd``,
+    ``gelqf`` and ``slogdet`` (f32, batch 4 of 64 x 64) through
+    ``mx.nd.linalg``, on the card against the CPU within the limits above,
+    TF32 off; none launches a kernel of the port."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(SEED + 7)
+
+    def run(sym, inputs, head_grads):
+        out = {}
+        for key, d in (("card", dev), ("cpu", cpu)):
+            exe = sym.bind(d, {k: nd.array(v, ctx=d)
+                               for k, v in inputs.items()},
+                           args_grad={k: nd.zeros(v.shape, ctx=d)
+                                      for k, v in inputs.items()})
+            outs = exe.forward(is_train=True)
+            exe.backward([nd.array(h, ctx=d) for h in head_grads])
+            out[key] = ([o._data.cpu() for o in outs],
+                           {k: g._data.cpu() for k, g in
+                            exe.grad_dict.items()})
+        return out
+
+    def compare(label, out, out_tol, grad_tol):
+        for i, (a, w) in enumerate(zip(out["card"][0], out["cpu"][0])):
+            _check("%s output %d" % (label, i), a, w, out_tol)
+        for k, a in out["card"][1].items():
+            _check("%s d%s" % (label, k), a, out["cpu"][1][k], grad_tol)
+
+    def cf():
+        cfg = SYMBOLIC_LSTM
+        t, n, m, hid = cfg["seq"], cfg["batch"], cfg["input"], cfg["hidden"]
+        inputs = {"data": rng.normal(size=(t, n, m)),
+                  "h0": rng.normal(0, 0.5, (n, hid)),
+                  "c0": rng.normal(0, 0.5, (n, hid)),
+                  "i2h_weight": rng.normal(0, 0.1, (4 * hid, m)),
+                  "i2h_bias": rng.normal(0, 0.1, 4 * hid),
+                  "h2h_weight": rng.normal(0, 0.1, (4 * hid, hid)),
+                  "h2h_bias": rng.normal(0, 0.1, 4 * hid)}
+        inputs = {k: v.astype(np.float32) for k, v in inputs.items()}
+        heads = [rng.normal(size=s).astype(np.float32)
+                 for s in ((t, n, hid), (n, hid), (n, hid))]
+        compare("foreach LSTM-like", run(_lstm_like(mx.sym, hid), inputs,
+                                         heads), CF_OUT_TOL, CF_GRAD_TOL)
+        for x0 in (1.0, 30.0, 0.5):
+            compare("while_loop + cond at x=%g" % x0,
+                    run(_doubling_loop(mx.sym),
+                        {"x": np.array([x0], np.float32)},
+                        [np.ones(1, np.float32)] * 2),
+                    CF_EXACT_TOL, CF_EXACT_TOL)
+        a = rng.normal(size=(4, 64, 64))
+        spd = (a @ a.transpose(0, 2, 1) + 64 * np.eye(64)).astype(np.float32)
+        bmat = rng.normal(size=(4, 64, 16)).astype(np.float32)
+        wide = rng.normal(size=(4, 32, 64)).astype(np.float32)
+        res = {}
+        for key, d in (("card", dev), ("cpu", cpu)):
+            L = nd.linalg.potrf(nd.array(spd, ctx=d))
+            u, lam = nd.linalg.syevd(nd.array(spd, ctx=d))
+            recon = torch.matmul(u._data.transpose(-1, -2) * lam._data[
+                ..., None, :], u._data)
+            lq = nd.linalg.gelqf(nd.array(wide, ctx=d))
+            sign, logabs = nd.linalg.slogdet(nd.array(spd, ctx=d))
+            res[key] = [t.cpu() for t in (
+                L._data, nd.linalg.trsm(L, nd.array(bmat, ctx=d))._data,
+                lam._data, recon, lq[0]._data, lq[1]._data, sign._data,
+                logabs._data)]
+        for name, a_, w in zip(("potrf", "trsm", "syevd lam",
+                                "syevd U^T diag(lam) U", "gelqf L",
+                                "gelqf Q", "slogdet sign",
+                                "slogdet logabs"),
+                               res["card"], res["cpu"]):
+            _check("linalg %s" % name, a_, w, LINALG_TOL)
+
+    _, counts = _counted(cf)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    if any(counts.values()):
+        raise AssertionError("control flow or linalg launched %s" % counts)
+
+
 def time_rnn_op(dev):
     """Phase 4, beside the kernel rows: the fused ``RNN`` op at phase 3i's
     LSTM (T 35, batch 32, 650 in, 650 hidden, 2 layers, f32, TF32 off),
@@ -3474,6 +3838,33 @@ def main(argv=None):
               card), flush=True)
     print("[3j] phases 3j and 3j-ii wall time %.2f s"
           % (time.perf_counter() - t_ssd), flush=True)
+
+    print("[3k] the symbolic deploy path: resnet50_v1(ghost_bn=16) "
+          "exported, SymbolBlock.imports, load_checkpoint + simple_bind, "
+          "Executor steps against Gluon steps, Module fine-tune; batch %d, "
+          "%d px, f32, cuDNN deterministic" % (SYMBOLIC["batch"],
+                                               SYMBOLIC["image"]),
+          flush=True)
+    t_sym = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        sm, sm_counts = run_symbolic_path(dev, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    for name in MAIN_PATH:
+        counts[name] += sm_counts[name]
+    print("[3k] export %.0f ms (symbol %d bytes, params %d bytes)  "
+          "load_checkpoint %.0f ms  simple_bind %.0f ms  symbol_step_ms %.2f"
+          "  gluon_step_ms %.2f (medians of steps 2-%d, forward + backward)"
+          "  finetune_step_ms %.2f  busy %.2f and %.2f ms  on %s"
+          % (sm["export_ms"], sm["symbol_bytes"], sm["params_bytes"],
+             sm["load_ms"], sm["bind_ms"], sm["symbol_step_ms"],
+             sm["gluon_step_ms"], SYMBOLIC["steps"], sm["finetune_step_ms"],
+             sm["symbol_busy_ms"], sm["gluon_busy_ms"], card), flush=True)
+    print("[3k] control flow and linalg: card against CPU", flush=True)
+    control_flow_linalg_card_vs_cpu(dev)
+    print("[3k] phase wall time %.2f s" % (time.perf_counter() - t_sym),
+          flush=True)
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "

@@ -10,9 +10,14 @@ the arguments that take a gradient and runs the ops in training mode
 :meth:`Executor.backward` takes the gradients of the outputs, with ones
 as the head gradient unless ``out_grads`` are given, into ``grad_dict``
 by each argument's ``grad_req`` (``write``, ``add`` or ``null``).  Each
-op's ``aux_update`` (BatchNorm's running stats) is committed after a
-training forward.  The kernels on the path (K3 in a max ``Pooling``) run
-as they do under ``nd``.
+op's ``aux_update`` (BatchNorm's and the ghost-BN ops' running stats,
+from any of an op's outputs: the dual exit has four) is committed after a
+training forward.  Every output of a node stays its own graph entry, so
+the dual exit's two cotangents reach K2 apart.  The kernels on the path
+(K3 in a max ``Pooling``, K1 and K2 in the ghost-BN ops) run as they do
+under ``nd``; a control-flow node (``_foreach``, ``_while_loop``,
+``_cond``) runs its subgraphs through the same walk
+(``ops/control_flow.py``).
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
 """Gluon (port of ``incubator_mxnet_tpu/gluon``): ``Parameter``,
 ``ParameterDict``, ``Constant``, ``Block``/``HybridBlock`` over
-``torch.nn.Module``, ``Trainer``, the layers, the recurrent layers and
+``torch.nn.Module`` with ``export``, ``SymbolBlock``, ``Trainer``, the layers, the recurrent layers and
 cells (``gluon.rnn``), losses and the model zoo."""
 from . import block, loss, model_zoo, nn, parameter, rnn, trainer
-from .block import Block, HybridBlock, shape_init
+from .block import Block, HybridBlock, SymbolBlock, shape_init
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
-           "DeferredInitializationError", "Trainer", "block", "loss",
-           "model_zoo", "nn", "parameter", "rnn", "trainer", "shape_init"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter",
+           "ParameterDict", "Constant", "DeferredInitializationError",
+           "Trainer", "block", "loss", "model_zoo", "nn", "parameter", "rnn",
+           "trainer", "shape_init"]

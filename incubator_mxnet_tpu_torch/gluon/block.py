@@ -24,12 +24,24 @@ Two ways to call a block:
   outside), and returns NDArrays whose ``backward()`` fills every
   ``Parameter.grad()``.
 
+- on :class:`..symbol.Symbol` inputs (or a tuple whose first element is
+  one: a dual ghost-BN exit hands on ``(out, out_sc)``), a
+  ``HybridBlock`` composes a graph: ``hybrid_forward(mx.sym, x,
+  **params)`` with each parameter's ``Parameter.var()``, children
+  recursing the same way.  This is what :meth:`HybridBlock.export`
+  traces.
+
 ``hybridize`` runs eagerly: the CUDA-graph analogue of the reference's
 cached program is ROADMAP A5f.  A user ``HybridBlock`` implements
 ``hybrid_forward(F, x, **params)``: ``F`` is the port's ops on tensors
 (the registered ops by name, and ``FullyConnected`` and ``Activation``
 in the reference's keywords),
-``params`` its registered parameters' tensors.
+``params`` its registered parameters' tensors; on symbols ``F`` is
+``mx.sym``.  A port layer's ``hybrid_forward`` is the reference layer's
+(the same registry ops, names, attributes and input order): its
+symbolic body, and its tensor one unless the layer has a ``forward`` of
+its own (``BatchNorm``, ``Dropout`` and the ghost-BN layers, which read
+the module's train mode and commit running stats).
 
 A layer given no input width (``in_channels=0``, ``in_units=0``) creates
 its tensors as ``torch.nn.UninitializedParameter`` /
@@ -48,11 +60,13 @@ from torch import nn
 from torch.nn.modules.lazy import LazyModuleMixin
 from torch.nn.parameter import is_lazy
 
-from .. import autograd
+from .. import autograd, context, symbol
 from ..ndarray import NDArray
+from ..symbol.symbol import Symbol, _eval_graph
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "Deferred", "shape_init", "F"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Deferred", "shape_init",
+           "F"]
 
 
 class _BlockScope:
@@ -112,6 +126,12 @@ def _to_tensors(v):
     if isinstance(v, (tuple, list)):
         return type(v)(_to_tensors(i) for i in v)
     return v
+
+
+def _is_symbol(v):
+    if isinstance(v, tuple) and v:
+        v = v[0]
+    return isinstance(v, Symbol)
 
 
 def _to_nds(v):
@@ -270,9 +290,17 @@ class HybridBlock(Block):
     autograd (see the module docstring)."""
 
     def __call__(self, *args, **kwargs):
+        if args and _is_symbol(args[0]):
+            return self._compose(*args, **kwargs)
         if not (_is_nd(args) or _is_nd(tuple(kwargs.values()))):
             return super().__call__(*args, **kwargs)
         return self._on_tensors(super().__call__, args, kwargs)
+
+    def _compose(self, x, *args, **kwargs):
+        """The symbolic route: ``hybrid_forward`` with ``F = mx.sym`` and
+        the parameters' variables."""
+        params = {name: p.var() for name, p in self._reg_params.items()}
+        return self.hybrid_forward(symbol, x, *args, **kwargs, **params)
 
     def _on_tensors(self, fn, args, kwargs):
         """``fn`` (this block's work on tensors) on the tensors of NDArray
@@ -307,9 +335,101 @@ class HybridBlock(Block):
         return shape_init(self, *input_shapes, dtype=torch_dtype(dtype))
 
     def export(self, path, epoch=0):
-        raise NotImplementedError(
-            "export needs symbols, which are not in the port yet "
-            "(ROADMAP item 2, A15)")
+        """Write ``path-symbol.json`` (the graph traced from
+        ``sym.var("data")``) and ``path-%04d.params`` (every parameter, as
+        ``arg:`` or ``aux:`` by the graph's auxiliary states), the files
+        ``model.load_checkpoint`` and ``SymbolBlock.imports`` read.
+        Returns their names."""
+        from ..ndarray import save as nd_save
+
+        out = self(symbol.var("data"))
+        out.save("%s-symbol.json" % path)
+        aux_names = set(out.list_auxiliary_states())
+        nd_save("%s-%04d.params" % (path, epoch), {
+            ("aux:" if name in aux_names else "arg:") + name: p.data()
+            for name, p in self.collect_params().items()})
+        return "%s-symbol.json" % path, "%s-%04d.params" % (path, epoch)
+
+
+class SymbolBlock(HybridBlock):
+    """A graph and its parameters as a block (the reference's
+    ``SymbolBlock``).
+
+    Every input of ``outputs`` that is not one of ``inputs`` becomes a
+    parameter of that name: an argument with a gradient, or an auxiliary
+    state (a running statistic) held as a buffer without one.  The
+    forward walks the graph as ``Symbol.eval_with`` does, in training
+    mode from ``autograd.is_training()`` (the module's mode when called
+    on tensors), and commits no running stat, as the reference's
+    ``_eval_graph`` commits none.  Shapes not given by a file are
+    inferred from the first input."""
+
+    def __init__(self, outputs, inputs, params=None, device=None):
+        super().__init__(prefix="", params=params)
+        if isinstance(outputs, (list, tuple)):
+            outputs = symbol.Group(outputs)
+        self._device = context.resolve(device)
+        self._out_sym = outputs
+        self._in_syms = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        in_names = {s.name for s in self._in_syms}
+        aux = set(outputs.list_auxiliary_states())
+        for name in outputs.list_inputs():
+            if name in in_names:
+                continue
+            p = self.params.get(name, allow_deferred_init=True,
+                                grad_req="null" if name in aux else "write",
+                                buffer=name in aux)
+            self._reg_params[name] = p
+            t = p._ensure_tensor(self._device)
+            safe = name.replace(".", "_")
+            if p._buffer:
+                self.register_buffer(safe, t)
+            else:
+                self.register_parameter(safe, t)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A ``SymbolBlock`` of ``symbol_file`` over the named inputs, its
+        parameters loaded from ``param_file`` (``arg:``/``aux:`` keys or
+        plain names), on ``ctx`` (``None``: the card)."""
+        from ..ndarray import load as nd_load
+
+        out = symbol.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        block = SymbolBlock(out, [symbol.var(n) for n in input_names],
+                            device=ctx)
+        if param_file:
+            for k, v in nd_load(param_file, ctx=context.cpu()).items():
+                name = k.split(":", 1)[-1]
+                if name in block.params:
+                    block.params[name].set_data(v)
+        return block
+
+    def _infer_params(self, xs):
+        """Materialize the parameters whose shapes wait for the input."""
+        lazy = {n: p for n, p in self._reg_params.items()
+                if is_lazy(p._tensor)}
+        if not lazy:
+            return
+        arg_shapes, _, aux_shapes = self._out_sym.infer_shape(**{
+            s.name: tuple(x.shape) for s, x in zip(self._in_syms, xs)})
+        shapes = dict(zip(self._out_sym.list_arguments(), arg_shapes))
+        shapes.update(zip(self._out_sym.list_auxiliary_states(),
+                          aux_shapes))
+        with torch.no_grad():
+            for name, p in lazy.items():
+                p._tensor.materialize(shapes[name])
+                p._materialized(name)
+
+    def forward(self, *args):
+        self._infer_params(args)
+        bindings = {s.name: a for s, a in zip(self._in_syms, args)}
+        bindings.update({n: p._tensor for n, p in self._reg_params.items()})
+        with autograd._scope(training=self.training):
+            outs = _eval_graph(self._out_sym, bindings, args[0].device)
+        return outs[0] if len(outs) == 1 else outs
 
 
 class Deferred(LazyModuleMixin):
@@ -370,7 +490,9 @@ class _TensorOps:
     def __getattr__(self, name):
         from ..ops import math, nn, registry, tensor  # noqa: F401  (registers)
 
-        return registry.get_op(name).fn
+        fn = registry.get_op(name).fn
+        setattr(self, name, fn)  # the next lookup skips this
+        return fn
 
 
 F = _TensorOps()

@@ -33,7 +33,7 @@ class AlexNet(HybridBlock):
                 nn.Dropout(0.5))
             self.output = nn.Dense(classes)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return self.output(self.features(x))
 
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from .... import context
 from ... import nn
-from ...block import F, HybridBlock
+from ...block import HybridBlock
 
 __all__ = ["DenseNet", "densenet_spec", "densenet121", "densenet161",
            "densenet169", "densenet201"]
@@ -25,7 +25,7 @@ class _DenseLayer(HybridBlock):
         if dropout:
             self.body.add(nn.Dropout(dropout))
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return F.Concat(x, self.body(x), dim=1)
 
 
@@ -67,7 +67,7 @@ class DenseNet(HybridBlock):
                               nn.GlobalAvgPool2D(), nn.Flatten())
             self.output = nn.Dense(classes)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return self.output(self.features(x))
 
 

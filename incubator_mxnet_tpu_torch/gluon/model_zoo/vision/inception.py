@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from .... import context
 from ... import nn
-from ...block import F, HybridBlock
+from ...block import HybridBlock
 
 __all__ = ["Inception3", "inception_v3"]
 
@@ -48,7 +48,7 @@ class _Concurrent(HybridBlock):
     def __len__(self):
         return len(self._modules)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return F.Concat(*[child(x) for child in self], dim=self._axis)
 
 
@@ -109,7 +109,7 @@ class _InceptionE(HybridBlock):
         self.branch3_b = _make_branch(None, (384, (3, 1), None, (1, 0)))
         self.branch4 = _make_branch("avg", (192, 1, None, None))
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         b1 = self.branch1(x)
         s2 = self.branch2_stem(x)
         b2 = F.Concat(self.branch2_a(s2), self.branch2_b(s2), dim=1)
@@ -140,7 +140,7 @@ class Inception3(HybridBlock):
                 nn.AvgPool2D(pool_size=8), nn.Dropout(0.5))
             self.output = nn.Dense(classes)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return self.output(F.Flatten(self.features(x)))
 
 

@@ -44,7 +44,7 @@ class LinearBottleneck(HybridBlock):
                   num_group=in_channels * t, relu6=True)
         _add_conv(self.out, channels, active=False, relu6=True)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         out = self.out(x)
         return out + x if self.use_shortcut else out
 
@@ -72,7 +72,7 @@ class MobileNet(HybridBlock):
             self.features.add(nn.GlobalAvgPool2D(), nn.Flatten())
             self.output = nn.Dense(classes)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return self.output(self.features(x))
 
 
@@ -106,7 +106,7 @@ class MobileNetV2(HybridBlock):
             self.output = nn.HybridSequential(
                 nn.Conv2D(classes, 1, use_bias=False), nn.Flatten())
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return self.output(self.features(x))
 
 

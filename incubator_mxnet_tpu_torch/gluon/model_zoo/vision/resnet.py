@@ -8,12 +8,15 @@ Blocks are ``HybridBlock``s built in the reference's registration
 order, so ``collect_params()`` names them as the reference does and
 ``convert.params_from_jax`` can carry weights across by position.  As
 in the reference, the stock form leaves most input widths to the first
-input (``gluon.shape_init``); the ghost form is given them all.
+input (``gluon.shape_init``); the ghost form is given them all.  The
+blocks, the stem and the nets run the reference's ``hybrid_forward`` on
+tensors and on symbols alike, so ``export`` writes the reference's
+graph; the ghost-BN layers keep a tensor ``forward`` (the module's
+train mode, the running-stat commit) beside their symbolic body.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as tF
 
 from .... import context
 from ....ops import nn as ops
@@ -44,22 +47,27 @@ class _S2DStemConv(HybridBlock):
     def __init__(self, channels, in_channels=3, device=None, **kwargs):
         super().__init__(**kwargs)
         self._device = context.resolve(device)
+        self._channels = channels
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(channels, in_channels, 7, 7),
                 allow_deferred_init=True)
 
-    def forward(self, x):
-        n, c, h, w = x.shape
-        x = tF.pad(x, (3, 3, 3, 3))
-        y, xx = (h + 6) // 2, (w + 6) // 2
-        x = x.reshape(n, c, y, 2, xx, 2).permute(0, 1, 3, 5, 2, 4) \
-            .reshape(n, 4 * c, y, xx)
-        o = self.weight.shape[0]
-        wt = tF.pad(self.weight, (0, 1, 0, 1))
-        wt = wt.reshape(o, c, 4, 2, 4, 2).permute(0, 1, 3, 5, 2, 4) \
-            .reshape(o, 4 * c, 4, 4)
-        return ops.convolution(x, wt)
+    def hybrid_forward(self, F, x, weight):  # noqa: N803
+        x = F.pad(x, mode="constant", constant_value=0.0,
+                  pad_width=(0, 0, 0, 0, 3, 3, 3, 3))        # (N,C,H+6,W+6)
+        x = F.reshape(x, shape=(0, 0, -4, -1, 2, -4, -1, 2))  # (N,C,Y,dy,X,dx)
+        x = F.transpose(x, axes=(0, 1, 3, 5, 2, 4))          # (N,C,dy,dx,Y,X)
+        x = F.reshape(F.reshape(x, shape=(0, -3, -2)),
+                      shape=(0, -3, -2))                     # (N,4C,Y,X)
+        w = F.pad(weight, mode="constant", constant_value=0.0,
+                  pad_width=(0, 0, 0, 0, 0, 1, 0, 1))        # (O,C,8,8)
+        w = F.reshape(w, shape=(0, 0, -4, 4, 2, -4, 4, 2))   # (O,C,kY,dy,kX,dx)
+        w = F.transpose(w, axes=(0, 1, 3, 5, 2, 4))          # (O,C,dy,dx,kY,kX)
+        w = F.reshape(F.reshape(w, shape=(0, -3, -2)),
+                      shape=(0, -3, -2))                     # (O,4C,4,4)
+        return F.Convolution(x, w, num_filter=self._channels, kernel=(4, 4),
+                             stride=(1, 1), pad=(0, 0), no_bias=True)
 
 
 class GhostBNReLU(HybridBlock):
@@ -70,13 +78,17 @@ class GhostBNReLU(HybridBlock):
     the running stats move by ``momentum`` toward the merged batch stats.
     ``donate_residual`` marks the residual as dead after this layer (a
     downsample output); ``dual_out`` makes a residual exit return
-    ``(out, out_shortcut)`` whose cotangents the backward kernel sums."""
+    ``(out, out_shortcut)`` whose cotangents the backward kernel sums.
+    ``track_stats=False`` makes no running stats and normalizes with the
+    ghost groups' statistics in every mode (the reference's pipelined
+    form, the ``NS`` ops).  On symbols it composes the reference's
+    ``_contrib_GhostBN*`` op, whose running stats the executor moves."""
 
     _act = "relu"
 
     def __init__(self, group=0, momentum=0.9, epsilon=1e-5, in_channels=0,
-                 donate_residual=False, dual_out=False, device=None,
-                 **kwargs):
+                 donate_residual=False, track_stats=True, dual_out=False,
+                 device=None, **kwargs):
         super().__init__(**kwargs)
         if in_channels <= 0:
             raise ValueError("%s needs in_channels: the port has no deferred "
@@ -86,19 +98,34 @@ class GhostBNReLU(HybridBlock):
         self._momentum = float(momentum)
         self._epsilon = float(epsilon)
         self._donate_residual = bool(donate_residual)
+        self._track_stats = bool(track_stats)
         self._dual_out = bool(dual_out)
         shape = (in_channels,)
         with self.name_scope():
             self.gamma = self.params.get("gamma", shape=shape, init="ones")
             self.beta = self.params.get("beta", shape=shape, init="zeros")
-            self.running_mean = self.params.get(
-                "running_mean", grad_req="null", shape=shape, init="zeros",
-                buffer=True)
-            self.running_var = self.params.get(
-                "running_var", grad_req="null", shape=shape, init="ones",
-                buffer=True)
+            if self._track_stats:
+                self.running_mean = self.params.get(
+                    "running_mean", grad_req="null", shape=shape,
+                    init="zeros", buffer=True)
+                self.running_var = self.params.get(
+                    "running_var", grad_req="null", shape=shape,
+                    init="ones", buffer=True)
+
+    def _no_residual_form(self, residual):
+        if residual is not None and not self._track_stats:
+            raise ValueError("track_stats=False has no fused residual form; "
+                             "add the residual outside")
+        if residual is not None and self._act != "relu":
+            raise ValueError("the fused residual form is BN+add+ReLU; %s "
+                             "has no activation" % type(self).__name__)
 
     def forward(self, x, residual=None):
+        self._no_residual_form(residual)
+        if not self._track_stats:
+            return ops.ghost_bn_nostats(x, self.gamma, self.beta,
+                                        self._epsilon, self._group,
+                                        self._act)
         kw = {"eps": self._epsilon, "group": self._group,
               "training": self.training}
         stats = (self.gamma, self.beta, self.running_mean, self.running_var)
@@ -106,9 +133,6 @@ class GhostBNReLU(HybridBlock):
             op = ops.ghost_bn_relu if self._act == "relu" else ops.ghost_bn
             out, bm, bv = op(x, *stats, **kw)
         else:
-            if self._act != "relu":
-                raise ValueError("the fused residual form is BN+add+ReLU; %s "
-                                 "has no activation" % type(self).__name__)
             kw["donate_residual"] = self._donate_residual
             if self._dual_out:
                 out, out_sc, bm, bv = ops.ghost_bn_add_relu_dual(
@@ -118,6 +142,29 @@ class GhostBNReLU(HybridBlock):
             out, bm, bv = ops.ghost_bn_add_relu(x, residual, *stats, **kw)
         self._commit_running(bm, bv)
         return out
+
+    def hybrid_forward(self, F, x, residual=None, *, gamma,  # noqa: N803
+                       beta, running_mean=None, running_var=None):
+        """The reference's symbolic body: no running-stat commit here (the
+        executor commits the op's aux update)."""
+        self._no_residual_form(residual)
+        if not self._track_stats:
+            op = (F._contrib_GhostBNReLUNS if self._act == "relu"
+                  else F._contrib_GhostBNNS)
+            return op(x, gamma, beta, eps=self._epsilon, group=self._group)
+        kw = dict(eps=self._epsilon, momentum=self._momentum,
+                  group=self._group)
+        if residual is None:
+            op = (F._contrib_GhostBNReLU if self._act == "relu"
+                  else F._contrib_GhostBN)
+            return op(x, gamma, beta, running_mean, running_var, **kw)[0]
+        kw["donate_residual"] = 1 if self._donate_residual else 0
+        if self._dual_out:
+            out = F._contrib_GhostBNAddReLUDual(
+                x, residual, gamma, beta, running_mean, running_var, **kw)
+            return out[0], out[1]
+        return F._contrib_GhostBNAddReLU(x, residual, gamma, beta,
+                                         running_mean, running_var, **kw)[0]
 
     def _commit_running(self, bm, bv):
         if not self.training:
@@ -162,7 +209,7 @@ class BasicBlockV1(HybridBlock):
         self.downsample = _downsample(channels, stride, in_channels, ghost_bn,
                                       device) if downsample else None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         if self._ghost_bn:
             x, shortcut = x if isinstance(x, tuple) else (x, x)
             residual = shortcut
@@ -170,8 +217,11 @@ class BasicBlockV1(HybridBlock):
                 residual = self.downsample(shortcut)
             x = self.gbn1(self.conv1(x))
             return self.gbn2(self.conv2(x), residual)
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(self.body(x) + residual)
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
 
 
 def _downsample(channels, stride, in_channels, ghost_bn, device):
@@ -220,7 +270,7 @@ class BottleneckV1(HybridBlock):
         self.downsample = _downsample(channels, stride, in_channels, ghost_bn,
                                       device) if downsample else None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         if self._ghost_bn:
             # a dual-output predecessor hands over (conv_path, shortcut)
             x, shortcut = x if isinstance(x, tuple) else (x, x)
@@ -230,8 +280,11 @@ class BottleneckV1(HybridBlock):
             x = self.gbn1(self.conv1(x))
             x = self.gbn2(self.conv2(x))
             return self.gbn3(self.conv3(x), residual)
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(self.body(x) + residual)
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
 
 
 class BasicBlockV2(HybridBlock):
@@ -249,13 +302,13 @@ class BasicBlockV2(HybridBlock):
             channels, 1, stride, use_bias=False, in_channels=in_channels,
             device=device) if downsample else None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         residual = x
-        x = torch.relu(self.bn1(x))
+        x = F.Activation(self.bn1(x), act_type="relu")
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = self.conv2(torch.relu(self.bn2(x)))
+        x = self.conv2(F.Activation(self.bn2(x), act_type="relu"))
         return x + residual
 
 
@@ -279,14 +332,14 @@ class BottleneckV2(HybridBlock):
             channels, 1, stride, use_bias=False, in_channels=in_channels,
             device=device) if downsample else None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         residual = x
-        x = torch.relu(self.bn1(x))
+        x = F.Activation(self.bn1(x), act_type="relu")
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = self.conv2(torch.relu(self.bn2(x)))
-        x = self.conv3(torch.relu(self.bn3(x)))
+        x = self.conv2(F.Activation(self.bn2(x), act_type="relu"))
+        x = self.conv3(F.Activation(self.bn3(x), act_type="relu"))
         return x + residual
 
 
@@ -346,9 +399,8 @@ class ResNetV1(HybridBlock):
             self.features.add(nn.GlobalAvgPool2D())
             self.output = nn.Dense(classes, in_units=channels[-1])
 
-    def forward(self, x):
-        x = self.features(x)
-        return self.output(ops.flatten(x))
+    def hybrid_forward(self, F, x):  # noqa: N803
+        return self.output(F.Flatten(self.features(x)))
 
 
 class ResNetV2(HybridBlock):
@@ -382,7 +434,7 @@ class ResNetV2(HybridBlock):
                               nn.GlobalAvgPool2D(), nn.Flatten())
             self.output = nn.Dense(classes, in_units=in_channels)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return self.output(self.features(x))
 
 

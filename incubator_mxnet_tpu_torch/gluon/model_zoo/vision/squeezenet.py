@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from .... import context
 from ... import nn
-from ...block import F, HybridBlock
+from ...block import HybridBlock
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
 
@@ -22,7 +22,7 @@ class _Fire(HybridBlock):
         self.expand3x3 = nn.Conv2D(expand3x3_channels, kernel_size=3,
                                    padding=1, activation="relu")
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         x = self.squeeze(x)
         return F.Concat(self.expand1x1(x), self.expand3x3(x), dim=1)
 
@@ -64,7 +64,7 @@ class SqueezeNet(HybridBlock):
                 nn.Conv2D(classes, kernel_size=1, activation="relu"),
                 nn.GlobalAvgPool2D(), nn.Flatten())
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return self.output(self.features(x))
 
 

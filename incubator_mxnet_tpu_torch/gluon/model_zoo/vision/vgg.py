@@ -43,7 +43,7 @@ class VGG(HybridBlock):
                               nn.Dropout(rate=0.5))
             self.output = nn.Dense(classes)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         return self.output(self.features(x))
 
 

@@ -2,7 +2,6 @@
 activations.py``): ``Activation``."""
 from __future__ import annotations
 
-from ...ops import nn as ops
 from ..block import HybridBlock
 
 __all__ = ["Activation"]
@@ -22,5 +21,5 @@ class Activation(HybridBlock):
         return self._act_type if hasattr(self, "_act_type") \
             else "activation"
 
-    def forward(self, x):
-        return ops.activation(x, self._act_type)
+    def hybrid_forward(self, F, x):  # noqa: N803
+        return F.Activation(x, act_type=self._act_type)

@@ -5,14 +5,15 @@
 ``name_scope()`` with the reference's names and initializers, on
 ``device`` (default: the enclosing ``context.device_scope``, else the
 CUDA card); ``initialize`` fills them.  A width left at 0 is deferred to
-the first input (``gluon.block``)."""
+the first input (``gluon.block``).  Each ``hybrid_forward`` is the
+reference layer's: the symbolic body (``F = mx.sym``), and, where a layer
+has no ``forward`` of its own, the tensor one too."""
 from __future__ import annotations
 
 import math
 
 from ... import context
 from ...ops import nn as ops
-from ...ops import tensor as tensor_ops
 from ..block import F, Block, Deferred, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
@@ -64,7 +65,7 @@ class HybridSequential(_Stack, HybridBlock):
         super().__init__(prefix=prefix, params=params)
         self.add(*blocks)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):  # noqa: N803
         for child in self._modules.values():
             x = child(x)
         return x
@@ -99,10 +100,11 @@ class Dense(Deferred, HybridBlock):
         in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
         return {"weight": (self._units, in_units)}
 
-    def forward(self, x):
-        out = ops.fully_connected(x, self.weight, self.bias, self._flatten)
+    def hybrid_forward(self, F, x, weight, bias=None):  # noqa: N803
+        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                               no_bias=bias is None, flatten=self._flatten)
         if self._activation:
-            out = ops.activation(out, self._activation)
+            out = F.Activation(out, act_type=self._activation)
         return out
 
 
@@ -112,12 +114,15 @@ class Dropout(HybridBlock):
 
     def __init__(self, rate, axes=(), **kwargs):
         super().__init__(**kwargs)
-        self._rate = float(rate)
-        self._axes = tuple(axes)
+        self._rate = rate
+        self._axes = axes
 
     def forward(self, x):
-        return ops.dropout(x, self._rate, axes=self._axes,
+        return ops.dropout(x, float(self._rate), axes=tuple(self._axes),
                            training=self.training)
+
+    def hybrid_forward(self, F, x):  # noqa: N803
+        return F.Dropout(x, p=self._rate, axes=self._axes)
 
 
 class BatchNorm(Deferred, HybridBlock):
@@ -181,6 +186,14 @@ class BatchNorm(Deferred, HybridBlock):
             self.running_var.copy_(rv)
         return out
 
+    def hybrid_forward(self, F, x, gamma, beta, running_mean,  # noqa: N803
+                       running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           eps=self._epsilon, momentum=self._momentum,
+                           fix_gamma=not self._scale,
+                           use_global_stats=self._use_global_stats,
+                           axis=self._axis)
+
 
 class Embedding(HybridBlock):
     """Rows of ``weight`` (input_dim, output_dim) at the input's indices
@@ -200,14 +213,14 @@ class Embedding(HybridBlock):
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
                 init=weight_initializer, allow_deferred_init=True)
 
-    def forward(self, x):
-        return tensor_ops._embedding(x, self.weight, self._input_dim,
-                                     self._output_dim)
+    def hybrid_forward(self, F, x, weight):  # noqa: N803
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
 
 
 class Flatten(HybridBlock):
-    def forward(self, x):
-        return ops.flatten(x)
+    def hybrid_forward(self, F, x):  # noqa: N803
+        return F.Flatten(x)
 
 
 class Lambda(Block):
@@ -234,10 +247,13 @@ class HybridLambda(HybridBlock):
     def __init__(self, function, prefix=None):
         super().__init__(prefix=prefix)
         if isinstance(function, str):
-            op = getattr(F, function)
-            self._func = lambda _f, *args: op(*args)
+            getattr(F, function)  # an unknown op name raises here
+            self._func_name = function
         else:
+            self._func_name = None
             self._func = function
 
-    def forward(self, *args):
+    def hybrid_forward(self, F, *args):  # noqa: N803
+        if self._func_name is not None:
+            return getattr(F, self._func_name)(*args)
         return self._func(F, *args)

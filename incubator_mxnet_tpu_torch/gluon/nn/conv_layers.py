@@ -1,11 +1,11 @@
 """Convolution and pooling layers (port of ``incubator_mxnet_tpu/gluon/nn/
 conv_layers.py``): ``Conv2D``, ``MaxPool2D``, ``AvgPool2D``,
 ``GlobalMaxPool2D`` and ``GlobalAvgPool2D``, NCHW, as ``HybridBlock``s
-with the reference's parameter names and initializers."""
+with the reference's parameter names and initializers; each
+``hybrid_forward`` is the reference layer's symbolic body."""
 from __future__ import annotations
 
 from ... import context
-from ...ops import nn as ops
 from ..block import Deferred, HybridBlock
 
 __all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
@@ -54,17 +54,20 @@ class Conv2D(Deferred, HybridBlock):
     def _infer_shapes(self, x):
         return {"weight": self._weight_shape(x.shape[1])}
 
-    def forward(self, x):
-        out = ops.convolution(x, self.weight, self.bias, self._stride,
-                              self._pad, self._dilate, self._groups)
+    def hybrid_forward(self, F, x, weight, bias=None):  # noqa: N803
+        out = F.Convolution(x, weight, bias, kernel=self._kernel,
+                            stride=self._stride, dilate=self._dilate,
+                            pad=self._pad, num_filter=self._channels,
+                            num_group=self._groups, no_bias=bias is None,
+                            layout="NCHW")
         if self._activation:
-            out = ops.activation(out, self._activation)
+            out = F.Activation(out, act_type=self._activation)
         return out
 
 
 class _Pooling(HybridBlock):
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, count_include_pad=True, **kwargs):
+                 pool_type, count_include_pad=None, **kwargs):
         super().__init__(**kwargs)
         self._kwargs = {
             "kernel": _pair(pool_size),
@@ -74,11 +77,13 @@ class _Pooling(HybridBlock):
             "global_pool": global_pool,
             "pool_type": pool_type,
             "pooling_convention": "full" if ceil_mode else "valid",
-            "count_include_pad": count_include_pad,
         }
+        # as in the reference, an attribute of the average pools only
+        if count_include_pad is not None:
+            self._kwargs["count_include_pad"] = count_include_pad
 
-    def forward(self, x):
-        return ops.pooling(x, **self._kwargs)
+    def hybrid_forward(self, F, x):  # noqa: N803
+        return F.Pooling(x, **self._kwargs)
 
 
 class MaxPool2D(_Pooling):

@@ -95,6 +95,7 @@ class Parameter:
         self._var = None  # _ParamArray over the tensor
         self._initialized = False
         self._deferred_init = None  # (init, ctx, default_init)
+        self._sym_var = None
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
@@ -299,8 +300,15 @@ class Parameter:
             self._init_grad()
 
     def var(self):
-        raise NotImplementedError(
-            "symbols are not in the port yet (ROADMAP item 2, A15)")
+        """The variable symbol of this parameter (its name, shape and
+        dtype), made once: what a ``HybridBlock`` called on symbols
+        composes in its place."""
+        if self._sym_var is None:
+            from .. import symbol
+
+            self._sym_var = symbol.var(self.name, shape=self.shape,
+                                       dtype=self.dtype)
+        return self._sym_var
 
 
 def _one_ctx(ctx):

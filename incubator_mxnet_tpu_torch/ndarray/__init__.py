@@ -5,7 +5,7 @@ A module ``__getattr__`` resolves any registered op name to an eager
 wrapper, as the reference code-generates its wrappers: ``nd.<op>(...)``
 works for every op of :mod:`..ops.math`, :mod:`..ops.tensor`,
 :mod:`..random` and the ``_contrib_flash_attention`` op of
-:mod:`.contrib`.
+:mod:`.contrib`; ``mx.nd.linalg`` holds the ``la_op`` family.
 """
 from __future__ import annotations
 
@@ -18,12 +18,12 @@ from ..ops import tensor as _tensor  # noqa: F401
 from .. import random as _random  # noqa: F401
 from .ndarray import (NDArray, arange, array, concat, empty, full,
                       onehot_encode, ones, stack, waitall, zeros)
-from . import contrib, random, utils
+from . import contrib, linalg, random, utils
 from .utils import load, save
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concat", "stack", "waitall", "save", "load", "random", "contrib",
-           "onehot_encode", "utils"]
+           "linalg", "onehot_encode", "utils"]
 
 # optional tensor inputs the reference names in its signatures
 _OPTIONAL_INPUTS = ("bias", "gamma", "state_cell", "sequence_length",

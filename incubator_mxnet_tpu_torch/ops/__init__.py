@@ -1,4 +1,4 @@
 """Operators as plain functions on tensors (port of ``incubator_mxnet_tpu/ops``)."""
-from . import contrib, nn, optimizer_ops, rnn
+from . import contrib, control_flow, linalg, nn, optimizer_ops, rnn
 
-__all__ = ["contrib", "nn", "optimizer_ops", "rnn"]
+__all__ = ["contrib", "control_flow", "linalg", "nn", "optimizer_ops", "rnn"]

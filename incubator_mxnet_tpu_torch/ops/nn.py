@@ -10,7 +10,8 @@ max pooling and ghost BN go through the port's kernels
 
 The registry forms that ``sym.*`` and ``nd.*`` call by name
 (``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm``,
-``Activation``, ``Dropout``, ``SoftmaxOutput``) keep the reference's
+``Activation``, ``Dropout``, ``SoftmaxOutput`` and the six
+``_contrib_GhostBN*`` ops) keep the reference's
 signatures: the same inputs in the same order, then the same attributes
 with the same defaults (the reference's PRNG ``key`` aside: Dropout draws
 from the port's generator).  Their training mode is
@@ -30,7 +31,7 @@ from .registry import register
 __all__ = ["convolution", "pooling", "fully_connected", "activation",
            "dropout", "flatten", "batch_norm", "batch_norm_stats",
            "batch_norm_aux_update", "ghost_bn_relu", "ghost_bn",
-           "ghost_bn_add_relu", "ghost_bn_add_relu_dual",
+           "ghost_bn_add_relu", "ghost_bn_add_relu_dual", "ghost_bn_nostats",
            "ghost_bn_aux_update"]
 
 
@@ -284,6 +285,16 @@ def ghost_bn_add_relu_dual(data, residual, gamma, beta, moving_mean,
                             dual_out=True)
 
 
+def ghost_bn_nostats(data, gamma, beta, eps=1e-3, group=0, act="relu"):
+    """``_contrib_GhostBNReLUNS`` (``act="relu"``) and ``_contrib_GhostBNNS``
+    (``act="none"``): ghost BN with no running stats, normalized by the
+    ghost groups' statistics in every mode (the reference's pipelined
+    form), through the fused kernels."""
+    return fused_bn.ghost_bn_act(data, gamma.float(), beta.float(),
+                                 eps=float(eps), act=act,
+                                 group=int(group))[0]
+
+
 def ghost_bn_aux_update(old_mean, old_var, batch_mean, batch_var,
                         momentum=0.9):
     """Running-stat update of the ghost-BN ops (ops/nn.py
@@ -347,13 +358,86 @@ def _batch_norm_aux_update(in_vals, out_vals, momentum=0.9, axis=1,
 
 
 @register("BatchNorm", aliases=("batch_norm",),
-          aux_update=_batch_norm_aux_update)
+          aux_update=_batch_norm_aux_update, mutate_idx=(3, 4))
 def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                    momentum=0.9, fix_gamma=True, use_global_stats=False,
                    output_mean_var=False, axis=1, cudnn_off=False):
     return batch_norm(data, gamma, beta, moving_mean, moving_var, eps,
                       fix_gamma, use_global_stats, axis, _is_train(),
                       output_mean_var)
+
+
+def _ghost_bn_aux_update_op(in_vals, out_vals, momentum=0.9, **_):
+    """The ghost-BN ops' running stats (inputs 3 and 4, or 4 and 5 with a
+    residual) from the batch statistics the forward returned (the
+    reference's ``_ghost_bn_aux_update``)."""
+    base = 3 if len(in_vals) == 5 else 4
+    new_m, new_v = ghost_bn_aux_update(in_vals[base], in_vals[base + 1],
+                                       out_vals[1], out_vals[2], momentum)
+    return {base: new_m, base + 1: new_v}
+
+
+def _ghost_bn_aux_update_dual(in_vals, out_vals, momentum=0.9, **_):
+    """The dual form's outputs are (out, out_sc, mean, var): drop out_sc."""
+    return _ghost_bn_aux_update_op(in_vals, (out_vals[0],) + tuple(
+        out_vals[2:]), momentum=momentum)
+
+
+@register("_contrib_GhostBNReLU", num_inputs=5, num_outputs=3,
+          mutate_idx=(3, 4), aux_update=_ghost_bn_aux_update_op)
+def _ghost_bn_relu_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                      momentum=0.9, group=0):
+    """Ghost BN + ReLU: ``(out, batch_mean, batch_var)``; K1 (K2 on
+    backward) in training, the moving stats in plain torch otherwise."""
+    return ghost_bn_relu(data, gamma, beta, moving_mean, moving_var, eps,
+                         group, _is_train())
+
+
+@register("_contrib_GhostBNAddReLU", num_inputs=6, num_outputs=3,
+          mutate_idx=(4, 5), aux_update=_ghost_bn_aux_update_op)
+def _ghost_bn_add_relu_op(data, residual, gamma, beta, moving_mean,
+                          moving_var, eps=1e-3, momentum=0.9, group=0,
+                          donate_residual=0):
+    """Ghost BN + residual add + ReLU (the bottleneck exit).
+    ``donate_residual`` takes part in the group choice only (the
+    ``GhostBNReLU`` layer's note)."""
+    return ghost_bn_add_relu(data, residual, gamma, beta, moving_mean,
+                             moving_var, eps, group,
+                             bool(int(donate_residual)), _is_train())
+
+
+@register("_contrib_GhostBNAddReLUDual", num_inputs=6, num_outputs=4,
+          mutate_idx=(4, 5), aux_update=_ghost_bn_aux_update_dual)
+def _ghost_bn_add_relu_dual_op(data, residual, gamma, beta, moving_mean,
+                               moving_var, eps=1e-3, momentum=0.9, group=0,
+                               donate_residual=0):
+    """The dual exit: ``(out, out_sc, batch_mean, batch_var)``, two graph
+    entries whose cotangents K2 takes apart and sums on load."""
+    return ghost_bn_add_relu_dual(data, residual, gamma, beta, moving_mean,
+                                  moving_var, eps, group,
+                                  bool(int(donate_residual)), _is_train())
+
+
+@register("_contrib_GhostBN", num_inputs=5, num_outputs=3,
+          mutate_idx=(3, 4), aux_update=_ghost_bn_aux_update_op)
+def _ghost_bn_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                 momentum=0.9, group=0):
+    """Ghost BN without activation (the downsample branch)."""
+    return ghost_bn(data, gamma, beta, moving_mean, moving_var, eps, group,
+                    _is_train())
+
+
+@register("_contrib_GhostBNReLUNS", num_inputs=3)
+def _ghost_bn_relu_nostats_op(data, gamma, beta, eps=1e-3, group=0):
+    """Stats-free ghost BN + ReLU: ghost statistics in every mode, no aux
+    state."""
+    return ghost_bn_nostats(data, gamma, beta, eps, group, "relu")
+
+
+@register("_contrib_GhostBNNS", num_inputs=3)
+def _ghost_bn_nostats_op(data, gamma, beta, eps=1e-3, group=0):
+    """Stats-free ghost BN without activation."""
+    return ghost_bn_nostats(data, gamma, beta, eps, group, "none")
 
 
 @register("Activation", num_inputs=1)

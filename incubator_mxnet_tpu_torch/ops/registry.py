@@ -43,10 +43,12 @@ class Op:
     aux_update : callable(in_vals, out_vals, **attrs) -> {input_idx:
         new_val} or None: the new values of the mutated inputs after a
         training forward (BatchNorm's running stats)
+    mutate_idx : the positions of those inputs (``FMutateInputs``)
     """
 
     def __init__(self, name, fn, num_inputs=None, num_outputs=1,
-                 differentiable=True, aliases=(), doc="", aux_update=None):
+                 differentiable=True, aliases=(), doc="", aux_update=None,
+                 mutate_idx=()):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs
@@ -55,6 +57,7 @@ class Op:
         self.aliases = tuple(aliases)
         self.doc = doc or (fn.__doc__ or "")
         self.aux_update = aux_update
+        self.mutate_idx = tuple(mutate_idx)
 
     def __repr__(self):
         return "Op(%s)" % self.name

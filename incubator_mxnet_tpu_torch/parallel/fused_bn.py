@@ -211,8 +211,14 @@ def _on_card(t):
 
 
 def _check_device(x):
-    if x.device.type not in ("cuda", "cpu"):
+    if x.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError("ghost BN runs on cuda or cpu, got %s" % x.device)
+
+
+def _meta_stats(x, ng):
+    """Empty (N/ng, C) f32 statistics on ``meta`` (shape inference)."""
+    return torch.empty((x.shape[0] // ng, x.shape[1]), dtype=torch.float32,
+                       device="meta")
 
 
 def _dense(t):
@@ -246,11 +252,13 @@ def ghost_bn_fwd(x, gamma, beta, residual, eps, act, ng):
     """``(y, mean, var)``: y in x's dtype, mean and var (N/ng, C) f32.
     CUDA tensors go through K1 (x and the residual copied first where
     they are not contiguous NCHW); CPU tensors through the plain
-    version."""
+    version; ``meta`` tensors get empty outputs (shape inference)."""
     _check_act(x, {"residual": residual}, ng)
     if act not in ("relu", "none"):
         raise ValueError("act must be 'relu' or 'none', got %r" % (act,))
     _check_device(x)
+    if x.device.type == "meta":
+        return torch.empty_like(x), _meta_stats(x, ng), _meta_stats(x, ng)
     if not _on_card(x):
         return _gbn_fwd_plain(x, gamma, beta, residual, eps, act, ng)
     n, c, h, w = x.shape
@@ -276,9 +284,15 @@ def ghost_bn_bwd(gy, gy2, x, y, gamma, beta, mean, var, eps, act, ng):
     residual form (its ReLU mask; ``dr`` is then the masked cotangent),
     None otherwise; ``gy2`` is the dual exit's second cotangent or None.
     CUDA tensors go through K2 (the NCHW operands copied first where they
-    are not contiguous); CPU tensors through the plain version."""
+    are not contiguous); CPU tensors through the plain version; ``meta``
+    tensors get empty outputs."""
     _check_act(x, {"gy": gy, "gy2": gy2, "y": y}, ng)
     _check_device(x)
+    if x.device.type == "meta":
+        c = x.shape[1]
+        vec = torch.empty((c,), dtype=torch.float32, device="meta")
+        return (torch.empty_like(x), vec, vec.clone(),
+                torch.empty_like(x) if y is not None else None)
     if not _on_card(x):
         return _gbn_bwd_plain(gy, gy2, x, y, gamma, beta, mean, var, eps,
                               act, ng)

@@ -6,7 +6,9 @@ that composes a graph node, as the reference code-generates both ``nd``
 and ``sym`` from one registry.  Inputs not given are created as
 variables named ``<node>_<input>`` (``fc1_weight``, ``softmax_label``),
 as nnvm composition does; a bias with ``no_bias=True`` is bound to
-nothing.  ``mx.sym.contrib`` resolves the ``_contrib_`` names.
+nothing.  ``mx.sym.contrib`` resolves the ``_contrib_`` names and
+composes the control flow (``foreach``, ``while_loop``, ``cond``);
+``mx.sym.linalg`` the ``la_op`` family.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from .symbol import (AUX_SUFFIXES, PARAM_INPUT_NAMES, Group, Symbol, Variable,
 from . import contrib  # noqa: E402  (mx.sym.contrib)
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json", "zeros",
-           "ones", "arange", "AUX_SUFFIXES"]
+           "ones", "arange", "AUX_SUFFIXES", "contrib", "linalg"]
 
 __is_symbol__ = True
 
@@ -116,6 +118,9 @@ def __getattr__(attr_name):
     w = _make_wrapper(attr_name, op)
     setattr(sys.modules[__name__], attr_name, w)
     return w
+
+
+from . import linalg  # noqa: E402  (needs _invoke_symbol above)
 
 
 def zeros(shape, dtype="float32", **kwargs):

@@ -10,7 +10,8 @@ infers shapes and types (parameter shapes backward from the data's,
 everything else by running the ops on ``meta`` tensors,
 :meth:`..ops.registry.Op.infer`), and saves and loads the reference's
 JSON byte for byte, so ``-symbol.json`` files cross between the JAX
-package and the port both ways.  ``bind``/``simple_bind`` make an
+package and the port both ways (a control-flow node's subgraphs as
+nested JSON in ``__subgraph_json__:`` attributes).  ``bind``/``simple_bind`` make an
 :class:`..executor.Executor`, which walks the graph eagerly on the bound
 tensors.
 """
@@ -324,16 +325,21 @@ class Symbol:
                 [dtypes.get(n, f32) for n in self.list_auxiliary_states()])
 
     # ------------------------------------------------------------ execution
-    def eval(self, ctx=None, **kwargs):  # noqa: A003
-        """Evaluate eagerly on NDArrays given by variable name; an
-        NDArray, or a list of them for several outputs."""
+    def eval_with(self, bindings):
+        """Evaluate eagerly on NDArrays (or tensors) given by variable name
+        in ``bindings``, no running stat committed (``SymbolBlock``'s
+        forward); an NDArray, or a list of them for several outputs."""
         from ..ndarray import NDArray
 
         vals = {k: (v._data if isinstance(v, NDArray) else v)
-                for k, v in kwargs.items()}
+                for k, v in bindings.items()}
         device = next((v.device for v in vals.values()), None)
         outs = [NDArray(o) for o in _eval_graph(self, vals, device)]
         return outs[0] if len(outs) == 1 else outs
+
+    def eval(self, ctx=None, **kwargs):  # noqa: A003
+        """:meth:`eval_with` of the keyword arguments."""
+        return self.eval_with(kwargs)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
@@ -412,13 +418,24 @@ class Symbol:
 # ---------------------------------------------------------------------------
 
 
+#: the prefix of an attribute that holds a subgraph (a control-flow
+#: node's body) as nested JSON
+_SUBGRAPH_PREFIX = "__subgraph_json__:"
+
+
 def _attr_to_str(v):
-    return v if isinstance(v, str) else repr(v)
+    if isinstance(v, str):
+        return v
+    if isinstance(v, Symbol):
+        return _SUBGRAPH_PREFIX + v.tojson()
+    return repr(v)
 
 
 def _parse_attr(s):
     if not isinstance(s, str):
         return s
+    if s.startswith(_SUBGRAPH_PREFIX):
+        return load_json(s[len(_SUBGRAPH_PREFIX):])
     try:
         return ast.literal_eval(s)
     except (ValueError, SyntaxError):

@@ -330,8 +330,14 @@ def test_sym_contrib_matches_reference():
     shapes = dict(a=(1, 48, 4), l=(2, 3, 5), c=(2, 4, 48))
     assert tt.list_outputs() == jt.list_outputs()
     assert tt.infer_shape(**shapes) == jt.infer_shape(**shapes)
-    with pytest.raises(AttributeError, match="item 2b"):
-        tmx.sym.contrib.foreach  # noqa: B018
+    # the control flow composes in mx.sym.contrib too, as the reference's
+    with jmx.name.NameManager():
+        jf = jmx.sym.contrib.foreach(lambda x, s: (x + s, x + s),
+                                     jmx.sym.var("d"), jmx.sym.var("s"))[0]
+    with tmx.name.NameManager():
+        tf = tmx.sym.contrib.foreach(lambda x, s: (x + s, x + s),
+                                     tmx.sym.var("d"), tmx.sym.var("s"))[0]
+    assert tf.tojson() == jf.tojson()
 
 
 def test_nd_contrib_runs_the_ops():

@@ -1231,3 +1231,167 @@ def test_ssd_step_card_matches_cpu(dev):
     before = _kernels.launch_counts()
     _smoke().ssd_card_vs_cpu(dev)
     assert _kernels.launch_counts() == before
+
+
+GHOST_FORMS = [
+    ("_contrib_GhostBNReLU", False), ("_contrib_GhostBN", False),
+    ("_contrib_GhostBNAddReLU", True), ("_contrib_GhostBNAddReLUDual", True),
+    ("_contrib_GhostBNReLUNS", False), ("_contrib_GhostBNNS", False)]
+
+
+@pytest.mark.parametrize("name,residual", GHOST_FORMS,
+                         ids=[n for n, _ in GHOST_FORMS])
+def test_ghost_registry_forms_on_card_match_plain(dev, name, residual):
+    """Each ghost-BN registry op in training on the card (K1, and K2 on
+    backward: one launch each) against the same op on the CPU (the plain
+    versions): outputs, statistics and every input's gradient, to this
+    file's f32 limits; the running-stat update of the stateful forms."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    op = registry.OPS[name]
+    rng = np.random.RandomState(3)
+    n, c, hw = 16, 64, 7
+    ins = [rng.normal(0.5, 2.0, (n, c, hw, hw))]
+    if residual:
+        ins.append(rng.normal(size=(n, c, hw, hw)))
+    ins += [rng.uniform(0.5, 1.5, c), rng.normal(0, 0.2, c)]
+    stateful = not name.endswith("NS")
+    if stateful:
+        ins += [rng.normal(0, 0.1, c), rng.uniform(0.5, 1.5, c)]
+    ins = [torch.tensor(a, dtype=torch.float32) for a in ins]
+    kw = dict(eps=1e-5, group=8)
+    if stateful:
+        kw["momentum"] = 0.9
+    cots = [torch.tensor(rng.normal(size=(n, c, hw, hw)), dtype=torch.float32)
+            for _ in range(2)]
+    res = {}
+    for key, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        xs = [t.detach().clone().to(d).requires_grad_(
+            i < (4 if residual else 3)) for i, t in enumerate(ins)]
+        _kernels.reset_launch_counts()
+        with autograd.train_mode():
+            out = op.fn(*xs, **kw)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        live = [o for o in outs if o.requires_grad]
+        torch.autograd.backward(live, [g.to(d) for g in cots[:len(live)]])
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        upd = op.aux_update([t.detach() for t in xs], outs, momentum=0.9) \
+            if op.aux_update else {}
+        res[key] = ([o.detach().cpu() for o in outs],
+                    [None if t.grad is None else t.grad.cpu() for t in xs],
+                    {k: v.cpu() for k, v in upd.items()}, counts)
+    (o_card, g_card, u_card, counts), (o_cpu, g_cpu, u_cpu, _) = \
+        res["card"], res["cpu"]
+    assert counts["ghost_bn_fwd"] == 1 and counts["ghost_bn_bwd"] == 1
+    for a, b in zip(o_card, o_cpu):
+        _close(a, b, 1e-4)
+    for i, (a, b) in enumerate(zip(g_card, g_cpu)):
+        assert (a is None) == (b is None)
+        if a is not None:  # dgamma and dbeta are sums over the group
+            _close(a, b, 1e-4 if i < (2 if residual else 1) else 1e-3)
+    assert sorted(u_card) == sorted(u_cpu) == (
+        sorted(op.mutate_idx) if stateful else [])
+    for k in u_card:
+        _close(u_card[k], u_cpu[k], 1e-4)
+
+
+def _ghost_symbol(sym, c=64, group=8):
+    x = sym.Convolution(sym.var("data"), kernel=(3, 3), pad=(1, 1),
+                        num_filter=c, no_bias=True, name="c0")
+    a = sym.contrib.GhostBNReLU(x, eps=1e-5, group=group, name="g0")[0]
+    d = sym.contrib.GhostBNAddReLUDual(
+        sym.Convolution(a, kernel=(1, 1), num_filter=c, no_bias=True,
+                        name="c1"), a, eps=1e-5, group=group, name="g1")
+    return sym.contrib.GhostBNAddReLU(d[0], d[1], eps=1e-5, group=group,
+                                      name="g2")[0]
+
+
+def test_simple_bind_through_ghost_ops_launches_nothing(dev):
+    """``simple_bind`` on the card infers shapes through the ghost ops and
+    a max pool on ``meta`` tensors: K1/K2/K3's wrappers answer them, no
+    kernel launches; the bound Executor's training step then launches K1
+    three times, K2 three times and K3 once."""
+    import incubator_mxnet_tpu_torch as mx
+
+    s = mx.sym.Pooling(_ghost_symbol(mx.sym), kernel=(3, 3), stride=(2, 2),
+                       pad=(1, 1), pool_type="max")
+    shapes = {n: (64,) for n in s.list_inputs()
+              if n.endswith(("gamma", "beta", "moving_mean", "moving_var"))}
+    _kernels.reset_launch_counts()
+    exe = s.simple_bind(dev, data=(16, 3, 14, 14), **shapes)
+    assert not any(_kernels.launch_counts().values())
+    assert exe.outputs == [] and exe.arg_dict["data"].shape == (16, 3, 14, 14)
+    for name in shapes:
+        arrays = exe.arg_dict if name in exe.arg_dict else exe.aux_dict
+        arrays[name][:] = 1.0 if name.endswith(("gamma", "var")) else 0.0
+    exe.arg_dict["data"][:] = mx.nd.random.uniform(shape=(16, 3, 14, 14),
+                                                   ctx=dev)
+    exe.forward(is_train=True)
+    exe.backward()
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert (counts["ghost_bn_fwd"], counts["ghost_bn_bwd"],
+            counts["maxpool_idx_fwd"]) == (3, 3, 1)
+
+
+def test_exported_ghost_net_executor_matches_gluon_on_card(dev, tmp_path):
+    """chip_smoke.py phase 3k at a small size: ``resnet18_v1(ghost_bn=8)``
+    exported and bound on the card; one Executor training step equals
+    the Gluon net's step bit for bit (output, argument gradients,
+    running stats; cuDNN deterministic), each launching K1/K2/K3
+    20/20/1 times (16 block BNs, 3 downsample BNs and the stem's);
+    ``SymbolBlock.imports`` in inference equals the Gluon net's eval
+    output."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import initializer
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        net = resnet.resnet18_v1(classes=10, ghost_bn=8, device=dev)
+        initializer.initialize(net, initializer.Xavier(),
+                               torch.Generator(device=dev).manual_seed(0))
+        prefix = str(tmp_path / "r18")
+        net.export(prefix)
+        x = mx.nd.random.uniform(shape=(16, 3, 32, 32), ctx=dev)
+        head = mx.nd.random.normal(shape=(16, 10), ctx=dev)
+        block = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                             prefix + "-0000.params", ctx=dev)
+        assert torch.equal(block(x)._data, net(x)._data)
+        sym, args, aux = mx.model.load_checkpoint(prefix, 0, ctx=dev)
+        exe = sym.simple_bind(dev, data=x.shape)
+        exe.copy_params_from(args, aux)
+        want = {"ghost_bn_fwd": 20, "ghost_bn_bwd": 20, "maxpool_idx_fwd": 1}
+        _kernels.reset_launch_counts()
+        exe.forward(is_train=True, data=x)
+        exe.backward(head)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _kernels.launch_counts().items() if v} \
+            == want
+        _kernels.reset_launch_counts()
+        with mx.autograd.record():
+            y = net(x)
+        y.backward(head)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _kernels.launch_counts().items() if v} \
+            == want
+        params = net.collect_params()
+        assert torch.equal(exe.outputs[0]._data, y._data)
+        for n, g in exe.grad_dict.items():
+            if n != "data":
+                assert torch.equal(g._data, params[n].grad()._data), n
+        for n, a in exe.aux_dict.items():
+            assert torch.equal(a._data, params[n].data()._data), n
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+
+
+def test_control_flow_and_linalg_card_match_cpu(dev):
+    """chip_smoke.py phase 3k's last part: the LSTM-like ``foreach``, a
+    ``while_loop`` and a ``cond``, and potrf/trsm/syevd/gelqf/slogdet,
+    card against CPU within the script's limits; no kernel launched."""
+    _smoke().control_flow_linalg_card_vs_cpu(dev)
