@@ -5,13 +5,26 @@
 through ``make_train_step``, bf16 compute with f32 parameters, fed by
 ``ImageRecordIter`` from ``--data-train`` or, without it, by one
 synthetic batch resident on the device.  The same flags and defaults as
-the JAX script, plus ``--device``; ``--kv-store dist_sync_device`` (data
-parallel over every card) waits for the port's ``torch.distributed``
-layer (ROADMAP A8) and raises.
+the JAX script, plus ``--device``.
+
+``--kv-store dist_sync_device`` makes the step data parallel over the
+processes that ``tools/launch.py`` starts (a dp mesh, one device each):
+``--batch-size`` stays the global batch, each rank steps on its slice of
+it (of the one synthetic batch, or read from the RecordIO file with
+``part_index=rank``, ``num_parts=world``), and at the end each rank logs
+its last loss and the SHA-1 of its parameters and running stats, which
+agree across the ranks.
 
 On the card (from the repository root):
 
     python3 example/image_classification/train_imagenet_torch.py
+
+Over two processes (two ranks sharing one card run gloo; one card each,
+NCCL):
+
+    python3 tools/launch.py -n 2 python3 \
+        example/image_classification/train_imagenet_torch.py \
+        --kv-store dist_sync_device
 
 On the CPU, at a small size:
 
@@ -21,6 +34,7 @@ On the CPU, at a small size:
         --dtype float32
 """
 import argparse
+import hashlib
 import logging
 import os
 import sys
@@ -34,9 +48,12 @@ if REPO not in sys.path:
 import numpy as np
 import torch
 
-from incubator_mxnet_tpu_torch import context, gluon, initializer, random
+from incubator_mxnet_tpu_torch import (context, convert, gluon, initializer,
+                                       random)
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
-from incubator_mxnet_tpu_torch.parallel import make_train_step
+from incubator_mxnet_tpu_torch.parallel import (distributed, make_mesh,
+                                                make_train_step)
+from incubator_mxnet_tpu_torch.parallel.mesh import global_devices
 
 
 def parse_args(argv=None):
@@ -75,27 +92,50 @@ def build_net(args, device):
     return net
 
 
-def build_step(net, args, device):
+def build_mesh(args):
+    """The dp mesh over the launched processes for ``--kv-store
+    dist_sync_device`` (None otherwise), after the rendezvous."""
+    if args.kv_store != "dist_sync_device":
+        return None
+    distributed.initialize(device=args.device)
+    mesh = make_mesh({"dp": -1}, devices=global_devices(args.device))
+    logging.info("dp mesh over %d processes (%s)", mesh.size,
+                 distributed.backend() or "one process")
+    return mesh
+
+
+def build_step(net, args, device, mesh=None):
     return make_train_step(net, gluon.loss.SoftmaxCrossEntropyLoss(),
                            optimizer="sgd", learning_rate=args.lr,
                            momentum=0.9, wd=1e-4, compute_dtype=args.dtype,
-                           device=device)
+                           device=device, mesh=mesh)
 
 
-def batches(args, device):
+def batches(args, device, mesh=None):
     """Endless ``(data, label)`` on ``device``: ``ImageRecordIter`` over
     ``args.data_train`` (reset at each epoch's end), else one synthetic
-    batch from numpy seed 0 (the pipeline bypassed)."""
+    batch from numpy seed 0 (the pipeline bypassed).  Over a dp mesh each
+    rank gets its slice of the global batch: the iterator reads part
+    ``rank`` of ``world`` at the per-rank batch size, and the synthetic
+    batch is cut by rank."""
     c, h, w = image_shape(args)
+    rank, world = 0, 1
+    if mesh is not None:
+        rank, world = mesh.axis_index("dp"), mesh.size
+        if args.batch_size % world:
+            raise ValueError("--batch-size %d (the global batch) does not "
+                             "split over %d processes"
+                             % (args.batch_size, world))
     if args.data_train:
         from incubator_mxnet_tpu_torch.io import ImageRecordIter
 
         it = ImageRecordIter(
             path_imgrec=args.data_train,
             path_imgidx=args.data_train_idx or None,
-            data_shape=(c, h, w), batch_size=args.batch_size, shuffle=True,
-            rand_crop=True, rand_mirror=True, preprocess_threads=8,
-            prefetch_buffer=8, ctx=device)
+            data_shape=(c, h, w), batch_size=args.batch_size // world,
+            shuffle=True, rand_crop=True, rand_mirror=True,
+            preprocess_threads=8, prefetch_buffer=8, part_index=rank,
+            num_parts=world, ctx=device)
         try:
             while True:
                 try:
@@ -112,27 +152,35 @@ def batches(args, device):
         rng.rand(args.batch_size, c, h, w).astype(np.float32)).to(device)
     y = torch.from_numpy(rng.randint(0, args.num_classes, args.batch_size)
                          .astype(np.float32)).to(device)
+    if mesh is not None:
+        x, y = mesh.local_slice(x), mesh.local_slice(y)
     while True:
         yield x, y
+
+
+def state_sha1(net):
+    """SHA-1 over the bytes of every parameter and running stat, in
+    ``collect_params()`` order: equal digests, equal replicas."""
+    h = hashlib.sha1()
+    for _, t in convert.ordered_tensors(net):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def main(argv=None):
     """Train ``--num-batches`` steps; returns their losses as floats."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.kv_store == "dist_sync_device":
-        raise NotImplementedError(
-            "--kv-store dist_sync_device (the batch sharded over every "
-            "card) waits for the port's torch.distributed layer: ROADMAP "
-            "A8")
-    dev = context.resolve(args.device)
+    mesh = build_mesh(args)
+    dev = context.resolve(args.device) if mesh is None \
+        else mesh.local_device
     logging.info("device: %s", torch.cuda.get_device_name(dev)
                  if dev.type == "cuda" else "cpu")
     net = build_net(args, dev)
-    step = build_step(net, args, dev)
+    step = build_step(net, args, dev, mesh)
 
     losses = []
-    src = batches(args, dev)
+    src = batches(args, dev, mesh)
     t0 = time.time()
     for i, (bx, by) in enumerate(src):
         loss = step(bx, by)
@@ -146,6 +194,10 @@ def main(argv=None):
         if i + 1 >= args.num_batches:
             break
     src.close()
+    if mesh is not None:
+        logging.info("[rank %d/%d] last loss %r  state sha1 %s",
+                     mesh.axis_index("dp"), mesh.size, float(losses[-1]),
+                     state_sha1(net))
     return [float(v) for v in losses]
 
 

@@ -8,7 +8,7 @@ attention: on the card its hand-written kernels (forward, dQ, dK/dV), on
 the CPU their plain versions.  On one device the JAX example's
 ``sharded_self_attention(..., impl="ulysses")`` is that same function (its
 all-to-alls are the identity); sequence parallelism over several cards
-waits for the port's ``torch.distributed`` layer (ROADMAP A8), so there
+waits for ROADMAP A8 item c, so there
 is no ``--devices`` or ``--impl`` here.
 
 On the card (from the repository root):

@@ -20,6 +20,7 @@ import torch
 
 from .... import context
 from ....ops import nn as ops
+from ....parallel import collectives
 from ... import nn
 from ...block import HybridBlock
 
@@ -167,8 +168,19 @@ class GhostBNReLU(HybridBlock):
                                          running_mean, running_var, **kw)[0]
 
     def _commit_running(self, bm, bv):
+        """Move the running stats toward this batch's (bm, bv).  Inside a
+        data-parallel step this rank's stats wait for the step's
+        reduction, which hands back the global batch's mean and E[x^2]."""
         if not self.training:
             return
+        dp = collectives.current_dp()
+        if dp is not None:
+            dp.defer_stats([bm, bv + bm * bm], lambda m, e2: self._move(
+                m, torch.clamp_min(e2 - m * m, 0.0)))
+            return
+        self._move(bm, bv)
+
+    def _move(self, bm, bv):
         with torch.no_grad():
             rm, rv = ops.ghost_bn_aux_update(self.running_mean,
                                              self.running_var, bm, bv,

@@ -1,9 +1,10 @@
 """Gluon ``Trainer`` (port of ``incubator_mxnet_tpu/gluon/trainer.py``): an
 optimizer over a set of ``Parameter``s.
 
-``step(batch_size)`` reduces the gradients through the kvstore (nothing
-to reduce in one process, unless a third-party store is plugged in),
-then updates every parameter with a gradient through the optimizer's
+``step(batch_size)`` reduces the gradients through the kvstore (a
+``dist_*`` store with several workers sums them across the processes;
+nothing to reduce in one process, unless a third-party store is plugged
+in), then updates every parameter with a gradient through the optimizer's
 ``Updater``, one parameter at a time as the reference does, with
 ``rescale_grad = scale / batch_size / loss_scale``.  The update writes
 into each parameter's tensor: the tensor its module computes with.
@@ -86,14 +87,16 @@ class Trainer:
         self.update(batch_size, ignore_stale_grad)
 
     def allreduce_grads(self):
-        """Reduce gradients across workers.  One process has none to
-        reduce with; a plugged-in store (``KVStoreBase.register``) gets
-        its pushpull all the same."""
+        """Reduce gradients across workers: a store with more than one
+        worker, or a plugged-in store (``KVStoreBase.register``), gets a
+        ``pushpull`` per parameter, in order; a ``dist`` store at one
+        worker and the built-in local stores have nothing to reduce."""
         if self._kvstore is None:
             return
         from ..kvstore.kvstore import KVStore
 
-        plugged = type(self._kvstore) is not KVStore
+        plugged = type(self._kvstore) is not KVStore and \
+            not self._kvstore.type.startswith("dist")
         if getattr(self._kvstore, "num_workers", 1) > 1 or plugged:
             for i, p in enumerate(self._params):
                 if p.grad_req != "null":

@@ -1,15 +1,17 @@
-"""KVStore in one process (port of ``incubator_mxnet_tpu/kvstore/
-kvstore.py``): ``create("local" | "device")``, ``init``/``push``/
+"""KVStore (port of ``incubator_mxnet_tpu/kvstore/kvstore.py``):
+``create(name)`` for every type of the reference, ``init``/``push``/
 ``pull``/``pushpull``/``broadcast``, an optimizer or updater run on push
 (``set_optimizer``/``set_updater``, the reference's
 ``update_on_kvstore``), and ``KVStoreBase.register`` for third-party
 stores.
 
-A push sums the values given for a key (the reference's per-device
-reduce; one card here) into the stored value, or hands the sum to the
-updater; a pull copies the stored value into each output.  The
-``dist_*`` types need the port's ``torch.distributed`` layer, ROADMAP
-A8, and raise until it lands.
+A push sums the values given for each key (the reference's per-device
+reduce; one card here), hands the whole batch to
+``_reduce_batch_after_compress`` (identity in one process; the
+``dist_*`` store, :mod:`.dist`, sums it across the processes there),
+then stores each sum or hands it to the updater; a pull copies the
+stored value into each output.  ``horovod`` and ``tpu`` are local
+stores, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ __all__ = ["KVStore", "KVStoreBase", "create"]
 _KV_TYPES = ("local", "local_allreduce_cpu", "local_allreduce_device",
              "device", "nccl", "dist", "dist_sync", "dist_async",
              "dist_sync_device", "dist_device_sync", "dist_async_device",
-             "horovod")
+             "horovod", "tpu")
 
 
 class KVStoreBase:
@@ -53,10 +55,10 @@ def create(name="local") -> "KVStore":
         return KVStoreBase._registry[name.lower()]()
     if name not in _KV_TYPES:
         raise MXNetError("unknown KVStore type %r" % name)
-    if name.startswith("dist") or name == "horovod":
-        raise NotImplementedError(
-            "KVStore %r needs the port's torch.distributed layer, ROADMAP "
-            "item A8" % name)
+    if name.startswith("dist"):
+        from .dist import DistKVStore
+
+        return DistKVStore(name)
     return KVStore(name)
 
 
@@ -104,10 +106,23 @@ class KVStore:
             v0 = v[0] if isinstance(v, (list, tuple)) else v
             self._store[k] = NDArray(v0._data.detach().clone())
 
+    def _reduce_after_compress(self, key, arr):
+        """Cross-worker reduction of one key's merged value: identity in
+        one process (the dist store sums across the processes)."""
+        return arr
+
+    def _reduce_batch_after_compress(self, keys, arrs):
+        """The reduction of a whole push batch, called once per push with
+        every key's merged value; the dist store makes it one collective
+        per dtype."""
+        return [self._reduce_after_compress(k, a)
+                for k, a in zip(keys, arrs)]
+
     def push(self, key, value, priority=0):
         keys, values = self._norm_keys_vals(key, value)
-        for k, v in zip(keys, values):
-            merged = self._merge(v)
+        merged_list = self._reduce_batch_after_compress(
+            keys, [self._merge(v) for v in values])
+        for k, merged in zip(keys, merged_list):
             if k not in self._store:
                 self._store[k] = NDArray(torch.zeros_like(merged))
             if self._updater is not None:

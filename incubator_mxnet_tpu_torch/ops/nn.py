@@ -25,7 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..parallel import fused_bn, maxpool_idx
+from ..parallel import collectives, fused_bn, maxpool_idx
 from .registry import register
 
 __all__ = ["convolution", "pooling", "fully_connected", "activation",
@@ -181,7 +181,10 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     g32 = torch.ones(c, dtype=cdt, device=x.device) if fix_gamma \
         else gamma.to(cdt)
     b32 = beta.to(cdt)
-    if training and not use_global_stats:
+    dp = collectives.current_dp()
+    if training and not use_global_stats and dp is not None:
+        y, mean, var = _SyncBatchNorm.apply(x, g32, b32, float(eps), dp)
+    elif training and not use_global_stats:
         y, mean, rstd = torch.native_batch_norm(x, g32, b32, None, None, True,
                                                 0.0, float(eps))
         var = (rstd.detach().pow(-2) - eps).clamp_min(0.0)
@@ -196,6 +199,67 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     if axis != 1:
         y = y.movedim(1, axis)
     return (y, mean, var) if output_mean_var else y
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training batch norm of one rank of a data-parallel step, with the
+    statistics of the whole global batch, as the reference's
+    ``_batch_norm`` takes them over a dp-sharded batch.
+
+    Forward: each rank's (count, mean, M2), its moments from
+    ``torch.native_batch_norm`` (as the one-process path takes them),
+    gathered over the dp axis and merged in rank order by Chan's formula,
+    so every rank normalizes with the same bits; then one
+    ``native_batch_norm`` pass with the merged statistics.  Backward: the
+    eval-mode backward at those statistics gives Sigma dy and Sigma
+    dy*xhat, summed over the axis in one ``all_reduce``, and the terms
+    of dx they weigh; dgamma and dbeta stay this rank's (the step
+    averages the gradients).  Returns ``(y, mean, biased var)`` in
+    gamma's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, dp):
+        count = x.numel() // x.shape[1]
+        _, mean, invstd = torch.native_batch_norm(x, None, None, None, None,
+                                                  True, 0.0, eps)
+        mean = mean.to(gamma.dtype)
+        m2 = (invstd.to(gamma.dtype).pow(-2) - eps).clamp_min(0.0) * count
+        local = torch.stack([torch.full_like(mean, count), mean, m2])
+        every = collectives.allgather(local, dp.axis_name, dp.mesh, axis=0,
+                                      tiled=False)
+        n, mean, m2 = every[0, 0], every[0, 1], every[0, 2]
+        for r in range(1, every.shape[0]):
+            nr, mr, m2r = every[r, 0], every[r, 1], every[r, 2]
+            tot = n + nr
+            delta = mr - mean
+            mean = mean + delta * (nr / tot)
+            m2 = m2 + m2r + delta.square() * (n * nr / tot)
+            n = tot
+        var = m2 / n
+        y = torch.native_batch_norm(x, gamma, beta, mean, var, False, 0.0,
+                                    eps)[0]
+        ctx.save_for_backward(x, gamma, mean, var)
+        ctx.dp, ctx.total, ctx.eps = dp, n, eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, gamma, mean, var = ctx.saved_tensors
+        dp = ctx.dp
+        bshape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+        dx_eval, dgamma, dbeta = torch.ops.aten.native_batch_norm_backward(
+            dy.contiguous(), x, gamma, mean, var, None, None, False, ctx.eps,
+            [True, True, True])
+        s_dy, s_dyx = collectives.allreduce_coalesced(
+            [dbeta, dgamma], dp.axis_name, dp.mesh)
+        # dx = g*invstd*(dy - S_dy/N - xhat*S_dyxhat/N): the eval backward
+        # gave g*invstd*dy; the rest is a + b*x per channel
+        invstd = torch.rsqrt(var + ctx.eps)
+        b = -gamma * invstd * invstd * s_dyx / ctx.total
+        a = -gamma * invstd * s_dy / ctx.total - b * mean
+        dx = torch.addcmul(a.reshape(bshape), x, b.reshape(bshape))
+        return (dx + dx_eval).to(x.dtype), dgamma, dbeta, None, None
 
 
 def batch_norm_stats(data, axis=1):
@@ -220,6 +284,14 @@ def batch_norm_aux_update(old_mean, old_var, batch_mean, batch_var,
                                momentum)
 
 
+def _global_batch(data):
+    """The batch a ghost group is picked for: inside a data-parallel step
+    (``collectives.dp_scope``) the global batch, of which ``data`` is one
+    rank's equal slice, as the reference's op sees it."""
+    dp = collectives.current_dp()
+    return data.shape[0] * (dp.size if dp is not None else 1)
+
+
 def _ghost_bn_common(data, residual, gamma, beta, moving_mean, moving_var,
                      eps, group, act, training, donate_residual=False,
                      dual_out=False):
@@ -233,7 +305,8 @@ def _ghost_bn_common(data, residual, gamma, beta, moving_mean, moving_var,
         outs = fused_bn.ghost_bn_act(data, g32, b32, residual=residual,
                                      eps=eps, act=act, group=group,
                                      donate_residual=donate_residual,
-                                     dual_out=dual_out)
+                                     dual_out=dual_out,
+                                     batch=_global_batch(data))
         bm, bv = fused_bn.ghost_bn_stats_merge(outs[-2], outs[-1])
         return outs[:-2] + (bm, bv)
     inv = torch.rsqrt(moving_var.float() + eps)
@@ -291,8 +364,8 @@ def ghost_bn_nostats(data, gamma, beta, eps=1e-3, group=0, act="relu"):
     ghost groups' statistics in every mode (the reference's pipelined
     form), through the fused kernels."""
     return fused_bn.ghost_bn_act(data, gamma.float(), beta.float(),
-                                 eps=float(eps), act=act,
-                                 group=int(group))[0]
+                                 eps=float(eps), act=act, group=int(group),
+                                 batch=_global_batch(data))[0]
 
 
 def ghost_bn_aux_update(old_mean, old_var, batch_mean, batch_var,

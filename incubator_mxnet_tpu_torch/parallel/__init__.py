@@ -1,9 +1,13 @@
-"""Fused kernels and the train step (port of ``incubator_mxnet_tpu/parallel``)."""
-from . import checkpoint, fused_bn, maxpool_idx, ring_attention, train_step
+"""Fused kernels, the train step and data parallelism over
+``torch.distributed`` (port of ``incubator_mxnet_tpu/parallel``)."""
+from . import (checkpoint, collectives, distributed, fused_bn, maxpool_idx,
+               mesh, ring_attention, train_step)
 from .flash_attention import flash_attention
+from .mesh import Mesh, make_mesh
 from .train_step import (DynamicLossScale, FunctionalOptimizer, TrainStep,
                          make_train_step)
 
-__all__ = ["checkpoint", "fused_bn", "maxpool_idx", "ring_attention", "train_step",
+__all__ = ["checkpoint", "collectives", "distributed", "fused_bn",
+           "maxpool_idx", "mesh", "ring_attention", "train_step",
            "flash_attention", "DynamicLossScale", "FunctionalOptimizer",
-           "TrainStep", "make_train_step"]
+           "Mesh", "TrainStep", "make_mesh", "make_train_step"]

@@ -26,7 +26,7 @@ strings ``jax.tree_util.keystr`` gives (``['opt_state'][3][1]``).
 bfloat16 leaves travel as their 16-bit patterns.
 
 One process only: the multi-process commit protocol and the elastic
-multi-card restore wait for ROADMAP A8.
+multi-process restore wait for ROADMAP A8 item 1b.
 """
 from __future__ import annotations
 
@@ -253,7 +253,7 @@ class CheckpointManager:
     and falls back to the next older checkpoint on corruption.
     ``retries``/``backoff`` bound the retries around every file read and
     write.  ``process_count`` above 1 (the multi-process commit) waits for
-    ROADMAP A8 and raises."""
+    ROADMAP A8 item 1b and raises."""
 
     def __init__(self, directory: str, keep_last: int = 3, retries: int = 2,
                  backoff: float = 0.05, process_index: Optional[int] = None,
@@ -268,8 +268,9 @@ class CheckpointManager:
         if int(process_count or 1) > 1 or int(process_index or 0) != 0:
             raise NotImplementedError(
                 "multi-process checkpoints (process_count %s, process_index "
-                "%s) wait for ROADMAP A8: the port's manager commits from "
-                "one process" % (process_count, process_index))
+                "%s) wait for the multi-process checkpoint commit, ROADMAP "
+                "A8 item 1b: the port's manager commits from one process"
+                % (process_count, process_index))
         self.process_index = 0
         self.process_count = 1
 

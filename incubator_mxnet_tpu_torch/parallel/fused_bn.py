@@ -396,7 +396,7 @@ class _GhostBN(torch.autograd.Function):
 
 
 def ghost_bn_act(x, gamma, beta, residual=None, eps=1e-3, act="relu",
-                 group=0, donate_residual=False, dual_out=False):
+                 group=0, donate_residual=False, dual_out=False, batch=None):
     """Fused ghost-BN (+residual) (+ReLU) (fused_bn.py ghost_bn_act).
 
     x: (N, C, H, W).  Returns ``(y, group_mean, group_var)`` with (G, C)
@@ -405,10 +405,22 @@ def ghost_bn_act(x, gamma, beta, residual=None, eps=1e-3, act="relu",
     reference's group under it.  ``donate_residual`` declares the
     residual dead after this layer; it takes part in the group choice, as
     in the reference, but y is written to a fresh tensor here (autograd
-    forbids writing over a tensor it saved)."""
+    forbids writing over a tensor it saved).
+
+    ``batch`` is the batch the group is picked for, N by default; in a
+    data-parallel step it is the global batch, of which ``x`` is one
+    rank's slice.  The group must then divide N, so that every group lies
+    inside one rank and needs no communication."""
     n, c, h, w = x.shape
     donate = bool(donate_residual) and residual is not None
-    ng = ghost_group(n, c, h, w, x.element_size(), int(group),
+    batch = n if batch is None else int(batch)
+    ng = ghost_group(batch, c, h, w, x.element_size(), int(group),
                      residual is not None, donate, bool(dual_out))
+    if n % ng:
+        raise ValueError(
+            "ghost group %d (the reference's for the global batch %d) does "
+            "not divide this rank's batch %d: a group would span two ranks; "
+            "make the per-rank batch a multiple of the group"
+            % (ng, batch, n))
     return _GhostBN.apply(x, gamma, beta, residual, float(eps), act, ng,
                           bool(dual_out))

@@ -4,8 +4,8 @@
 kernels are held to, and :func:`_block_attn_update` one step of the
 blockwise softmax that ring attention accumulates.  ``ring_attention``,
 ``ulysses_attention`` and ``sharded_self_attention`` move K/V blocks or
-heads between devices; they wait for the port's ``torch.distributed``
-layer (ROADMAP A8).  On one device ``ulysses_attention`` is
+heads between devices; they wait for sequence parallelism over the
+port's ``torch.distributed`` layer (ROADMAP A8 item c).  On one device ``ulysses_attention`` is
 :func:`~.flash_attention.flash_attention` itself.
 """
 from __future__ import annotations

@@ -26,6 +26,22 @@ One call runs forward, backward and the optimizer update:
 The finiteness flag, the counters and the scale stay tensors on the
 device: a step never waits for the host.
 
+Over a data-parallel mesh (``mesh=make_mesh({"dp": N})``, one process
+per device) each rank is given its slice of the global batch
+(:meth:`~.mesh.Mesh.local_slice`) and the step computes what the
+reference's one program computes over the whole batch: the loss is the
+global mean, the gradients are averaged over the dp group before the
+non-finite guard (so every rank takes the same skip decision and the
+same loss-scale move), stock batch norm takes the global batch's
+statistics and ghost batch norm's running stats merge over the ranks
+(:func:`~.collectives.dp_scope`).  The gradients, the loss and the
+running stats travel in one ``all_reduce`` per dtype.  ``zero=1``
+(ZeRO-1) reduce-scatters the gradients on their leading dim instead,
+padded to a multiple of N as the reference pads a ragged dim; each rank
+updates its 1/N of the weights against its 1/N of the optimizer state
+(and of the f32 master weights), and an all-gather puts the weights
+back together.  Replicas stay bit-identical across the ranks.
+
 The step takes tensors or the port's NDArrays (an iterator's batch:
 ``step(b.data[0], b.label[0])``).  ``save_checkpoint`` /
 ``restore_checkpoint`` / ``attach_checkpoint`` write and read the whole
@@ -43,11 +59,19 @@ import torch
 from torch.func import functional_call
 from torch.nn.parameter import is_lazy
 
+import contextlib
+
 from .. import context
 from .. import convert as _convert
 from ..ndarray import NDArray
 from ..ops import optimizer_ops as _oops
 from . import checkpoint as _ckpt
+from . import collectives
+from .mesh import spans_processes
+
+#: where the refusals of a multi-process checkpoint point
+_MULTI_PROCESS_CKPT = ("the multi-process checkpoint commit, ROADMAP A8 "
+                       "item 1b")
 
 __all__ = ["DynamicLossScale", "FunctionalOptimizer", "TrainStep",
            "make_train_step"]
@@ -185,13 +209,14 @@ class TrainStep:
 
     def __init__(self, net, loss_fn, opt: FunctionalOptimizer,
                  compute_dtype=None, loss_scale=None, nonfinite=None,
-                 device=None):
+                 device=None, mesh=None, batch_axis="dp", zero=0):
         self.device = context.resolve(device)
         for name, t in list(net.named_parameters()) + \
                 list(net.named_buffers()):
             if t.device != self.device:
                 raise ValueError("%s is on %s, the step on %s"
                                  % (name, t.device, self.device))
+        self._init_mesh(mesh, batch_axis, zero, opt)
         self.net = net
         self.loss_fn = loss_fn
         self.opt = opt
@@ -237,7 +262,14 @@ class TrainStep:
         self._aux = [t for _, t in tensors
                      if not (isinstance(t, torch.nn.Parameter)
                              and t.requires_grad)]
-        self._opt_state = opt.init(self._gp)
+        # ZeRO-1: the padded leading dim of each >= 1-d parameter (None:
+        # a 0-d parameter, updated whole); the state is born as this
+        # rank's shard of the padded parameter
+        self._zero_pad0 = [-(-p.shape[0] // self._n) * self._n
+                           if p.dim() >= 1 else None
+                           for p in self._gp] if self.zero else None
+        self._opt_state = opt.init(self._update_view(
+            [p.detach() for p in self._gp]))
         init_scale = 1.0 if loss_scale is None else loss_scale \
             if isinstance(loss_scale, float) else loss_scale.init_scale
         dev = self.device
@@ -254,6 +286,73 @@ class TrainStep:
         self._ckpt_prev_count = 0
         self._ckpt_seen_request = 0
         self._ckpt_data_iter = None
+        self._checked_batch = None
+
+    def _init_mesh(self, mesh, batch_axis, zero, opt):
+        """The reference's checks of ``mesh``/``zero``; sets the dp axis
+        size ``_n``, this rank's index ``_rank`` and ``_dp`` (whether the
+        step talks to other processes)."""
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        self.zero = int(zero or 0)
+        if self.zero not in (0, 1):
+            raise ValueError("zero must be 0 (off) or 1 (ZeRO-1 "
+                             "weight-update sharding), got %r" % (zero,))
+        if self.zero:
+            if mesh is None or batch_axis not in mesh.axis_names:
+                raise ValueError(
+                    "zero=1 shards the weight update over the %r mesh "
+                    "axis — pass a mesh that has it" % batch_axis)
+            if opt.name not in ("sgd", "adam"):
+                raise ValueError(
+                    "zero=1 needs an elementwise update (sgd/adam); "
+                    "%r's trust ratio is a global norm over the whole "
+                    "weight and cannot run on a 1/N shard" % opt.name)
+        self._n, self._rank, self._dp = 1, 0, False
+        if mesh is None:
+            return
+        if batch_axis not in mesh.axis_names:
+            raise ValueError("the mesh has axes %s; the batch axis %r is "
+                             "not one of them" % (mesh.axis_names,
+                                                  batch_axis))
+        if mesh.local_device != self.device:
+            raise ValueError("this process's device on the mesh is %s, the "
+                             "step's %s" % (mesh.local_device, self.device))
+        self._n = mesh.shape[batch_axis]
+        self._rank = mesh.axis_index(batch_axis)
+        self._dp = mesh.group(batch_axis) is not None
+
+    def _update_view(self, vals):
+        """``vals`` (one per trained parameter) as the update sees them:
+        whole, or under ZeRO-1 this rank's rows of the padded leading
+        dim."""
+        if not self.zero:
+            return vals
+        out = []
+        for v, pad0 in zip(vals, self._zero_pad0):
+            if pad0 is not None:
+                rows = pad0 // self._n
+                v = _zero_padded(v, pad0)[self._rank * rows:
+                                          (self._rank + 1) * rows]
+            out.append(v)
+        return out
+
+    def _check_batch(self, x):
+        """Every rank must hold an equal slice of the global batch: the
+        mean of the local means is the global mean only then.  Checked
+        once per local batch shape."""
+        shape = tuple(x.shape)
+        if shape == self._checked_batch:
+            return
+        sizes = collectives.allgather(
+            torch.tensor([shape[0]], dtype=torch.int64, device=x.device),
+            self.batch_axis, self.mesh)
+        if len(set(sizes.tolist())) != 1:
+            raise ValueError(
+                "the ranks' batch slices differ (%s): give every rank an "
+                "equal slice of the global batch (Mesh.local_slice)"
+                % sizes.tolist())
+        self._checked_batch = shape
 
     def _cast_inputs(self, pv, x):
         cd = self.compute_dtype
@@ -277,12 +376,17 @@ class TrainStep:
         y = y.to(self.device, non_blocking=True)
         guard = self.nonfinite != "off"
         self.net.train()
+        if self._dp:
+            self._check_batch(x)
         old_aux = [b.clone() for b in self._aux] if guard else None
-        with torch.enable_grad():
+        scope = collectives.dp_scope(self.mesh, self.batch_axis) \
+            if self._dp else contextlib.nullcontext()
+        with torch.enable_grad(), scope as dp:
             loss = self._loss(x, y)
             grads = torch.autograd.grad(loss, self._gp)
         with torch.no_grad():
-            loss, ok = self._finish_step(loss.detach(), list(grads), old_aux)
+            loss, grads, bad = self._reduce(loss.detach(), list(grads), dp)
+            loss, ok = self._finish_step(loss, grads, old_aux, bad)
         self._step_count += 1
         self._maybe_checkpoint()
         if self.nonfinite == "raise" and not bool(ok):
@@ -293,19 +397,59 @@ class TrainStep:
                 % (int(self._step), self._step_count))
         return loss
 
-    def _finish_step(self, loss, grads, old_aux):
+    def _reduce(self, loss, grads, dp):
+        """Average the loss and the gradients over the dp group (no-op off
+        a mesh).  Returns ``(loss, grads, bad)``: the gradients in the
+        update's layout (:meth:`_update_view`) and, under ZeRO-1, the
+        count of ranks whose gradient shard is not finite (None
+        otherwise: every rank then holds the whole averaged gradient).
+        The running stats that ghost BN deferred ride the same
+        ``all_reduce``."""
+        if dp is None:
+            return loss, grads, None
+        n, ax, mesh = self._n, self.batch_axis, self.mesh
+        extra = dp.deferred_tensors()
+        if not self.zero:
+            summed = collectives.allreduce_coalesced(
+                grads + [loss.reshape(1)] + extra, ax, mesh)
+            k = len(grads)
+            dp.commit(summed[k + 1:])
+            return summed[k][0] / n, [g / n for g in summed[:k]], None
+        pads = self._zero_pad0
+        cov = [i for i, pad0 in enumerate(pads) if pad0 is not None]
+        rest = [i for i, pad0 in enumerate(pads) if pad0 is None]
+        shards = collectives.reduce_scatter_coalesced(
+            [_zero_padded(grads[i], pads[i]) for i in cov], ax, mesh)
+        bad = (~_oops.tree_all_finite(shards)).float().reshape(1)
+        summed = collectives.allreduce_coalesced(
+            [grads[i] for i in rest] + [loss.reshape(1), bad] + extra, ax,
+            mesh)
+        k = len(rest)
+        dp.commit(summed[k + 2:])
+        out = list(grads)
+        for i, g in zip(cov, shards):
+            out[i] = g / n
+        for i, g in zip(rest, summed[:k]):
+            out[i] = g / n
+        return summed[k][0] / n, out, summed[k + 1][0]
+
+    def _finish_step(self, loss, grads, old_aux, bad=None):
         guard = old_aux is not None
-        ok = _oops.tree_all_finite(grads) if guard else None
+        ok = None
+        if guard:
+            ok = _oops.tree_all_finite(grads)
+            if bad is not None:
+                ok = ok & (bad == 0)
         if self._scale_cfg is not None:
             inv = 1.0 / self._scale
             grads = [(g.float() * inv).to(g.dtype) for g in grads]
             loss = loss * inv
         # the 1-based count of applied steps, for the bias corrections
         count = None if self.opt.name == "sgd" else self._step + 1
-        new_p, new_s = self.opt.apply([p.detach() for p in self._gp], grads,
-                                      self._opt_state, count)
+        cur = self._update_view([p.detach() for p in self._gp])
+        new_p, new_s = self.opt.apply(cur, grads, self._opt_state, count)
         if guard:
-            new_p = [torch.where(ok, n, p) for n, p in zip(new_p, self._gp)]
+            new_p = [torch.where(ok, n, p) for n, p in zip(new_p, cur)]
             new_s = _tree_where(ok, new_s, self._opt_state)
             for b, old in zip(self._aux, old_aux):
                 b.copy_(torch.where(ok, b, old))
@@ -326,10 +470,24 @@ class TrainStep:
                 grow, torch.zeros_like(unsk), unsk))
         if not guard:
             self._step += 1
+        if self.zero:
+            new_p = self._gather_zero(new_p)
         for p, n in zip(self._gp, new_p):
             p.copy_(n)
         self._opt_state = new_s
         return loss, ok
+
+    def _gather_zero(self, new_p):
+        """ZeRO-1: the updated weight shards of every rank, all-gathered
+        and cut back to each parameter's own leading dim."""
+        pads = self._zero_pad0
+        cov = [i for i, pad0 in enumerate(pads) if pad0 is not None]
+        full = collectives.allgather_coalesced(
+            [new_p[i] for i in cov], self.batch_axis, self.mesh)
+        out = list(new_p)
+        for i, w in zip(cov, full):
+            out[i] = w[:self._gp[i].shape[0]]
+        return out
 
     @property
     def loss_scale(self):
@@ -364,12 +522,24 @@ class TrainStep:
         return _ckpt.CheckpointManager(directory_or_manager,
                                        keep_last=keep_last)
 
-    @staticmethod
-    def _topology():
+    def _topology(self):
         """This step's training topology, stamped into every checkpoint's
-        meta: one card, the reference's single-device stamp."""
-        return {"mesh": None, "batch_axis": "dp", "zero": 0,
-                "pipeline_stages": None, "processes": 1}
+        meta as the reference stamps it."""
+        from .distributed import process_count
+
+        mesh = None if self.mesh is None else dict(self.mesh.shape)
+        return {"mesh": mesh, "batch_axis": self.batch_axis,
+                "zero": self.zero, "pipeline_stages": None,
+                "processes": process_count()}
+
+    def _refuse_multi_process(self, what):
+        """A step whose mesh spans several processes holds replicated or
+        sharded state that one process's checkpoint would misrepresent."""
+        if spans_processes(self.mesh):
+            raise NotImplementedError(
+                "%s on a step whose mesh spans %d processes waits for %s: "
+                "one process's save would hold its own ZeRO shard only"
+                % (what, self.mesh.size, _MULTI_PROCESS_CKPT))
 
     def _elastic_policy(self):
         """A tree congruent with :meth:`_checkpoint_state`: ``None`` where
@@ -391,6 +561,7 @@ class TrainStep:
         by :meth:`attach_checkpoint`) — its ``state_dict()`` rides the
         manifest, so :meth:`restore_checkpoint` resumes the data stream
         at the exact next batch."""
+        self._refuse_multi_process("save_checkpoint")
         mgr = self._as_manager(directory_or_manager, keep_last)
         if data_iter is None:
             data_iter = self._ckpt_data_iter
@@ -412,6 +583,7 @@ class TrainStep:
         no iterator state (resuming would replay the epoch); an iterator
         bound by :meth:`attach_checkpoint` only warns then.  A checkpoint
         with iterator state restored without an iterator warns."""
+        self._refuse_multi_process("restore_checkpoint")
         mgr = self._as_manager(directory_or_manager)
         live = self._checkpoint_state()
         step_no, state, meta = mgr.restore(
@@ -468,8 +640,9 @@ class TrainStep:
 
     def _resolve_iter_state(self, meta, saved_topo):
         """The checkpointed data-stream state.  A multi-process save
-        carries one per process (``data_iter_parts``); re-splitting them
-        across another process count waits for ROADMAP A8."""
+        carries one per process (``data_iter_parts``); resuming those
+        (``distributed.resplit_iter_state``) waits for the elastic
+        restore, ROADMAP A8 item 1b."""
         parts = (meta or {}).get("data_iter_parts")
         if not parts:
             return (meta or {}).get("data_iter")
@@ -477,7 +650,8 @@ class TrainStep:
             return next(iter(parts.values()))
         raise _ckpt.CheckpointTopologyError(
             "checkpoint carries the data streams of %d processes; "
-            "re-splitting them onto one process waits for ROADMAP A8 "
+            "re-splitting them onto one process waits for the elastic "
+            "restore, ROADMAP A8 item 1b "
             "(saved topology: %s; current topology: %s)"
             % (len(parts), saved_topo, self._topology()))
 
@@ -490,6 +664,7 @@ class TrainStep:
         Returns the manager."""
         from ..io.io import DataIter
 
+        self._refuse_multi_process("attach_checkpoint")
         if every is not None and int(every) < 1:
             raise ValueError("every must be >= 1 or None")
         if data_iter is not None:
@@ -551,6 +726,15 @@ class TrainStep:
         self._ckpt_seen_request = seq
 
 
+def _zero_padded(v, pad0):
+    """``v`` with its leading dim zero-padded up to ``pad0`` (itself when
+    it already has that size)."""
+    if pad0 is None or pad0 == v.shape[0]:
+        return v
+    return torch.cat([v, v.new_zeros((pad0 - v.shape[0],)
+                                     + tuple(v.shape[1:]))])
+
+
 def _tree_where(ok, new, old):
     if isinstance(new, (list, tuple)):
         return type(new)(_tree_where(ok, n, o) for n, o in zip(new, old))
@@ -558,8 +742,8 @@ def _tree_where(ok, new, old):
 
 
 def make_train_step(net, loss_fn, optimizer="sgd", compute_dtype=None,
-                    loss_scale=None, nonfinite=None, device=None,
-                    **opt_kwargs) -> TrainStep:
+                    loss_scale=None, nonfinite=None, device=None, mesh=None,
+                    batch_axis="dp", zero=0, **opt_kwargs) -> TrainStep:
     """Build the train step (forward + backward + update per call).
 
     ``optimizer`` is any registered optimizer's name, with its keywords
@@ -572,8 +756,15 @@ def make_train_step(net, loss_fn, optimizer="sgd", compute_dtype=None,
     step counter as they were, ``"raise"`` does so and raises
     ``FloatingPointError``, ``"off"`` does not look (the default, but
     ``"skip"`` under a dynamic scale, which needs it).  ``device``
-    defaults to the CUDA card and must hold the net's parameters."""
+    defaults to the CUDA card and must hold the net's parameters.
+
+    ``mesh`` (:func:`~.mesh.make_mesh`) makes the step one rank of data
+    parallelism over its ``batch_axis``: each process calls it with its
+    slice of the global batch (:meth:`~.mesh.Mesh.local_slice`).
+    ``zero=1`` shards the weight update over that axis (ZeRO-1, sgd and
+    adam)."""
     opt = FunctionalOptimizer(optimizer, **opt_kwargs)
     return TrainStep(net, loss_fn, opt, compute_dtype=compute_dtype,
                      loss_scale=loss_scale, nonfinite=nonfinite,
-                     device=device)
+                     device=device, mesh=mesh, batch_axis=batch_axis,
+                     zero=zero)

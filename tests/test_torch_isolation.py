@@ -32,6 +32,8 @@ for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                     "example/image_classification/train_mnist_torch.py"),
                    ("word_lm_train_torch", "example/rnn/word_lm/train_torch.py"),
                    ("ssd_train_torch", "example/ssd/train_torch.py"),
+                   ("cifar10_dist_torch",
+                    "example/distributed_training/cifar10_dist_torch.py"),
                    ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -10,8 +10,10 @@ thumbnail=True)``, put in the zoo under a test name) and the zoo's
   the reference's log line every 10 batches;
 - from a 10-record RecordIO shard of 36x36 ``.npy`` images (batch 4,
   random 32x32 crops, so the epoch ends and the iterator resets);
-- ``--kv-store dist_sync_device`` raises ``NotImplementedError`` naming
-  ROADMAP A8.
+- ``--kv-store dist_sync_device`` without a launcher (one process, a dp
+  mesh of one) takes the steps of ``--kv-store device`` bit for bit (the
+  two-process run, each rank reading its part of a RecordIO shard, is
+  ``tests/test_torch_dist_kvstore.py``'s).
 
 Checkpoints: a stock-BN v1 net and a v2 net (whose input BN has gamma
 and beta without gradient, in the aux set) train 2 steps on one side,
@@ -103,9 +105,13 @@ def test_trainer_from_recordio(tiny, tmp_path):
     assert len(losses) == 4 and np.all(np.isfinite(losses))
 
 
-def test_dist_sync_device_names_a8():
-    with pytest.raises(NotImplementedError, match="A8"):
-        _trainer().main(SMALL + ["--kv-store", "dist_sync_device"])
+def test_dist_sync_device_names_a8(tiny):
+    """ROADMAP A8's route: a dp mesh over the launched processes, here
+    one."""
+    args = SMALL + ["--network", tiny, "--num-batches", "3"]
+    want = _trainer().main(args)
+    got = _trainer().main(args + ["--kv-store", "dist_sync_device"])
+    assert got == want
 
 
 def _nets(version):
