@@ -206,6 +206,29 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    push/pull, a ``Trainer.step`` over that store and the dp step equal
    bit for bit to the plain one.  ``dp_step_ms``
    of each route, with the backend;
+3m. multi-process checkpoints and the elastic restore on the main path
+   (``ELASTIC``): ``resnet50_v1(ghost_bn=16)`` at batch 256 as dp=2 x
+   128 with ``zero=1`` (phase 3l (ii)'s step at lr 0.1), fed a resident
+   synthetic set of 1024 images by ``ResilientIter(NDArrayIter(...,
+   shuffle=True))`` (every rank holds the set and steps on its rows of
+   each global batch), cuDNN deterministic in every process.  (1) Two
+   ranks (this script with ``--elastic-rank DIR train``) take 4 steps at
+   53/53/1 launches a rank a step and commit a checkpoint of step 2; in
+   the step-4 save rank 1 dies mid-stage
+   (``fault_injection.host_loss_during_save``) and rank 0 must raise
+   ``CheckpointError`` naming the done-marker, with only step 2
+   committed and the torn stage on disk; the step-2 manifest holds two
+   shard files of each ZeRO leaf, one from each rank, and both ranks'
+   iterator states.  (2) This process resumes at dp=1 from another
+   seed: the restored step is 2, the logical state (parameters, running
+   stats, the optimizer state without its padding, step, loss scale) has
+   the ranks' SHA-1 digests, it re-saves at dp=1, and its next two
+   batches are the ranks' steps 3 and 4, its step-3 loss within phase 3l
+   (ii)'s first-step loss limit of theirs.  (3) Two ranks (``--elastic-
+   rank DIR restore``) restore that dp=1 checkpoint: the digests again,
+   and steps 3 and 4 with the first job's losses bit for bit.  Printed:
+   the step-2 save ms and bytes of each rank, rank 0's commit wait, the
+   seconds from the kill to rank 0's refusal, both restores' ms;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -299,6 +322,7 @@ the 161 parameters and in their maximum (a kernel fault moves most
 tensors by O(1), which the median catches).
 """
 import contextlib
+import hashlib
 import json
 import os
 import shutil
@@ -2369,8 +2393,7 @@ def control_flow_linalg_card_vs_cpu(dev):
             _check("linalg %s" % name, a_, w, LINALG_TOL)
 
     _, counts = _counted(cf)
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True  # the defaults again
     if any(counts.values()):
         raise AssertionError("control flow or linalg launched %s" % counts)
 
@@ -2401,7 +2424,6 @@ DP_F32_ADD = 1e-6
 #: a few bf16 ulps of the loss a step)
 DP_IMAGENET_STEPS = 3
 
-
 def _cifar_dist_module():
     import importlib.util
 
@@ -2418,6 +2440,16 @@ def _launch_ranks(args, timeout=DP_TIMEOUT):
     """``tools/launch.py -n DP_RANKS`` over ``args`` from the repository
     root, in a session of its own that is killed past ``timeout``;
     returns the job's output (raises where a rank failed)."""
+    rc, out = _run_ranks(args, timeout)
+    if rc != 0:
+        raise AssertionError("%s failed (rc %d):\n%s"
+                             % (" ".join(args), rc, out[-4000:]))
+    return out
+
+
+def _run_ranks(args, timeout):
+    """:func:`_launch_ranks` that returns ``(exit code, output)`` whatever
+    the code (a job that must fail)."""
     import signal
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2433,10 +2465,11 @@ def _launch_ranks(args, timeout=DP_TIMEOUT):
         out, _ = proc.communicate()
         raise AssertionError("%s passed its %d s limit:\n%s"
                              % (" ".join(args), timeout, out[-4000:]))
-    if proc.returncode != 0:
-        raise AssertionError("%s failed (rc %d):\n%s"
-                             % (" ".join(args), proc.returncode, out[-4000:]))
-    return out
+    try:  # a rank the launcher left behind must not hold the card
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    return proc.returncode, out
 
 
 def _dp_main_net(dev):
@@ -2729,7 +2762,8 @@ def check_dp_main(dev, ranks, dp_state, f32_state, card):
     stats within 4x the floor's plus 1e-3.  The bf16 update is printed, not held: rounding
     amplified over the steps moves it by as much as the update itself,
     so the updates are held in f32 (:func:`check_dp_main_f32`).  Returns
-    (rank 0's launches, dp_step_ms)."""
+    (rank 0's launches, dp_step_ms, the relative loss limit of each
+    step)."""
     import numpy as np
     import torch
 
@@ -2795,7 +2829,7 @@ def check_dp_main(dev, ranks, dp_state, f32_state, card):
           "tensors staged through the host)  on %s"
           % (ms, DP["steps"], half, DP["batch"], DP["batch"] / ms * 1e3,
              ranks[0]["backend"], card), flush=True)
-    return first["launches"], ms
+    return first["launches"], ms, [float(v) for v in loss_lim]
 
 
 def _dp_start(dev):
@@ -2962,7 +2996,8 @@ def check_dp_imagenet(dev, ranks, card):
 def run_dp_job(dev, card):
     """Phase 3l (i)-(iii): one job of ``DP_RANKS`` ranks of this script
     (``--dp-rank``) through ``tools/launch.py``, then the checks.
-    Returns route (ii)'s rank-0 launches."""
+    Returns route (ii)'s rank-0 launches and its relative loss limit of
+    each step."""
     import numpy as np
 
     outdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
@@ -2989,11 +3024,11 @@ def run_dp_job(dev, card):
           "dp=%d with zero=1, %d px, bf16, multi_precision, dynamic loss "
           "scale, sgd lr %g, %d steps, against one process"
           % (DP["batch"], DP_RANKS, IMAGE, DP["lr"], DP["steps"]), flush=True)
-    launches, _ = check_dp_main(dev, ranks, *states, card)
+    launches, _, loss_limits = check_dp_main(dev, ranks, *states, card)
     print("[3l] (iii) example/image_classification/train_imagenet_torch.py "
           "--kv-store dist_sync_device at its defaults", flush=True)
     check_dp_imagenet(dev, ranks, card)
-    return launches
+    return launches, loss_limits
 
 
 def run_dp_nccl(dev, card):
@@ -3078,6 +3113,386 @@ def run_dp_nccl(dev, card):
               % (kv_counts, runs[1][2], card), flush=True)
     finally:
         dist.destroy_process_group()
+
+
+# phase 3m: multi-process checkpoints, a rank lost mid-save, the elastic
+# restore; phase 3l (ii)'s step at the trainer's lr
+ELASTIC = dict(images=1024, batch=BATCH, steps=4, save_step=2, lr=0.1,
+               commit_timeout=10.0)
+#: the nets' seeds: the two-rank job, the dp=1 resume, the dp=2 restore
+ELASTIC_SEEDS = (SEED, SEED + 7, SEED + 11)
+#: seconds each two-rank job may take
+ELASTIC_TIMEOUT = 300
+
+
+def _elastic_data():
+    """The resident set: ``ELASTIC["images"]`` normal f32 images of 224
+    px and their labels, from a seed (every process makes the same)."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 3)
+    x = torch.randn(ELASTIC["images"], 3, IMAGE, IMAGE, generator=g)
+    y = torch.randint(0, 1000, (ELASTIC["images"],), generator=g).float()
+    return x.numpy(), y.numpy()
+
+
+def _elastic_iter(data, shuffle_seed):
+    """``ResilientIter(NDArrayIter(...))`` over the global batches, the
+    shuffle drawn from ``shuffle_seed`` (a restore replaces it)."""
+    import numpy as np
+
+    from incubator_mxnet_tpu_torch import cpu
+    from incubator_mxnet_tpu_torch.io import NDArrayIter, ResilientIter
+
+    np.random.seed(shuffle_seed)
+    return ResilientIter(NDArrayIter(data[0], data[1],
+                                     batch_size=ELASTIC["batch"],
+                                     shuffle=True, ctx=cpu()))
+
+
+def _elastic_step(dev, mesh, seed):
+    """The main path's step over ``mesh`` with ``zero=1``, on a net drawn
+    from ``seed``."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import initializer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from incubator_mxnet_tpu_torch.parallel import make_train_step
+
+    net = resnet.resnet50_v1(classes=1000, ghost_bn=16, device=dev)
+    initializer.initialize(net, initializer.Xavier(),
+                           torch.Generator(device=dev).manual_seed(seed))
+    return make_train_step(net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                           learning_rate=ELASTIC["lr"], momentum=0.9,
+                           wd=1e-4, multi_precision=True,
+                           loss_scale="dynamic", compute_dtype="bfloat16",
+                           device=dev, mesh=mesh, zero=1)
+
+
+def _elastic_feed(step, mesh, batch, dev):
+    """One step on this process's rows of the global batch; its loss."""
+    x, y = (mesh.local_slice(v._data).to(dev)
+            for v in (batch.data[0], batch.label[0]))
+    return float(step(x, y))
+
+
+def _elastic_digest(step, part, count):
+    """SHA-1 of the logical state as rank ``part`` of ``count`` holds it:
+    the parameters, running stats, step counter and loss-scale state, and
+    that rank's rows of each optimizer-state leaf without the ZeRO
+    padding.  A rank of a dp=``count`` step and one process (which holds
+    every row) give equal digests for equal states."""
+    h = hashlib.sha1()
+    for t in list(step._gp) + list(step._aux):
+        h.update(t.detach().cpu().numpy().tobytes())
+    h.update(str(step.step_count).encode())
+    for t in (step._scale, step._unskipped, step._skipped):
+        h.update(t.cpu().numpy().tobytes())
+    for s, p in zip(step._opt_state, step._gp):
+        rows = -(-p.shape[0] // count)
+        lo, hi = part * rows, min((part + 1) * rows, p.shape[0])
+        for leaf in (s if isinstance(s, tuple) else (s,)):
+            blk = leaf[:max(0, hi - lo)] if step._n > 1 else leaf[lo:hi]
+            h.update(blk.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def elastic_rank_main(outdir, stage):
+    """One rank of phase 3m (this script with ``--elastic-rank DIR
+    STAGE``).  ``train``: 4 steps from ``ELASTIC_SEEDS[0]`` with a
+    checkpoint of step 2; in the step-4 save rank 1 dies and rank 0 must
+    refuse the commit (the exit codes are 3 for that refusal, else 4 or
+    5).  ``restore``: the dp=1 re-save of this process's parent restored,
+    then steps 3 and 4.  Each rank writes ``<stage>_rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.parallel import (CheckpointError,
+                                                    CheckpointManager,
+                                                    distributed, make_mesh)
+    from incubator_mxnet_tpu_torch.parallel import fault_injection as fi
+
+    distributed.initialize()
+    dev = distributed.local_device()
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    rank = distributed.process_index()
+    mesh = make_mesh({"dp": -1})
+    data = _elastic_data()
+    result = {"rank": rank, "idx": [], "losses": [], "launches": []}
+    path = os.path.join(outdir, "%s_rank%d.json" % (stage, rank))
+
+    def dump(**kw):
+        result.update(kw)
+        with open(path, "w") as f:
+            json.dump(result, f)
+            f.flush()
+            os.fsync(f.fileno())
+
+    if stage == "train":
+        step = _elastic_step(dev, mesh, ELASTIC_SEEDS[0])
+        it = _elastic_iter(data, SEED)
+        mgr = CheckpointManager(os.path.join(outdir, "ckpt"),
+                                commit_timeout=ELASTIC["commit_timeout"])
+        waits = []
+        wait_markers = mgr._wait_markers
+
+        def timed_wait(*args):  # rank 0's wait for the peers' markers
+            t0 = time.perf_counter()
+            try:
+                return wait_markers(*args)
+            finally:
+                waits.append((time.perf_counter() - t0) * 1e3)
+
+        mgr._wait_markers = timed_wait
+        first = 0
+    else:
+        step = _elastic_step(dev, mesh, ELASTIC_SEEDS[2])
+        it = _elastic_iter(data, SEED + 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = step.restore_checkpoint(os.path.join(outdir, "ckpt1"),
+                                        data_iter=it)
+        torch.cuda.synchronize()
+        dump(restored=first, restore_ms=(time.perf_counter() - t0) * 1e3,
+             digest=_elastic_digest(step, rank, mesh.size))
+    for k in range(first, ELASTIC["steps"]):
+        b = it.next()
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        loss = _elastic_feed(step, mesh, b, dev)
+        result["launches"].append(_kernels.launch_counts())
+        result["idx"].append(np.asarray(b.index).tolist())
+        result["losses"].append(loss)
+        if stage == "train" and k + 1 == ELASTIC["save_step"]:
+            t0 = time.perf_counter()
+            d = step.save_checkpoint(mgr, data_iter=it)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            with open(os.path.join(d, "done-p%05d.json" % rank)) as f:
+                mine = json.load(f)["files"]
+            dump(save_ms=save_ms, commit_wait_ms=waits[-1] if waits else None,
+                 save_bytes=sum(f["nbytes"] for files in mine.values()
+                                for _, f in files),
+                 digest=_elastic_digest(step, rank, mesh.size))
+        dump()
+    it.close()
+    if stage == "restore":
+        distributed.barrier("phase 3m")
+        return 0
+    if rank == 1:
+        dump(kill_t=time.time())
+        with fi.host_loss_during_save(at=0):
+            step.save_checkpoint(mgr, data_iter=it)
+        dump(error="the host loss did not fire")
+        return 4
+    try:
+        step.save_checkpoint(mgr, data_iter=it)
+    except CheckpointError as e:
+        dump(error=type(e).__name__, message=str(e), error_t=time.time(),
+             steps=mgr.steps(), listing=sorted(os.listdir(mgr.directory)))
+        return 3
+    dump(error="the commit went through without rank 1")
+    return 5
+
+
+def _elastic_ranks(outdir, stage):
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(outdir, "%s_rank%d.json" % (stage, r))) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _elastic_gate_launches(ranks, label):
+    """53/53/1 launches of K1-K3 a rank a step, and no other kernel."""
+    for rk in ranks:
+        for k, got in enumerate(rk["launches"]):
+            want = {name: 0 for name in got}
+            want.update(MAIN_PATH)
+            if got != want:
+                raise AssertionError("%s rank %d step %d launched %s, want "
+                                     "%s" % (label, rk["rank"], k, got, want))
+
+
+def _elastic_manifest_checks(d):
+    """The step-2 manifest: two shard files of each ZeRO leaf, one from
+    each rank (its marker lists it), and both ranks' iterator states."""
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    markers = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(d, "done-p%05d.json" % r)) as f:
+            markers.append({fe["file"] for files in json.load(f)[
+                "files"].values() for _, fe in files})
+    sharded = [e for e in manifest["arrays"]
+               if e["key"].startswith("['opt_state']")]
+    for e in sharded:
+        files = [f["file"] for f in e["files"]]
+        if len(files) != DP_RANKS or any(
+                f not in markers[r] for r, f in enumerate(files)):
+            raise AssertionError("ZeRO leaf %s: files %s, not one a rank"
+                                 % (e["key"], files))
+    parts = set(manifest["meta"].get("data_iter_parts", {}))
+    if parts != {"0", "1"}:
+        raise AssertionError("data_iter_parts %s" % sorted(parts))
+    return len(sharded), len(manifest["arrays"])
+
+
+def run_elastic_path(dev, card, loss_limit):
+    """Phase 3m (see the module docstring).  ``loss_limit``: phase 3l
+    (ii)'s relative loss limit of its first step, which the first step
+    after the 2 -> 1 restore is held to.  Returns the launches of the
+    main path's steps here and in each job's rank 0."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    counts = {name: 0 for name in MAIN_PATH}
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    here = os.path.abspath(__file__)
+    try:
+        # (1) two ranks; rank 1 lost in the step-4 save
+        rc, out = _run_ranks([sys.executable, here, "--elastic-rank", outdir,
+                              "train"], ELASTIC_TIMEOUT)
+        train = _elastic_ranks(outdir, "train")
+        r0, r1 = train
+        if rc == 0 or r0.get("error") != "CheckpointError" \
+                or "done-marker" not in r0.get("message", "") \
+                or "error" in r1:
+            raise AssertionError("the lost rank was not refused (rc %d): %s"
+                                 "\n%s" % (rc, [r0.get("error"),
+                                                r1.get("error")],
+                                           out[-3000:]))
+        if r0["steps"] != [ELASTIC["save_step"]] or \
+                ".tmp-step-%08d" % ELASTIC["steps"] not in r0["listing"]:
+            raise AssertionError("committed %s, on disk %s"
+                                 % (r0["steps"], r0["listing"]))
+        _elastic_gate_launches(train, "(1)")
+        if r0["losses"] != r1["losses"] or r0["idx"] != r1["idx"]:
+            raise AssertionError("the ranks' losses differ")
+        if not _losses_ok(r0["losses"]):
+            raise AssertionError("non-finite losses %s" % r0["losses"])
+        n_zero, n_leaves = _elastic_manifest_checks(os.path.join(
+            outdir, "ckpt", "step-%08d" % ELASTIC["save_step"]))
+        for name in MAIN_PATH:
+            counts[name] += sum(c[name] for c in r0["launches"])
+        print("[3m] (1) two ranks, dp=2 x %d, zero=1: losses %s, 53/53/1 "
+              "launches a rank a step; step-%d checkpoint: %d leaves, %d "
+              "ZeRO leaves in two shard files each, iterator parts of both "
+              "ranks; rank 1 killed in the step-%d save, rank 0 refused: %s"
+              % (ELASTIC["batch"] // DP_RANKS,
+                 ["%.6f" % v for v in r0["losses"]], ELASTIC["save_step"],
+                 n_leaves, n_zero, ELASTIC["steps"],
+                 r0["message"][:120]), flush=True)
+        for rk in train:
+            print("[3m] rank %d step-%d save %.1f ms, %d bytes written%s  on "
+                  "%s" % (rk["rank"], ELASTIC["save_step"], rk["save_ms"],
+                          rk["save_bytes"],
+                          "; commit wait %.1f ms" % rk["commit_wait_ms"]
+                          if rk["commit_wait_ms"] is not None else "", card),
+                  flush=True)
+        print("[3m] kill to rank 0's CheckpointError %.2f s (commit_timeout "
+              "%g s)  on %s" % (r0["error_t"] - r1["kill_t"],
+                                ELASTIC["commit_timeout"], card), flush=True)
+
+        # (2) one process resumes at dp=1 and re-saves
+        torch.cuda.empty_cache()
+        old = (torch.backends.cudnn.deterministic,
+               torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            mesh = make_mesh({"dp": 1})
+            step = _elastic_step(dev, mesh, ELASTIC_SEEDS[1])
+            it = _elastic_iter(_elastic_data(), SEED + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restored = step.restore_checkpoint(os.path.join(outdir, "ckpt"),
+                                               data_iter=it)
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            digests = [_elastic_digest(step, r, DP_RANKS)
+                       for r in range(DP_RANKS)]
+            if restored != ELASTIC["save_step"] or \
+                    digests != [rk["digest"] for rk in train]:
+                raise AssertionError("dp=1 restored step %d, digests %s, "
+                                     "the ranks' %s" % (
+                                         restored, digests,
+                                         [rk["digest"] for rk in train]))
+            step.save_checkpoint(os.path.join(outdir, "ckpt1"), data_iter=it)
+            one = {"idx": [], "losses": []}
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            for _ in range(ELASTIC["steps"] - restored):
+                b = it.next()
+                one["idx"].append(b.index.tolist())
+                one["losses"].append(_elastic_feed(step, mesh, b, dev))
+            launched = _kernels.launch_counts()
+            it.close()
+        finally:
+            torch.backends.cudnn.deterministic, \
+                torch.backends.cudnn.benchmark = old
+        del step
+        torch.cuda.empty_cache()
+        want = {name: 0 for name in launched}
+        want.update({name: n * len(one["losses"])
+                     for name, n in MAIN_PATH.items()})
+        if launched != want:
+            raise AssertionError("dp=1 launched %s, want %s"
+                                 % (launched, want))
+        for name in MAIN_PATH:
+            counts[name] += launched[name]
+        if one["idx"] != r0["idx"][restored:]:
+            raise AssertionError("the resumed batches are not the lost ones")
+        rel = abs(one["losses"][0] - r0["losses"][restored]) / \
+            abs(r0["losses"][restored])
+        if rel > loss_limit:
+            raise AssertionError("dp=1 step-3 loss %.6f vs the ranks' %.6f: "
+                                 "%.3e over the limit %.3e" % (
+                                     one["losses"][0], r0["losses"][restored],
+                                     rel, loss_limit))
+        print("[3m] (2) one process at dp=1 (2 -> 1): restored step %d, the "
+              "ranks' digests, re-saved at dp=1; its batches 3-4 are the "
+              "ranks'; losses %s vs %s, step 3 rel diff %.3e (limit %.3e, "
+              "phase 3l (ii)'s first step)  elastic restore %.1f ms  on %s"
+              % (restored, ["%.6f" % v for v in one["losses"]],
+                 ["%.6f" % v for v in r0["losses"][restored:]], rel,
+                 loss_limit, restore_ms, card), flush=True)
+
+        # (3) two ranks restore the dp=1 checkpoint
+        _launch_ranks([sys.executable, here, "--elastic-rank", outdir,
+                       "restore"], ELASTIC_TIMEOUT)
+        back = _elastic_ranks(outdir, "restore")
+        _elastic_gate_launches(back, "(3)")
+        for rk, was in zip(back, train):
+            if rk["restored"] != restored or rk["digest"] != was["digest"] \
+                    or rk["losses"] != was["losses"][restored:] \
+                    or rk["idx"] != was["idx"][restored:]:
+                raise AssertionError(
+                    "rank %d after 1 -> 2: step %d, losses %s, want %s"
+                    % (rk["rank"], rk["restored"], rk["losses"],
+                       was["losses"][restored:]))
+        for name in MAIN_PATH:
+            counts[name] += sum(c[name] for c in back[0]["launches"])
+        print("[3m] (3) two ranks (1 -> 2): restored step %d, the step-2 "
+              "digests, steps 3-4 bit-equal to (1): %s  restore %s ms  on %s"
+              % (back[0]["restored"],
+                 ["%.6f" % v for v in back[0]["losses"]],
+                 ["%.1f" % rk["restore_ms"] for rk in back], card),
+              flush=True)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("[3m] phase wall time %.2f s  on %s"
+          % (time.perf_counter() - t_phase, card), flush=True)
+    return counts
 
 
 def time_rnn_op(dev):
@@ -4369,6 +4784,9 @@ def main(argv=None):
     ap.add_argument("--dp-rank", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
     ap.add_argument("--dp-nccl", action="store_true", help=argparse.SUPPRESS)
+    # one rank of phase 3m: DIR and the stage (train or restore)
+    ap.add_argument("--elastic-rank", nargs=2, default=None,
+                    metavar=("DIR", "STAGE"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4379,6 +4797,8 @@ def main(argv=None):
     if args.dp_nccl:
         run_dp_nccl(torch.device("cuda", 0), _card_line())
         return 0
+    if args.elastic_rank:
+        return elastic_rank_main(*args.elastic_rank)
     from incubator_mxnet_tpu_torch import _kernels
 
     t_start = time.perf_counter()
@@ -4626,7 +5046,7 @@ def main(argv=None):
           "(tools/launch.py), then NCCL at world size 1" % DP_RANKS,
           flush=True)
     t_dp = time.perf_counter()
-    dp_counts = run_dp_job(dev, card)
+    dp_counts, dp_loss_limits = run_dp_job(dev, card)
     for name in MAIN_PATH:
         counts[name] += dp_counts[name]
     # (iv) in a process of its own: this one keeps no process group
@@ -4640,6 +5060,16 @@ def main(argv=None):
                              % (nccl.returncode, nccl.stderr[-3000:]))
     print("[3l] phase wall time %.2f s" % (time.perf_counter() - t_dp),
           flush=True)
+
+    print("[3m] multi-process checkpoints and the elastic restore: the main "
+          "path at batch %d as dp=%d with zero=1, lr %g, over "
+          "ResilientIter(NDArrayIter) of %d resident images; a rank killed "
+          "mid-save, then 2 -> 1 -> 2 processes; cuDNN deterministic"
+          % (ELASTIC["batch"], DP_RANKS, ELASTIC["lr"], ELASTIC["images"]),
+          flush=True)
+    el_counts = run_elastic_path(dev, card, dp_loss_limits[0])
+    for name in MAIN_PATH:
+        counts[name] += el_counts[name]
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "
@@ -4726,7 +5156,8 @@ def main(argv=None):
                             max_abs_err=max(errs[name]), **rows[name]))
     print("[6] profiler traces taken again (launches lost): %s"
           % (PROFILER_RETAKES or "none"), flush=True)
-    print("[6] done in %.1f s" % (time.perf_counter() - t_start), flush=True)
+    print("[6] done in %.1f s  on %s" % (time.perf_counter() - t_start, card),
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ of ``incubator_mxnet_tpu/module/module.py``,
 A Module binds its symbol on one device: ``context=None`` is the card
 (``context.resolve(None)``), where the reference defaults to ``cpu()``;
 tests pass ``context=mx.cpu()``.  A list of more than one context raises:
-data parallelism over several cards of one process is ROADMAP A8 item
-1b.  ``init_optimizer``
+data parallelism over several cards of one process waits for a host
+with several cards (ROADMAP A8).  ``init_optimizer``
 gives ``rescale_grad = 1 / batch`` unless told otherwise, as the
 reference does, and updates each parameter through the optimizer's
 ``Updater``; the kvstore argument is taken and, as in the reference's
@@ -33,9 +33,10 @@ def _device_of(context):
         if len(context) > 1:
             raise NotImplementedError(
                 "a Module over %d contexts (data parallelism across the "
-                "cards of one process) waits for ROADMAP A8 item 1b; for "
-                "data parallelism over processes use kv.create("
-                "'dist_sync') or a TrainStep over a dp mesh" % len(context))
+                "cards of one process) waits for a host with several cards "
+                "(ROADMAP A8, beside the multi-card NCCL figure); for data "
+                "parallelism over processes use kv.create('dist_sync') or "
+                "a TrainStep over a dp mesh" % len(context))
         context = context[0] if context else None
     return _ctx.resolve(context)
 

@@ -27,7 +27,7 @@ import datetime
 import json
 import logging
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -36,8 +36,8 @@ from .mesh import Mesh, make_mesh
 
 __all__ = ["DistributedInitError", "barrier", "backend",
            "collectives_supported", "initialize", "is_initialized",
-           "local_device", "make_process_mesh", "process_count",
-           "process_index", "resplit_iter_state"]
+           "local_device", "make_process_mesh", "min_over_processes",
+           "process_count", "process_index", "resplit_iter_state"]
 
 #: seconds a rendezvous or a collective may wait for its peers
 DEFAULT_TIMEOUT = 300.0
@@ -185,6 +185,20 @@ def barrier(tag: Optional[str] = None) -> None:
         raise RuntimeError("barrier %r (#%d) failed on rank %d: %s"
                            % (tag, _BARRIER_COUNT, process_index(), e)) \
             from e
+
+
+def min_over_processes(values) -> List[int]:
+    """The elementwise min of a few ints over every process of the group
+    (``values`` themselves without one): how the processes agree on a
+    choice each made alone, such as the checkpoint a restore loads."""
+    values = [int(v) for v in values]
+    if not is_initialized():
+        return values
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    t = torch.tensor(values, dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return [int(v) for v in t.tolist()]
 
 
 def collectives_supported() -> bool:

@@ -48,6 +48,16 @@ The step takes tensors or the port's NDArrays (an iterator's batch:
 training state through :mod:`.checkpoint`, with the data iterator's
 position beside it, in the JAX package's state tree and format: the
 reference's ``TrainStep`` and this one restore each other's checkpoints.
+Over a mesh that spans processes every rank calls them together on one
+shared directory: each rank writes its own rows of every ZeRO-1
+optimizer-state leaf (the padded global leaf's rows ``[rank * rows,
+(rank + 1) * rows)``), rank 0 the replicated leaves, and rank 0 commits
+once every rank's done-marker is in, with each rank's iterator state
+beside the others'.  A restore reads back only this rank's rows, the
+ranks agree on the step it loads (a corrupt file only one rank reads
+sends every rank back to the same older step), and it restores across a changed dp width, process count or ``zero`` mode: the
+ZeRO leaves are cut to their logical rows and padded again, the
+iterator states re-split (``distributed.resplit_iter_state``).
 """
 from __future__ import annotations
 
@@ -67,11 +77,6 @@ from ..ndarray import NDArray
 from ..ops import optimizer_ops as _oops
 from . import checkpoint as _ckpt
 from . import collectives
-from .mesh import spans_processes
-
-#: where the refusals of a multi-process checkpoint point
-_MULTI_PROCESS_CKPT = ("the multi-process checkpoint commit, ROADMAP A8 "
-                       "item 1b")
 
 __all__ = ["DynamicLossScale", "FunctionalOptimizer", "TrainStep",
            "make_train_step"]
@@ -509,11 +514,26 @@ class TrainStep:
         """The training state as the reference's tree: params and aux by
         position, the per-parameter optimizer state, the PRNG key, the
         applied-step counter and the loss-scale state (scale f32,
-        unskipped i32, skipped i32)."""
+        unskipped i32, skipped i32).  Under ZeRO-1 over several ranks each
+        optimizer-state leaf of a >= 1-d parameter is this rank's
+        :class:`~.checkpoint.Shard` of the padded global leaf."""
+        opt = self._opt_state
+        if self.zero and self._n > 1:
+            opt = [s if pad0 is None else _tree_map(
+                       lambda t, pad0=pad0: self._shard(t, pad0), s)
+                   for s, pad0 in zip(opt, self._zero_pad0)]
         return {"params": list(self._gp), "aux": list(self._aux),
-                "opt_state": self._opt_state, "rng_key": self._rng_key,
+                "opt_state": opt, "rng_key": self._rng_key,
                 "step": self._step,
                 "loss_scale": (self._scale, self._unskipped, self._skipped)}
+
+    def _shard(self, t, pad0):
+        """This rank's rows ``t`` of a ZeRO-1 leaf padded to ``pad0``."""
+        rows = pad0 // self._n
+        return _ckpt.Shard(t, (pad0,) + tuple(t.shape[1:]),
+                           (self._rank * rows, (self._rank + 1) * rows),
+                           self._rank, self._n,
+                           spec="PartitionSpec(%r,)" % self.batch_axis)
 
     @staticmethod
     def _as_manager(directory_or_manager, keep_last=3):
@@ -532,20 +552,13 @@ class TrainStep:
                 "zero": self.zero, "pipeline_stages": None,
                 "processes": process_count()}
 
-    def _refuse_multi_process(self, what):
-        """A step whose mesh spans several processes holds replicated or
-        sharded state that one process's checkpoint would misrepresent."""
-        if spans_processes(self.mesh):
-            raise NotImplementedError(
-                "%s on a step whose mesh spans %d processes waits for %s: "
-                "one process's save would hold its own ZeRO shard only"
-                % (what, self.mesh.size, _MULTI_PROCESS_CKPT))
-
     def _elastic_policy(self):
         """A tree congruent with :meth:`_checkpoint_state`: ``None`` where
         a leaf must keep its saved shape, the logical leading dim where
         the reference pads the optimizer state of a >= 1-d parameter
-        (ZeRO-1), so a padded checkpoint restores here."""
+        (ZeRO-1), whatever this step's own ``zero``: a checkpoint padded
+        for any dp width restores here, and this step's is re-padded
+        elsewhere."""
         marks = [int(p.shape[0]) if p.dim() >= 1 else None for p in self._gp]
         opt = [tuple(m for _ in s) if isinstance(s, tuple) else m
                for s, m in zip(self._opt_state, marks)]
@@ -560,8 +573,8 @@ class TrainStep:
         committed directory.  ``data_iter`` (default: the iterator bound
         by :meth:`attach_checkpoint`) — its ``state_dict()`` rides the
         manifest, so :meth:`restore_checkpoint` resumes the data stream
-        at the exact next batch."""
-        self._refuse_multi_process("save_checkpoint")
+        at the exact next batch.  Over a mesh that spans processes every
+        rank calls it with the same directory (the module docstring)."""
         mgr = self._as_manager(directory_or_manager, keep_last)
         if data_iter is None:
             data_iter = self._ckpt_data_iter
@@ -582,8 +595,14 @@ class TrainStep:
         :class:`~.checkpoint.CheckpointError` when the checkpoint carries
         no iterator state (resuming would replay the epoch); an iterator
         bound by :meth:`attach_checkpoint` only warns then.  A checkpoint
-        with iterator state restored without an iterator warns."""
-        self._refuse_multi_process("restore_checkpoint")
+        with iterator state restored without an iterator warns.
+
+        Elastic: a checkpoint saved at another dp width, process count or
+        ``zero`` mode restores bit for bit (ZeRO leaves cut and padded
+        again, iterator states re-split over this run's processes); what
+        cannot be re-sharded raises
+        :class:`~.checkpoint.CheckpointTopologyError` naming both
+        topologies."""
         mgr = self._as_manager(directory_or_manager)
         live = self._checkpoint_state()
         step_no, state, meta = mgr.restore(
@@ -631,6 +650,8 @@ class TrainStep:
                     % (step_no, key, src.dtype, dst.dtype))
         with torch.no_grad():
             for (_, dst), (_, src) in pairs:
+                if isinstance(dst, _ckpt.Shard):
+                    dst = dst.data
                 if isinstance(dst, torch.Tensor):
                     dst.copy_(src)
                 else:
@@ -639,21 +660,24 @@ class TrainStep:
         return step_no
 
     def _resolve_iter_state(self, meta, saved_topo):
-        """The checkpointed data-stream state.  A multi-process save
-        carries one per process (``data_iter_parts``); resuming those
-        (``distributed.resplit_iter_state``) waits for the elastic
-        restore, ROADMAP A8 item 1b."""
+        """This process's share of the checkpointed data-stream state.  A
+        multi-process save carries one state per saved process
+        (``data_iter_parts``), re-split over this run's processes by
+        ``distributed.resplit_iter_state``: verbatim at the same count,
+        re-stamped where every part agrees, refused naming both
+        topologies where they diverged."""
+        from . import distributed as _dist
+
         parts = (meta or {}).get("data_iter_parts")
         if not parts:
             return (meta or {}).get("data_iter")
-        if len(parts) == 1:
-            return next(iter(parts.values()))
-        raise _ckpt.CheckpointTopologyError(
-            "checkpoint carries the data streams of %d processes; "
-            "re-splitting them onto one process waits for the elastic "
-            "restore, ROADMAP A8 item 1b "
-            "(saved topology: %s; current topology: %s)"
-            % (len(parts), saved_topo, self._topology()))
+        try:
+            return _dist.resplit_iter_state(parts, _dist.process_index(),
+                                            _dist.process_count())
+        except ValueError as e:
+            raise _ckpt.CheckpointTopologyError(
+                "%s (saved topology: %s; current topology: %s)"
+                % (e, saved_topo, self._topology())) from e
 
     def attach_checkpoint(self, directory_or_manager, every=None,
                           keep_last=3, data_iter=None):
@@ -664,7 +688,6 @@ class TrainStep:
         Returns the manager."""
         from ..io.io import DataIter
 
-        self._refuse_multi_process("attach_checkpoint")
         if every is not None and int(every) < 1:
             raise ValueError("every must be >= 1 or None")
         if data_iter is not None:
@@ -674,10 +697,11 @@ class TrainStep:
             if sd is None or sd is DataIter.state_dict:
                 raise ValueError(
                     "data_iter=%r does not implement the iterator-state "
-                    "protocol (state_dict/load_state_dict) — use a "
-                    "protocol-aware iterator (NDArrayIter, "
-                    "ImageRecordIter, ...) so boundary saves can carry "
-                    "the data position" % type(data_iter).__name__)
+                    "protocol (state_dict/load_state_dict) — wrap it in "
+                    "io.ResilientIter or use a protocol-aware iterator "
+                    "(NDArrayIter, ImageRecordIter, ...) so boundary "
+                    "saves can carry the data position"
+                    % type(data_iter).__name__)
         self._ckpt_manager = self._as_manager(directory_or_manager,
                                               keep_last)
         self._ckpt_every = int(every) if every else None
@@ -733,6 +757,12 @@ def _zero_padded(v, pad0):
         return v
     return torch.cat([v, v.new_zeros((pad0 - v.shape[0],)
                                      + tuple(v.shape[1:]))])
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
 
 
 def _tree_where(ok, new, old):

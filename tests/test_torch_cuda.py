@@ -39,7 +39,9 @@ Data parallelism: two ranks over gloo on ``cuda:0``
 MLP and of ``BasicBlockV1(ghost_bn=4)`` with ``zero=1``: the ranks'
 losses, parameters and running stats equal bit for bit, K1/K2 launched
 on each rank, and the losses within 1e-4 relative of one process
-stepping the whole global batch on the card.
+stepping the whole global batch on the card; a two-rank ZeRO-1
+checkpoint written from the card restored by one process at dp=1, its
+logical state exact and its next losses within 1e-5.
 """
 import importlib
 
@@ -1534,3 +1536,46 @@ def test_dp_step_two_ranks_on_one_card(dev, tmp_path):
         assert launched["ghost_bn_fwd"] == launched["ghost_bn_bwd"] == 9
         # the conv-BN net's max pool, 3 steps
         assert json.loads(str(r["convbn.kernels"]))["maxpool_idx_fwd"] == 3
+
+
+def test_two_rank_checkpoint_on_the_card_restores_at_dp1(dev, tmp_path):
+    """A two-rank ZeRO-1 step sharing the card over gloo (the elastic
+    net of ``tests/torch_dist_worker.py``: two ``Dense(16, tanh)``, a
+    ragged ``Dense(13)``, adam, a dynamic loss scale) commits a
+    checkpoint of step 3 with each rank's iterator state; one process on
+    the card restores it at dp=1: the logical state equals the ranks' bit
+    for bit, the next batches are the ones the ranks drew, and the losses
+    agree within 1e-5 (another sum order)."""
+    import torch_dist_launch
+    import torch_dist_worker as w
+
+    from incubator_mxnet_tpu_torch import convert
+    from incubator_mxnet_tpu_torch.parallel import make_mesh
+
+    net = w.elastic_net(torch.device("cpu"))
+    np.savez(str(tmp_path / "inputs.npz"),
+             **{"el.w%d" % i: a
+                for i, a in enumerate(convert.params_to_numpy(net))})
+    (tmp_path / "jax_ready").write_text("")  # no JAX on the card's host
+    ranks = torch_dist_launch.finish(
+        torch_dist_launch.start("elastic_save", tmp_path, platform="cuda"),
+        tmp_path, timeout=300)
+    mesh = make_mesh({"dp": 1}, devices=[dev])
+    step = w.elastic_step(w.elastic_net(dev, seed=17), dev, mesh)
+    it = w.elastic_iter(12)
+    assert step.restore_checkpoint(str(tmp_path / "ckpt_dp2"),
+                                   data_iter=it) == 3
+    got = w.logical_parts(step, "a3.")
+    for k, a in got.items():
+        if k.startswith("a3.o"):
+            want = np.concatenate([r[k] for r in ranks])
+        else:
+            want = ranks[0][k]
+            assert ranks[1][k].tobytes() == want.tobytes(), k
+        assert a.tobytes() == want.tobytes(), k
+    for k in range(3):
+        b = it.next()
+        np.testing.assert_array_equal(b.index, ranks[0]["a.idx"][3 + k])
+        loss = w.elastic_feed(step, mesh, b, dev)
+        assert abs(loss - ranks[0]["a.loss"][3 + k]) <= 1e-5
+    it.close()

@@ -10,7 +10,8 @@ no second rank.
   no coordinator raises ``DistributedInitError`` naming it and the rank;
 - the refusals of ``make_mesh``, of the collectives' shape checks and
   ``ppermute``'s permutation check (on a two-rank mesh object), of
-  ``zero`` and of the checkpoints of a step whose mesh spans processes;
+  ``zero``, and of a checkpoint of a step whose mesh spans processes
+  that one rank cannot commit alone;
   the collectives' one-rank values without a group;
 - ghost BN's group picked for the global batch (``batch=``): each half
   of a batch normalizes as the reference's whole-batch call does on its
@@ -319,13 +320,33 @@ def test_dp_mesh_of_one_is_the_plain_step():
 
 
 def test_checkpoints_of_a_multi_process_step_refuse(tmp_path):
+    """Rank 0 of a two-rank ZeRO-1 step (a mesh object, no peer): its
+    ZeRO leaves are its rows of the padded leaves; a one-process manager
+    refuses to write them, and a two-process one stages them and times
+    out naming rank 1's missing done-marker, committing nothing.  The
+    name is the one this test had when multi-process checkpoints were
+    refused; of those refusals only the one-process manager's stays."""
+    from incubator_mxnet_tpu_torch.parallel import checkpoint as tck
+
     step = _step(_mlp(), mesh=_two_ranks(), zero=1)
     assert step._topology()["mesh"] == {"dp": 2}
-    for call in (lambda: step.save_checkpoint(str(tmp_path)),
-                 lambda: step.restore_checkpoint(str(tmp_path)),
-                 lambda: step.attach_checkpoint(str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8 item 1b"):
-            call()
+    shards = [leaf for _, leaf in tck._flatten(step._checkpoint_state())
+              if isinstance(leaf, tck.Shard)]
+    # (momentum, f32 master weight) of each parameter; 13 rows pad to 14
+    assert [(s.shape, s.rows, s.ordinal, s.count) for s in shards] == [
+        (shape, rows, 0, 2) for shape, rows in (
+            ((8, 5), (0, 4)), ((8,), (0, 4)), ((14, 8), (0, 7)),
+            ((14,), (0, 7))) for _ in range(2)]
+    with pytest.raises(tck.CheckpointError, match="process_count=2"):
+        step.save_checkpoint(str(tmp_path / "one"))
+    mgr = tck.CheckpointManager(str(tmp_path / "two"), process_index=0,
+                                process_count=2, commit_timeout=0.3)
+    assert step.attach_checkpoint(mgr) is mgr
+    with pytest.raises(tck.CheckpointError, match="done-marker"):
+        step.save_checkpoint(mgr)
+    assert mgr.steps() == []
+    with pytest.raises(tck.CheckpointError, match="no checkpoints"):
+        step.restore_checkpoint(mgr)
 
 
 # -- the stores without a launcher ---------------------------------------------

@@ -12,7 +12,8 @@ and the port's ``clip`` (MobileNet's relu6) against ``_activation`` and
 
 K3's routing: ``chip_smoke.ZOO_POOLS`` lists every distinct max pool of
 the zoo's 34 models; the table must equal what the models' own
-``MaxPool2D`` layers see at 224 px (Inception 299), and each entry,
+``MaxPool2D`` layers see at 224 px (Inception 299), built on ``meta``
+tensors (shapes only), and each entry,
 scaled down to batch 2 and 4 channels, must take exactly one K3 launch
 down the card branch (``_on_card`` patched, a recording launcher in
 ``_kernels.KERNELS``) with the geometry the kernel needs.
@@ -39,7 +40,7 @@ import chip_smoke
 import incubator_mxnet_tpu.ops.math as jmath
 import incubator_mxnet_tpu.ops.nn as jops
 
-from incubator_mxnet_tpu_torch import _kernels, gluon
+from incubator_mxnet_tpu_torch import _kernels, context, gluon
 from incubator_mxnet_tpu_torch.gluon.block import F
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.gluon.nn import MaxPool2D
@@ -149,11 +150,23 @@ def test_relu6_clip_matches_reference():
     assert F.Concat(xt[:2], xt[2:4], dim=0).shape == (4,)
 
 
-def _pool_table():
-    """What the zoo's MaxPool2D layers see, as ZOO_POOLS' entries."""
+def _pool_table(monkeypatch):
+    """What the zoo's MaxPool2D layers see, as ZOO_POOLS' entries.  The
+    nets are built on ``meta`` tensors (shapes without data, as the
+    symbolic layer's shape inference runs): resolving their widths then
+    runs no arithmetic.  The port refuses devices other than the card and
+    the CPU, so the test lets ``context.resolve`` pass ``meta`` through."""
+    real = context.resolve
+
+    def resolve(device=None):
+        if device is not None and torch.device(device).type == "meta":
+            return torch.device("meta")
+        return real(device)
+
+    monkeypatch.setattr(context, "resolve", resolve)
     seen = set()
     for name in sorted(vision._models):
-        net = vision.get_model(name, device="cpu")
+        net = vision.get_model(name, device="meta")
         img = 299 if name.startswith("inception") else 224
 
         def hook(m, args):
@@ -169,10 +182,10 @@ def _pool_table():
     return seen
 
 
-def test_zoo_pool_table_is_the_models():
+def test_zoo_pool_table_is_the_models(monkeypatch):
     table = {entry[1:] for entry in chip_smoke.ZOO_POOLS}
     assert len(table) == len(chip_smoke.ZOO_POOLS)
-    assert table == _pool_table()
+    assert table == _pool_table(monkeypatch)
 
 
 class _Recorder:

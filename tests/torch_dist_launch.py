@@ -3,7 +3,9 @@
 
 The launcher has no overall timeout, so the job runs in a session of its
 own under a subprocess timeout: past it, the whole session (launcher and
-ranks) is killed and the test fails with the job's output.
+ranks) is killed and the test fails with the job's output.  ``finish``
+requires every rank to succeed; ``wait`` returns the exit code of a job
+that is meant to fail (a rank killed on purpose).
 """
 import os
 import signal
@@ -27,9 +29,9 @@ def start(mode, outdir, platform="cpu", ranks=2):
                             stderr=subprocess.STDOUT, text=True)
 
 
-def finish(proc, outdir, ranks=2, timeout=240):
-    """Wait for the job (killing it past ``timeout`` seconds) and return
-    each rank's ``rank<r>.npz`` as a dict."""
+def wait(proc, timeout=240):
+    """Wait for the job (killing it past ``timeout`` seconds); returns its
+    exit code and output, whatever the code (a job expected to fail)."""
     try:
         out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -37,7 +39,19 @@ def finish(proc, outdir, ranks=2, timeout=240):
         out, _ = proc.communicate()
         raise AssertionError("the dist job passed its %d s limit:\n%s"
                              % (timeout, out[-6000:]))
-    assert proc.returncode == 0, \
-        "a rank failed (rc=%d):\n%s" % (proc.returncode, out[-6000:])
+    return proc.returncode, out
+
+
+def load(outdir, ranks=2):
+    """Each rank's ``rank<r>.npz`` as a dict."""
     return [dict(np.load(os.path.join(str(outdir), "rank%d.npz" % r)))
             for r in range(ranks)]
+
+
+def finish(proc, outdir, ranks=2, timeout=240):
+    """Wait for the job (killing it past ``timeout`` seconds), require
+    that every rank succeeded, and return each rank's ``rank<r>.npz`` as
+    a dict."""
+    rc, out = wait(proc, timeout)
+    assert rc == 0, "a rank failed (rc=%d):\n%s" % (rc, out[-6000:])
+    return load(outdir, ranks)

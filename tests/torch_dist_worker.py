@@ -8,8 +8,27 @@ checks (``tests/dist_worker.py``) and runs ``cifar10_dist_torch.py``
 small and ``train_imagenet_torch.py`` over a RecordIO shard; ``step``
 mode runs the data-parallel ``TrainStep`` over the cases the parent
 wrote to ``<outdir>/cases.json`` and ``inputs.npz``, then every eager
-collective once.  Each rank writes what it saw to
-``<outdir>/rank<r>.npz``.
+collective once.  The elastic modes (``tests/test_torch_elastic.py``,
+the card test) train the reference's elastic net (two ``Dense(16,
+tanh)`` and a ragged ``Dense(13)``, adam, ZeRO-1, a dynamic loss scale)
+over a shuffled ``ResilientIter(NDArrayIter)`` of the global batches,
+each rank on its rows:
+
+- ``elastic_save``: 6 steps from the parent's weights with a
+  checkpoint of step 3 (``ckpt_dp2``), then the restores of the JAX
+  package's checkpoints that the parent writes meanwhile and lists in
+  ``jax_ready`` (``jax_dp2``, ``jax_dp8``; none on the card);
+- ``elastic_restore``: the parent's dp=1 re-save (``ckpt_dp1``) and its
+  ``zero=0`` checkpoint (``ckpt_zero0``) restored at dp=2 and stepped,
+  the latter saved at steps 3 and 4 (``ckpt_walk``); rank 1 corrupts its
+  own shard of step 4 and both ranks must restore step 3; then the
+  kill: 4 steps with a checkpoint of step 2 (``kill_ckpt``) and, in the
+  step-4 save, rank 1 killed by ``fault_injection.host_loss_during_save``;
+  rank 0 must refuse the commit (the job then fails, as it should).
+
+Each rank writes what it saw to ``<outdir>/rank<r>.npz`` (the elastic
+modes before the kill; the kill's observations go to
+``<outdir>/kill_rank<r>.json``).
 
     python tools/launch.py -n 2 python tests/torch_dist_worker.py \\
         MODE OUTDIR [cpu|cuda]
@@ -18,6 +37,8 @@ import importlib.util
 import json
 import os
 import sys
+import time
+import warnings
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -32,8 +53,12 @@ from incubator_mxnet_tpu_torch import (_kernels, autograd, context, convert,
 from incubator_mxnet_tpu_torch.gluon import nn
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import \
     BasicBlockV1
-from incubator_mxnet_tpu_torch.parallel import (collectives, distributed,
+from incubator_mxnet_tpu_torch.io import NDArrayIter, ResilientIter
+from incubator_mxnet_tpu_torch.parallel import (CheckpointError,
+                                                CheckpointManager,
+                                                collectives, distributed,
                                                 make_mesh, make_train_step)
+from incubator_mxnet_tpu_torch.parallel import fault_injection as fi
 from incubator_mxnet_tpu_torch.parallel.mesh import global_devices
 
 
@@ -243,6 +268,226 @@ def trainer_recordio(dev):
             "rec_losses": np.asarray(ex.main(argv), np.float64)}
 
 
+# -- the elastic modes ---------------------------------------------------------
+
+ELASTIC_FEAT = 16
+ELASTIC_BATCH = 8  # global
+
+
+def elastic_data():
+    """The reference worker's data: 64 rows of 16 features, 4 classes."""
+    rng = np.random.RandomState(5)
+    return (rng.rand(64, ELASTIC_FEAT).astype(np.float32),
+            rng.randint(0, 4, 64).astype(np.float32))
+
+
+def elastic_net(dev, weights=None, seed=0, head=13):
+    """Two ``Dense(16, tanh)`` and a ``Dense(head)`` (13 rows pad to 14
+    at dp=2, 16 at dp=8), with ``weights`` (numpy, ``collect_params()``
+    order) or drawn from ``seed``."""
+    mx.random.seed(seed)
+    with context.device_scope(dev):
+        net = nn.HybridSequential()
+        net.add(nn.Dense(16, in_units=ELASTIC_FEAT, activation="tanh"),
+                nn.Dense(16, in_units=16, activation="tanh"),
+                nn.Dense(head, in_units=16))
+    net.initialize(init=mx.init.Xavier())
+    if weights is not None:
+        convert.params_from_jax(net, weights)
+    return net
+
+
+def elastic_step(net, dev, mesh, zero=1):
+    return make_train_step(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                           optimizer="adam", learning_rate=1e-3,
+                           loss_scale="dynamic", device=dev, mesh=mesh,
+                           zero=zero)
+
+
+def elastic_iter(shuffle_seed, batch_size=ELASTIC_BATCH):
+    X, Y = elastic_data()
+    np.random.seed(shuffle_seed)
+    return ResilientIter(NDArrayIter(X, Y, batch_size=batch_size,
+                                     shuffle=True, ctx=mx.cpu()))
+
+
+def elastic_feed(step, mesh, batch, dev):
+    """One step on this rank's rows of the global batch; the loss."""
+    x, y = (mesh.local_slice(v._data).to(dev)
+            for v in (batch.data[0], batch.label[0]))
+    return float(step(x, y))
+
+
+def logical_parts(step, prefix):
+    """What a re-shard must keep, as this rank holds it: params, aux,
+    PRNG key, step counter, loss-scale state, and this rank's rows of
+    each optimizer-state leaf without the ZeRO padding."""
+    def host(t):  # a copy: the step updates its tensors in place
+        return t.detach().cpu().numpy().copy()
+
+    out = {prefix + "step": np.int64(step.step_count),
+           prefix + "rng": np.array(step._rng_key)}
+    for i, t in enumerate(step._gp):
+        out["%sp%d" % (prefix, i)] = host(t)
+    for i, t in enumerate(step._aux):
+        out["%sa%d" % (prefix, i)] = host(t)
+    for i, t in enumerate((step._scale, step._unskipped, step._skipped)):
+        out["%ss%d" % (prefix, i)] = host(t)
+    pads = step._zero_pad0 or [None] * len(step._gp)
+    k = 0
+    for s, p, pad0 in zip(step._opt_state, step._gp, pads):
+        for leaf in (s if isinstance(s, tuple) else (s,)):
+            a = host(leaf)
+            if pad0 is not None and step._n > 1:
+                lo = step._rank * (pad0 // step._n)
+                a = a[:max(0, min(len(a), p.shape[0] - lo))]
+            out["%so%d" % (prefix, k)] = a
+            k += 1
+    return out
+
+
+def _elastic_manager(outdir, name, **kw):
+    return CheckpointManager(os.path.join(outdir, name), **kw)
+
+
+def elastic_save(dev, mesh, outdir):
+    """The uninterrupted dp=2 run with a checkpoint of step 3, then the
+    JAX package's checkpoints restored here."""
+    inputs = np.load(os.path.join(outdir, "inputs.npz"))
+    weights = [inputs["el.w%d" % i] for i in range(6)]
+    step = elastic_step(elastic_net(dev, weights), dev, mesh)
+    it = elastic_iter(3)
+    out, idx, losses = {}, [], []
+    for k in range(6):
+        b = it.next()
+        idx.append(np.asarray(b.index).copy())
+        losses.append(elastic_feed(step, mesh, b, dev))
+        if k == 2:
+            t0 = time.perf_counter()
+            step.save_checkpoint(_elastic_manager(outdir, "ckpt_dp2",
+                                                  commit_timeout=60),
+                                 data_iter=it)
+            out["save_s"] = np.float64(time.perf_counter() - t0)
+            out.update(logical_parts(step, "a3."))
+    it.close()
+    out["a.idx"], out["a.loss"] = np.stack(idx), np.asarray(losses)
+    # the parent lists the JAX checkpoints it wrote (none on the card's
+    # host, which has no JAX) in jax_ready, written last
+    ready = os.path.join(outdir, "jax_ready")
+    deadline = time.monotonic() + 180
+    while not os.path.exists(ready):
+        if time.monotonic() > deadline:
+            raise AssertionError("the parent wrote no jax_ready")
+        time.sleep(0.1)
+    with open(ready) as f:
+        names = f.read().split()
+    for name in names:
+        other = elastic_step(elastic_net(dev, seed=17), dev, mesh)
+        out[name + ".restored"] = np.int64(
+            other.restore_checkpoint(os.path.join(outdir, name)))
+        out.update(logical_parts(other, name + "."))
+    return out
+
+
+def elastic_restore(dev, mesh, outdir):
+    """The parent's dp=1 re-save back at dp=2 (then 3 steps), and its
+    ``zero=0`` checkpoint at ``zero=1`` (then one step)."""
+    out = {}
+    step = elastic_step(elastic_net(dev, seed=23), dev, mesh)
+    it = elastic_iter(13)
+    out["b.restored"] = np.int64(step.restore_checkpoint(
+        os.path.join(outdir, "ckpt_dp1"), data_iter=it))
+    out.update(logical_parts(step, "b3."))
+    idx, losses = [], []
+    for _ in range(3):
+        b = it.next()
+        idx.append(np.asarray(b.index).copy())
+        losses.append(elastic_feed(step, mesh, b, dev))
+    it.close()
+    out["b.idx"], out["b.loss"] = np.stack(idx), np.asarray(losses)
+    step = elastic_step(elastic_net(dev, seed=29), dev, mesh)
+    it = elastic_iter(13)
+    out["z.restored"] = np.int64(step.restore_checkpoint(
+        os.path.join(outdir, "ckpt_zero0"), data_iter=it))
+    out.update(logical_parts(step, "z."))
+    walk = _elastic_manager(outdir, "ckpt_walk", commit_timeout=60)
+    step.save_checkpoint(walk, data_iter=it)
+    out["z.loss"] = np.float64(elastic_feed(step, mesh, it.next(), dev))
+    step.save_checkpoint(walk, data_iter=it)
+    it.close()
+    out.update(walk_back(dev, mesh, walk))
+    return out
+
+
+def walk_back(dev, mesh, mgr):
+    """Rank 1 flips a bit of its own shard file of ``mgr``'s newest step
+    (4); both ranks must then restore step 3, and both refuse step 4
+    asked for by name.  Each rank reads only the files of its rows, so
+    rank 1 alone sees the damage."""
+    if distributed.process_index() == 1:
+        d = os.path.join(mgr.directory, "step-00000004")
+        names = sorted(n for n in os.listdir(d) if n.endswith(".bin"))
+        fi.corrupt_checkpoint(mgr.directory, step=4, which=[
+            ".shard001." in n for n in names].index(True))
+    distributed.barrier("corrupted")
+    step = elastic_step(elastic_net(dev, seed=31), dev, mesh)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        restored = step.restore_checkpoint(mgr)
+    out = {"w.restored": np.int64(restored),
+           "w.warned": np.bool_(any("is corrupt" in str(w.message)
+                                    for w in caught))}
+    out.update(logical_parts(step, "w."))
+    try:  # step 4 asked for by name: every rank refuses it
+        step.restore_checkpoint(mgr, step=4)
+        out["w.pinned"] = np.asarray("restored")
+    except CheckpointError as e:
+        out["w.pinned"] = np.asarray(type(e).__name__)
+    return out
+
+
+def elastic_kill(dev, mesh, outdir):
+    """4 steps with a committed checkpoint of step 2; in the step-4 save
+    rank 1 dies mid-stage, and rank 0 must refuse the commit.  Exits the
+    process: 3 on rank 0's expected refusal, else 4 or 5."""
+    rank = distributed.process_index()
+    inputs = np.load(os.path.join(outdir, "inputs.npz"))
+    step = elastic_step(elastic_net(dev, [inputs["el.w%d" % i]
+                                          for i in range(6)]), dev, mesh)
+    mgr = _elastic_manager(outdir, "kill_ckpt", commit_timeout=5.0)
+    it = elastic_iter(3)
+    obs = {"losses": [], "idx": []}
+
+    def dump(**kw):
+        obs.update(kw, steps=mgr.steps())
+        path = os.path.join(outdir, "kill_rank%d.json" % rank)
+        with open(path, "w") as f:
+            json.dump(obs, f)
+            f.flush()
+            os.fsync(f.fileno())
+
+    for k in range(4):
+        b = it.next()
+        obs["idx"].append(np.asarray(b.index).tolist())
+        obs["losses"].append(elastic_feed(step, mesh, b, dev))
+        if k == 1:
+            step.save_checkpoint(mgr, data_iter=it)
+        dump()
+    if rank == 1:
+        dump(kill_t=time.time())
+        with fi.host_loss_during_save(at=0):
+            step.save_checkpoint(mgr, data_iter=it)
+        dump(error="host_loss_did_not_fire")
+        sys.exit(4)
+    try:
+        step.save_checkpoint(mgr, data_iter=it)
+    except CheckpointError as e:
+        dump(error=type(e).__name__, message=str(e), error_t=time.time())
+        sys.exit(3)
+    dump(error="commit_unexpectedly_succeeded")
+    sys.exit(5)
+
+
 def main():
     mode, outdir = sys.argv[1], sys.argv[2]
     platform = sys.argv[3] if len(sys.argv) > 3 else "cpu"
@@ -250,6 +495,10 @@ def main():
     dev = distributed.local_device(platform)
     if mode == "kvstore":
         out = kvstore_checks(dev)
+    elif mode.startswith("elastic"):
+        mesh = make_mesh({"dp": -1}, devices=global_devices(platform))
+        out = (elastic_save if mode == "elastic_save" else
+               elastic_restore)(dev, mesh, outdir)
     else:
         with open(os.path.join(outdir, "cases.json")) as f:
             cases = json.load(f)
@@ -264,6 +513,8 @@ def main():
     np.savez(os.path.join(outdir, "rank%d.npz" % distributed.process_index()),
              **out)
     print("worker %d ok" % distributed.process_index(), flush=True)
+    if mode == "elastic_restore":
+        elastic_kill(dev, mesh, outdir)
 
 
 if __name__ == "__main__":
