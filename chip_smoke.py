@@ -100,7 +100,8 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    vgg16_bn, alexnet, squeezenet1_1, densenet121, mobilenet1_0,
    mobilenet_v2_1_0 at 224 px, inception_v3 at 299): each step launches
    K3 once for each of the net's max pools and nothing else, losses
-   finite; each net's ``step_ms``;
+   finite; each net's ``step_ms`` (cuDNN's own choice of algorithms, no
+   autotuning at so few steps);
 3g. the Gluon training surface: ``example/gluon/image_classification_
    torch.py``'s loop built through its own functions (``GLUON``:
    ``resnet50_v1``, 224 px, 1000 classes, batch 64, ``hybridize()``,
@@ -229,6 +230,34 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    and steps 3 and 4 with the first job's losses bit for bit.  Printed:
    the step-2 save ms and bytes of each rank, rank 0's commit wait, the
    seconds from the kill to rank 0's refusal, both restores' ms;
+3n. model parallelism (ROADMAP A8 items c and d), ``DP_RANKS`` ranks
+   started by ``tools/launch.py`` sharing the card over gloo (as 3l: a
+   real job has a card a rank, so the step times are correctness
+   figures), each rank this script with ``--mp-rank``, f32 with TF32
+   off, the sizes in ``MP``: (i) ``train_lm_torch.py --devices 2`` built
+   through its own functions at phase 3b's width (dim 1024, 8 heads, seq
+   2048, batch 4, 2 layers, vocab 256), ``--impl ring`` then ``--impl
+   ulysses``, 3 steps each with the counters set to 0 just before: every
+   loss finite, the replicas bit-equal, K4/K5/K6 launched exactly 2/2/2
+   a rank a step under Ulysses and never under ring, and step 1's loss
+   and the gradients of the 14 weight matrices within 4x the floor of
+   the one-process LM on the card plus ``MP_LM_ADD``: for Ulysses (the
+   same flash kernels) its weights nudged 1e-6, for ring (blockwise f32
+   attention) also the flash kernels against the plain dense attention
+   in one process; ``sp_step_ms_ring``, ``sp_step_ms_ulysses`` and the
+   collectives a step; (ii) ``make_train_step(pipeline_stages=2,
+   num_micro=4)`` over ``{"pp": 2}`` on 8 ``Dense(1024, tanh)`` (labels
+   of 256 classes on their output: a ``Dense(256)`` head would break
+   the stages' congruence), batch 256, one sgd step at unit lr: the
+   gradients within ``MP_PP_TOL`` of max |g| of the one-process step,
+   remat within 1e-6 of no remat, no kernel launched, ``pp_step_ms``;
+   (iii) ``Dense(1024,
+   relu)`` -> ``MoEFFN(4096, 8 experts, top_k=2, capacity_factor=2.0)``
+   -> ``Dense(256)`` on 4096 tokens over ``{"dp": 1, "ep": 2}`` with the
+   experts sharded (4 a rank), 3 steps at lr 0.1 against ep=1 on the
+   card: losses within ``MP_MOE_LOSS_TOL``, parameters within
+   ``MP_MOE_PARAM_TOL`` of each tensor's largest update, the replicated
+   parameters bit-equal, no kernel launched, ``moe_step_ms``;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -1180,7 +1209,10 @@ def run_zoo_nets(dev):
     from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
     from incubator_mxnet_tpu_torch.parallel import make_train_step
 
-    torch.backends.cudnn.benchmark = True
+    # a few steps of each net at its own shapes: autotuning every
+    # convolution (densenet121 alone has ~100 shapes) costs more than it
+    # saves
+    torch.backends.cudnn.benchmark = False
     total = {name: 0 for name in _kernels.launch_counts()}
     rows = []
     for label, name, kwargs, px in ZOO_NETS:
@@ -3495,6 +3527,486 @@ def run_elastic_path(dev, card, loss_limit):
     return counts
 
 
+# phase 3n: model parallelism, two ranks sharing the card over gloo
+#: (i) the LM at phase 3b's width through train_lm_torch.py --devices 2;
+#: (ii) pp=2 over 8 Dense(1024, tanh); (iii) ep=2 over an MoEFFN of 8
+#: experts.  The ranks read this from the job's config.json, so a test can
+#: run the phase small.
+MP = {"lm": dict(vocab=LM["vocab"], dim=LM["dim"], heads=LM["heads"],
+                 layers=LM["n_layers"], seq=2048, batch=4, lr=LM_LR,
+                 steps=3),
+      "pp": dict(width=1024, layers=8, classes=256, batch=256, num_micro=4,
+                 steps=4),
+      "moe": dict(width=1024, hidden=4096, experts=8, top_k=2,
+                  capacity=2.0, classes=256, tokens=4096, lr=0.1, steps=3)}
+#: seconds the launched two-rank job may take
+MP_TIMEOUT = 300
+#: (i): step 1's loss and weight gradients within 4x the one-process
+#: floor (check_mp_lm) plus this, relative to each tensor's largest
+#: magnitude
+MP_LM_ADD = 1e-5
+#: (ii): the unit-lr gradients within this of max |g| of one process
+MP_PP_TOL = 1e-5
+#: (iii): the losses within this (relative) of the ep=1 step's, the
+#: parameters within this of each tensor's largest update
+MP_MOE_LOSS_TOL = 1e-4
+MP_MOE_PARAM_TOL = 1e-2
+
+
+def _mp_lm_argv(cfg, impl, devices):
+    return ["--devices", str(devices), "--impl", impl,
+            "--seq", str(cfg["seq"]), "--dim", str(cfg["dim"]),
+            "--heads", str(cfg["heads"]), "--layers", str(cfg["layers"]),
+            "--vocab", str(cfg["vocab"]), "--batch", str(cfg["batch"]),
+            "--lr", str(cfg["lr"]), "--steps", str(cfg["steps"])]
+
+
+def _mp_lm_weights(layers):
+    """The LM's 14 weight matrices at 2 layers: ``embed``, ``out`` and
+    each layer's ``wq``, ``wk``, ``wv``, ``wo``, ``w1``, ``w2``."""
+    return ["embed", "out"] + ["l%d.%s" % (i, k) for i in range(layers)
+                               for k in ("wq", "wk", "wv", "wo", "w1", "w2")]
+
+
+def _mp_lm_grads(lmm, lm, tokens, layers):
+    """The example's loss at ``lm``'s weights and the gradients of its
+    weight matrices, as numpy."""
+    import torch
+
+    params = dict(lm.named_parameters())
+    names = _mp_lm_weights(layers)
+    loss = lmm.loss_fn(lm, tokens)
+    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    return loss.item(), {n: g.cpu().numpy() for n, g in zip(names, grads)}
+
+
+def _mp_pp_net(dev, cfg):
+    from incubator_mxnet_tpu_torch import initializer, random
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential()
+    for _ in range(cfg["layers"]):
+        net.add(nn.Dense(cfg["width"], in_units=cfg["width"],
+                         activation="tanh", device=dev))
+    random.seed(SEED + 20)
+    net.initialize(init=initializer.Xavier())
+    return net
+
+
+def _mp_moe_net(dev, cfg):
+    from incubator_mxnet_tpu_torch import initializer, random
+    from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.gluon.contrib.nn import MoEFFN
+
+    w = cfg["width"]
+    net = nn.HybridSequential()
+    net.add(nn.Dense(w, in_units=w, activation="relu", device=dev),
+            MoEFFN(cfg["hidden"], cfg["experts"], top_k=cfg["top_k"],
+                   capacity_factor=cfg["capacity"], aux_loss_weight=1e-2,
+                   in_units=w, device=dev),
+            nn.Dense(cfg["classes"], in_units=w, device=dev))
+    random.seed(SEED + 30)
+    net.initialize(init=initializer.Xavier())
+    return net
+
+
+def _mp_batch(dev, rows, width, classes, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, width, generator=g, device=dev)
+    y = torch.randint(0, classes, (rows,), generator=g, device=dev).float()
+    return x, y
+
+
+def _mp_step(net, dev, lr, mesh=None, **kw):
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.parallel import make_train_step
+
+    return make_train_step(net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                           learning_rate=lr, device=dev, mesh=mesh, **kw)
+
+
+def _timed_calls(fn, steps):
+    """``steps`` calls of ``fn`` (each returning a loss tensor), the
+    launch and collective counters set to 0 just before and read just
+    after: (losses, ms a call, launches, collectives)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    collectives.reset_call_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(fn()))   # float() waits for the card
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, _kernels.launch_counts(), collectives.call_counts()
+
+
+def _mp_rank_lm(dev, cfg, impl, outdir, rank):
+    """(i) in this rank: ``train_lm_torch.py --devices 2 --impl impl``
+    built through its own functions; step 1's weight gradients (rank 0
+    writes them), then its steps with the counters set to 0 just
+    before."""
+    lmm = _lm_module()
+    args = lmm.parse_args(_mp_lm_argv(cfg, impl, 2))
+    mesh = lmm.build_mesh(args)
+    lm, tokens = lmm.build(args, mesh)
+    loss1, grads = _mp_lm_grads(lmm, lm, tokens, cfg["layers"])
+    if rank == 0:
+        import numpy as np
+
+        np.savez(os.path.join(outdir, "lm_%s.npz" % impl), **grads)
+    step = lmm.make_step(lm, args.lr)
+    losses, ms, launches, calls = _timed_calls(lambda: step(tokens),
+                                               cfg["steps"])
+    return {"loss1": loss1, "losses": losses, "step_ms": ms,
+            "launches": launches, "collectives": calls,
+            "sha1": _imagenet_module().state_sha1(lm)}
+
+
+def _mp_rank_pp(dev, cfg, outdir, rank):
+    """(ii) in this rank: one unit-lr step (sgd, no momentum) over
+    ``{"pp": 2}`` with remat off and on, each rank's gradients (rank 0
+    writes them), then more steps of the first, timed."""
+    import numpy as np
+
+    from incubator_mxnet_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"pp": 2})
+    x, y = _mp_batch(dev, cfg["batch"], cfg["width"], cfg["classes"],
+                     SEED + 21)
+    out = {}
+    for remat in (False, True):
+        net = _mp_pp_net(dev, cfg)
+        step = _mp_step(net, dev, 1.0, mesh, momentum=0.0,
+                        pipeline_stages=2, num_micro=cfg["num_micro"],
+                        pipeline_remat=remat)
+        before = [p.detach().clone() for p in step._gp]
+        losses, ms, launches, calls = _timed_calls(lambda: step(x, y), 1)
+        if rank == 0:
+            np.savez(os.path.join(outdir, "pp_remat%d.npz" % remat),
+                     *[(b - p.detach()).cpu().numpy()
+                       for b, p in zip(before, step._gp)])
+        key = "remat" if remat else "plain"
+        out[key] = {"loss": losses[0], "collectives": calls,
+                    "sha1": _imagenet_module().state_sha1(net)}
+        if not remat:
+            more = _timed_calls(lambda: step(x, y), cfg["steps"] - 1)
+            out["losses"], out["step_ms"] = more[0], more[1]
+            out["launches"] = more[2]
+    return out
+
+
+def _mp_rank_moe(dev, cfg, outdir, rank):
+    """(iii) in this rank: the MoE net's step over ``{"dp": 1, "ep": 2}``
+    with the experts sharded (this rank holds half), its steps with the
+    counters set to 0 just before; rank 0 writes the parameters after,
+    gathered."""
+    import numpy as np
+
+    from incubator_mxnet_tpu_torch.parallel import collectives, make_mesh
+
+    mesh = make_mesh({"dp": 1, "ep": 2})
+    net = _mp_moe_net(dev, cfg)
+    moe = net[1]
+    step = _mp_step(net, dev, cfg["lr"], mesh,
+                    param_shardings=moe.expert_shardings("ep"))
+    x, y = _mp_batch(dev, cfg["tokens"], cfg["width"], cfg["classes"],
+                     SEED + 31)
+    losses, ms, launches, calls = _timed_calls(lambda: step(x, y),
+                                               cfg["steps"])
+    whole = []
+    for i, p in enumerate(step._gp):
+        if i in step._shards:
+            axis, d = step._shards[i]
+            p = collectives.allgather(p.detach(), axis, mesh, axis=d)
+        whole.append(p.detach().cpu().numpy())
+    if rank == 0:
+        np.savez(os.path.join(outdir, "moe.npz"), *whole)
+    h = hashlib.sha1()
+    for i, p in enumerate(step._gp):
+        if i not in step._shards:
+            h.update(p.detach().cpu().numpy().tobytes())
+    return {"losses": losses, "step_ms": ms, "launches": launches,
+            "collectives": calls, "experts_held": int(moe.expert_w1.shape[0]),
+            "replicated_sha1": h.hexdigest()}
+
+
+def mp_rank_main(outdir):
+    """One rank of phase 3n, started by ``tools/launch.py`` (this script
+    with ``--mp-rank``): (i) ring then Ulysses, (ii), (iii) in turn in
+    f32 with TF32 off; the rank's results go to ``rank<r>.json``."""
+    import torch
+
+    from incubator_mxnet_tpu_torch.parallel import distributed
+
+    with open(os.path.join(outdir, "config.json")) as f:
+        cfg = json.load(f)
+    distributed.initialize()
+    dev = distributed.local_device()
+    torch.cuda.set_device(dev)
+    rank = distributed.process_index()
+    result = {"rank": rank, "backend": distributed.backend()}
+    with _tf32_off():
+        for impl in ("ring", "ulysses"):
+            result["lm_" + impl] = _mp_rank_lm(dev, cfg["lm"], impl, outdir,
+                                               rank)
+            torch.cuda.empty_cache()
+        result["pp"] = _mp_rank_pp(dev, cfg["pp"], outdir, rank)
+        torch.cuda.empty_cache()
+        result["moe"] = _mp_rank_moe(dev, cfg["moe"], outdir, rank)
+    with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
+        json.dump(result, f)
+    distributed.barrier("phase 3n")
+
+
+def _per_step(calls, steps):
+    return {k: v / steps for k, v in sorted(calls.items())}
+
+
+def check_mp_lm(dev, ranks, grads, cfg, card):
+    """(i): every loss finite, the replicas bit-equal, K4/K5/K6 launched
+    ``layers`` times a rank a step under Ulysses and never under ring,
+    and step 1's loss and weight gradients within 4x the one-process
+    floor plus ``MP_LM_ADD`` of the one-process LM on the card.  Ulysses
+    runs the flash kernels as one process does, so its floor is that
+    LM's at weights nudged 1e-6.  Ring attention is another
+    implementation (blockwise f32 softmax), so its floor is also the
+    spread between two implementations of the same attention in one
+    process: the flash kernels against the plain dense attention
+    (``attention_reference``), which the gradients of wq and wk
+    amplify most (dS = P (dP - delta) cancels).  Returns rank 0's
+    Ulysses launches."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch.parallel.ring_attention import \
+        attention_reference
+
+    lmm = _lm_module()
+    with _tf32_off():
+        args = lmm.parse_args(_mp_lm_argv(cfg, "ring", 0))
+        lm, tokens = lmm.build(args)
+        one_loss, one = _mp_lm_grads(lmm, lm, tokens, cfg["layers"])
+        # the same LM with the plain dense attention in the flash
+        # kernels' place (the name its forward calls)
+        flash = lmm.flash_attention
+        lmm.flash_attention = \
+            lambda q, k, v, causal: attention_reference(q, k, v, causal)
+        try:
+            dense_loss, plain = _mp_lm_grads(lmm, lm, tokens, cfg["layers"])
+        finally:
+            lmm.flash_attention = flash
+        nudge = torch.Generator(device=dev).manual_seed(SEED + 3)
+        with torch.no_grad():
+            for p in lm.parameters():
+                p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=nudge,
+                                              device=dev))
+        nudged_loss, nudged = _mp_lm_grads(lmm, lm, tokens, cfg["layers"])
+    del lm, tokens
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                1e-30)
+
+    floors = {"ulysses": ({n: rel(nudged[n], one[n]) for n in one},
+                          abs(nudged_loss - one_loss) / abs(one_loss))}
+    floors["ring"] = ({n: max(floors["ulysses"][0][n], rel(plain[n], one[n]))
+                       for n in one},
+                      max(floors["ulysses"][1],
+                          abs(dense_loss - one_loss) / abs(one_loss)))
+    launches = None
+    for impl in ("ring", "ulysses"):
+        floor, loss_floor = floors[impl]
+        rk = [r["lm_" + impl] for r in ranks]
+        losses = rk[0]["losses"]
+        if not all(_losses_ok(r["losses"]) for r in rk):
+            raise AssertionError("%s: a non-finite loss: %s"
+                                 % (impl, [r["losses"] for r in rk]))
+        if len({r["sha1"] for r in rk}) != 1 or \
+                len({json.dumps(r["losses"]) for r in rk}) != 1:
+            raise AssertionError("%s: the replicas differ: %s"
+                                 % (impl, [r["sha1"] for r in rk]))
+        per = cfg["layers"] * cfg["steps"] if impl == "ulysses" else 0
+        for r in rk:
+            want = {name: 0 for name in r["launches"]}
+            want.update({name: per for name in FLASH})
+            if r["launches"] != want:
+                raise AssertionError("%s: launches %s, want %s"
+                                     % (impl, r["launches"], want))
+        err = {n: rel(grads[impl][n], one[n]) for n in one}
+        bad = [n for n in one if err[n] > 4 * floor[n] + MP_LM_ADD]
+        worst = max(err, key=lambda n: err[n] / (4 * floor[n] + MP_LM_ADD))
+        lrel = abs(rk[0]["loss1"] - one_loss) / abs(one_loss)
+        print("[3n] (i) --impl %s: losses %s  replicas bit-equal (sha1 %s)  "
+              "K4/K5/K6 %d/%d/%d a rank a step  collectives a step %s"
+              % (impl, ["%.6f" % v for v in losses], rk[0]["sha1"][:12],
+                 *(rk[0]["launches"][n] // cfg["steps"] for n in FLASH),
+                 _per_step(rk[0]["collectives"], cfg["steps"])), flush=True)
+        print("  step 1 against one process (%s): loss rel diff %.3e (floor "
+              "%.3e); weight gradients rel diff max %.3e, nearest its limit "
+              "%s %.3e against floor %.3e (limit 4x floor + %.0e)"
+              % ("flash; floor: weights nudged 1e-6" if impl == "ulysses"
+                 else "flash; floor: also flash against dense attention",
+                 lrel, loss_floor, max(err.values()), worst, err[worst],
+                 floor[worst], MP_LM_ADD), flush=True)
+        if bad or lrel > 4 * loss_floor + MP_LM_ADD:
+            raise AssertionError(
+                "%s: step 1 off the one-process LM: loss %.3e, tensors %s"
+                % (impl, lrel, {n: (err[n], floor[n]) for n in bad}))
+        print("[3n] sp_step_ms_%s %.1f (median of steps 2-%d, %d ranks on "
+              "one card over gloo: a correctness figure)  on %s"
+              % (impl, _median(rk[0]["step_ms"][1:]), cfg["steps"],
+                 len(ranks), card), flush=True)
+        if impl == "ulysses":
+            launches = rk[0]["launches"]
+    return launches
+
+
+def check_mp_pp(dev, ranks, grads, cfg, card):
+    """(ii): the unit-lr gradients of the pp=2 step within ``MP_PP_TOL``
+    of max |g| of one process's step, remat within 1e-6 of no remat, the
+    replicas bit-equal, no kernel launched."""
+    import numpy as np
+
+    with _tf32_off():
+        net = _mp_pp_net(dev, cfg)
+        step = _mp_step(net, dev, 1.0, momentum=0.0)
+        x, y = _mp_batch(dev, cfg["batch"], cfg["width"], cfg["classes"],
+                         SEED + 21)
+        before = [p.detach().clone() for p in step._gp]
+        loss = float(step(x, y))
+        one = [(b - p.detach()).cpu().numpy()
+               for b, p in zip(before, step._gp)]
+    rk = [r["pp"] for r in ranks]
+    for key in ("plain", "remat"):
+        if len({r[key]["sha1"] for r in rk}) != 1:
+            raise AssertionError("pp %s: the replicas differ" % key)
+    err = max(float(np.abs(a - b).max()) / float(np.abs(b).max())
+              for a, b in zip(grads[0], one))
+    remat = max(float(np.abs(a - b).max()) / float(np.abs(b).max())
+                for a, b in zip(grads[1], grads[0]))
+    exact = all(a.tobytes() == b.tobytes() for a, b in zip(grads[1],
+                                                           grads[0]))
+    lrel = abs(rk[0]["plain"]["loss"] - loss) / abs(loss)
+    print("[3n] (ii) pp=2: loss %.6f (one process %.6f, rel diff %.3e); "
+          "unit-lr gradients max diff %.3e of max |g| (limit %.0e); remat "
+          "against no remat %.3e (%s; limit 1e-6); replicas bit-equal; "
+          "collectives a step %s" % (
+              rk[0]["plain"]["loss"], loss, lrel, err, MP_PP_TOL, remat,
+              "bit-equal" if exact else "not bit-equal",
+              rk[0]["plain"]["collectives"]), flush=True)
+    if err > MP_PP_TOL or remat > 1e-6 or lrel > MP_PP_TOL:
+        raise AssertionError("the pp=2 step is off the one-process step")
+    if any(rk[0]["launches"].values()):
+        raise AssertionError("pp=2 launched %s; its path has no kernel"
+                             % rk[0]["launches"])
+    if not _losses_ok(rk[0]["losses"]):
+        raise AssertionError("pp=2: a non-finite loss %s" % rk[0]["losses"])
+    print("[3n] pp_step_ms %.1f (median of %d steps: batch %d, %d "
+          "microbatches, 2 stages of %d Dense(%d, tanh))  on %s"
+          % (_median(rk[0]["step_ms"]), len(rk[0]["step_ms"]),
+             cfg["batch"], cfg["num_micro"], cfg["layers"] // 2,
+             cfg["width"], card), flush=True)
+
+
+def check_mp_moe(dev, ranks, params, cfg, card):
+    """(iii): each rank holds half the experts; the ep=2 losses within
+    ``MP_MOE_LOSS_TOL`` of the ep=1 step's, the parameters after within
+    ``MP_MOE_PARAM_TOL`` of each tensor's largest update; the replicated
+    parameters bit-equal across the ranks; no kernel launched."""
+    import numpy as np
+
+    with _tf32_off():
+        net = _mp_moe_net(dev, cfg)
+        step = _mp_step(net, dev, cfg["lr"])
+        start = [p.detach().cpu().numpy() for p in step._gp]
+        x, y = _mp_batch(dev, cfg["tokens"], cfg["width"], cfg["classes"],
+                         SEED + 31)
+        losses = [float(step(x, y)) for _ in range(cfg["steps"])]
+        after = [p.detach().cpu().numpy() for p in step._gp]
+    rk = [r["moe"] for r in ranks]
+    if any(r["experts_held"] * len(ranks) != cfg["experts"] for r in rk):
+        raise AssertionError("the ranks hold %s experts"
+                             % [r["experts_held"] for r in rk])
+    if len({r["replicated_sha1"] for r in rk}) != 1 or \
+            len({json.dumps(r["losses"]) for r in rk}) != 1:
+        raise AssertionError("ep=2: the replicas differ")
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(rk[0]["losses"], losses))
+    perr = max(float(np.abs(p - a).max())
+               / max(float(np.abs(a - s).max()), 1e-12)
+               for p, a, s in zip(params, after, start))
+    print("[3n] (iii) ep=2: losses %s (ep=1 %s, max rel diff %.3e, limit "
+          "%.0e); parameters after %d steps max diff %.3e of each tensor's "
+          "largest update (limit %.0e); %d of %d experts a rank; replicas "
+          "bit-equal; collectives a step %s"
+          % (["%.6f" % v for v in rk[0]["losses"]],
+             ["%.6f" % v for v in losses], lrel, MP_MOE_LOSS_TOL,
+             cfg["steps"], perr, MP_MOE_PARAM_TOL, rk[0]["experts_held"],
+             cfg["experts"], _per_step(rk[0]["collectives"], cfg["steps"])),
+          flush=True)
+    if not _losses_ok(rk[0]["losses"]) or lrel > MP_MOE_LOSS_TOL or \
+            perr > MP_MOE_PARAM_TOL:
+        raise AssertionError("the ep=2 step is off the ep=1 step")
+    if any(rk[0]["launches"].values()):
+        raise AssertionError("ep=2 launched %s; its path has no kernel"
+                             % rk[0]["launches"])
+    print("[3n] moe_step_ms %.1f (median of steps 2-%d: %d tokens, width %d, "
+          "%d experts of hidden %d, top-%d)  on %s"
+          % (_median(rk[0]["step_ms"][1:]), cfg["steps"], cfg["tokens"],
+             cfg["width"], cfg["experts"], cfg["hidden"], cfg["top_k"],
+             card), flush=True)
+
+
+def run_mp_job(dev, card, cfg=None):
+    """Phase 3n: one job of ``DP_RANKS`` ranks of this script
+    (``--mp-rank``) through ``tools/launch.py``, then the checks against
+    one process on the card.  Returns rank 0's launches under Ulysses."""
+    import numpy as np
+    import torch
+
+    cfg = MP if cfg is None else cfg
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        with open(os.path.join(outdir, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        t0 = time.perf_counter()
+        _launch_ranks([sys.executable, os.path.abspath(__file__),
+                       "--mp-rank", outdir], timeout=MP_TIMEOUT)
+        print("  the two-rank job took %.1f s" % (time.perf_counter() - t0),
+              flush=True)
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(outdir, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        grads = {}
+        for impl in ("ring", "ulysses"):
+            with np.load(os.path.join(outdir, "lm_%s.npz" % impl)) as z:
+                grads[impl] = {k: z[k] for k in z.files}
+
+        def arrays(name):
+            with np.load(os.path.join(outdir, name)) as z:
+                return [z["arr_%d" % i] for i in range(len(z.files))]
+
+        pp = [arrays("pp_remat%d.npz" % r) for r in (0, 1)]
+        moe = arrays("moe.npz")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError("backends %s" % [r["backend"] for r in ranks])
+    launches = check_mp_lm(dev, ranks, grads, cfg["lm"], card)
+    check_mp_pp(dev, ranks, pp, cfg["pp"], card)
+    check_mp_moe(dev, ranks, moe, cfg["moe"], card)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def time_rnn_op(dev):
     """Phase 4, beside the kernel rows: the fused ``RNN`` op at phase 3i's
     LSTM (T 35, batch 32, 650 in, 650 hidden, 2 layers, f32, TF32 off),
@@ -4787,6 +5299,9 @@ def main(argv=None):
     # one rank of phase 3m: DIR and the stage (train or restore)
     ap.add_argument("--elastic-rank", nargs=2, default=None,
                     metavar=("DIR", "STAGE"), help=argparse.SUPPRESS)
+    # one rank of phase 3n
+    ap.add_argument("--mp-rank", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4799,6 +5314,9 @@ def main(argv=None):
         return 0
     if args.elastic_rank:
         return elastic_rank_main(*args.elastic_rank)
+    if args.mp_rank:
+        mp_rank_main(args.mp_rank)
+        return 0
     from incubator_mxnet_tpu_torch import _kernels
 
     t_start = time.perf_counter()
@@ -5070,6 +5588,26 @@ def main(argv=None):
     el_counts = run_elastic_path(dev, card, dp_loss_limits[0])
     for name in MAIN_PATH:
         counts[name] += el_counts[name]
+
+    print("[3n] model parallelism: %d ranks sharing the card over gloo "
+          "(tools/launch.py), f32 with TF32 off: (i) train_lm_torch.py "
+          "--devices 2 at dim %d, %d heads, seq %d, batch %d, --impl ring "
+          "then ulysses, %d steps each; (ii) pp=2, %d Dense(%d, tanh), "
+          "batch %d, %d microbatches; (iii) dp=1 x ep=2, Dense -> "
+          "MoEFFN(%d, %d experts, top-%d, capacity %g) -> Dense(%d) on %d "
+          "tokens, %d steps" % (
+              DP_RANKS, MP["lm"]["dim"], MP["lm"]["heads"], MP["lm"]["seq"],
+              MP["lm"]["batch"], MP["lm"]["steps"], MP["pp"]["layers"],
+              MP["pp"]["width"], MP["pp"]["batch"], MP["pp"]["num_micro"],
+              MP["moe"]["hidden"], MP["moe"]["experts"], MP["moe"]["top_k"],
+              MP["moe"]["capacity"], MP["moe"]["classes"],
+              MP["moe"]["tokens"], MP["moe"]["steps"]), flush=True)
+    t_mp = time.perf_counter()
+    mp_counts = run_mp_job(dev, card)
+    for name in FLASH:
+        counts[name] += mp_counts[name]
+    print("[3n] phase wall time %.2f s  on %s"
+          % (time.perf_counter() - t_mp, card), flush=True)
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "

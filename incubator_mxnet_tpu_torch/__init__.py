@@ -26,7 +26,7 @@ from . import ops  # noqa: F401  (first: parallel.train_step imports ndarray)
 from . import (attribute, autograd, callback, context, executor, gluon,
                image, initializer, io, kvstore, lr_scheduler, metric, model,
                module, monitor, name, ndarray, optimizer, parallel, random,
-               recordio, rnn, rtc, symbol)
+               recordio, rnn, rtc, symbol, tracing)
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -39,4 +39,5 @@ __all__ = ["attribute", "autograd", "callback", "context", "executor",
            "gluon", "image", "init", "initializer", "io", "kv", "kvstore",
            "lr_scheduler", "metric", "mod", "model", "module", "monitor",
            "name", "ndarray", "nd", "optimizer", "parallel", "random",
-           "recordio", "rnn", "rtc", "sym", "symbol", "cpu", "gpu", "NDArray"]
+           "recordio", "rnn", "rtc", "sym", "symbol", "tracing", "cpu", "gpu",
+           "NDArray"]

@@ -128,13 +128,18 @@ class Trainer:
         with open(fname, "rb") as f:
             self._updaters[0].set_states(f.read(), ctx=dev)
 
-    def make_fused_step(self, net, loss_fn, compute_dtype=None,
+    def make_fused_step(self, net, loss_fn, mesh=None, compute_dtype=None,
+                        pipeline_stages=None, num_micro=1,
+                        pipeline_axis="pp", pipeline_remat=False,
                         multi_precision=None, nonfinite=None,
                         loss_scale=None, device=None):
         """The port's ``TrainStep`` over ``net`` and ``loss_fn`` with this
         trainer's optimizer: forward, backward and update per call
-        (``step(x, y)``), on tensors.  The step owns its optimizer
-        state.  Refused, as in the reference: a trainer that does not
+        (``step(x, y)``), on tensors, over ``mesh`` (``pipeline_stages=
+        K`` and ``num_micro=M`` run the stacked net as a K-stage
+        pipeline over its ``pipeline_axis``, as ``make_train_step``
+        does).  The step owns its optimizer state.  Refused, as in the
+        reference: a trainer that does not
         hold exactly the net's trained parameters, per-parameter
         lr/wd multipliers and an lr scheduler (the step takes the
         learning rate once).  The loss is a mean over the batch, so only
@@ -178,4 +183,7 @@ class Trainer:
         fopt = FunctionalOptimizer.of(rule, multi_precision)
         return TrainStep(net, loss_fn, fopt, compute_dtype=compute_dtype,
                          loss_scale=loss_scale, nonfinite=nonfinite,
-                         device=device)
+                         device=device, mesh=mesh,
+                         pipeline_stages=pipeline_stages,
+                         num_micro=num_micro, pipeline_axis=pipeline_axis,
+                         pipeline_remat=pipeline_remat)

@@ -118,18 +118,23 @@ class Shard:
     """One process's block of a leaf sharded over the processes on its
     leading dim: ``data`` (a tensor or an array) holds rows ``rows =
     (lo, hi)`` of a global array of ``shape``; it is block ``ordinal`` of
-    ``count``, and process ``ordinal`` owns it.  ``spec`` is the
-    manifest's description of the sharding.  In a state given to
+    ``count``, and process ``ordinal`` owns it, or process ``owner``
+    where the block has copies on several processes (a tensor- or
+    expert-parallel block on each data-parallel replica): the owner
+    writes it and the others write nothing.  ``spec`` is the manifest's
+    description of the sharding.  In a state given to
     :meth:`CheckpointManager.save` it is written as that block's file; in
     the ``like`` tree of a restore it asks for just those rows."""
 
-    def __init__(self, data, shape, rows, ordinal, count, spec=None):
+    def __init__(self, data, shape, rows, ordinal, count, spec=None,
+                 owner=None):
         self.data = data
         self.shape = tuple(int(s) for s in shape)
         self.rows = (int(rows[0]), int(rows[1]))
         self.ordinal = int(ordinal)
         self.count = int(count)
         self.spec = spec
+        self.owner = None if owner is None else int(owner)
 
     @property
     def dtype(self):
@@ -716,7 +721,10 @@ class CheckpointManager:
                 part_shape=part_shape)]], 1
         entry = {"key": key, "dtype": dtype, "shape": list(leaf.shape),
                  "spec": leaf.spec, "files": []}
-        if leaf.ordinal != self.process_index:
+        if leaf.owner is not None:
+            if leaf.owner != self.process_index:
+                return entry, [], leaf.count
+        elif leaf.ordinal != self.process_index:
             raise CheckpointError(
                 "process %d holds block %d of %s: each process saves the "
                 "block it owns" % (self.process_index, leaf.ordinal, key))

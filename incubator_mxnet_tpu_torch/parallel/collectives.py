@@ -14,6 +14,17 @@ the ``*_coalesced`` forms flatten a list of tensors per dtype and make
 one call per dtype.  ``ppermute`` is composed from one ``all_reduce``
 (a zero buffer with this rank's row filled: the sum is exact).
 
+The single-tensor forms are differentiable, with the reference's
+transposes, for the model-parallel layers (ring and Ulysses attention,
+the pipeline, MoE), whose consumers every rank of the axis runs alike:
+``ppermute``'s backward is the inverse permutation, ``alltoall``'s the
+all-to-all with its axes swapped, ``allgather``'s keeps this rank's
+part, ``allreduce``'s passes the gradient through; :func:`shard` (the
+boundary into a sharded computation) all-gathers its gradient and
+:func:`sum_grad` sums it.  A backward's collectives count as the
+forward's do.  Every rank must run the same graph, so that the
+backward issues the same collectives in the same order everywhere.
+
 :func:`dp_scope` marks the forward and backward of a data-parallel step:
 batch norm inside it takes the statistics of the whole global batch
 (``ops.nn.batch_norm``), ghost batch norm checks its groups against the
@@ -30,10 +41,11 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["allreduce", "allgather", "reduce_scatter", "alltoall",
-           "ppermute", "axis_size", "axis_index", "pmean", "broadcast_from",
-           "allreduce_coalesced", "reduce_scatter_coalesced",
-           "allgather_coalesced", "call_counts", "reset_call_counts",
-           "dp_scope", "current_dp", "DataParallelScope"]
+           "ppermute", "shard", "sum_grad", "axis_size", "axis_index",
+           "pmean", "broadcast_from", "allreduce_coalesced",
+           "reduce_scatter_coalesced", "allgather_coalesced", "call_counts",
+           "reset_call_counts", "dp_scope", "current_dp",
+           "DataParallelScope"]
 
 _COUNTS: Dict[str, int] = {}
 
@@ -93,14 +105,46 @@ def _check_divisible(x, dim, axis_name, n, op, role):
             % (op, axis_name, n, role, dim, size, n))
 
 
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        out = x.clone()
+        if g is not None:
+            _count("all_reduce")
+            dist.all_reduce(out, group=g)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def allreduce(x, axis_name="dp", mesh=None):
-    """Sum across the axis (ncclAllReduce; the dist_sync sum)."""
+    """Sum across the axis (ncclAllReduce; the dist_sync sum).
+    Differentiable for consumers that every rank of the axis runs alike
+    (replicated): the gradient passes through unchanged."""
     g, n, _ = _group(axis_name, mesh)
-    out = x.detach().clone()
-    if g is not None:
-        _count("all_reduce")
-        dist.all_reduce(out, group=g)
-    return out
+    return _AllReduce.apply(x, g)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduce.apply(grad, ctx.g), None
+
+
+def sum_grad(x, axis_name="dp", mesh=None):
+    """``x`` unchanged, its gradient summed over the axis: where each
+    rank feeds a replicated value into its own part of a computation
+    (its experts, its heads), the value's gradient is the sum of the
+    parts' (the counterpart of :func:`allreduce`'s backward)."""
+    g, _, _ = _group(axis_name, mesh)
+    return _SumGrad.apply(x, g)
 
 
 def pmean(x, axis_name="dp", mesh=None):
@@ -109,13 +153,8 @@ def pmean(x, axis_name="dp", mesh=None):
     return allreduce(x, axis_name, mesh) / n
 
 
-def allgather(x, axis_name="dp", mesh=None, axis=0, tiled=True):
-    """Gather every rank's shard, concatenated along ``axis`` (``tiled``)
-    or stacked on a new axis ``axis`` in rank order."""
-    _check_dim(x, axis, axis_name, "allgather", "concat",
-               extra=0 if tiled else 1)
-    g, n, _ = _group(axis_name, mesh)
-    x = x.detach().contiguous()
+def _allgather(x, g, n, axis, tiled):
+    x = x.contiguous()
     if g is None:
         out = x.unsqueeze(0)
     else:
@@ -124,8 +163,58 @@ def allgather(x, axis_name="dp", mesh=None, axis=0, tiled=True):
         dist.all_gather_into_tensor(out, x.reshape(-1), group=g)
         out = out.view((n,) + tuple(x.shape))
     if not tiled:
-        return out.movedim(0, axis)
+        return out.movedim(0, axis).contiguous()
     return torch.cat(list(out.unbind(0)), dim=axis)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, n, r, axis, tiled):
+        ctx.args = (r, axis, tiled, x.shape[axis] if tiled else 1)
+        return _allgather(x, g, n, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r, axis, tiled, per = ctx.args
+        part = grad.narrow(axis, r * per, per) if tiled \
+            else grad.select(axis, r)
+        return part.contiguous(), None, None, None, None, None
+
+
+def allgather(x, axis_name="dp", mesh=None, axis=0, tiled=True):
+    """Gather every rank's shard, concatenated along ``axis`` (``tiled``)
+    or stacked on a new axis ``axis`` in rank order.  Differentiable for
+    a replicated consumer: the backward keeps this rank's part of the
+    gradient."""
+    _check_dim(x, axis, axis_name, "allgather", "concat",
+               extra=0 if tiled else 1)
+    g, n, r = _group(axis_name, mesh)
+    return _AllGather.apply(x, g, n, r, axis, tiled)
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, n, r, dim):
+        ctx.args = (g, n, dim)
+        per = x.shape[dim] // n
+        return x.narrow(dim, r * per, per).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, n, dim = ctx.args
+        return _allgather(grad, g, n, dim, True), None, None, None, None
+
+
+def shard(x, axis_name="dp", mesh=None, dim=0):
+    """This rank's 1/N of a replicated ``x`` along ``dim`` (the boundary
+    into a sharded computation: ``shard_map``'s in_spec).  Its backward
+    all-gathers the ranks' gradients of their parts, so the replicated
+    ``x`` gets the whole gradient on every rank."""
+    _check_dim(x, dim, axis_name, "shard", "shard")
+    g, n, r = _group(axis_name, mesh)
+    _check_divisible(x, dim, axis_name, n, "shard", "shard")
+    return _Shard.apply(x, g, n, r, dim)
 
 
 def reduce_scatter(x, axis_name="dp", mesh=None, scatter_dimension=0,
@@ -156,18 +245,8 @@ def reduce_scatter(x, axis_name="dp", mesh=None, scatter_dimension=0,
     return out.movedim(0, scatter_dimension)
 
 
-def alltoall(x, axis_name="dp", split_axis=0, concat_axis=0, mesh=None,
-             tiled=True):
-    """All-to-all (MoE dispatch): ``split_axis`` cut in N chunks, chunk j
-    sent to rank j, the chunks received concatenated along
-    ``concat_axis`` in rank order (``tiled``), or, untiled, the split
-    dimension (of the axis size) dropped and the chunks stacked on a
-    new ``concat_axis``."""
-    _check_dim(x, split_axis, axis_name, "alltoall", "split")
-    _check_dim(x, concat_axis, axis_name, "alltoall", "concat")
-    g, n, _ = _group(axis_name, mesh)
-    _check_divisible(x, split_axis, axis_name, n, "alltoall", "split")
-    xs = x.detach().movedim(split_axis, 0)
+def _alltoall(x, g, n, split_axis, concat_axis, tiled):
+    xs = x.movedim(split_axis, 0)
     shape = xs.shape
     xs = xs.reshape((n, shape[0] // n) + tuple(shape[1:])).contiguous()
     if g is None:
@@ -181,6 +260,34 @@ def alltoall(x, axis_name="dp", split_axis=0, concat_axis=0, mesh=None,
         return torch.cat(chunks, dim=concat_axis)
     return torch.stack([c.squeeze(split_axis) for c in chunks],
                        dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, n, split_axis, concat_axis, tiled):
+        ctx.args = (g, n, split_axis, concat_axis, tiled)
+        return _alltoall(x, g, n, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, n, split_axis, concat_axis, tiled = ctx.args
+        return (_alltoall(grad, g, n, concat_axis, split_axis, tiled),
+                None, None, None, None, None)
+
+
+def alltoall(x, axis_name="dp", split_axis=0, concat_axis=0, mesh=None,
+             tiled=True):
+    """All-to-all (MoE dispatch): ``split_axis`` cut in N chunks, chunk j
+    sent to rank j, the chunks received concatenated along
+    ``concat_axis`` in rank order (``tiled``), or, untiled, the split
+    dimension (of the axis size) dropped and the chunks stacked on a
+    new ``concat_axis``.  Differentiable: the backward is the
+    all-to-all with the two axes swapped."""
+    _check_dim(x, split_axis, axis_name, "alltoall", "split")
+    _check_dim(x, concat_axis, axis_name, "alltoall", "concat")
+    g, n, _ = _group(axis_name, mesh)
+    _check_divisible(x, split_axis, axis_name, n, "alltoall", "split")
+    return _AllToAll.apply(x, g, n, split_axis, concat_axis, tiled)
 
 
 def _validate_permutation(perm, n, axis_name):
@@ -197,23 +304,39 @@ def _validate_permutation(perm, n, axis_name):
                              "more than once" % (axis_name, role, dup))
 
 
+def _ppermute(x, g, n, r, perm):
+    src = {d: s for s, d in perm}.get(r)
+    if g is None:
+        return x.clone() if src is not None else torch.zeros_like(x)
+    _count("ppermute")
+    buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    buf[r] = x
+    dist.all_reduce(buf, group=g)
+    return buf[src].clone() if src is not None else torch.zeros_like(x)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, n, r, perm):
+        ctx.args = (g, n, r, [(d, s) for s, d in perm])
+        return _ppermute(x, g, n, r, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ppermute(grad, *ctx.args), None, None, None, None
+
+
 def ppermute(x, axis_name="dp", perm=(), mesh=None):
     """Collective permute: rank s's ``x`` lands on rank d for each
     ``(s, d)`` in ``perm``; a rank no pair sends to gets zeros (the
     pipeline fill/drain pattern).  A malformed permutation (repeated
-    sources or destinations, ranks outside the axis) raises."""
+    sources or destinations, ranks outside the axis) raises.
+    Differentiable: the backward is the inverse permutation, and a rank
+    that sent nothing gets a zero gradient."""
     perm = [(int(s), int(d)) for s, d in perm]
     g, n, r = _group(axis_name, mesh)
     _validate_permutation(perm, n, axis_name)
-    src = {d: s for s, d in perm}.get(r)
-    if g is None:
-        return x.detach().clone() if src is not None \
-            else torch.zeros_like(x)
-    _count("ppermute")
-    buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    buf[r] = x.detach()
-    dist.all_reduce(buf, group=g)
-    return buf[src].clone() if src is not None else torch.zeros_like(x)
+    return _Ppermute.apply(x, g, n, r, perm)
 
 
 def axis_size(axis_name="dp", mesh=None) -> int:

@@ -2,35 +2,57 @@
 
 The reference names the axes of a ``jax.sharding.Mesh`` of devices and
 lets XLA place the collectives.  Here one process drives one device, so
-a mesh is an axis over the processes of the ``torch.distributed`` group
-with a process group per axis: ``make_mesh({"dp": N})`` is data
-parallelism over N processes, one device each (``N`` the world size, or
-``-1`` for it).  Model-parallel axes (``tp``, ``sp``, ``pp``, ``ep``)
-are ROADMAP A8 items c and d and raise.
+a mesh names axes over the processes of the ``torch.distributed`` group:
+``make_mesh({"dp": 2, "pp": 2})`` in each of 4 processes.  Ranks sit
+row-major in axis order, as the reference's
+``np.array(devices).reshape(sizes)`` places devices, so rank r has the
+mesh coordinates of the reference's device r.  Each axis has one process
+group per line of the mesh along it (the ranks that differ only in that
+axis's coordinate): ``group(name)`` is this process's line, and
+``axis_index(name)`` its position there.
+
+Axis convention (the reference's): ``dp`` data parallel, ``tp`` tensor
+parallel (``param_shardings`` of the train step), ``pp`` pipeline
+parallel (:mod:`.pipeline`), ``sp`` sequence parallel
+(:mod:`.ring_attention`), ``ep`` expert parallel (:mod:`.moe`).
 """
 from __future__ import annotations
 
+import datetime
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
-__all__ = ["Mesh", "make_mesh", "current_devices", "global_devices",
+__all__ = ["Mesh", "P", "make_mesh", "current_devices", "global_devices",
            "spans_processes"]
 
-_MODEL_AXES = ("tp", "sp", "pp", "ep")
+
+class P(tuple):
+    """A partition spec: one mesh axis name (or None, not sharded) per
+    dimension of a tensor, as the reference's ``PartitionSpec``:
+    ``P("tp", None)`` shards dim 0 over ``tp``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return "P(%s)" % ", ".join(repr(e) for e in self)
 
 
 class Mesh:
     """Named axes over the processes: ``axis_names``, ``shape`` (``{name:
-    size}``), the global ``devices`` (one per process, in rank order) and
-    a process group per axis (``group(name)``; None when the axis holds
-    this process alone and no group exists)."""
+    size}``), the global ``devices`` (one per process, in rank order),
+    this process's ``coords`` (``{name: index}``) and a process group per
+    axis (``group(name)``: this process's line along the axis; None when
+    the line holds this process alone and no group exists)."""
 
-    def __init__(self, axis_names, sizes, devices, groups):
+    def __init__(self, axis_names, sizes, devices, groups, coords=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
         self.devices = list(devices)
         self._groups = dict(zip(self.axis_names, groups))
+        self.coords = dict(coords) if coords is not None else \
+            {a: 0 for a in self.axis_names}
 
     @property
     def size(self) -> int:
@@ -47,15 +69,23 @@ class Mesh:
 
     def axis_index(self, axis_name) -> int:
         """This process's position on ``axis_name``."""
-        import torch.distributed as dist
+        if axis_name not in self.shape:
+            raise ValueError("mesh has axes %s, not %r"
+                             % (self.axis_names, axis_name))
+        return self.coords[axis_name]
 
-        g = self.group(axis_name)
-        return 0 if g is None else dist.get_rank(g)
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        """The process at mesh coordinates ``coords`` (missing axes: 0),
+        row-major in axis order."""
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + int(coords.get(a, 0))
+        return r
 
     def local_slice(self, x, axis_name="dp", dim=0):
-        """This process's contiguous 1/N of ``x`` along ``dim`` (the
-        global batch's slice a data-parallel step is given); N must
-        divide the dimension."""
+        """This process's contiguous 1/N of ``x`` along ``dim``, N the
+        size of ``axis_name`` (the global batch's slice a data-parallel
+        step is given); N must divide the dimension."""
         n = self.shape[axis_name]
         size = x.shape[dim]
         if size % n:
@@ -99,39 +129,95 @@ def spans_processes(mesh: Mesh) -> bool:
     return mesh is not None and mesh.size > 1
 
 
+def _unravel(rank, sizes):
+    coords = []
+    for s in reversed(sizes):
+        coords.append(rank % s)
+        rank //= s
+    return coords[::-1]
+
+
+def _axis_groups(sizes, me, world):
+    """One process group per axis for process ``me``: its line along the
+    axis.  Every process creates every line's group, in the same order
+    (``new_group`` is collective over the whole group); a line of one
+    process gets none, an axis spanning the world is the world group."""
+    import torch.distributed as dist
+
+    from .distributed import DEFAULT_TIMEOUT
+
+    timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT)
+    groups = []
+    for ax, n in enumerate(sizes):
+        if n == 1:
+            groups.append(None)
+            continue
+        if n == world:
+            groups.append(dist.group.WORLD)
+            continue
+        mine = None
+        lines = {}
+        for r in range(world):
+            c = _unravel(r, sizes)
+            key = tuple(c[:ax] + c[ax + 1:])
+            lines.setdefault(key, []).append(r)
+        for key in sorted(lines):
+            g = dist.new_group(lines[key], timeout=timeout)
+            if me in lines[key]:
+                mine = g
+        groups.append(mine)
+    return groups
+
+
 def make_mesh(axes: Dict[str, int],
               devices: Optional[Sequence] = None) -> Mesh:
-    """A data-parallel mesh over the processes, e.g. ``make_mesh({"dp":
-    4})`` in each of 4 processes.
+    """A mesh over the processes, e.g. ``make_mesh({"dp": 2, "tp": 2})``
+    in each of 4 processes.
 
-    One axis, whose size must be the world size (``-1`` infers it).
-    ``devices`` are the processes' devices in rank order (default
-    :func:`global_devices`: each rank's card)."""
-    from .distributed import is_initialized, process_count
+    The axis sizes must multiply to the world size; one axis may be
+    ``-1``, inferred from the others.  ``devices`` are the processes'
+    devices in rank order (default :func:`global_devices`: each rank's
+    card)."""
+    from .distributed import is_initialized, process_count, process_index
 
     names = list(axes.keys())
-    model = [a for a in names if a in _MODEL_AXES]
-    if model or len(names) != 1:
-        raise NotImplementedError(
-            "mesh axes %s: the port's meshes are one data-parallel axis "
-            "over the processes; tensor, sequence, pipeline and expert "
-            "parallelism are ROADMAP A8 items c and d" % (names,))
+    sizes = [int(s) for s in axes.values()]
     world = process_count()
-    size = int(axes[names[0]])
-    if size == -1:
-        size = world
-    if size != world:
-        raise ValueError(
-            "mesh axis %s=%d needs %d processes (one device each), the "
-            "group has %d" % (names[0], size, size, world))
+    unknown = [i for i, s in enumerate(sizes) if s == -1]
+    if len(unknown) > 1:
+        raise ValueError("only one axis may be -1")
+    known = 1
+    for s in sizes:
+        if s != -1:
+            known *= s
+    if unknown:
+        if known < 1 or world % known:
+            raise ValueError(
+                "mesh axes %s=%s: %d processes do not divide by %d"
+                % (names, sizes, world, known))
+        sizes[unknown[0]] = world // known
+    total = 1
+    for s in sizes:
+        total *= s
+    one = len(names) == 1
+    if total != world:
+        if one:
+            raise ValueError(
+                "mesh axis %s=%d needs %d processes (one device each), the "
+                "group has %d" % (names[0], total, total, world))
+        raise ValueError("mesh axes %s=%s need %d processes (one device "
+                         "each), the group has %d"
+                         % (names, sizes, total, world))
     devices = [torch.device(d) for d in devices] if devices is not None \
         else global_devices()
-    if len(devices) != size:
-        raise ValueError("mesh axis %s=%d needs %d devices, have %d"
-                         % (names[0], size, size, len(devices)))
-    group = None
-    if is_initialized():
-        import torch.distributed as dist
-
-        group = dist.group.WORLD
-    return Mesh(names, [size], devices, [group])
+    if len(devices) != total:
+        if one:
+            raise ValueError("mesh axis %s=%d needs %d devices, have %d"
+                             % (names[0], total, total, len(devices)))
+        raise ValueError("mesh axes %s=%s need %d devices, have %d"
+                         % (names, sizes, total, len(devices)))
+    me = process_index()
+    groups = _axis_groups(sizes, me, world) if is_initialized() \
+        else [None] * len(names)
+    return Mesh(names, sizes, devices, groups,
+                dict(zip(names, _unravel(me, sizes))))

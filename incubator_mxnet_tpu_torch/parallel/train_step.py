@@ -42,6 +42,20 @@ updates its 1/N of the weights against its 1/N of the optimizer state
 (and of the f32 master weights), and an all-gather puts the weights
 back together.  Replicas stay bit-identical across the ranks.
 
+Model parallelism on a mesh of several axes (the reference's GSPMD
+layouts, made explicit): ``param_shardings`` keeps a tensor- or
+expert-parallel parameter as this rank's part (and its optimizer
+state), all-gathered in the forward by the differentiable
+``collectives.allgather`` (whose backward keeps this rank's part of the
+gradient), or handed to a block that runs its part (``MoEFFN``'s local
+experts).  ``pipeline_stages`` runs the net as a pipeline over the
+``pp`` axis: every rank keeps every stage's parameters, computes its own
+stage's gradients (zeros for the others'), and one ``all_reduce`` over
+``pp`` makes them whole once a step, before the dp reduction.  A
+:class:`~..tracing.TraceContext` around the forward collects the aux
+losses (MoE load balancing), added in f32 before the loss scale.
+Replicated parameters stay bit-identical across the ranks.
+
 The step takes tensors or the port's NDArrays (an iterator's batch:
 ``step(b.data[0], b.label[0])``).  ``save_checkpoint`` /
 ``restore_checkpoint`` / ``attach_checkpoint`` write and read the whole
@@ -73,13 +87,19 @@ import contextlib
 
 from .. import context
 from .. import convert as _convert
+from .. import tracing
 from ..ndarray import NDArray
 from ..ops import optimizer_ops as _oops
 from . import checkpoint as _ckpt
 from . import collectives
+from .pipeline import spmd_pipeline, stage_congruence_mismatch
 
 __all__ = ["DynamicLossScale", "FunctionalOptimizer", "TrainStep",
            "make_train_step"]
+
+#: the mesh axes of model parallelism (tensor, sequence, pipeline,
+#: expert); a mesh of these alone replicates the batch
+_MODEL_AXES = ("tp", "sp", "pp", "ep")
 
 
 class DynamicLossScale:
@@ -214,7 +234,9 @@ class TrainStep:
 
     def __init__(self, net, loss_fn, opt: FunctionalOptimizer,
                  compute_dtype=None, loss_scale=None, nonfinite=None,
-                 device=None, mesh=None, batch_axis="dp", zero=0):
+                 device=None, mesh=None, batch_axis="dp", zero=0,
+                 param_shardings=None, pipeline_stages=None, num_micro=1,
+                 pipeline_axis="pp", pipeline_remat=False):
         self.device = context.resolve(device)
         for name, t in list(net.named_parameters()) + \
                 list(net.named_buffers()):
@@ -222,6 +244,8 @@ class TrainStep:
                 raise ValueError("%s is on %s, the step on %s"
                                  % (name, t.device, self.device))
         self._init_mesh(mesh, batch_axis, zero, opt)
+        self._init_pipeline_args(pipeline_stages, num_micro, pipeline_axis,
+                                 pipeline_remat)
         self.net = net
         self.loss_fn = loss_fn
         self.opt = opt
@@ -267,12 +291,18 @@ class TrainStep:
         self._aux = [t for _, t in tensors
                      if not (isinstance(t, torch.nn.Parameter)
                              and t.requires_grad)]
+        self._init_shardings(param_shardings or {})
+        if self.pipeline_stages is not None:
+            self._collect_pipeline()
         # ZeRO-1: the padded leading dim of each >= 1-d parameter (None:
-        # a 0-d parameter, updated whole); the state is born as this
-        # rank's shard of the padded parameter
+        # a 0-d parameter, updated whole, or one sharded by
+        # param_shardings, whose state already shards like it); the
+        # state is born as this rank's shard of the padded parameter
         self._zero_pad0 = [-(-p.shape[0] // self._n) * self._n
-                           if p.dim() >= 1 else None
-                           for p in self._gp] if self.zero else None
+                           if p.dim() >= 1 and i not in self._shards
+                           else None
+                           for i, p in enumerate(self._gp)] \
+            if self.zero else None
         self._opt_state = opt.init(self._update_view(
             [p.detach() for p in self._gp]))
         init_scale = 1.0 if loss_scale is None else loss_scale \
@@ -316,16 +346,177 @@ class TrainStep:
         self._n, self._rank, self._dp = 1, 0, False
         if mesh is None:
             return
-        if batch_axis not in mesh.axis_names:
-            raise ValueError("the mesh has axes %s; the batch axis %r is "
-                             "not one of them" % (mesh.axis_names,
-                                                  batch_axis))
         if mesh.local_device != self.device:
             raise ValueError("this process's device on the mesh is %s, the "
                              "step's %s" % (mesh.local_device, self.device))
+        if batch_axis not in mesh.axis_names:
+            if not set(mesh.axis_names) <= set(_MODEL_AXES):
+                raise ValueError("the mesh has axes %s; the batch axis %r is "
+                                 "not one of them" % (mesh.axis_names,
+                                                      batch_axis))
+            # model axes alone: every rank is given the whole batch
+            return
         self._n = mesh.shape[batch_axis]
         self._rank = mesh.axis_index(batch_axis)
         self._dp = mesh.group(batch_axis) is not None
+
+    def _init_pipeline_args(self, stages, num_micro, axis, remat):
+        """The reference's checks of the pipeline arguments."""
+        self.pipeline_stages = None if stages is None else int(stages)
+        self.num_micro = int(num_micro)
+        self.pipeline_axis = axis
+        self.pipeline_remat = bool(remat)
+        if stages is None:
+            return
+        mesh = self.mesh
+        if mesh is None:
+            raise ValueError("pipeline_stages requires a mesh with a %r "
+                             "axis" % axis)
+        if axis not in mesh.axis_names:
+            raise ValueError("mesh %s has no %r axis for pipelining"
+                             % (mesh, axis))
+        if mesh.shape[axis] != self.pipeline_stages:
+            raise ValueError("pipeline_stages=%d but mesh axis %r has size "
+                             "%d" % (self.pipeline_stages, axis,
+                                     mesh.shape[axis]))
+        if self.num_micro < 1:
+            raise ValueError("num_micro must be >= 1")
+
+    def _init_shardings(self, param_shardings):
+        """``param_shardings`` (``{name: P(...)}``, names as
+        ``collect_params()`` or ``named_parameters()`` give them): each
+        rank keeps only its part of such a parameter along the one
+        sharded dim, and with it only that part's optimizer state.  Sets
+        ``_shards`` (``{index: (axis, dim)}``) and ``_local_shards``
+        (``{id(block): axis}`` of the blocks that take their shards
+        whole, ``takes_shards``)."""
+        self._shards, self._local_shards, self._gathered = {}, {}, set()
+        if not param_shardings:
+            return
+        pos = {id(p): i for i, p in enumerate(self._gp)}
+        by_name = dict(zip(self._names, range(len(self._gp))))
+        if hasattr(self.net, "collect_params"):
+            for name, prm in self.net.collect_params().items():
+                t = prm._tensor
+                if t is not None and id(t) in pos:
+                    by_name.setdefault(name, pos[id(t)])
+        owners = {}
+        for mod in self.net.modules():
+            for t in mod._parameters.values():
+                if t is not None and id(t) in pos:
+                    owners.setdefault(pos[id(t)], mod)
+        mesh = self.mesh
+        for name, spec in param_shardings.items():
+            if name not in by_name:
+                raise ValueError("param_shardings names %r, which is not a "
+                                 "trained parameter of the net" % (name,))
+            i = by_name[name]
+            p = self._gp[i]
+            spec = tuple(spec) if spec is not None else ()
+            if len(spec) > p.dim():
+                raise ValueError("param_shardings[%r] = %s has %d entries "
+                                 "for a %d-dimensional parameter"
+                                 % (name, spec, len(spec), p.dim()))
+            dims = [(d, a) for d, a in enumerate(spec) if a is not None]
+            if not dims:
+                continue
+            if len(dims) > 1 or not isinstance(dims[0][1], str):
+                raise NotImplementedError(
+                    "param_shardings[%r] = %s: the port shards a parameter "
+                    "on one dim over one mesh axis" % (name, spec))
+            dim, axis = dims[0]
+            if mesh is None or axis not in mesh.axis_names:
+                raise ValueError("param_shardings[%r] shards over %r, which "
+                                 "is not an axis of the mesh %s"
+                                 % (name, axis, mesh))
+            if axis in (self.batch_axis, self.pipeline_axis):
+                raise NotImplementedError(
+                    "param_shardings[%r] shards over the %r axis; the port "
+                    "shards parameters over model axes (tp, ep) only"
+                    % (name, axis))
+            n = mesh.shape[axis]
+            if p.shape[dim] % n:
+                raise ValueError(
+                    "param_shardings[%r]: dim %d of size %d does not divide "
+                    "over mesh axis %r of size %d"
+                    % (name, dim, p.shape[dim], axis, n))
+            self._shards[i] = (axis, dim)
+            owner = owners.get(i)
+            if getattr(owner, "takes_shards", False):
+                self._local_shards[id(owner)] = axis
+            else:
+                self._gathered.add(i)
+        with torch.no_grad():
+            for i, (axis, dim) in self._shards.items():
+                p = self._gp[i]
+                per = p.shape[dim] // mesh.shape[axis]
+                r = mesh.axis_index(axis)
+                p.data = p.data.narrow(dim, r * per, per).clone()
+
+    def _whole(self, vals):
+        """The forward's values of the trained parameters: a sharded
+        one all-gathered over its axis (the backward keeps this rank's
+        part of the gradient), unless its block takes shards."""
+        if not self._shards:
+            return vals
+        vals = list(vals)
+        for i in sorted(self._gathered):
+            axis, dim = self._shards[i]
+            vals[i] = collectives.allgather(vals[i], axis, self.mesh,
+                                            axis=dim)
+        return vals
+
+    def _collect_pipeline(self):
+        """Split the net's children into ``pipeline_stages`` contiguous,
+        congruent stages; ``_stage_idx[s]`` are stage s's positions in the
+        trained parameters, and this rank runs its own stage's blocks."""
+        k = self.pipeline_stages
+        try:
+            children = list(self.net)
+        except TypeError:
+            raise ValueError(
+                "pipeline_stages needs an iterable stacked net "
+                "(e.g. HybridSequential); %r is not iterable"
+                % type(self.net).__name__)
+        if not children or len(children) % k != 0:
+            raise ValueError(
+                "cannot split %d child blocks into %d pipeline stages"
+                % (len(children), k))
+        per = len(children) // k
+        groups = [children[s * per:(s + 1) * per] for s in range(k)]
+        gp_pos = {id(p): i for i, p in enumerate(self._gp)}
+        stage_idx = []
+        for s, blocks in enumerate(groups):
+            tensors = [t for b in blocks
+                       for _, t in _convert.ordered_tensors(b)]
+            if any(id(t) not in gp_pos for t in tensors):
+                raise NotImplementedError(
+                    "pipeline stage %d carries auxiliary state (BatchNorm "
+                    "running stats etc.); aux writes cannot escape the "
+                    "pipelined scan — use LayerNorm/GroupNorm inside "
+                    "pipeline stages" % s)
+            stage_idx.append([gp_pos[id(t)] for t in tensors])
+        covered = {i for idx in stage_idx for i in idx}
+        if covered != set(range(len(self._gp))):
+            raise ValueError(
+                "net has trainable parameters outside its child blocks; "
+                "the SPMD pipeline owns the full parameter set")
+        sig0 = [(tuple(self._gp[i].shape), self._gp[i].dtype)
+                for i in stage_idx[0]]
+        for s, idx in enumerate(stage_idx[1:], 1):
+            reason = stage_congruence_mismatch(
+                sig0, [(tuple(self._gp[i].shape), self._gp[i].dtype)
+                       for i in idx], s)
+            if reason:
+                raise ValueError(
+                    "pipeline stages must be structurally congruent "
+                    "(%s) — uniform-stage SPMD pipelining runs ONE "
+                    "stage program with per-rank values" % reason)
+        self._stage_idx = stage_idx
+        me = self.mesh.axis_index(self.pipeline_axis)
+        self._stage = torch.nn.Sequential(*groups[me])
+        self._stage_names = [n for n, _ in _convert.ordered_tensors(
+            self._stage)]
 
     def _update_view(self, vals):
         """``vals`` (one per trained parameter) as the update sees them:
@@ -367,13 +558,60 @@ class TrainStep:
             return pv_c, (x.to(cd) if floating else x)
         return pv, (x.float() if x.dtype == torch.uint8 else x)
 
+    def _trace(self):
+        return tracing.TraceContext(training=True, mesh=self.mesh,
+                                    local_shards=self._local_shards)
+
     def _loss(self, x, y):
+        """The step's objective: the mean task loss in f32 plus the aux
+        losses registered during the forward, times the loss scale."""
         pv_c, x_c = self._cast_inputs(self._gp, x)
-        out = functional_call(self.net, dict(zip(self._names, pv_c)), (x_c,))
-        loss = self.loss_fn(out, y).mean().float()
+        pv_c = self._whole(pv_c)
+        tc = tracing.push_trace(self._trace())
+        try:
+            if self.pipeline_stages is not None:
+                out = self._pipeline_forward(pv_c, x_c)
+            else:
+                out = functional_call(self.net,
+                                      dict(zip(self._names, pv_c)), (x_c,))
+            loss = self.loss_fn(out, y).mean().float()
+        finally:
+            tracing.pop_trace()
+        for al in tc.aux_losses:
+            loss = loss + al.float()
         if self._scale_cfg is not None:
             loss = loss * self._scale
         return loss
+
+    def _pipeline_forward(self, pv_c, x_c):
+        """The net's output through the SPMD pipeline: the batch cut into
+        ``num_micro`` microbatches, this rank running its own stage."""
+        num_micro = self.num_micro
+        if x_c.shape[0] % num_micro:
+            raise ValueError("batch %d not divisible into num_micro=%d"
+                             % (x_c.shape[0], num_micro))
+        micro = x_c.reshape((num_micro, x_c.shape[0] // num_micro)
+                            + tuple(x_c.shape[1:]))
+        me = self.mesh.axis_index(self.pipeline_axis)
+        stage, names = self._stage, self._stage_names
+
+        def stage_fn(ps, h):
+            tc = tracing.push_trace(self._trace())
+            try:
+                out = functional_call(stage, dict(zip(names, ps)), (h,))
+            finally:
+                tracing.pop_trace()
+            if tc.aux_losses:
+                raise NotImplementedError(
+                    "aux losses inside pipeline stages cannot escape the "
+                    "pipelined scan; place MoE blocks outside the "
+                    "pipelined net or train without pipeline_stages")
+            return out
+
+        outs = spmd_pipeline(stage_fn, [pv_c[i] for i in self._stage_idx[me]],
+                             micro, self.pipeline_axis,
+                             remat=self.pipeline_remat, mesh=self.mesh)
+        return outs.reshape((-1,) + tuple(outs.shape[2:]))
 
     def __call__(self, x, y):
         x, y = (v._data if isinstance(v, NDArray) else v for v in (x, y))
@@ -388,9 +626,17 @@ class TrainStep:
             if self._dp else contextlib.nullcontext()
         with torch.enable_grad(), scope as dp:
             loss = self._loss(x, y)
-            grads = torch.autograd.grad(loss, self._gp)
+            grads = torch.autograd.grad(loss, self._gp, allow_unused=True)
         with torch.no_grad():
-            loss, grads, bad = self._reduce(loss.detach(), list(grads), dp)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self._gp, grads)]
+            if self.pipeline_stages is not None:
+                # each rank holds its own stage's gradients (zeros for
+                # the others'): one sum over pp makes them whole, once a
+                # step, before the dp reduction
+                grads = collectives.allreduce_coalesced(
+                    grads, self.pipeline_axis, self.mesh)
+            loss, grads, bad = self._reduce(loss.detach(), grads, dp)
             loss, ok = self._finish_step(loss, grads, old_aux, bad)
         self._step_count += 1
         self._maybe_checkpoint()
@@ -516,16 +762,44 @@ class TrainStep:
         applied-step counter and the loss-scale state (scale f32,
         unskipped i32, skipped i32).  Under ZeRO-1 over several ranks each
         optimizer-state leaf of a >= 1-d parameter is this rank's
-        :class:`~.checkpoint.Shard` of the padded global leaf."""
+        :class:`~.checkpoint.Shard` of the padded global leaf; a
+        parameter sharded by ``param_shardings`` and its state leaves
+        are this rank's rows of the global leaf."""
         opt = self._opt_state
         if self.zero and self._n > 1:
             opt = [s if pad0 is None else _tree_map(
                        lambda t, pad0=pad0: self._shard(t, pad0), s)
                    for s, pad0 in zip(opt, self._zero_pad0)]
-        return {"params": list(self._gp), "aux": list(self._aux),
+        params = list(self._gp)
+        if self._shards:
+            opt = list(opt)
+            for i in self._shards:
+                params[i] = self._model_shard(i, params[i])
+                if self.opt.has_state:
+                    opt[i] = _tree_map(
+                        lambda t, i=i: self._model_shard(i, t), opt[i])
+        return {"params": params, "aux": list(self._aux),
                 "opt_state": opt, "rng_key": self._rng_key,
                 "step": self._step,
                 "loss_scale": (self._scale, self._unskipped, self._skipped)}
+
+    def _model_shard(self, i, t):
+        """This rank's part ``t`` of the parameter ``i`` sharded over a
+        model axis (or of one of its optimizer-state leaves) as a
+        checkpoint block: written by the rank at the same place on that
+        axis and at 0 on every other."""
+        axis, dim = self._shards[i]
+        if dim != 0:
+            raise NotImplementedError(
+                "checkpoints of a parameter sharded on dim %d: the port's "
+                "checkpoint blocks are rows (dim 0)" % dim)
+        mesh = self.mesh
+        n, r = mesh.shape[axis], mesh.axis_index(axis)
+        rows = t.shape[0]
+        return _ckpt.Shard(t, (rows * n,) + tuple(t.shape[1:]),
+                           (r * rows, (r + 1) * rows), r, n,
+                           spec="PartitionSpec(%r,)" % axis,
+                           owner=mesh.rank_of({axis: r}))
 
     def _shard(self, t, pad0):
         """This rank's rows ``t`` of a ZeRO-1 leaf padded to ``pad0``."""
@@ -533,7 +807,17 @@ class TrainStep:
         return _ckpt.Shard(t, (pad0,) + tuple(t.shape[1:]),
                            (self._rank * rows, (self._rank + 1) * rows),
                            self._rank, self._n,
-                           spec="PartitionSpec(%r,)" % self.batch_axis)
+                           spec="PartitionSpec(%r,)" % self.batch_axis,
+                           owner=self._zero_owner())
+
+    def _zero_owner(self):
+        """The process that writes this rank's ZeRO-1 block: this one
+        (None) on a data-parallel mesh; on a mesh with model axes, whose
+        ranks hold copies, the one at 0 on every axis but the batch
+        axis."""
+        if len(self.mesh.axis_names) == 1:
+            return None
+        return self.mesh.rank_of({self.batch_axis: self._rank})
 
     @staticmethod
     def _as_manager(directory_or_manager, keep_last=3):
@@ -549,7 +833,7 @@ class TrainStep:
 
         mesh = None if self.mesh is None else dict(self.mesh.shape)
         return {"mesh": mesh, "batch_axis": self.batch_axis,
-                "zero": self.zero, "pipeline_stages": None,
+                "zero": self.zero, "pipeline_stages": self.pipeline_stages,
                 "processes": process_count()}
 
     def _elastic_policy(self):
@@ -559,7 +843,8 @@ class TrainStep:
         (ZeRO-1), whatever this step's own ``zero``: a checkpoint padded
         for any dp width restores here, and this step's is re-padded
         elsewhere."""
-        marks = [int(p.shape[0]) if p.dim() >= 1 else None for p in self._gp]
+        marks = [int(p.shape[0]) if p.dim() >= 1 and i not in self._shards
+                 else None for i, p in enumerate(self._gp)]
         opt = [tuple(m for _ in s) if isinstance(s, tuple) else m
                for s, m in zip(self._opt_state, marks)]
         return {"params": [None] * len(self._gp),
@@ -773,7 +1058,9 @@ def _tree_where(ok, new, old):
 
 def make_train_step(net, loss_fn, optimizer="sgd", compute_dtype=None,
                     loss_scale=None, nonfinite=None, device=None, mesh=None,
-                    batch_axis="dp", zero=0, **opt_kwargs) -> TrainStep:
+                    batch_axis="dp", zero=0, param_shardings=None,
+                    pipeline_stages=None, num_micro=1, pipeline_axis="pp",
+                    pipeline_remat=False, **opt_kwargs) -> TrainStep:
     """Build the train step (forward + backward + update per call).
 
     ``optimizer`` is any registered optimizer's name, with its keywords
@@ -788,13 +1075,24 @@ def make_train_step(net, loss_fn, optimizer="sgd", compute_dtype=None,
     ``"skip"`` under a dynamic scale, which needs it).  ``device``
     defaults to the CUDA card and must hold the net's parameters.
 
-    ``mesh`` (:func:`~.mesh.make_mesh`) makes the step one rank of data
-    parallelism over its ``batch_axis``: each process calls it with its
-    slice of the global batch (:meth:`~.mesh.Mesh.local_slice`).
-    ``zero=1`` shards the weight update over that axis (ZeRO-1, sgd and
-    adam)."""
+    ``mesh`` (:func:`~.mesh.make_mesh`) makes the step one rank of a
+    process mesh.  Over its ``batch_axis`` the step is data parallel:
+    each process calls it with its slice of the global batch
+    (:meth:`~.mesh.Mesh.local_slice`); ``zero=1`` shards the weight
+    update over that axis (ZeRO-1, sgd and adam).  ``param_shardings``
+    (``{name: P("tp", None)}``) shards a parameter over a model axis:
+    each rank keeps its part and that part's optimizer state, and the
+    forward all-gathers it (a block with ``takes_shards``, such as
+    ``MoEFFN``, gets its part).  ``pipeline_stages=K`` with
+    ``num_micro=M`` runs the net's children as K congruent stages over
+    the mesh's ``pipeline_axis`` (:func:`~.pipeline.spmd_pipeline`), the
+    batch (each dp rank's slice) cut into M microbatches;
+    ``pipeline_remat`` recomputes each stage in the backward."""
     opt = FunctionalOptimizer(optimizer, **opt_kwargs)
     return TrainStep(net, loss_fn, opt, compute_dtype=compute_dtype,
                      loss_scale=loss_scale, nonfinite=nonfinite,
                      device=device, mesh=mesh, batch_axis=batch_axis,
-                     zero=zero)
+                     zero=zero, param_shardings=param_shardings,
+                     pipeline_stages=pipeline_stages, num_micro=num_micro,
+                     pipeline_axis=pipeline_axis,
+                     pipeline_remat=pipeline_remat)

@@ -41,7 +41,10 @@ losses, parameters and running stats equal bit for bit, K1/K2 launched
 on each rank, and the losses within 1e-4 relative of one process
 stepping the whole global batch on the card; a two-rank ZeRO-1
 checkpoint written from the card restored by one process at dp=1, its
-logical state exact and its next losses within 1e-5.
+logical state exact and its next losses within 1e-5.  Model parallelism:
+``chip_smoke.py`` phase 3n at a small size (two ranks on ``cuda:0``:
+the sequence-parallel LM, ring and Ulysses, the pp=2 step and the ep=2
+MoE step against one process on the card, within that phase's limits).
 """
 import importlib
 
@@ -1579,3 +1582,26 @@ def test_two_rank_checkpoint_on_the_card_restores_at_dp1(dev, tmp_path):
         loss = w.elastic_feed(step, mesh, b, dev)
         assert abs(loss - ranks[0]["a.loss"][3 + k]) <= 1e-5
     it.close()
+
+
+#: ``chip_smoke.py`` phase 3n at a small size
+MP_SMALL = {"lm": dict(vocab=64, dim=128, heads=4, layers=2, seq=256,
+                       batch=2, lr=0.01, steps=3),
+            "pp": dict(width=64, layers=8, classes=16, batch=64,
+                       num_micro=4, steps=3),
+            "moe": dict(width=64, hidden=128, experts=8, top_k=2,
+                        capacity=2.0, classes=16, tokens=256, lr=0.1,
+                        steps=3)}
+
+
+def test_model_parallel_two_ranks_on_one_card(dev):
+    """Phase 3n of ``chip_smoke.py`` at ``MP_SMALL``: two ranks over gloo
+    on the card run ``train_lm_torch.py --devices 2`` (ring, then Ulysses
+    with K4/K5/K6 launched 2/2/2 a rank a step), the pp=2 step and the
+    ep=2 MoE step, each held to one process on the card by the phase's
+    gates (which raise)."""
+    smoke = _smoke()
+    launches = smoke.run_mp_job(dev, "test", MP_SMALL)
+    for name in smoke.FLASH:
+        assert launches[name] == MP_SMALL["lm"]["layers"] * \
+            MP_SMALL["lm"]["steps"]

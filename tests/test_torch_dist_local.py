@@ -171,9 +171,16 @@ def test_backend_rule():
 # -- mesh and collectives -----------------------------------------------------
 
 def test_make_mesh_refusals():
+    # the model-parallel axes build (one process: every axis of size 1)
     for axes in ({"tp": 1}, {"dp": 1, "pp": 1}, {"sp": 1}, {"ep": 1}):
-        with pytest.raises(NotImplementedError, match="A8 items c and d"):
-            make_mesh(axes, devices=[CPU])
+        mesh = make_mesh(axes, devices=[CPU])
+        assert mesh.shape == axes and mesh.size == 1
+        assert all(mesh.group(a) is None and mesh.axis_index(a) == 0
+                   for a in axes)
+    with pytest.raises(ValueError, match="only one axis may be -1"):
+        make_mesh({"dp": -1, "tp": -1}, devices=[CPU])
+    with pytest.raises(ValueError, match="do not divide by 2"):
+        make_mesh({"dp": -1, "tp": 2}, devices=[CPU])
     with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh({"dp": 2}, devices=[CPU, CPU])
     with pytest.raises(ValueError, match="needs 1 devices, have 2"):

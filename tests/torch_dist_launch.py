@@ -1,5 +1,6 @@
-"""Start and collect a job of ``tests/torch_dist_worker.py`` ranks through
-``tools/launch.py`` (``launch_local``) for the port's multi-process tests.
+"""Start and collect a job of ``tests/torch_dist_worker.py`` (or
+``tests/torch_mp_worker.py``) ranks through ``tools/launch.py``
+(``launch_local``) for the port's multi-process tests.
 
 The launcher has no overall timeout, so the job runs in a session of its
 own under a subprocess timeout: past it, the whole session (launcher and
@@ -16,14 +17,15 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_dist_worker.py")
+MP_WORKER = os.path.join(REPO, "tests", "torch_mp_worker.py")
 
 
-def start(mode, outdir, platform="cpu", ranks=2):
-    """Launch ``ranks`` worker processes in ``mode`` writing to
+def start(mode, outdir, platform="cpu", ranks=2, worker=WORKER):
+    """Launch ``ranks`` processes of ``worker`` in ``mode`` writing to
     ``outdir``; returns the launcher's process."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     cmd = [sys.executable, os.path.join(REPO, "tools", "launch.py"), "-n",
-           str(ranks), sys.executable, WORKER, mode, str(outdir), platform]
+           str(ranks), sys.executable, worker, mode, str(outdir), platform]
     return subprocess.Popen(cmd, env=env, cwd=REPO, start_new_session=True,
                             stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

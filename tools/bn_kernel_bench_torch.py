@@ -121,9 +121,11 @@ FLUSH_KERNEL = "FillFunctor<unsigned char>"
 #: profiler sessions per measurement: the trace can come back empty or
 #: cut short, and is then taken again
 SESSIONS = 3
-#: flushed calls a session runs before the ones it reads: the profiler
-#: can miss a session's first events
-WARMUP_CALLS = 8
+#: flushed calls a session runs before the ones it reads, and the host's
+#: pause before them: the profiler can miss a session's first events (11
+#: calls of K3 at a zoo shape in three sessions running, in one H100 run)
+WARMUP_CALLS = 32
+START_PAUSE_S = 0.02
 #: sessions taken again since the process started (printed by
 #: chip_smoke.py beside its flushed times)
 retried = 0
@@ -137,6 +139,7 @@ def _flushed_calls(fn, iters, device):
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(START_PAUSE_S)
         for i in range(WARMUP_CALLS + iters):
             flush.fill_(i % 200 + 1)
             fn()
@@ -164,7 +167,8 @@ def flushed_device_ms(fn, iters, device, name=None):
     The trace is split into calls at the flushes (``FLUSH_KERNEL``), so a
     fill of another dtype that ``fn`` launches is timed with it.  The
     profiler can miss the first events of a session, or all of them, so
-    ``WARMUP_CALLS`` flushed calls run first inside it, only the last
+    ``WARMUP_CALLS`` flushed calls run first inside it (after a pause of
+    ``START_PAUSE_S``), only the last
     ``iters`` calls are read, and a trace without them is taken again, up
     to ``SESSIONS`` times (counted in ``retried``)."""
     global retried
