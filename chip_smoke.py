@@ -181,7 +181,7 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    ``potrf``/``trsm``/``syevd``/``gelqf``/``slogdet`` card against CPU
    (f32, TF32 off; the limits by ``CF_OUT_TOL``), launching nothing;
 3l. data parallelism (ROADMAP A8), ``DP_RANKS`` ranks started by
-   ``tools/launch.py`` sharing the card over gloo (NCCL refuses two ranks
+   ``tools/launch_torch.py`` sharing the card over gloo (NCCL refuses two ranks
    on one device; gloo stages CUDA tensors through the host, so these
    step times are correctness figures, not NCCL's), each rank this
    script with ``--dp-rank`` running (i)-(iii) in turn: (i)
@@ -231,7 +231,7 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    the step-2 save ms and bytes of each rank, rank 0's commit wait, the
    seconds from the kill to rank 0's refusal, both restores' ms;
 3n. model parallelism (ROADMAP A8 items c and d), ``DP_RANKS`` ranks
-   started by ``tools/launch.py`` sharing the card over gloo (as 3l: a
+   started by ``tools/launch_torch.py`` sharing the card over gloo (as 3l: a
    real job has a card a rank, so the step times are correctness
    figures), each rank this script with ``--mp-rank``, f32 with TF32
    off, the sizes in ``MP``: (i) ``train_lm_torch.py --devices 2`` built
@@ -258,6 +258,31 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    card: losses within ``MP_MOE_LOSS_TOL``, parameters within
    ``MP_MOE_PARAM_TOL`` of each tensor's largest update, the replicated
    parameters bit-equal, no kernel launched, ``moe_step_ms``;
+3o. the supervised main path: phase 3m's step and data under
+   ``parallel.supervisor.run_supervised`` to step 8 with a checkpoint
+   every 2 steps (``SUPERVISED``), cuDNN deterministic.  (0) The
+   unfaulted run at dp=1 in this process (``supervised_step_ms``, the
+   heartbeat's ms, each save's ms) and bare steps of the same step
+   (``step_ms``: the batch, the step, the loss read back).  Then jobs of
+   ranks (this script with ``--supervised-rank DIR``) that a
+   ``Supervisor`` here starts through ``tools/launch_torch.py``, each
+   rank in a session of its own, the card's free memory checked before
+   every relaunch, every call's K1-K3 launches 53/53/1: (i)
+   ``kill_process`` at call 3, dp=1: respawned, restored from step 2,
+   its losses and final state's digest the unfaulted run's; (ii)
+   ``loss_bomb`` at call 4: a divergence verdict (printed) rolls back
+   in-process to step 4, final digest the unfaulted run's; (iii)
+   ``hang_step`` at call 3: the heartbeat gap (the calibrated stall
+   timeout printed), a respawn, as (i); (iv) dp=2 with no restart
+   budget, rank 1 killed in its second save: shrunk to dp=1, which
+   restores the dp=2 checkpoint and finishes; every ledger's events and
+   no torn checkpoint checked, MTTR printed.  (v) ``sync="async"`` at
+   batch 256 with ``staleness_bound=0`` and no loss scale against
+   ``sync="allreduce"``: 2 steps bit-equal (the service runs the same
+   update), then ``async_step_ms``, then 2 steps with
+   ``compression="2bit"`` (finite losses).  (vi) ``tools/
+   supervise_torch.py --chaos all --format json`` with its ranks on the
+   card, beside (i)-(v): all five scenarios green, exit 0;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -2469,7 +2494,7 @@ def _cifar_dist_module():
 
 
 def _launch_ranks(args, timeout=DP_TIMEOUT):
-    """``tools/launch.py -n DP_RANKS`` over ``args`` from the repository
+    """``tools/launch_torch.py -n DP_RANKS`` over ``args`` from the repository
     root, in a session of its own that is killed past ``timeout``;
     returns the job's output (raises where a rank failed)."""
     rc, out = _run_ranks(args, timeout)
@@ -2485,8 +2510,8 @@ def _run_ranks(args, timeout):
     import signal
 
     here = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, os.path.join(here, "tools", "launch.py"), "-n",
-           str(DP_RANKS)] + list(args)
+    cmd = [sys.executable, os.path.join(here, "tools", "launch_torch.py"),
+           "-n", str(DP_RANKS)] + list(args)
     proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
@@ -2663,7 +2688,7 @@ def _dp_rank_imagenet(logs):
 
 
 def dp_rank_main(outdir):
-    """One rank of phase 3l, started by ``tools/launch.py`` (this script
+    """One rank of phase 3l, started by ``tools/launch_torch.py`` (this script
     with ``--dp-rank``): routes (i), (ii) and (iii) in turn in the same
     process; what each example logs is kept, and the rank's results go
     to ``rank<r>.json``.  cuDNN's autotuning stays off: two processes
@@ -3027,7 +3052,7 @@ def check_dp_imagenet(dev, ranks, card):
 
 def run_dp_job(dev, card):
     """Phase 3l (i)-(iii): one job of ``DP_RANKS`` ranks of this script
-    (``--dp-rank``) through ``tools/launch.py``, then the checks.
+    (``--dp-rank``) through ``tools/launch_torch.py``, then the checks.
     Returns route (ii)'s rank-0 launches and its relative loss limit of
     each step."""
     import numpy as np
@@ -3182,22 +3207,29 @@ def _elastic_iter(data, shuffle_seed):
                                      shuffle=True, ctx=cpu()))
 
 
-def _elastic_step(dev, mesh, seed):
-    """The main path's step over ``mesh`` with ``zero=1``, on a net drawn
-    from ``seed``."""
+def _main_net(dev, seed):
+    """``resnet50_v1(ghost_bn=16)``, the main path's net, drawn from
+    ``seed``."""
     import torch
 
     from incubator_mxnet_tpu_torch import initializer
-    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
-    from incubator_mxnet_tpu_torch.parallel import make_train_step
 
     net = resnet.resnet50_v1(classes=1000, ghost_bn=16, device=dev)
     initializer.initialize(net, initializer.Xavier(),
                            torch.Generator(device=dev).manual_seed(seed))
-    return make_train_step(net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
-                           learning_rate=ELASTIC["lr"], momentum=0.9,
-                           wd=1e-4, multi_precision=True,
+    return net
+
+
+def _elastic_step(dev, mesh, seed):
+    """The main path's step over ``mesh`` with ``zero=1``, on a net drawn
+    from ``seed``."""
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.parallel import make_train_step
+
+    return make_train_step(_main_net(dev, seed), SoftmaxCrossEntropyLoss(),
+                           optimizer="sgd", learning_rate=ELASTIC["lr"],
+                           momentum=0.9, wd=1e-4, multi_precision=True,
                            loss_scale="dynamic", compute_dtype="bfloat16",
                            device=dev, mesh=mesh, zero=1)
 
@@ -3738,7 +3770,7 @@ def _mp_rank_moe(dev, cfg, outdir, rank):
 
 
 def mp_rank_main(outdir):
-    """One rank of phase 3n, started by ``tools/launch.py`` (this script
+    """One rank of phase 3n, started by ``tools/launch_torch.py`` (this script
     with ``--mp-rank``): (i) ring then Ulysses, (ii), (iii) in turn in
     f32 with TF32 off; the rank's results go to ``rank<r>.json``."""
     import torch
@@ -3966,7 +3998,7 @@ def check_mp_moe(dev, ranks, params, cfg, card):
 
 def run_mp_job(dev, card, cfg=None):
     """Phase 3n: one job of ``DP_RANKS`` ranks of this script
-    (``--mp-rank``) through ``tools/launch.py``, then the checks against
+    (``--mp-rank``) through ``tools/launch_torch.py``, then the checks against
     one process on the card.  Returns rank 0's launches under Ulysses."""
     import numpy as np
     import torch
@@ -5283,6 +5315,516 @@ def ssd_card_vs_cpu(dev):
                          floor_add=SSD_FLOOR_ADD)
 
 
+# phase 3o: the supervised main path (run_supervised under the Supervisor's
+# ladder), the async rung at full width, the chaos matrix on the card
+#: the ranks' job: phase 3m's step and data at dp = the job's width, 8
+#: applied steps, a checkpoint every 2 (with the iterator's position)
+SUPERVISED = dict(steps=8, every=2, commit_timeout=30.0)
+#: the watchdog: stall floor and startup grace (seconds) of every job of
+#: the phase; the floor is above a two-rank save of the step's state
+#: (1.5-3.8 s in phase 3m) plus a step, the grace above a rank's start
+SUP_WATCH = dict(min_stall=12.0, startup=180.0, backoff=0.25,
+                 timeout=300.0)
+#: (i)-(iv): scenario, chaos spec, width, restart budget
+SUP_CASES = (("kill", "kill_process:at=3", 1, 2),
+             ("bomb", "loss_bomb:at=4,factor=1e4", 1, 2),
+             ("hang", "hang_step:at=3,duration=600.0", 1, 2),
+             ("shrink", "host_loss_during_save:save=1", 2, 0))
+#: (v): the steps compared between the rungs, then timed on the async one
+ASYNC_STEPS = dict(compare=2, timed=3, compressed=2)
+#: (vi): seconds the chaos matrix may take
+CHAOS_TIMEOUT = 420
+
+
+def _supervise_tool():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "supervise_torch.py")
+    spec = importlib.util.spec_from_file_location("supervise_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _supervised_job(tool, dev, outdir):
+    """The ranks' job (``tools/supervise_torch.py``'s ``run_worker`` takes
+    it): phase 3m's step over ``make_mesh({"dp": -1})`` with ``zero=1``,
+    fed this rank's rows of each global batch of the resident set."""
+    from incubator_mxnet_tpu_torch.parallel import (CheckpointManager,
+                                                    SupervisorConfig,
+                                                    make_mesh)
+
+    mesh = make_mesh({"dp": -1})
+    n, r = mesh.size, mesh.axis_index("dp")
+    step = _elastic_step(dev, mesh, SEED)
+    it = _elastic_iter(_elastic_data(), SEED)
+    if n > 1:
+        rows = ELASTIC["batch"] // n
+        it = tool.RowSlice(it, r * rows, (r + 1) * rows)
+    mgr = CheckpointManager(os.path.join(outdir, "ckpt"),
+                            commit_timeout=SUPERVISED["commit_timeout"])
+    return (step, it, mgr, SupervisorConfig(
+        checkpoint_every=SUPERVISED["every"]), r, n)
+
+
+@contextlib.contextmanager
+def _counted_steps(record):
+    """Each supervised step call's K1-K3 launches into ``record``: the
+    counts set to 0 just before the call (``supervisor._run_step``, the
+    choke point the chaos injectors wrap too) and read just after."""
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.parallel import supervisor as sup
+
+    real = sup._run_step
+
+    def counted(step, x, y):
+        _kernels.reset_launch_counts()
+        out = real(step, x, y)
+        record.append(_kernels.launch_counts())
+        return out
+
+    sup._run_step = counted
+    try:
+        yield
+    finally:
+        sup._run_step = real
+
+
+def supervised_rank_main(outdir):
+    """One rank of phase 3o (this script with ``--supervised-rank DIR``,
+    started by the Supervisor through ``tools/launch_torch.py``): the job
+    under ``run_supervised`` to ``SUPERVISED["steps"]``, the chaos of
+    ``MXTPU_CHAOS`` armed on attempt 0; ``<DIR>/result_rank<r>.json``
+    gets the losses, the state's digest and each call's launches."""
+    import torch
+
+    from incubator_mxnet_tpu_torch.parallel import distributed
+
+    distributed.initialize()
+    dev = distributed.local_device()
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    tool = _supervise_tool()
+    launches = []
+    with _counted_steps(launches):
+        job = _supervised_job(tool, dev, outdir)
+        rank, n = job[4], job[5]
+
+        def extra(step):
+            return {"digest": _elastic_digest(step, rank, n),
+                    "launches": launches,
+                    "skipped": step.skipped_steps}
+
+        return tool.run_worker(outdir, job, SUPERVISED["steps"],
+                               extra=extra)
+
+
+def _supervised_reference(tool, dev, outdir, card):
+    """The unfaulted run in this process (dp=1), each step's host time
+    under ``run_supervised`` (heartbeat, detectors, one read of the
+    device's scalars) and each save's; then bare steps of the same step
+    object on the next batches."""
+    import torch
+
+    from incubator_mxnet_tpu_torch.parallel import supervisor as sup
+
+    launches, ticks, saves, beats = [], [], [], []
+    real_save, real_emit = sup._save_checkpoint, sup.HeartbeatEmitter.emit
+
+    def timed_save(step, mgr, it):
+        t0 = time.perf_counter()
+        try:
+            return real_save(step, mgr, it)
+        finally:
+            saves.append((time.perf_counter() - t0) * 1e3)
+            ticks.append(None)  # the next interval holds this save
+
+    def timed_emit(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real_emit(self, *args, **kwargs)
+        finally:
+            beats.append((time.perf_counter() - t0) * 1e3)
+
+    sup._save_checkpoint = timed_save
+    sup.HeartbeatEmitter.emit = timed_emit
+    try:
+        with _counted_steps(launches):
+            step, it, mgr, cfg, rank, n = _supervised_job(tool, dev, outdir)
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter())
+            res = sup.run_supervised(
+                step, it, mgr, until_step=SUPERVISED["steps"], config=cfg,
+                on_step=lambda hb: ticks.append(time.perf_counter()))
+    finally:
+        sup._save_checkpoint = real_save
+        sup.HeartbeatEmitter.emit = real_emit
+    digest = _elastic_digest(step, rank, n)
+    per, last, after_save = [], None, False
+    for t in ticks:
+        if t is None:
+            after_save = True
+            continue
+        if last is not None and not after_save:
+            per.append((t - last) * 1e3)
+        last, after_save = t, False
+    bare = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        x, y = sup._next_batch(it)
+        float(step(x, y))
+        bare.append((time.perf_counter() - t0) * 1e3)
+    it.close()
+    del step
+    torch.cuda.empty_cache()
+    _elastic_gate_launches([{"rank": 0, "launches": launches}],
+                           "(0) unfaulted")
+    print("[3o] (0) unfaulted in this process, dp=1: losses %s  skipped %d"
+          % (["%.5f" % v for v in res["losses"]],
+             len(launches) - res["final_step"]), flush=True)
+    print("[3o] supervised_step_ms %.2f (median of %d steps without a save "
+          "before them: run_supervised's loop, the boundary read, the "
+          "heartbeat)  bare step_ms %.2f (median of 3: the batch, the step, "
+          "the loss read back)"
+          "  heartbeat_ms %.2f (median of %d: JSON, write, fsync, rename)  "
+          "save_ms %s  on %s" % (
+              _median(per[1:]), len(per[1:]), _median(bare[1:]),
+              _median(beats), len(beats), ["%.0f" % v for v in saves],
+              card), flush=True)
+    return {"digest": digest, "losses": res["losses"], "launches": launches,
+            "supervised_step_ms": _median(per[1:]),
+            "bare_step_ms": _median(bare[1:])}
+
+
+def _gpu_memory_back(base_free, card, timeout=60.0):
+    """Before a relaunch: wait until the card's free memory is back within
+    2 GiB of what it was before the phase's first job (a killed rank
+    must not hold it), and print it."""
+    import torch
+
+    t0 = time.perf_counter()
+    while True:
+        free, total = torch.cuda.mem_get_info()
+        if free >= base_free - (2 << 30) or \
+                time.perf_counter() - t0 > timeout:
+            break
+        time.sleep(0.2)
+    print("[3o]   card memory before the relaunch: %.2f GiB free of %.2f "
+          "(%.2f before the first job; waited %.2f s)  on %s"
+          % (free / 2 ** 30, total / 2 ** 30, base_free / 2 ** 30,
+             time.perf_counter() - t0, card), flush=True)
+    if free < base_free - (2 << 30):
+        raise AssertionError("the card's memory did not come back")
+
+
+def _supervised_case(tool, root, name, chaos, width, max_restarts,
+                     base_free, card):
+    """One Supervisor run of the ranks' job: (outcome, rank 0's result,
+    the merged ledger)."""
+    from incubator_mxnet_tpu_torch.parallel.supervisor import read_ledger
+
+    outdir = os.path.join(root, name)
+    os.makedirs(outdir)
+    args = tool.parser().parse_args([
+        "--dir", outdir, "-n", str(width), "--steps",
+        str(SUPERVISED["steps"]), "--checkpoint-every",
+        str(SUPERVISED["every"]), "--max-restarts", str(max_restarts),
+        "--min-stall", str(SUP_WATCH["min_stall"]), "--startup-timeout",
+        str(SUP_WATCH["startup"]), "--backoff", str(SUP_WATCH["backoff"]),
+        "--timeout", str(SUP_WATCH["timeout"])])
+
+    here = os.path.abspath(__file__)
+    spawn = tool.make_launcher(
+        args, chaos, command=[sys.executable, here, "--supervised-rank",
+                              outdir])
+
+    def launch(w, attempt):
+        if attempt > 0:  # the killed job must have let go of the card
+            _gpu_memory_back(base_free, card)
+        return spawn(w, attempt)
+
+    t0 = time.perf_counter()
+    out = tool.supervise_once(args, chaos_spec=chaos, launch=launch)
+    out["wall_s"] = time.perf_counter() - t0
+    try:
+        with open(os.path.join(outdir, "result_rank0.json")) as f:
+            res = json.load(f)
+    except OSError:
+        res = {}
+    return out, res, read_ledger(os.path.join(outdir, "ckpt"))
+
+
+def _require(cond, what, out):
+    if not cond:
+        raise AssertionError("phase 3o: %s; outcome %s" % (
+            what, {k: out.get(k) for k in ("outcome", "reason", "width",
+                                            "restarts", "shrinks", "events",
+                                            "torn_visible")}))
+
+
+def run_async_rung(dev, card):
+    """Phase 3o (v): the main path's net at batch 256 with
+    ``sync="async"``, ``staleness_bound=0``, no loss scale, one rank,
+    against ``sync="allreduce"`` on the same batches; then timed; then
+    ``compression="2bit"``.  Returns the launches."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.parallel import make_train_step
+
+    from incubator_mxnet_tpu_torch.parallel.supervisor import _next_batch
+
+    it = _elastic_iter(_elastic_data(), SEED)
+    batches = [_next_batch(it) for _ in range(ASYNC_STEPS["compare"]
+                                              + ASYNC_STEPS["timed"])]
+    it.close()
+    batches = [(x._data.to(dev), y._data.to(dev)) for x, y in batches]
+
+    def build(sync, compression=None):
+        return make_train_step(
+            _main_net(dev, SEED), SoftmaxCrossEntropyLoss(), optimizer="sgd",
+            learning_rate=ELASTIC["lr"], momentum=0.9, wd=1e-4,
+            multi_precision=True, compute_dtype="bfloat16", device=dev,
+            sync=sync, compression=compression,
+            staleness_bound=None if sync == "allreduce" else 0)
+
+    counts = {name: 0 for name in MAIN_PATH}
+
+    def run(step, pairs, timed=False):
+        losses, ms = [], []
+        for x, y in pairs:
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = _kernels.launch_counts()
+            want = {name: 0 for name in got}
+            want.update(MAIN_PATH)
+            if got != want:
+                raise AssertionError("(v) a step launched %s, want %s"
+                                     % (got, want))
+            for name in MAIN_PATH:
+                counts[name] += got[name]
+        return losses, ms
+
+    k = ASYNC_STEPS["compare"]
+    ref = build("allreduce")
+    ref_losses, _ = run(ref, batches[:k])
+    ref_params = [p.detach().cpu() for p in ref._gp]
+    del ref
+    torch.cuda.empty_cache()
+    step = build("async")
+    losses, _ = run(step, batches[:k])
+    diff = max(float((p.detach().cpu() - q).abs().max())
+               for p, q in zip(step._gp, ref_params))
+    equal = all(torch.equal(p.detach().cpu(), q)
+                for p, q in zip(step._gp, ref_params))
+    if not equal or losses != ref_losses:
+        raise AssertionError("(v) the async rung after %d steps: losses %s "
+                             "vs %s, largest parameter difference %g (want "
+                             "bit-equal: the service runs the same update)"
+                             % (k, losses, ref_losses, diff))
+    _, ms = run(step, batches[k:])
+    svc = step._svc_client.service
+    print("[3o] (v) sync='async' at batch %d, staleness_bound 0, no loss "
+          "scale: after %d steps the parameters equal sync='allreduce''s "
+          "bit for bit (losses %s); async_step_ms %.2f (median of %d: "
+          "push %d MB, pull, install)  on %s"
+          % (ELASTIC["batch"], k, ["%.5f" % v for v in losses],
+             _median(ms), len(ms), svc.push_nbytes // svc.clock.step(0)
+             // 2 ** 20, card), flush=True)
+    del step, svc
+    torch.cuda.empty_cache()
+    step = build("async", "2bit")
+    losses, ms = run(step, batches[:ASYNC_STEPS["compressed"]])
+    if not _losses_ok(losses):
+        raise AssertionError("(v) 2-bit compressed losses %s" % losses)
+    print("[3o] (v) compression='2bit': losses %s finite  step_ms %s  on %s"
+          % (["%.5f" % v for v in losses], ["%.1f" % v for v in ms], card),
+          flush=True)
+    del step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def start_chaos_matrix():
+    """Phase 3o (vi): start ``tools/supervise_torch.py --chaos all --format
+    json`` with its ranks on the card, in a session of its own (it runs
+    beside (i)-(v)); returns ``(process, its directory, start time)``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "tools", "supervise_torch.py"),
+         "--chaos", "all", "--format", "json", "--dir", d],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    return proc, d, time.perf_counter()
+
+
+def stop_chaos_matrix(job):
+    """Kill the chaos matrix's process group (and every rank it started,
+    each in a session of its own: they are killed by their supervisor's
+    ``_kill_job`` when it is stopped, and else end at their job's
+    timeout) and remove its directory."""
+    import signal
+
+    proc, d, _ = job
+    try:
+        os.killpg(proc.pid, signal.SIGTERM)
+        proc.wait(timeout=30)
+    except (ProcessLookupError, subprocess.TimeoutExpired):
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def finish_chaos_matrix(job, card):
+    """Phase 3o (vi): wait for the chaos matrix; every scenario green,
+    exit code 0."""
+    proc, d, t0 = job
+    try:
+        out, err = proc.communicate(timeout=max(
+            1.0, CHAOS_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_chaos_matrix(job)
+        raise AssertionError("(vi) the chaos matrix passed its %d s limit"
+                             % CHAOS_TIMEOUT)
+    shutil.rmtree(d, ignore_errors=True)
+    recs = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    if proc.returncode != 0 or len(recs) != 5 or \
+            not all(r["ok"] for r in recs):
+        raise AssertionError("(vi) the chaos matrix (rc %d): %s\n%s"
+                             % (proc.returncode, recs, err[-3000:]))
+    for r in recs:
+        print("[3o] (vi) %-22s %s  restarts %d  shrinks %d  mttr %.2f s  "
+              "width %d  on %s" % (r["scenario"], r["outcome"], r["restarts"],
+                                   r["shrinks"], r["mttr"], r["width"],
+                                   card), flush=True)
+    print("[3o] (vi) tools/supervise_torch.py --chaos all exit 0 in %.1f s "
+          "(beside (i)-(v))  on %s" % (time.perf_counter() - t0, card),
+          flush=True)
+
+
+def run_supervised_path(dev, card):
+    """Phase 3o (see the module docstring).  Returns the launches of the
+    main path's steps here and in the ranks."""
+    import torch
+
+    t_phase = time.perf_counter()
+    tool = _supervise_tool()
+    counts = {name: 0 for name in MAIN_PATH}
+    root = tempfile.mkdtemp(prefix="chip_smoke_supervised_")
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mttr = {}
+    torch.cuda.empty_cache()
+    ref = _supervised_reference(tool, dev, os.path.join(root, "ref"), card)
+    matrix = start_chaos_matrix()
+    try:
+        for name in MAIN_PATH:
+            counts[name] += sum(c[name] for c in ref["launches"])
+        torch.cuda.synchronize()
+        base_free = torch.cuda.mem_get_info()[0]
+        print("[3o] watchdog: min_stall_timeout %g s, startup_timeout %g s, "
+              "backoff %g s; ranks check every %d steps"
+              % (SUP_WATCH["min_stall"], SUP_WATCH["startup"],
+                 SUP_WATCH["backoff"], SUPERVISED["every"]), flush=True)
+        for name, chaos, width, budget in SUP_CASES:
+            out, res, ledger = _supervised_case(tool, root, name, chaos,
+                                                width, budget, base_free,
+                                                card)
+            ev = out["events"]
+            _require(out["outcome"] == "resolved" and res.get("status")
+                     == "done" and res.get("final_step")
+                     == SUPERVISED["steps"], "(%s) did not finish" % name,
+                     out)
+            _require(out["torn_visible"] == 0, "(%s) a torn checkpoint is "
+                     "visible" % name, out)
+            _elastic_gate_launches([res], "(%s)" % name)
+            for c in res["launches"]:
+                for k in MAIN_PATH:
+                    counts[k] += c[k]
+            faults = [e for e in ledger if e["event"] == "fault"]
+            if name in ("kill", "hang"):
+                want = ["launch", "fault", "restart", "recovered",
+                        "resolved"] + (["heartbeat_gap"] if name == "hang"
+                                       else [])
+                _require(all(e in ev for e in want) and out["restarts"] == 1
+                         and res["restored_from"] == 2
+                         and res["digest"] == ref["digest"]
+                         and res["losses"] == ref["losses"][2:],
+                         "(%s) the respawned run is not the unfaulted one"
+                         % name, out)
+            if name == "bomb":
+                div = [e for e in ledger if e["event"] == "divergence"]
+                _require(all(e in ev for e in ("launch", "divergence",
+                                               "rollback", "recovered",
+                                               "done", "resolved"))
+                         and out["restarts"] == 0
+                         and res["digest"] == ref["digest"],
+                         "(bomb) the rollback's replay is not the unfaulted "
+                         "run", out)
+                print("[3o] (ii) loss_bomb at call 4: verdict %s at step %d "
+                      "(loss %.4g, skip streak %d), rolled back to step %d; "
+                      "the final state's digest is the unfaulted run's"
+                      % (div[0]["verdict"], div[0]["step"], div[0]["loss"],
+                         div[0]["skip_streak"],
+                         [e for e in ledger if e["event"]
+                          == "rollback"][0]["to_step"]), flush=True)
+            if name == "hang":
+                print("[3o] (iii) hang_step at call 3: stall timeout %.2f s "
+                      "(the clock's calibration; floor %g)"
+                      % (faults[0]["stall_timeout"], SUP_WATCH["min_stall"]),
+                      flush=True)
+            if name == "shrink":
+                _require(all(e in ev for e in ("launch", "fault", "shrink",
+                                               "recovered", "done",
+                                               "resolved"))
+                         and out["shrinks"] == 1 and out["width"] == 1
+                         and res["width"] == 1, "(shrink) the ladder did not "
+                         "shrink to dp=1", out)
+            mttr[name] = max(out["mttrs"]) if out["mttrs"] else None
+            print("[3o] (%s) %s, width %d -> %d: %s; restarts %d, shrinks %d;"
+                  " faults %s; MTTR %s s; job %.1f s  on %s"
+                  % ({"kill": "i", "bomb": "ii", "hang": "iii",
+                      "shrink": "iv"}[name], chaos, width, out["width"],
+                     out["outcome"], out["restarts"], out["shrinks"],
+                     [f["verdict"] for f in faults],
+                     "%.2f" % mttr[name] if mttr[name] is not None else "-",
+                     out["wall_s"], card), flush=True)
+        async_counts = run_async_rung(dev, card)
+        for name in MAIN_PATH:
+            counts[name] += async_counts[name]
+        finish_chaos_matrix(matrix, card)
+    except BaseException:
+        stop_chaos_matrix(matrix)
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = old
+    torch.cuda.empty_cache()
+    print("[3o] supervised_step_ms %.2f vs bare step_ms %.2f (the loop's "
+          "overhead %.2f ms, %.1f %%)  MTTR (i) %s (ii) %s (iii) %s (iv) %s s"
+          "  phase wall time %.2f s  on %s"
+          % (ref["supervised_step_ms"], ref["bare_step_ms"],
+             ref["supervised_step_ms"] - ref["bare_step_ms"],
+             100.0 * (ref["supervised_step_ms"] - ref["bare_step_ms"])
+             / ref["bare_step_ms"],
+             *["%.2f" % mttr[n] if mttr.get(n) is not None else "-"
+               for n in ("kill", "bomb", "hang", "shrink")],
+             time.perf_counter() - t_phase, card), flush=True)
+    return counts
+
+
 def main(argv=None):
     import argparse
 
@@ -5302,6 +5844,9 @@ def main(argv=None):
     # one rank of phase 3n
     ap.add_argument("--mp-rank", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
+    # one rank of phase 3o, started by the Supervisor
+    ap.add_argument("--supervised-rank", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5317,6 +5862,8 @@ def main(argv=None):
     if args.mp_rank:
         mp_rank_main(args.mp_rank)
         return 0
+    if args.supervised_rank:
+        return supervised_rank_main(args.supervised_rank)
     from incubator_mxnet_tpu_torch import _kernels
 
     t_start = time.perf_counter()
@@ -5561,7 +6108,7 @@ def main(argv=None):
           flush=True)
 
     print("[3l] data parallelism: %d ranks sharing the card over gloo "
-          "(tools/launch.py), then NCCL at world size 1" % DP_RANKS,
+          "(tools/launch_torch.py), then NCCL at world size 1" % DP_RANKS,
           flush=True)
     t_dp = time.perf_counter()
     dp_counts, dp_loss_limits = run_dp_job(dev, card)
@@ -5590,7 +6137,7 @@ def main(argv=None):
         counts[name] += el_counts[name]
 
     print("[3n] model parallelism: %d ranks sharing the card over gloo "
-          "(tools/launch.py), f32 with TF32 off: (i) train_lm_torch.py "
+          "(tools/launch_torch.py), f32 with TF32 off: (i) train_lm_torch.py "
           "--devices 2 at dim %d, %d heads, seq %d, batch %d, --impl ring "
           "then ulysses, %d steps each; (ii) pp=2, %d Dense(%d, tanh), "
           "batch %d, %d microbatches; (iii) dp=1 x ep=2, Dense -> "
@@ -5608,6 +6155,17 @@ def main(argv=None):
         counts[name] += mp_counts[name]
     print("[3n] phase wall time %.2f s  on %s"
           % (time.perf_counter() - t_mp, card), flush=True)
+
+    print("[3o] the supervised main path: the main path's step (batch %d, "
+          "dp = the job's width, zero=1, lr %g) fed ResilientIter(NDArrayIter)"
+          " under run_supervised to step %d, a checkpoint every %d steps, "
+          "ranks started by the Supervisor through tools/launch_torch.py "
+          "(each in a session of its own); cuDNN deterministic"
+          % (ELASTIC["batch"], ELASTIC["lr"], SUPERVISED["steps"],
+             SUPERVISED["every"]), flush=True)
+    sv_counts = run_supervised_path(dev, card)
+    for name in MAIN_PATH:
+        counts[name] += sv_counts[name]
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "

@@ -12,12 +12,12 @@ trained parameters, which agree across the ranks.
 Two ranks on the card (from the repository root; two ranks sharing one
 card run gloo, one card per rank NCCL):
 
-    python tools/launch.py -n 2 python \\
+    python tools/launch_torch.py -n 2 python \\
         example/distributed_training/cifar10_dist_torch.py
 
 On the CPU:
 
-    python tools/launch.py -n 2 python \\
+    python tools/launch_torch.py -n 2 python \\
         example/distributed_training/cifar10_dist_torch.py --device cpu
 """
 import argparse

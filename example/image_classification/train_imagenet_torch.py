@@ -8,7 +8,7 @@ synthetic batch resident on the device.  The same flags and defaults as
 the JAX script, plus ``--device``.
 
 ``--kv-store dist_sync_device`` makes the step data parallel over the
-processes that ``tools/launch.py`` starts (a dp mesh, one device each):
+processes that ``tools/launch_torch.py`` starts (a dp mesh, one device each):
 ``--batch-size`` stays the global batch, each rank steps on its slice of
 it (of the one synthetic batch, or read from the RecordIO file with
 ``part_index=rank``, ``num_parts=world``), and at the end each rank logs
@@ -22,7 +22,7 @@ On the card (from the repository root):
 Over two processes (two ranks sharing one card run gloo; one card each,
 NCCL):
 
-    python3 tools/launch.py -n 2 python3 \
+    python3 tools/launch_torch.py -n 2 python3 \
         example/image_classification/train_imagenet_torch.py \
         --kv-store dist_sync_device
 

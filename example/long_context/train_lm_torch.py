@@ -4,7 +4,7 @@
 
 The same decoder-only transformer, weights, synthetic task and update as
 the JAX example.  With ``--devices N`` (N > 1) it runs as N processes
-started by ``tools/launch.py -n N``: every rank holds the whole model and
+started by ``tools/launch_torch.py -n N``: every rank holds the whole model and
 the whole batch, and each layer's causal attention runs through
 ``parallel.ring_attention.sharded_self_attention`` over the ``sp`` axis
 of ``make_mesh({"sp": N})`` (``--impl ring``: K/V blocks rotating around
@@ -18,7 +18,7 @@ plain versions run.
 On the card (from the repository root):
 
     python3 example/long_context/train_lm_torch.py --seq 2048 --dim 1024
-    python3 tools/launch.py -n 2 python3 \
+    python3 tools/launch_torch.py -n 2 python3 \
         example/long_context/train_lm_torch.py --devices 2 --impl ulysses \
         --seq 2048 --dim 1024 --batch 4 --lr 0.01
 
@@ -26,7 +26,7 @@ On the CPU, at a small size:
 
     python3 example/long_context/train_lm_torch.py --device cpu --seq 64 \
         --dim 64 --heads 4
-    OMP_NUM_THREADS=2 python3 tools/launch.py -n 2 python3 \
+    OMP_NUM_THREADS=2 python3 tools/launch_torch.py -n 2 python3 \
         example/long_context/train_lm_torch.py --device cpu --devices 2 \
         --impl ring --seq 64 --dim 64 --heads 4
 """
@@ -201,7 +201,7 @@ def parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--devices", type=int, default=0,
-                    help="sp axis size: the processes of tools/launch.py "
+                    help="sp axis size: the processes of tools/launch_torch.py "
                          "(0 or 1: one process)")
     ap.add_argument("--impl", default="ring", choices=["ring", "ulysses"])
     ap.add_argument("--device", default=None,
@@ -219,7 +219,7 @@ def build_mesh(args):
     distributed.initialize(device=args.device)
     if distributed.process_count() != args.devices:
         raise ValueError(
-            "--devices %d needs %d processes (tools/launch.py -n %d), "
+            "--devices %d needs %d processes (tools/launch_torch.py -n %d), "
             "have %d" % (args.devices, args.devices, args.devices,
                          distributed.process_count()))
     return make_mesh({"sp": args.devices},

@@ -15,6 +15,7 @@ host may have no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -144,6 +145,22 @@ def _compile(path):
                 o.unlink()
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory, across processes: ranks
+    started together on a fresh directory build the library once, the
+    others wait and load it (the thread lock guards one process only)."""
+    import fcntl
+
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / ".build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build():
     """Compile the kernels (if the library for these sources is missing)
     and load them.  Returns the seconds spent building (0.0 when the
@@ -155,9 +172,11 @@ def build():
         path = _library_path()
         seconds = 0.0
         if not path.exists():
-            t0 = time.perf_counter()
-            _compile(path)
-            seconds = time.perf_counter() - t0
+            with _build_lock():
+                if not path.exists():  # another process may have built it
+                    t0 = time.perf_counter()
+                    _compile(path)
+                    seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
             fn = getattr(lib, name)

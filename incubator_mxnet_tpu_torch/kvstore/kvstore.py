@@ -9,7 +9,9 @@ A push sums the values given for each key (the reference's per-device
 reduce; one card here), hands the whole batch to
 ``_reduce_batch_after_compress`` (identity in one process; the
 ``dist_*`` store, :mod:`.dist`, sums it across the processes there),
-then stores each sum or hands it to the updater; a pull copies the
+then stores each sum or hands it to the updater (with
+``set_gradient_compression``, each key's sum is 2-bit compressed, with
+error feedback, before the batch is reduced); a pull copies the
 stored value into each output.  ``horovod`` and ``tpu`` are local
 stores, as in the reference.
 """
@@ -68,6 +70,8 @@ class KVStore:
         self._store: Dict[Any, NDArray] = {}
         self._updater = None
         self._optimizer = None
+        self._compression_params = None
+        self._compressor = None
 
     @property
     def type(self):  # noqa: A003
@@ -118,10 +122,18 @@ class KVStore:
         return [self._reduce_after_compress(k, a)
                 for k, a in zip(keys, arrs)]
 
+    def _compress(self, key, merged):
+        """A key's merged value through the store's 2-bit compressor (the
+        reference compresses before the cross-worker reduction)."""
+        if self._compressor is None:
+            return merged
+        return self._compressor.compress(key, merged)
+
     def push(self, key, value, priority=0):
         keys, values = self._norm_keys_vals(key, value)
         merged_list = self._reduce_batch_after_compress(
-            keys, [self._merge(v) for v in values])
+            keys, [self._compress(k, self._merge(v))
+                   for k, v in zip(keys, values)])
         for k, merged in zip(keys, merged_list):
             if k not in self._store:
                 self._store[k] = NDArray(torch.zeros_like(merged))
@@ -171,8 +183,13 @@ class KVStore:
         self._updater = opt_mod.get_updater(optimizer)
 
     def set_gradient_compression(self, compression_params):
-        raise NotImplementedError(
-            "gradient compression is ROADMAP item A11")
+        """2-bit compression with error feedback on every push
+        (``{"type": "2bit", "threshold": t}``; gradient_compression.h:52,
+        kvstore.py:487)."""
+        from .gradient_compression import GradientCompression
+
+        self._compression_params = dict(compression_params)
+        self._compressor = GradientCompression(**compression_params)
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._optimizer is None:

@@ -538,7 +538,7 @@ class CheckpointManager:
                 mine[name] = owned
         marker = {"format_version": _FORMAT_VERSION, "step": step,
                   "process": self.process_index, "files": mine,
-                  # the launcher's attempt (tools/launch.py
+                  # the launcher's attempt (tools/launch_torch.py
                   # --max-restarts): a crashed earlier attempt's marker is
                   # refused even inside stale_grace
                   "attempt": os.environ.get("MXNET_RESTART_COUNT"),

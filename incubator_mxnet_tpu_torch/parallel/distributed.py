@@ -1,7 +1,7 @@
 """Multi-process bootstrap over ``torch.distributed`` (port of
 ``incubator_mxnet_tpu/parallel/distributed.py``).
 
-``tools/launch.py`` starts N processes with the ``DMLC_*`` rendezvous
+``tools/launch_torch.py`` starts N processes with the ``DMLC_*`` rendezvous
 environment (``DMLC_PS_ROOT_URI``/``DMLC_PS_ROOT_PORT`` name the
 coordinator, ``DMLC_NUM_WORKER`` the world size, ``DMLC_WORKER_ID`` this
 rank); :func:`initialize` reads it and calls
@@ -128,7 +128,7 @@ def initialize(coordinator: Optional[str] = None,
     world size.
 
     Arguments default to the ``DMLC_*`` environment of
-    ``tools/launch.py``.  A world size of 1 returns 1 at once WITHOUT
+    ``tools/launch_torch.py``.  A world size of 1 returns 1 at once WITHOUT
     latching, so a later call with a real topology still works.
     ``timeout`` (seconds, default :data:`DEFAULT_TIMEOUT`) bounds the
     rendezvous and every later collective.  ``device="cpu"`` makes the

@@ -23,12 +23,17 @@ survive:
   write so a rank dies mid-stage (the torn multi-process checkpoint the
   commit must never publish), :func:`coordinator_unreachable` makes the
   rendezvous (``distributed._raw_initialize``) fail as a dead coordinator
-  does, and :func:`straggler_process` delays this process's done-marker.
+  does, and :func:`straggler_process` delays this process's done-marker;
+- **supervised training** — :func:`hang_step` wedges the supervised step
+  call (``supervisor._run_step``) and :func:`loss_bomb` scales the
+  parameters there, a finite explosion only a rollback heals;
+- **the parameter service** — :func:`slow_link` delays a rank's pushes
+  and pulls and :func:`drop_push` loses push payloads, at the service's
+  transport choke points (``param_service._deliver_push``/
+  ``_deliver_pull``).
 
 The reference's other injectors wait for the modules they patch:
-``hang_step`` and ``loss_bomb`` (the supervisor, ``parallel/
-supervisor.py``), ``slow_link`` and ``drop_push`` (the parameter
-service), ``malformed_request``, ``slow_client``, ``burst_arrivals``,
+``malformed_request``, ``slow_client``, ``burst_arrivals``,
 ``kill_batcher_worker``, ``engine_failure_burst``, ``nan_params``,
 ``deadline_storm`` and ``swap_storm`` (serving), and
 ``corrupt_compile_cache`` (the compile cache).
@@ -49,8 +54,9 @@ import numpy as np
 import torch
 
 __all__ = ["NaNInjector", "coordinator_unreachable", "corrupt_checkpoint",
-           "fail_writes", "flaky_reads", "host_loss_during_save",
-           "kill_process", "kill_worker", "poison_batch", "slow_reads",
+           "drop_push", "fail_writes", "flaky_reads", "hang_step",
+           "host_loss_during_save", "kill_process", "kill_worker",
+           "loss_bomb", "poison_batch", "slow_link", "slow_reads",
            "straggler_process", "truncate_record"]
 
 
@@ -343,4 +349,148 @@ def straggler_process(delay_s):
         return real(path, data)
 
     with _patched_writer(slow):
+        yield stats
+
+
+# ---------------------------------------------------------------------------
+# supervised training (parallel/supervisor.py)
+# ---------------------------------------------------------------------------
+
+@contextmanager
+def _patched_run_step(flaky):
+    """Put ``flaky(real_run, step, x, y)`` in place of
+    ``supervisor._run_step``, the one call every supervised step makes."""
+    from . import supervisor as _sup
+
+    real = _sup._run_step
+    _sup._run_step = lambda step, x, y: flaky(real, step, x, y)
+    try:
+        yield
+    finally:
+        _sup._run_step = real
+
+
+@contextmanager
+def hang_step(at=0, duration=3600.0, count=1):
+    """Wedge the supervised step call: calls ``at`` to ``at + count - 1``
+    (0-based) sleep ``duration`` seconds before the step runs, so the rank
+    stops beating mid-step, as a wedged collective or a stuck transfer
+    looks from outside.  One long wedge is the hang the supervisor must
+    detect, kill and respawn; a short ``duration`` with a large ``count``
+    is the per-step slowdown of a straggler.  Yields counters (``seen``,
+    ``hung``)."""
+    stats = _Stats(seen=0, hung=0)
+
+    def wedge(real, step, x, y):
+        i = stats.seen
+        stats.seen += 1
+        if at <= i < at + count:
+            stats.hung += 1
+            time.sleep(duration)
+        return real(step, x, y)
+
+    with _patched_run_step(wedge):
+        yield stats
+
+
+@contextmanager
+def loss_bomb(at=0, factor=1e4):
+    """A finite explosion at supervised step call ``at`` (0-based): the
+    step's parameters are scaled in place by ``factor``
+    (``supervisor._scale_params``) before the call, so the loss explodes
+    while every gradient stays finite: ``nonfinite="skip"`` never fires.
+    The divergence detector must fire and the rollback to the last
+    committed checkpoint must heal the run (the bomb fires once, so the
+    replay is clean).  Yields counters (``seen``, ``fired``,
+    ``params_scaled``)."""
+    from . import supervisor as _sup
+
+    stats = _Stats(seen=0, fired=0, params_scaled=0)
+
+    def bomb(real, step, x, y):
+        i = stats.seen
+        stats.seen += 1
+        if i == at:
+            stats.fired += 1
+            stats.params_scaled = _sup._scale_params(step, factor)
+        return real(step, x, y)
+
+    with _patched_run_step(bomb):
+        yield stats
+
+
+# ---------------------------------------------------------------------------
+# the parameter service (parallel/param_service.py)
+# ---------------------------------------------------------------------------
+
+@contextmanager
+def _patched_transport(push=None, pull=None):
+    """Put ``push(real_push, service, rank, updates)`` and/or
+    ``pull(real_pull, service, rank, timeout)`` in place of the service's
+    transport choke points (``param_service._deliver_push``/
+    ``_deliver_pull``)."""
+    from . import param_service as _ps
+
+    real_push, real_pull = _ps._deliver_push, _ps._deliver_pull
+    if push is not None:
+        _ps._deliver_push = \
+            lambda svc, rank, updates: push(real_push, svc, rank, updates)
+    if pull is not None:
+        _ps._deliver_pull = \
+            lambda svc, rank, timeout: pull(real_pull, svc, rank, timeout)
+    try:
+        yield
+    finally:
+        _ps._deliver_push, _ps._deliver_pull = real_push, real_pull
+
+
+@contextmanager
+def slow_link(rank, delay_s):
+    """Add ``delay_s`` seconds to every push and pull of ``rank`` (None:
+    every rank), the slow link of a straggler as the service sees it: the
+    slowed rank's clock falls behind while its peers push on, and the
+    staleness bound is exercised for real.  Yields counters (``pushes``,
+    ``pulls``, ``delayed``)."""
+    stats = _Stats(pushes=0, pulls=0, delayed=0)
+
+    def spush(real, svc, r, updates):
+        stats.pushes += 1
+        if rank is None or r == rank:
+            stats.delayed += 1
+            time.sleep(delay_s)
+        return real(svc, r, updates)
+
+    def spull(real, svc, r, timeout):
+        stats.pulls += 1
+        if rank is None or r == rank:
+            stats.delayed += 1
+            time.sleep(delay_s)
+        return real(svc, r, timeout)
+
+    with _patched_transport(push=spush, pull=spull):
+        yield stats
+
+
+@contextmanager
+def drop_push(p, seed=0):
+    """Lose a fraction ``p`` of the push payloads, drawn from ``seed``: a
+    lost push still commits its step (fire and forget: the clock
+    advances, so no peer deadlocks on a lossy link) but its gradient
+    never reaches the server.  With error-feedback compression the next
+    push carries what the residual banked.  Yields counters (``seen``,
+    ``dropped``)."""
+    if not 0.0 <= float(p) <= 1.0:
+        raise ValueError("drop probability must be in [0, 1], got %r"
+                         % (p,))
+    rng = np.random.default_rng(int(seed))
+    stats = _Stats(seen=0, dropped=0)
+
+    def drop(real, svc, r, updates):
+        stats.seen += 1
+        if rng.random() < float(p):
+            stats.dropped += 1
+            return real(svc, r, {})  # the payload is lost, the step commits
+        return real(svc, r, updates)
+
+    with _patched_transport(push=drop):
         yield stats

@@ -56,6 +56,13 @@ stage's gradients (zeros for the others'), and one ``all_reduce`` over
 losses (MoE load balancing), added in f32 before the loss scale.
 Replicated parameters stay bit-identical across the ranks.
 
+``sync="async"`` (or ``"auto"``, degraded by the supervisor's straggler
+verdicts) exchanges the gradients through a bounded-staleness parameter
+service (:mod:`.param_service`) instead: each call pushes this process's
+gradients, compressed with error feedback when ``compression`` is set,
+and pulls the service's parameters, which its own copy of the optimizer
+updated; the service, the clock and the residuals ride the checkpoint.
+
 The step takes tensors or the port's NDArrays (an iterator's batch:
 ``step(b.data[0], b.label[0])``).  ``save_checkpoint`` /
 ``restore_checkpoint`` / ``attach_checkpoint`` write and read the whole
@@ -236,13 +243,17 @@ class TrainStep:
                  compute_dtype=None, loss_scale=None, nonfinite=None,
                  device=None, mesh=None, batch_axis="dp", zero=0,
                  param_shardings=None, pipeline_stages=None, num_micro=1,
-                 pipeline_axis="pp", pipeline_remat=False):
+                 pipeline_axis="pp", pipeline_remat=False,
+                 skip_streak_budget=None, sync="allreduce",
+                 staleness_bound=None, compression=None):
         self.device = context.resolve(device)
         for name, t in list(net.named_parameters()) + \
                 list(net.named_buffers()):
             if t.device != self.device:
                 raise ValueError("%s is on %s, the step on %s"
                                  % (name, t.device, self.device))
+        _check_sync_args(sync, staleness_bound, mesh, pipeline_stages,
+                         loss_scale)
         self._init_mesh(mesh, batch_axis, zero, opt)
         self._init_pipeline_args(pipeline_stages, num_micro, pipeline_axis,
                                  pipeline_remat)
@@ -275,6 +286,13 @@ class TrainStep:
             raise ValueError("a dynamic loss scale skips overflowed steps: "
                              "use nonfinite='skip' or 'raise', not 'off'")
         self.nonfinite = nonfinite
+        # a declared bound on consecutive skipped steps: the supervised
+        # loop (supervisor.run_supervised) enforces it as its detector's
+        if skip_streak_budget is not None and int(skip_streak_budget) < 1:
+            raise ValueError("skip_streak_budget must be >= 1 or None, "
+                             "got %r" % (skip_streak_budget,))
+        self.skip_streak_budget = None if skip_streak_budget is None \
+            else int(skip_streak_budget)
         tensors = _convert.ordered_tensors(net)
         lazy = [n for n, t in tensors if is_lazy(t)]
         if lazy:
@@ -322,6 +340,30 @@ class TrainStep:
         self._ckpt_seen_request = 0
         self._ckpt_data_iter = None
         self._checked_batch = None
+        self._init_sync(sync, staleness_bound, compression)
+
+    def _init_sync(self, sync, staleness_bound, compression):
+        """The sync→async ladder (:mod:`.param_service`): ``sync`` is
+        ``"allreduce"`` (the step as it is), ``"async"`` (bounded-staleness
+        push/pull through a :class:`~.param_service.ParamService`) or
+        ``"auto"`` (allreduce until the supervisor's straggler verdicts
+        degrade it, :class:`~.param_service.SyncPolicy`).  An async-capable
+        step attaches its service now, so its checkpoint's tree is the
+        same before and after a switch."""
+        from ..kvstore.gradient_compression import make_compressor
+        from .param_service import SyncPolicy
+
+        self.sync = sync
+        self.staleness_bound = 4 if staleness_bound is None \
+            else int(staleness_bound)
+        self._compression = make_compressor(compression)
+        self.sync_policy = SyncPolicy(mode=sync)
+        self._applied_sync = "async" if sync == "async" else "allreduce"
+        self._svc_client = None
+        #: bounded wait of an async pull (StalenessTimeout past it)
+        self.pull_timeout = 300.0
+        if sync != "allreduce":
+            self.attach_param_service()
 
     def _init_mesh(self, mesh, batch_axis, zero, opt):
         """The reference's checks of ``mesh``/``zero``; sets the dp axis
@@ -617,6 +659,8 @@ class TrainStep:
         x, y = (v._data if isinstance(v, NDArray) else v for v in (x, y))
         x = x.to(self.device, non_blocking=True)
         y = y.to(self.device, non_blocking=True)
+        if self._applied_sync == "async":
+            return self._async_call(x, y)
         guard = self.nonfinite != "off"
         self.net.train()
         if self._dp:
@@ -740,10 +784,126 @@ class TrainStep:
             out[i] = w[:self._gp[i].shape[0]]
         return out
 
+    # ------------------------------------------------------------------
+    # the sync→async ladder (parallel/param_service.py)
+    @property
+    def sync_mode(self) -> str:
+        """The rung in force now: ``"allreduce"`` or ``"async"``
+        (``sync="auto"`` moves between them)."""
+        return self._applied_sync
+
+    def _named_params(self):
+        """The trained parameters by position (the service's keys: names
+        may change between builds of a net, positions do not)."""
+        return {str(i): p.detach() for i, p in enumerate(self._gp)}
+
+    def attach_param_service(self, service=None, rank: int = 0):
+        """Bind the step to a :class:`~.param_service.ParamService` (a new
+        one in this process, owned and checkpointed by the step, when
+        ``service`` is None) and seed it with the current parameters
+        (``init``: rank 0 wins).  Returns the
+        :class:`~.param_service.ServiceClient`."""
+        from .param_service import ParamService, ServiceClient, \
+            ServiceUpdater
+
+        if self.sync == "allreduce":
+            raise ValueError(
+                "this step was built with sync='allreduce'; rebuild with "
+                "make_train_step(sync='async'|'auto') to push/pull "
+                "through a parameter service")
+        owns = service is None
+        if owns:
+            service = ParamService(updater=ServiceUpdater(self.opt),
+                                   staleness_bound=self.staleness_bound)
+        self._svc_client = ServiceClient(service, rank=int(rank),
+                                         compressor=self._compression,
+                                         owns_service=owns)
+        self._svc_client.init_params(self._named_params())
+        return self._svc_client
+
+    def set_sync_mode(self, mode: str) -> None:
+        """Pin the rung at a step boundary.  Degrading to ``"async"``
+        hands the service this replica's current parameters (the service
+        holds the authoritative copy from then on); recovering to
+        ``"allreduce"`` first takes the service's parameters, so the
+        collective rung goes on from the async rung's progress."""
+        if mode not in ("allreduce", "async"):
+            raise ValueError("sync mode must be 'allreduce' or 'async', "
+                             "got %r" % (mode,))
+        if self.sync == "allreduce" and mode == "async":
+            raise ValueError("step was built with sync='allreduce' — it "
+                             "has no async rung")
+        if mode == self._applied_sync:
+            return
+        if mode == "async":
+            self._svc_client.sync_params(self._named_params())
+        else:
+            self._install(self._svc_client.pull_params(
+                timeout=self.pull_timeout))
+        self._applied_sync = mode
+        self.sync_policy.effective = mode
+
+    def observe_stragglers(self, straggler_ranks) -> str:
+        """One frame of straggler verdicts (a list of ranks, maybe empty)
+        into the ladder: applies any switch the policy decides and returns
+        the rung in force.  The supervised loop calls it at every step
+        boundary under ``sync="auto"``."""
+        mode = self.sync_policy.observe(straggler_ranks)
+        if mode != self._applied_sync:
+            self.set_sync_mode(mode)
+        return self._applied_sync
+
+    def _install(self, pulled):
+        """Copy the pulled parameters into the live tensors (and into the
+        f32 master copies of a ``multi_precision`` update, which the
+        collective rung updates from)."""
+        with torch.no_grad():
+            for i, p in enumerate(self._gp):
+                if str(i) in pulled:
+                    p.copy_(pulled[str(i)])
+            if self.opt.multi_precision:
+                for p, s in zip(self._gp, self._opt_state):
+                    _, w32 = self.opt._unpack(s)
+                    w32.copy_(p)
+
+    def _async_call(self, x, y):
+        """One step on the async rung: forward and backward here, the
+        gradients pushed (compressed when set), the parameters pulled
+        under the staleness bound and installed.  The counters advance as
+        the collective rung's do (the checkpoint schedule and the
+        supervisor read the same step count)."""
+        self.net.train()
+        with torch.enable_grad():
+            loss = self._loss(x, y)
+            grads = torch.autograd.grad(loss, self._gp, allow_unused=True)
+        with torch.no_grad():
+            grads = [torch.zeros_like(p) if g is None else g.detach()
+                     for p, g in zip(self._gp, grads)]
+        client = self._svc_client
+        client.push_step({str(i): g for i, g in enumerate(grads)})
+        pulled = client.pull_params(timeout=self.pull_timeout)
+        with torch.no_grad():
+            for i, p in enumerate(self._gp):
+                p.copy_(pulled[str(i)])
+            self._step += 1
+        self._step_count += 1
+        self._maybe_checkpoint()
+        return loss.detach()
+
     @property
     def loss_scale(self):
         """The current loss scale (reads the device state)."""
         return float(self._scale)
+
+    def boundary_scalars(self, loss):
+        """``(loss, applied steps, skipped steps, loss scale)`` as Python
+        numbers, read from the device in one copy (what the supervised
+        loop reads at every step boundary)."""
+        vals = torch.stack([torch.as_tensor(loss).detach().reshape(())
+                            .to(self.device, torch.float64),
+                            self._step.double(), self._skipped.double(),
+                            self._scale.double()]).tolist()
+        return vals[0], int(vals[1]), int(vals[2]), vals[3]
 
     @property
     def skipped_steps(self):
@@ -778,10 +938,17 @@ class TrainStep:
                 if self.opt.has_state:
                     opt[i] = _tree_map(
                         lambda t, i=i: self._model_shard(i, t), opt[i])
-        return {"params": params, "aux": list(self._aux),
-                "opt_state": opt, "rng_key": self._rng_key,
-                "step": self._step,
-                "loss_scale": (self._scale, self._unskipped, self._skipped)}
+        state = {"params": params, "aux": list(self._aux),
+                 "opt_state": opt, "rng_key": self._rng_key,
+                 "step": self._step,
+                 "loss_scale": (self._scale, self._unskipped, self._skipped)}
+        if self._svc_client is not None:
+            # the async rung's durable state: the compressor's residuals
+            # (and sparse step counters), the staleness clock and, where
+            # the step owns its service, the server's parameters and
+            # updater state
+            state["param_service"] = self._svc_client.state_dict()
+        return state
 
     def _model_shard(self, i, t):
         """This rank's part ``t`` of the parameter ``i`` sharded over a
@@ -847,10 +1014,15 @@ class TrainStep:
                  else None for i, p in enumerate(self._gp)]
         opt = [tuple(m for _ in s) if isinstance(s, tuple) else m
                for s, m in zip(self._opt_state, marks)]
-        return {"params": [None] * len(self._gp),
-                "aux": [None] * len(self._aux), "opt_state": opt,
-                "rng_key": None, "step": None,
-                "loss_scale": (None, None, None)}
+        policy = {"params": [None] * len(self._gp),
+                  "aux": [None] * len(self._aux), "opt_state": opt,
+                  "rng_key": None, "step": None,
+                  "loss_scale": (None, None, None)}
+        if self._svc_client is not None:
+            # exact shapes: the async rung has no mesh, nothing re-pads
+            policy["param_service"] = _none_tree(
+                self._svc_client.state_dict())
+        return policy
 
     def save_checkpoint(self, directory_or_manager, keep_last=3,
                         data_iter=None):
@@ -927,6 +1099,8 @@ class TrainStep:
                 "restore_checkpoint(..., data_iter=it) (or "
                 "attach_checkpoint(data_iter=it)) to resume mid-epoch"
                 % step_no)
+        svc_state = state.pop("param_service", None)
+        live.pop("param_service", None)
         pairs = list(zip(_ckpt._flatten(live), _ckpt._flatten(state)))
         for (key, dst), (_, src) in pairs:
             if dst.dtype != src.dtype:
@@ -941,6 +1115,8 @@ class TrainStep:
                     dst.copy_(src)
                 else:
                     np.copyto(dst, src)
+        if svc_state is not None:
+            self._svc_client.load_state_dict(svc_state)
         self._step_count = int(step_no)
         return step_no
 
@@ -1050,6 +1226,47 @@ def _tree_map(fn, tree):
     return None if tree is None else fn(tree)
 
 
+def _none_tree(tree):
+    """``tree`` with every leaf None (dicts, lists and tuples kept)."""
+    if isinstance(tree, dict):
+        return {k: _none_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_none_tree(v) for v in tree)
+    return None
+
+
+def _check_sync_args(sync, staleness_bound, mesh, pipeline_stages,
+                     loss_scale):
+    """The reference's refusals of the async rung: one replica a rank
+    process (no mesh), no pipeline, no loss scale (pushes are unscaled
+    gradients); ``staleness_bound`` only where a service exists."""
+    if sync not in ("allreduce", "async", "auto"):
+        raise ValueError("sync must be 'allreduce', 'async' or "
+                         "'auto', got %r" % (sync,))
+    if sync != "allreduce":
+        if mesh is not None:
+            raise ValueError(
+                "sync=%r exchanges gradients through the parameter "
+                "service, not through mesh collectives — build the "
+                "async-capable step with mesh=None (one replica per "
+                "rank process)" % (sync,))
+        if pipeline_stages is not None:
+            raise ValueError("sync=%r does not compose with "
+                             "pipeline_stages" % (sync,))
+        if loss_scale is not None:
+            raise ValueError(
+                "sync=%r pushes unscaled gradients; loss_scale is "
+                "not supported on the async rung" % (sync,))
+    if staleness_bound is not None:
+        if sync == "allreduce":
+            raise ValueError(
+                "staleness_bound only applies to sync='async'/'auto' "
+                "(the bounded-staleness pull clock)")
+        if int(staleness_bound) < 0:
+            raise ValueError("staleness_bound must be >= 0, got %r"
+                             % (staleness_bound,))
+
+
 def _tree_where(ok, new, old):
     if isinstance(new, (list, tuple)):
         return type(new)(_tree_where(ok, n, o) for n, o in zip(new, old))
@@ -1060,7 +1277,9 @@ def make_train_step(net, loss_fn, optimizer="sgd", compute_dtype=None,
                     loss_scale=None, nonfinite=None, device=None, mesh=None,
                     batch_axis="dp", zero=0, param_shardings=None,
                     pipeline_stages=None, num_micro=1, pipeline_axis="pp",
-                    pipeline_remat=False, **opt_kwargs) -> TrainStep:
+                    pipeline_remat=False, skip_streak_budget=None,
+                    sync="allreduce", staleness_bound=None, compression=None,
+                    **opt_kwargs) -> TrainStep:
     """Build the train step (forward + backward + update per call).
 
     ``optimizer`` is any registered optimizer's name, with its keywords
@@ -1087,7 +1306,21 @@ def make_train_step(net, loss_fn, optimizer="sgd", compute_dtype=None,
     ``num_micro=M`` runs the net's children as K congruent stages over
     the mesh's ``pipeline_axis`` (:func:`~.pipeline.spmd_pipeline`), the
     batch (each dp rank's slice) cut into M microbatches;
-    ``pipeline_remat`` recomputes each stage in the backward."""
+    ``pipeline_remat`` recomputes each stage in the backward.
+
+    ``sync`` picks how gradients are exchanged
+    (:mod:`.param_service`): ``"allreduce"`` (the step above),
+    ``"async"`` (bounded-staleness push/pull through a parameter service
+    the step owns: a rank runs at most ``staleness_bound`` steps, default
+    4, ahead of the slowest) or ``"auto"`` (allreduce until the
+    supervisor's straggler verdicts degrade it, and back:
+    :meth:`TrainStep.observe_stragglers`).  The async rungs take no mesh,
+    no pipeline and no loss scale.  ``compression`` (``"2bit"``,
+    ``"topk"``, ``"randomk"``, ``"int8"`` or a dict such as ``{"kind":
+    "topk", "ratio": 0.25}``) compresses the pushes with error feedback;
+    the residuals ride the checkpoint.  ``skip_streak_budget`` declares a
+    bound on consecutive skipped steps, which
+    :func:`~.supervisor.run_supervised` enforces."""
     opt = FunctionalOptimizer(optimizer, **opt_kwargs)
     return TrainStep(net, loss_fn, opt, compute_dtype=compute_dtype,
                      loss_scale=loss_scale, nonfinite=nonfinite,
@@ -1095,4 +1328,7 @@ def make_train_step(net, loss_fn, optimizer="sgd", compute_dtype=None,
                      zero=zero, param_shardings=param_shardings,
                      pipeline_stages=pipeline_stages, num_micro=num_micro,
                      pipeline_axis=pipeline_axis,
-                     pipeline_remat=pipeline_remat)
+                     pipeline_remat=pipeline_remat,
+                     skip_streak_budget=skip_streak_budget, sync=sync,
+                     staleness_bound=staleness_bound,
+                     compression=compression)

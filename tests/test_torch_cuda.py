@@ -35,7 +35,7 @@ and IoUs 1e-6, location targets, boxes and the ROI ops (with the input
 gradient) 1e-5; the SSD300 multibox head of phase 3j-ii and one TinySSD
 step within the noise floor of phase 5f; none launches a kernel.
 Data parallelism: two ranks over gloo on ``cuda:0``
-(``tools/launch.py``, ``tests/torch_dist_worker.py``), the dp step of an
+(``tools/launch_torch.py``, ``tests/torch_dist_worker.py``), the dp step of an
 MLP and of ``BasicBlockV1(ghost_bn=4)`` with ``zero=1``: the ranks'
 losses, parameters and running stats equal bit for bit, K1/K2 launched
 on each rank, and the losses within 1e-4 relative of one process
@@ -45,6 +45,9 @@ logical state exact and its next losses within 1e-5.  Model parallelism:
 ``chip_smoke.py`` phase 3n at a small size (two ranks on ``cuda:0``:
 the sequence-parallel LM, ring and Ulysses, the pp=2 step and the ep=2
 MoE step against one process on the card, within that phase's limits).
+The supervisor: one ``run_supervised`` rollback under ``loss_bomb`` of
+``tools/supervise_torch.py``'s job on the card, bit-identical to its
+unfaulted run.
 """
 import importlib
 
@@ -1605,3 +1608,47 @@ def test_model_parallel_two_ranks_on_one_card(dev):
     for name in smoke.FLASH:
         assert launches[name] == MP_SMALL["lm"]["layers"] * \
             MP_SMALL["lm"]["steps"]
+
+
+def _supervise_tool():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "supervise_torch.py")
+    spec = importlib.util.spec_from_file_location("supervise_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_supervised_rollback_on_the_card(dev, tmp_path):
+    """``run_supervised`` on the card with ``tools/supervise_torch.py``'s
+    job under ``loss_bomb`` at call 4: the divergence verdict rolls back
+    to step 4, and the losses after the rollback and the final parameters
+    equal the unfaulted run's bit for bit."""
+    import contextlib
+
+    from incubator_mxnet_tpu_torch.parallel import fault_injection as fi
+    from incubator_mxnet_tpu_torch.parallel import supervisor as sup
+
+    tool = _supervise_tool()
+    runs = []
+    for name, bomb in (("clean", None), ("bomb", 4)):
+        step, it, mgr, cfg = tool.build_worker_job(str(tmp_path / name))[:4]
+        assert step.device.type == "cuda"
+        ctx = fi.loss_bomb(at=bomb, factor=1e4) if bomb is not None \
+            else contextlib.nullcontext()
+        with ctx:
+            out = sup.run_supervised(step, it, mgr, until_step=10,
+                                     config=cfg)
+        it.close()
+        runs.append((out, step, mgr))
+    (clean, cstep, _), (bombed, bstep, bmgr) = runs
+    assert clean["rollbacks"] == 0 and bombed["rollbacks"] == 1
+    events = [e["event"] for e in sup.read_ledger(bmgr.directory)]
+    assert events == ["divergence", "rollback", "recovered", "done"]
+    assert bombed["losses"][-6:] == clean["losses"][-6:]
+    for a, b in zip(bstep._gp, cstep._gp):
+        assert torch.equal(a, b)
+

@@ -3,7 +3,7 @@ reference's ``tests/dist_worker.py`` over 2 ranks (gloo on the CPU), the
 ``gluon.Trainer`` over a ``dist_sync`` store against the JAX package,
 and ``example/distributed_training/cifar10_dist_torch.py`` small.
 
-One job of 2 ranks (``tools/launch.py``, ``tests/torch_dist_worker.py``,
+One job of 2 ranks (``tools/launch_torch.py``, ``tests/torch_dist_worker.py``,
 which imports no JAX) runs everything; each rank pushes rank-dependent
 values and dumps what it saw:
 

@@ -1,7 +1,7 @@
 """The port's data-parallel ``TrainStep`` at dp=2 against the JAX
 package's ``make_train_step(mesh=make_mesh({"dp": 2}))``.
 
-One job of 2 ranks over gloo on the CPU (``tools/launch.py``,
+One job of 2 ranks over gloo on the CPU (``tools/launch_torch.py``,
 ``tests/torch_dist_worker.py``, which imports no JAX) runs every case
 and then every eager collective once (held exact);
 the parent builds each JAX net, hands its initial weights and the global

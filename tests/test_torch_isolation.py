@@ -34,7 +34,9 @@ for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                    ("ssd_train_torch", "example/ssd/train_torch.py"),
                    ("cifar10_dist_torch",
                     "example/distributed_training/cifar10_dist_torch.py"),
-                   ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py")):
+                   ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py"),
+                   ("launch_torch", "tools/launch_torch.py"),
+                   ("supervise_torch", "tools/supervise_torch.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from incubator_mxnet_tpu_torch import rtc

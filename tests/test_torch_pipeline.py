@@ -1,6 +1,6 @@
 """The port's pipeline parallelism against the JAX package, on the CPU.
 
-One job of 4 ranks over gloo (``tools/launch.py``,
+One job of 4 ranks over gloo (``tools/launch_torch.py``,
 ``tests/torch_mp_worker.py`` in mode ``pipeline``, which imports no JAX)
 runs every multi-process case; the parent runs the reference on its
 8-device CPU mesh meanwhile, from the same numpy seeds and the JAX nets'

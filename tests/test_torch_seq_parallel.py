@@ -1,7 +1,7 @@
 """The port's sequence parallelism and multi-axis meshes against the JAX
 package, on the CPU.
 
-One job of 4 ranks over gloo (``tools/launch.py``,
+One job of 4 ranks over gloo (``tools/launch_torch.py``,
 ``tests/torch_mp_worker.py`` in mode ``seq``, which imports no JAX) runs
 every case; the parent draws the inputs from numpy seeds and runs the
 reference on its 8-device CPU mesh meanwhile.  A second job of 2 ranks
@@ -156,9 +156,9 @@ def _reference_lm(impl):
 
 def _cli_job():
     """``train_lm_torch.py --devices 2 --impl ulysses`` as a user runs it
-    on the CPU, through ``tools/launch.py``."""
+    on the CPU, through ``tools/launch_torch.py``."""
     root = torch_dist_launch.REPO
-    cmd = [sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
+    cmd = [sys.executable, os.path.join(root, "tools", "launch_torch.py"), "-n",
            "2", sys.executable, os.path.join(root, "example", "long_context",
                                              "train_lm_torch.py"),
            "--device", "cpu", "--devices", "2", "--impl", "ulysses",

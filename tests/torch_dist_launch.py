@@ -1,5 +1,5 @@
 """Start and collect a job of ``tests/torch_dist_worker.py`` (or
-``tests/torch_mp_worker.py``) ranks through ``tools/launch.py``
+``tests/torch_mp_worker.py``) ranks through ``tools/launch_torch.py``
 (``launch_local``) for the port's multi-process tests.
 
 The launcher has no overall timeout, so the job runs in a session of its
@@ -24,7 +24,7 @@ def start(mode, outdir, platform="cpu", ranks=2, worker=WORKER):
     """Launch ``ranks`` processes of ``worker`` in ``mode`` writing to
     ``outdir``; returns the launcher's process."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
-    cmd = [sys.executable, os.path.join(REPO, "tools", "launch.py"), "-n",
+    cmd = [sys.executable, os.path.join(REPO, "tools", "launch_torch.py"), "-n",
            str(ranks), sys.executable, worker, mode, str(outdir), platform]
     return subprocess.Popen(cmd, env=env, cwd=REPO, start_new_session=True,
                             stdout=subprocess.PIPE,

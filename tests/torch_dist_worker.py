@@ -1,7 +1,7 @@
 """Worker body of the port's multi-process tests (``tests/test_torch_dist_*``
 and the card test in ``tests/test_torch_cuda.py``).
 
-Each rank runs this script under ``tools/launch.py``, which exports the
+Each rank runs this script under ``tools/launch_torch.py``, which exports the
 ``DMLC_*`` rendezvous environment; it imports only the port (never
 ``jax``).  ``kvstore`` mode holds the dist kvstore to the reference's
 checks (``tests/dist_worker.py``) and runs ``cifar10_dist_torch.py``
@@ -28,9 +28,10 @@ each rank on its rows:
 
 Each rank writes what it saw to ``<outdir>/rank<r>.npz`` (the elastic
 modes before the kill; the kill's observations go to
-``<outdir>/kill_rank<r>.json``).
+``<outdir>/kill_rank<r>.json``).  ``async`` mode runs ``dist_async``
+with unequal step counts (the reference's ``tests/async_worker.py``).
 
-    python tools/launch.py -n 2 python tests/torch_dist_worker.py \\
+    python tools/launch_torch.py -n 2 python tests/torch_dist_worker.py \\
         MODE OUTDIR [cpu|cuda]
 """
 import importlib.util
@@ -488,6 +489,34 @@ def elastic_kill(dev, mesh, outdir):
     sys.exit(5)
 
 
+def async_checks():
+    """``dist_async`` (the reference's ``tests/async_worker.py``): each
+    rank fits the shared weight of a linear regression through the
+    asynchronous parameter host, rank r taking 20 + 15 r steps; nothing
+    waits for the peers until the closing barriers."""
+    store = kv.create("dist_async")
+    rank, nw = store.rank, store.num_workers
+    rng = np.random.RandomState(100 + rank)
+    w_true = np.array([1.0, -2.0, 3.0], np.float32)
+    X = rng.normal(size=(64, 3)).astype(np.float32)
+    y = X @ w_true
+    store.init("w", mx.nd.array(np.zeros(3, np.float32), ctx=mx.cpu()))
+    store.set_optimizer(mx.optimizer.SGD(learning_rate=0.05))
+    steps = 20 + 15 * rank
+    w = mx.nd.array(np.zeros(3, np.float32), ctx=mx.cpu())
+    for _ in range(steps):
+        store.pull("w", out=w)
+        wv = w.asnumpy()
+        grad = 2.0 / len(X) * X.T @ (X @ wv - y)
+        store.push("w", mx.nd.array(grad.astype(np.float32), ctx=mx.cpu()))
+    store.barrier()  # every push is in
+    store.pull("w", out=w)
+    store.barrier()  # every pull is done before rank 0 takes the host down
+    store.close()
+    return {"rank": np.int32(rank), "nw": np.int32(nw),
+            "steps": np.int32(steps), "w": w.asnumpy(), "w_true": w_true}
+
+
 def main():
     mode, outdir = sys.argv[1], sys.argv[2]
     platform = sys.argv[3] if len(sys.argv) > 3 else "cpu"
@@ -495,6 +524,8 @@ def main():
     dev = distributed.local_device(platform)
     if mode == "kvstore":
         out = kvstore_checks(dev)
+    elif mode == "async":
+        out = async_checks()
     elif mode.startswith("elastic"):
         mesh = make_mesh({"dp": -1}, devices=global_devices(platform))
         out = (elastic_save if mode == "elastic_save" else

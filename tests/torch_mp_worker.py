@@ -1,7 +1,7 @@
 """Worker body of the port's model-parallel tests
 (``tests/test_torch_{seq_parallel,pipeline,moe}.py``).
 
-Each rank runs this script under ``tools/launch.py`` (4 ranks over gloo
+Each rank runs this script under ``tools/launch_torch.py`` (4 ranks over gloo
 on the CPU); it imports only the port (never ``jax``).  The parent
 writes the inputs (``<outdir>/inputs.npz``: weights, batches and
 cotangents from numpy seeds, the JAX nets' initial weights) and runs the
@@ -23,7 +23,7 @@ JAX package's side meanwhile; each rank writes what it computed to
   step at dp=2 x ep=2, the dp=2 x tp=2 step, and a checkpoint of the
   MoE step restored at the same topology and at dp=1 x ep=4 (refused).
 
-    python tools/launch.py -n 4 python tests/torch_mp_worker.py \\
+    python tools/launch_torch.py -n 4 python tests/torch_mp_worker.py \\
         MODE OUTDIR cpu
 """
 import importlib.util
