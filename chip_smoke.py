@@ -283,6 +283,37 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    ``compression="2bit"`` (finite losses).  (vi) ``tools/
    supervise_torch.py --chaos all --format json`` with its ranks on the
    card, beside (i)-(v): all five scenarios green, exit 0;
+3p. serving (``serve/``), f32 with TF32 off, cuDNN deterministic: (i)
+   ``bench.py``'s serve leg in the port: ``resnet50_v1(classes=1000)``,
+   Xavier from seed 0, 224 px, ``ServeEngine`` at buckets (16, 64) (one
+   CUDA graph a bucket and parameter slot), ``ContinuousBatcher`` with
+   ``max_delay`` 10 ms, ``poisson_loadtest`` at 400 req/s, 200 requests
+   from a pool of 8 images (``RandomState(0)``): ``serve_qps``, p50/p95/
+   p99, errors, shed, occupancy, the captures after warmup (must be 0),
+   warmup's eager and capture seconds; (ii) each bucket's replay
+   bit-equal to the eager forward of the same padded batch, a row
+   bit-equal whatever its batch-mates, the unpadded forward at batch 5
+   within ``SERVE["unpadded_tol"]``, the served logits against the CPU
+   forward (K3's plain version) within 4x the CPU's own noise floor
+   (every weight nudged by 1e-6) plus ``SERVE["cpu_add"]`` of the
+   largest logit, one K3 launch a captured bucket program and none
+   during traffic; ``infer`` of a full bucket (host clock) and its parts
+   alone (rows wrapped, the pageable H2D copy beside a pinned one, the
+   replay, the rows cloned; host clock and CUDA events); (iii) a
+   perturbed candidate committed under traffic, a ``nan_params``
+   candidate rolled back with the live slot bit-equal, ``swap_storm``
+   (one poisoned candidate) under a ``poisson_loadtest``: no capture, no
+   hung future, every row attributed; (iv) ``tools/serve_bench_torch.py
+   --model resnet50 --chaos`` at the same settings (exit 0: no hung
+   future, no capture after warmup, the poison rolled back); (v)
+   ``CachedDecoder`` against full recompute over the sliding window
+   (``SERVE["decode_tol"]``), step for step through a ring wraparound:
+   at ``TinyDecoderLM``'s defaults (batch 4, seq bucket 32, 40 steps past
+   an 8-token prompt), then at 3b's LM widths with a 32000-token
+   vocabulary (batch 8, seq bucket 2048, 2000 steps past a 128-token
+   prompt), where ``decode_step_ms`` (one step: token copy, graph replay,
+   logits clone; host clock), the replay's device ms and the step's byte
+   bound are read;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -5825,6 +5856,400 @@ def run_supervised_path(dev, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 3p: serving (serve/): bench.py's serve leg, swaps, chaos, decode
+# ---------------------------------------------------------------------------
+
+#: bench.py:378-423's serve leg (run_serve's defaults), and 3p's limits:
+#: the unpadded forward at another batch size (cuDNN may choose another
+#: algorithm there) within ``unpadded_tol`` of the largest logit; the card
+#: against the CPU within 4x the nudged CPU's difference plus ``cpu_add``
+#: of the largest logit; the decoder within ``decode_tol`` (f32 sums of
+#: the ring in slot order, of the recompute in position order).  The
+#: decoder runs twice: ``decode_small`` at ``TinyDecoderLM``'s defaults
+#: (a correctness gate only: at that width a step is launch overhead),
+#: and ``decode_wide`` at 3b's LM widths (dim 1024, 8 heads, 2 layers,
+#: seq 2048) with a 32000-token vocabulary, the width ``decode_step_ms``
+#: is read at; each steps past its seq bucket, so the ring wraps
+SERVE = dict(image=224, buckets=(16, 64), qps=400.0, requests=200,
+             max_delay_ms=10.0, pool=8, cpu_rows=8, unpadded_tol=1e-5,
+             cpu_add=1e-6, decode_tol=1e-5, storm_swaps=4,
+             decode_small=dict(lm={}, batch=4, seq=32, prompt=8, steps=40),
+             decode_wide=dict(lm=dict(vocab=32000, d_model=1024, n_heads=8,
+                                      n_layers=2, d_ff=4096, max_len=2048),
+                              batch=8, seq=2048, prompt=128, steps=2000))
+
+
+def _serve_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_serve_bench_torch", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools",
+            "serve_bench_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _served_gates(dev, eng, pool, card):
+    """3p (ii): replay against eager, rows against batch-mates, the
+    unpadded forward, the CPU within its noise floor."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import convert
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+
+    slot = eng._slots[eng._state[1]]
+    rng = np.random.RandomState(SEED + 1)
+    for b in eng.buckets:
+        n = b - 3
+        x = rng.rand(n, 3, SERVE["image"], SERVE["image"]).astype(np.float32)
+        out = eng.infer(x)
+        xp = torch.zeros((b,) + x.shape[1:], device=dev)
+        xp[:n] = torch.from_numpy(x)
+        with torch.no_grad():
+            ref = slot.net(xp)[:n]
+        gap = (out - ref).abs().max().item()
+        mates = eng.infer(np.concatenate([x[:1], rng.rand(
+            n - 1, *x.shape[1:]).astype(np.float32)]))
+        print("[3p] (ii) bucket %d, %d rows: replay vs eager forward of the "
+              "padded batch max |diff| %.3e (largest logit %.4g); row 0 with "
+              "other batch-mates bit-equal %s  on %s" % (
+                  b, n, gap, ref.abs().max().item(),
+                  torch.equal(mates[0], out[0]), card), flush=True)
+        if gap != 0.0 or not torch.equal(mates[0], out[0]):
+            raise AssertionError("bucket %d: the replay is not the eager "
+                                 "forward, or a row moved with its "
+                                 "batch-mates" % b)
+    x = pool[:5]
+    out = eng.infer(x)
+    with torch.no_grad():
+        exact = slot.net(torch.from_numpy(x).to(dev))
+    gap = (out - exact).abs().max().item()
+    scale = exact.abs().max().item()
+    print("[3p] (ii) 5 rows padded into bucket %d vs the eager forward at "
+          "batch 5: max |diff| %.3e = %.3e of the largest logit (limit %.0e)"
+          "  on %s" % (eng.bucket_for(5), gap, gap / scale,
+                       SERVE["unpadded_tol"], card), flush=True)
+    if gap > SERVE["unpadded_tol"] * scale:
+        raise AssertionError("padded and unpadded forwards disagree")
+    x = pool[:SERVE["cpu_rows"]]
+    card_out = eng.infer(x).cpu().double()
+    start = convert.params_to_numpy(eng.net)
+    nudge = np.random.RandomState(SEED + 3)
+    cpu = {}
+    for name in ("cpu", "cpu_nudged"):
+        net = resnet.resnet50_v1(classes=1000, device="cpu")
+        net.shape_init((1,) + x.shape[1:])
+        arrays = start if name == "cpu" else [
+            (a * (1 + 1e-6 * nudge.normal(size=a.shape))).astype(np.float32)
+            for a in start]
+        convert.params_from_jax(net, arrays)
+        net.eval()
+        with torch.no_grad():
+            cpu[name] = net(torch.from_numpy(x)).double()
+    err = (card_out - cpu["cpu"]).abs().max().item()
+    floor = (cpu["cpu_nudged"] - cpu["cpu"]).abs().max().item()
+    scale = cpu["cpu"].abs().max().item()
+    limit = 4 * floor + SERVE["cpu_add"] * scale
+    print("[3p] (ii) served logits (%d rows) vs the CPU forward (K3's plain "
+          "version): max |diff| %.3e; noise floor (CPU, weights nudged by "
+          "1e-6) %.3e; limit 4x floor + %.0e x %.4g = %.3e  on %s"
+          % (len(x), err, floor, SERVE["cpu_add"], scale, limit, card),
+          flush=True)
+    if not err <= limit:
+        raise AssertionError("the served logits disagree with the CPU")
+
+
+def _split_infer(eng, full, card):
+    """3p (i): ``infer`` of a full bucket on the host clock, then its
+    parts one at a time, each between two synchronizations, on the host
+    clock and by CUDA events: the rows wrapped as a tensor, the copy
+    from pageable numpy memory into the bucket's input (beside the same
+    copy from pinned memory), the replay, the rows cloned out."""
+    import torch
+
+    b = full.shape[0]
+    prog = eng._programs[(eng._state[1], b)]
+    reps = 10
+    eng.infer(full)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng.infer(full)
+    torch.cuda.synchronize()
+    infer_ms = (time.perf_counter() - t0) * 1e3 / reps
+    xt = eng._rows(full)
+    pinned = xt.pin_memory()
+    parts = (("rows", lambda: eng._rows(full)),
+             ("copy", lambda: prog.x.copy_(xt)),
+             ("pinned copy", lambda: prog.x.copy_(pinned)),
+             ("replay", prog.graph.replay),
+             ("clone", lambda: prog.out[:b].clone()))
+    host = {k: 0.0 for k, _ in parts}
+    dev_ms = {k: 0.0 for k, _ in parts}
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    for rnd in range(reps + 1):
+        for k, fn in parts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.record()
+            fn()
+            z.record()
+            torch.cuda.synchronize()
+            if rnd:   # the first round warms
+                host[k] += (time.perf_counter() - t0) * 1e3 / reps
+                dev_ms[k] += a.elapsed_time(z) / reps
+    print("[3p] (i) bucket %d: infer of %d rows %.3f ms (host clock, mean "
+          "of %d); alone, host / events ms: rows wrapped %.3f / %.3f, "
+          "pageable H2D copy of %.2f MB %.3f / %.3f (%.2f GB/s), pinned copy "
+          "%.3f / %.3f, graph replay %.3f / %.3f, rows cloned %.3f / %.3f; "
+          "infer less the parts (pageable) %.3f  on %s"
+          % (b, b, infer_ms, reps, host["rows"], dev_ms["rows"],
+             full.nbytes / 1e6, host["copy"], dev_ms["copy"],
+             full.nbytes / host["copy"] / 1e6, host["pinned copy"],
+             dev_ms["pinned copy"], host["replay"], dev_ms["replay"],
+             host["clone"], dev_ms["clone"],
+             infer_ms - sum(host[k] for k in host if k != "pinned copy"),
+             card), flush=True)
+
+
+def _run_decoder(dev, card, name):
+    """3p (v): ``CachedDecoder`` over ``SERVE[name]``'s decoder against
+    full recompute, step for step through a ring wraparound; at
+    ``decode_wide`` also ``decode_step_ms`` beside its byte bound."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch.serve import CachedDecoder, TinyDecoderLM
+
+    cfg = SERVE[name]
+    B, S, P = cfg["batch"], cfg["seq"], cfg["prompt"]
+    lm = TinyDecoderLM(**cfg["lm"])
+    params = lm.init(SEED, device=dev)
+    dec = CachedDecoder(lm, params, seq_buckets=(S,), device=dev)
+    rng = np.random.RandomState(SEED)
+    prompt = rng.randint(0, lm.vocab, (B, P))
+    logits0 = dec.start(prompt, max_new=S - P)
+    tok = logits0[:, -1].argmax(-1)
+    toks, steps = [], []
+    for _ in range(cfg["steps"]):
+        toks.append(tok)
+        lg = dec.step(tok)
+        steps.append(lg)
+        tok = lg.argmax(-1)
+    seq = torch.cat([torch.from_numpy(prompt).to(dev),
+                     torch.stack(toks, 1)], 1)
+    with torch.no_grad():
+        full = lm.apply_tokens(params, seq, window=S)
+    err = (torch.stack(steps, 1) - full[:, P:]).abs().max().item()
+    scale = full.abs().max().item()
+    pos = dec.pos
+    del full, steps
+    limit = SERVE["decode_tol"] * max(1.0, scale)
+    print("[3p] (v) CachedDecoder (%s): TinyDecoderLM(vocab %d, d_model %d,"
+          " %d heads, %d layers, d_ff %d), batch %d, seq bucket %d, %d steps"
+          " past a %d-token prompt (pos %d: the ring wrapped): max |diff| vs"
+          " full recompute over the sliding window %.3e (limit %.0e x %.4g);"
+          " programs %d  on %s"
+          % (name, lm.vocab, lm.d_model, lm.n_heads, lm.n_layers, lm.d_ff,
+             B, S, cfg["steps"], P, pos, err, SERVE["decode_tol"],
+             max(1.0, scale), dec.compiles, card), flush=True)
+    if not err <= limit or dec.compiles != 2 or pos <= S:
+        raise AssertionError("cached decode disagrees with recompute")
+    if name != "decode_wide":
+        return
+    prog = dec._graphs[("step", B, S)]
+    reps = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dec.step(tok)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / reps
+    replay_ms = _time_ms(prog.graph.replay, reps)
+    # the step's bytes: every weight but the two tables read once (B rows
+    # of the embedding, one of the positions), the K/V rings read, one
+    # row a ring written, the logits written
+    blocks = sum(t.numel() for blk in params["blocks"] for t in blk.values())
+    words = (blocks + params["ln_f"].numel() + params["head"].numel()
+             + (B + 1) * lm.d_model
+             + lm.n_layers * 2 * (B * S * lm.d_model + B * lm.d_model)
+             + B * lm.vocab)
+    bound_ms = words * 4 / 3.35e12 * 1e3
+    print("[3p] (v) decode_step_ms %.4f (token copy, graph replay, logits "
+          "clone; host clock, mean of %d), replay %.4f ms (CUDA events, "
+          "mean of %d), byte bound %.4f ms (%.1f MB at 3.35 TB/s): %.0f "
+          "tokens/s at batch %d  on %s"
+          % (step_ms, reps, replay_ms, reps, bound_ms, words * 4 / 1e6,
+             B * 1e3 / step_ms, B, card), flush=True)
+
+
+def run_serving_path(dev, card):
+    """Phase 3p (see the module docstring).  Returns the phase's K3
+    launches (captures and eager warmup passes: replays launch through no
+    wrapper)."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from incubator_mxnet_tpu_torch.parallel import aot
+    from incubator_mxnet_tpu_torch.parallel import fault_injection as fi
+    from incubator_mxnet_tpu_torch.serve import (ContinuousBatcher,
+                                                 ServeEngine, SwapRejected,
+                                                 poisson_loadtest)
+
+    t_phase = time.perf_counter()
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark,
+           torch.backends.cudnn.deterministic,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    try:
+        image = SERVE["image"]
+        mx.random.seed(SEED)
+        net = resnet.resnet50_v1(classes=1000, device=dev)
+        net.initialize(init=mx.init.Xavier())
+        net.shape_init((1, 3, image, image))
+        eng = ServeEngine(net, buckets=SERVE["buckets"])
+        t = eng.warmup(np.zeros((3, image, image), np.float32))
+        caps = eng.capture_launches
+        print("[3p] (i) warmup: eager passes %.3f s, captures %.3f s (%d "
+              "bucket programs: buckets %s x 2 parameter slots); K3 "
+              "launches a captured program %s  on %s" % (
+                  t["eager"], t["capture"], len(caps), list(eng.buckets),
+                  sorted(set(c.get("maxpool_idx_fwd", 0)
+                             for c in caps.values())), card), flush=True)
+        if any(c != {"maxpool_idx_fwd": 1} for c in caps.values()):
+            raise AssertionError("a captured bucket program launched %s, "
+                                 "want one K3" % caps)
+        pool = np.random.RandomState(0).rand(
+            SERVE["pool"], 3, image, image).astype(np.float32)
+        batcher = ContinuousBatcher(eng, max_delay=SERVE["max_delay_ms"]
+                                    / 1e3)
+        try:
+            torch.cuda.synchronize()
+            captures = aot.CUDA_GRAPH_CAPTURES.count
+            before = _kernels.launch_counts()
+            rep = poisson_loadtest(batcher, lambda i, rng: pool[i % 8],
+                                   qps=SERVE["qps"],
+                                   n_requests=SERVE["requests"], seed=0)
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in
+                     _kernels.launch_counts().items() if v != before[k]}
+            captures = aot.CUDA_GRAPH_CAPTURES.count - captures
+        finally:
+            batcher.close()
+        print("[3p] (i) %s  on %s" % (rep.format(), card), flush=True)
+        print("[3p] (i) serve_qps %.2f  serve_p50_ms %.3f  serve_p95_ms %.3f"
+              "  serve_p99_ms %.3f  errors %d  shed %d  hung %d  occupancy %s"
+              "  captures after warmup %d (process-wide during traffic %d)  "
+              "kernel launches through the wrappers during traffic %s  on %s"
+              % (rep.qps_sustained, rep.p50_ms, rep.p95_ms, rep.p99_ms,
+                 rep.errors, rep.shed, rep.hung,
+                 dict(sorted(rep.occupancy.items())), rep.recompiles,
+                 captures, moved or 0, card), flush=True)
+        if rep.ok != SERVE["requests"] or rep.hung or rep.recompiles \
+                or moved or captures:
+            raise AssertionError("the serve leg failed: %s" % rep.format())
+
+        _served_gates(dev, eng, pool, card)
+        for b in eng.buckets:
+            _split_infer(eng, np.resize(pool, (b,) + pool.shape[1:]), card)
+
+        # (iii) swaps under traffic
+        rs = np.random.RandomState(SEED + 5)
+        cand = [(p._tensor.detach().cpu().numpy()
+                 * (1 + 0.01 * rs.uniform(-1, 1))).astype(np.float32)
+                for p in eng._params]
+        batcher = ContinuousBatcher(eng, max_delay=SERVE["max_delay_ms"]
+                                    / 1e3)
+        try:
+            futs = [batcher.submit(pool[i % 8]) for i in range(16)]
+            futs[0].result(timeout=30)   # v1 has served, the rest queue
+            v = eng.update_params(cand, canary=pool[:4], canary_tol=0.5)
+            futs += [batcher.submit(pool[i % 8]) for i in range(16)]
+            for f in futs:
+                f.result(timeout=30)
+            vers = sorted({f._mxtpu_version for f in futs})
+            live0 = fi._live_param_snapshot(eng)
+            out0 = eng.infer(pool)
+            try:
+                eng.update_params(fi.nan_params(eng))
+                raise AssertionError("a NaN candidate was accepted")
+            except SwapRejected as e:
+                reason = e.reason
+            live1 = fi._live_param_snapshot(eng)
+            same = live0[0] == live1[0] and all(
+                fi._leaves_equal(a, b) for a, b in zip(live0[1], live1[1]))
+            same_out = torch.equal(eng.infer(pool), out0)
+            with fi.swap_storm(eng, n_swaps=SERVE["storm_swaps"],
+                               interval=0.02,
+                               poison_at=SERVE["storm_swaps"] // 2,
+                               seed=SEED) as st:
+                storm = poisson_loadtest(
+                    batcher, lambda i, rng: pool[i % 8], qps=SERVE["qps"],
+                    n_requests=SERVE["requests"], seed=1)
+        finally:
+            batcher.close()
+        print("[3p] (iii) perturbed candidate committed as v%d under "
+              "traffic (versions served %s); nan_params rolled back (%s), "
+              "live slot bit-equal %s, outputs bit-equal %s  on %s" % (
+                  v, vers, reason, same, same_out, card), flush=True)
+        print("[3p] (iii) swap_storm: %d swaps (%d committed, poisoned #%d "
+              "rejected %s, incumbent bit-equal %s, error %s) under %s  on "
+              "%s" % (st.attempted, st.committed, SERVE["storm_swaps"] // 2,
+                      st.poison_rejected, st.incumbent_bitwise_ok, st.error,
+                      storm.format(), card), flush=True)
+        if not (v == 2 and vers == [1, 2] and same and same_out
+                and st.poison_rejected and st.incumbent_bitwise_ok
+                and st.error is None and st.committed >= 1
+                and storm.hung == 0 and storm.recompiles == 0
+                and storm.unattributed == 0
+                and storm.ok == SERVE["requests"]
+                and eng.recompile_count == 0):
+            raise AssertionError("a swap under traffic failed its gate")
+        del eng, batcher
+        torch.cuda.empty_cache()
+
+        # (iv) the tool's chaos leg at the same settings
+        argv = ["--model", "resnet50", "--image-size", str(image),
+                "--buckets", ",".join(str(b) for b in SERVE["buckets"]),
+                "--qps", str(SERVE["qps"]), "--requests",
+                str(SERVE["requests"]), "--max-delay",
+                str(SERVE["max_delay_ms"]), "--chaos"]
+        t0 = time.perf_counter()
+        rc = _serve_tool().main(argv)
+        print("[3p] (iv) tools/serve_bench_torch.py %s: exit %d in %.1f s  "
+              "on %s" % (" ".join(argv), rc, time.perf_counter() - t0, card),
+              flush=True)
+        if rc != 0:
+            raise AssertionError("serve_bench_torch.py --chaos failed")
+        torch.cuda.empty_cache()
+
+        _run_decoder(dev, card, "decode_small")
+        _run_decoder(dev, card, "decode_wide")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark, \
+            torch.backends.cudnn.deterministic, \
+            torch.backends.cuda.matmul.allow_tf32 = old
+    torch.cuda.synchronize()
+    k3 = _kernels.launch_counts()["maxpool_idx_fwd"]
+    print("[3p] K3 launches in the phase %d (eager warmup passes and "
+          "captures; replays are not counted)  phase wall time %.2f s  on %s"
+          % (k3, time.perf_counter() - t_phase, card), flush=True)
+    return k3
+
+
 def main(argv=None):
     import argparse
 
@@ -6166,6 +6591,14 @@ def main(argv=None):
     sv_counts = run_supervised_path(dev, card)
     for name in MAIN_PATH:
         counts[name] += sv_counts[name]
+
+    print("[3p] serving: bench.py's serve leg in the port (resnet50_v1, %d px,"
+          " f32, TF32 off, buckets %s, Poisson %g req/s, %d requests, "
+          "max_delay %g ms), swaps under traffic, serve_bench_torch.py "
+          "--chaos, CachedDecoder" % (
+              SERVE["image"], list(SERVE["buckets"]), SERVE["qps"],
+              SERVE["requests"], SERVE["max_delay_ms"]), flush=True)
+    counts["maxpool_idx_fwd"] += run_serving_path(dev, card)
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "

@@ -21,7 +21,9 @@ The long-context LM's parameters are a nested dict whose keys are stable
 (``embed``; ``l0`` ... ``lN`` with ``ln1_g ln1_b wq wk wv wo ln2_g ln2_b
 w1 w2``; ``out``), so they are matched by key.  Not by position:
 ``jax.tree.leaves`` sorts dict keys, and its order is not the
-construction order.
+construction order.  The serving decoder's (``serve.TinyDecoderLM``) are
+the same kind of tree, with a list of blocks, and are matched by key and
+index (:func:`decoder_params_from_jax`).
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 
 __all__ = ["ordered_tensors", "params_from_jax", "params_to_numpy",
            "canonical_names", "params_from_gluon",
-           "lm_params_from_jax", "lm_params_to_numpy", "ndarrays_from_numpy"]
+           "lm_params_from_jax", "lm_params_to_numpy", "ndarrays_from_numpy",
+           "decoder_params_from_jax"]
 
 
 def ordered_tensors(net):
@@ -173,3 +176,37 @@ def ndarrays_from_numpy(arrays, ctx=None):
     from .ndarray import array
 
     return {k: array(np.asarray(v), ctx) for k, v in arrays.items()}
+
+
+def decoder_params_from_jax(lm, tree, device=None):
+    """The JAX package's ``TinyDecoderLM`` parameter tree (its nested dict
+    of arrays, jax or numpy: ``embed``, ``pos``, ``blocks`` as a list of
+    dicts, ``ln_f``, ``head``) as the port's decoder takes it: the same
+    tree of float32 tensors on ``device`` (``None``: the card).  Keys,
+    block counts and shapes are checked against ``lm.param_shapes()``."""
+    from . import context
+
+    device = context.resolve(device)
+
+    def walk(name, shapes, src):
+        if isinstance(shapes, dict):
+            if not isinstance(src, dict) or set(shapes) != set(src):
+                raise ValueError("%s: keys %s, the tree has %s"
+                                 % (name or "root", sorted(shapes),
+                                    sorted(src) if isinstance(src, dict)
+                                    else type(src).__name__))
+            return {k: walk(name + k + ".", v, src[k])
+                    for k, v in shapes.items()}
+        if isinstance(shapes, list):
+            if len(src) != len(shapes):
+                raise ValueError("%s: %d blocks, the tree has %d"
+                                 % (name, len(shapes), len(src)))
+            return [walk("%s%d." % (name, i), v, b)
+                    for i, (v, b) in enumerate(zip(shapes, src))]
+        a = np.array(src, np.float32)
+        if tuple(a.shape) != tuple(shapes):
+            raise ValueError("%s has shape %s, the array %s"
+                             % (name[:-1], tuple(shapes), a.shape))
+        return torch.from_numpy(a).to(device)
+
+    return walk("", lm.param_shapes(), tree)

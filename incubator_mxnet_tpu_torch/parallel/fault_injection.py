@@ -30,13 +30,20 @@ survive:
 - **the parameter service** — :func:`slow_link` delays a rank's pushes
   and pulls and :func:`drop_push` loses push payloads, at the service's
   transport choke points (``param_service._deliver_push``/
-  ``_deliver_pull``).
+  ``_deliver_pull``);
+- **requests** — :func:`malformed_request` builds payloads the batcher
+  must reject one by one, :func:`slow_client` stalls admission
+  (``serve/batcher.py::_admit``), :func:`burst_arrivals` submits a
+  thundering herd and :func:`deadline_storm` a burst whose SLO deadlines
+  expire in the queue;
+- **serving chaos** — :func:`kill_batcher_worker` kills the batcher's
+  worker mid-batch and :func:`engine_failure_burst` makes engine
+  executions raise, both at ``serve/batcher.py::_serve_batch``;
+  :func:`nan_params` builds a poisoned hot-swap candidate and
+  :func:`swap_storm` fires canaried swaps from a thread under the
+  caller's traffic, one of them poisoned if asked.
 
-The reference's other injectors wait for the modules they patch:
-``malformed_request``, ``slow_client``, ``burst_arrivals``,
-``kill_batcher_worker``, ``engine_failure_burst``, ``nan_params``,
-``deadline_storm`` and ``swap_storm`` (serving), and
-``corrupt_compile_cache`` (the compile cache).
+The reference's ``corrupt_compile_cache`` waits for the compile cache.
 
 Everything here is process-local patching or file surgery, except
 :func:`kill_process`, which only a spawned rank should call.
@@ -53,11 +60,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["NaNInjector", "coordinator_unreachable", "corrupt_checkpoint",
-           "drop_push", "fail_writes", "flaky_reads", "hang_step",
-           "host_loss_during_save", "kill_process", "kill_worker",
-           "loss_bomb", "poison_batch", "slow_link", "slow_reads",
-           "straggler_process", "truncate_record"]
+__all__ = ["NaNInjector", "burst_arrivals", "coordinator_unreachable",
+           "corrupt_checkpoint", "deadline_storm", "drop_push",
+           "engine_failure_burst", "fail_writes", "flaky_reads",
+           "hang_step", "host_loss_during_save", "kill_batcher_worker",
+           "kill_process", "kill_worker", "loss_bomb", "malformed_request",
+           "nan_params", "poison_batch", "slow_client", "slow_link",
+           "slow_reads", "straggler_process", "swap_storm",
+           "truncate_record"]
 
 
 def poison_batch(x, value=float("nan"), index=0):
@@ -494,3 +504,271 @@ def drop_push(p, seed=0):
 
     with _patched_transport(push=drop):
         yield stats
+
+
+# ---------------------------------------------------------------------------
+# serving (serve/batcher.py, serve/engine.py)
+# ---------------------------------------------------------------------------
+
+class _BadPayload:
+    """An object whose array conversion raises: a request body that is
+    not even parseable."""
+
+    def __array__(self, *a, **k):
+        raise ValueError("injected unconvertible request payload")
+
+
+def malformed_request(sample_shape, kind="rank"):
+    """A request payload the batcher must reject on its own future, never
+    killing the batch it rode in, the worker or the queue.
+
+    ``kind``: ``"rank"`` (an extra dimension), ``"shape"`` (right rank,
+    wrong extents), ``"dtype"`` (an object payload that cannot cast to
+    the sample dtype) or ``"unconvertible"`` (``np.asarray`` raises)."""
+    shape = tuple(int(s) for s in sample_shape)
+    if kind == "rank":
+        return np.zeros((2,) + shape, np.float32)
+    if kind == "shape":
+        return np.zeros(tuple(s + 1 for s in shape) or (3,), np.float32)
+    if kind == "dtype":
+        return np.full(shape, "poison", dtype=object)
+    if kind == "unconvertible":
+        return _BadPayload()
+    raise ValueError("kind must be 'rank', 'shape', 'dtype' or "
+                     "'unconvertible', got %r" % (kind,))
+
+
+@contextmanager
+def slow_client(delay_s, at=0, count=None):
+    """Stall request admission by ``delay_s`` seconds from the ``at``-th
+    submit on (``count`` bounds how many; ``None``: all), the trickling
+    client whose requests only the deadline flush can bound.  Interposes
+    ``serve/batcher.py::_admit``.  Yields counters (``seen``,
+    ``slowed``)."""
+    from ..serve import batcher as _batcher
+
+    stats = _Stats(seen=0, slowed=0)
+    real = _batcher._admit
+
+    def slow(req):
+        i = stats.seen
+        stats.seen += 1
+        if i >= at and (count is None or stats.slowed < count):
+            stats.slowed += 1
+            time.sleep(delay_s)
+        return real(req)
+
+    _batcher._admit = slow
+    try:
+        yield stats
+    finally:
+        _batcher._admit = real
+
+
+@contextmanager
+def _patched_serve(flaky):
+    """Put ``flaky(real_serve, engine, xv)`` in place of
+    ``serve/batcher.py::_serve_batch`` inside the block."""
+    from ..serve import batcher as _batcher
+
+    real = _batcher._serve_batch
+    _batcher._serve_batch = lambda engine, xv: flaky(real, engine, xv)
+    try:
+        yield
+    finally:
+        _batcher._serve_batch = real
+
+
+@contextmanager
+def kill_batcher_worker(at=0, count=1):
+    """Kill the batcher's worker thread silently on the ``at``-th to
+    ``at+count-1``-th batch executions: ``SystemExit`` escapes the
+    worker loop, as a thread's abort does.  The watchdog must fail the
+    lost batch and respawn the worker.  Yields counters (``seen``,
+    ``killed``)."""
+    stats = _Stats(seen=0, killed=0)
+
+    def kill(real, engine, xv):
+        i = stats.seen
+        stats.seen += 1
+        if at <= i < at + count:
+            stats.killed += 1
+            raise SystemExit("injected batcher worker death (#%d)" % i)
+        return real(engine, xv)
+
+    with _patched_serve(kill):
+        yield stats
+
+
+@contextmanager
+def engine_failure_burst(n=3, exc=None, engine=None):
+    """Make the next ``n`` engine executions raise a transient
+    ``RuntimeError`` (or ``exc``): retry absorbs a short burst, a long
+    one must trip the circuit breaker.  ``engine`` limits the fault to
+    that engine (a fallback tier stays healthy).  Yields counters
+    (``seen``, ``failed``)."""
+    stats = _Stats(seen=0, failed=0)
+
+    def burst(real, eng, xv):
+        i = stats.seen
+        stats.seen += 1
+        if stats.failed < n and (engine is None or eng is engine):
+            stats.failed += 1
+            raise exc or RuntimeError(
+                "injected engine failure burst (#%d)" % i)
+        return real(eng, xv)
+
+    with _patched_serve(burst):
+        yield stats
+
+
+def nan_params(engine, value=float("nan"), index=0):
+    """A poisoned hot-swap candidate: the engine's net parameters (the
+    pinned signature's values) copied to the host, with ``value`` (NaN)
+    at flat position ``index`` of the first floating one.  The canary
+    must reject it and the old version keep serving.  Returns a list in
+    the engine's parameter order."""
+    if not getattr(engine, "_params", None):
+        raise ValueError("engine has no collected params -- warmup() it "
+                         "first (the swap path requires it anyway)")
+    raw = [p._tensor.detach().cpu().numpy().copy() for p in engine._params]
+    for a in raw:
+        if np.issubdtype(a.dtype, np.floating):
+            a.reshape(-1)[index] = value
+            break
+    else:
+        raise ValueError("engine has no floating parameter to poison")
+    return raw
+
+
+def deadline_storm(batcher, payloads, deadline=1e-4, priority=0):
+    """Submit every payload back to back with an SLO deadline so tight it
+    expires in the queue: the batcher must shed them before compute and
+    never hang.  Returns ``(futures, shed_count)``."""
+    from ..serve.batcher import Backpressure
+
+    futures, shed = [], 0
+    for p in payloads:
+        try:
+            futures.append(batcher.submit(p, block=False,
+                                          deadline=deadline,
+                                          priority=priority))
+        except Backpressure:
+            shed += 1
+    return futures, shed
+
+
+def burst_arrivals(batcher, payloads, block=False):
+    """Submit every payload back to back, unpaced: the herd a bounded
+    queue must absorb or shed as ``Backpressure``.  Returns
+    ``(futures, shed_count)``."""
+    from ..serve.batcher import Backpressure
+
+    futures, shed = [], 0
+    for p in payloads:
+        try:
+            futures.append(batcher.submit(p, block=block))
+        except Backpressure:
+            shed += 1
+    return futures, shed
+
+
+def _live_param_snapshot(engine):
+    """``(version, [host copies])`` of the engine's live slot: the
+    bitwise oracle for a rejected swap."""
+    ver, vals = engine._live
+    return ver, [t.detach().cpu().clone() for t in vals]
+
+
+def _leaves_equal(a, b) -> bool:
+    """Bit for bit (NaNs included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+@contextmanager
+def swap_storm(engine, n_swaps=5, interval=0.02, perturb=0.02,
+               canary_tol=0.5, poison_at=None, seed=0):
+    """``n_swaps`` back-to-back canaried hot swaps from a thread while the
+    caller serves traffic inside the block.
+
+    Each candidate is the live version at storm start, in the pinned
+    signature's dtypes, scaled by ``1 + perturb * U(-1, 1)`` (one draw a
+    candidate), so it passes the canary drift gate (``canary_tol``) and
+    commits; ``poison_at=k`` makes the ``k``-th candidate
+    :func:`nan_params`: it must be rejected with the incumbent bitwise
+    unchanged.  Yields counters: ``attempted``, ``committed``,
+    ``rejected``, ``versions``, ``poison_rejected`` and
+    ``incumbent_bitwise_ok`` (``None`` without ``poison_at``), and
+    ``error`` (a crash of the storm thread).  The thread is joined on
+    exit."""
+    import threading
+
+    from ..serve.resilience import SwapRejected
+
+    if not getattr(engine, "_params", None):
+        raise ValueError("warmup() the engine first -- the storm replays "
+                         "the canaried swap path")
+    _ver0, live0 = _live_param_snapshot(engine)
+    sig = engine.param_signature
+    base = [np.asarray(t.float().numpy() if t.dtype == torch.bfloat16
+                       else t.numpy(), sig[i][2])
+            for i, t in enumerate(live0)]
+    rng = np.random.RandomState(seed)
+    stats = _Stats(attempted=0, committed=0, rejected=0, versions=[],
+                   poison_rejected=None, incumbent_bitwise_ok=None,
+                   error=None)
+
+    def one_candidate():
+        out = []
+        for a in base:
+            if np.issubdtype(a.dtype, np.floating):
+                out.append(np.asarray(
+                    a * (1.0 + perturb * rng.uniform(-1.0, 1.0)), a.dtype))
+            else:
+                out.append(np.array(a))
+        return out
+
+    def storm():
+        try:
+            for i in range(n_swaps):
+                stats.attempted += 1
+                if poison_at is not None and i == poison_at:
+                    before = _live_param_snapshot(engine)
+                    try:
+                        engine.update_params(nan_params(engine),
+                                             canary_tol=canary_tol,
+                                             context="swap_storm")
+                        stats.poison_rejected = False
+                    except SwapRejected:
+                        stats.poison_rejected = True
+                    after = _live_param_snapshot(engine)
+                    stats.incumbent_bitwise_ok = (
+                        before[0] == after[0]
+                        and len(before[1]) == len(after[1])
+                        and all(_leaves_equal(x, y)
+                                for x, y in zip(before[1], after[1])))
+                else:
+                    try:
+                        v = engine.update_params(one_candidate(),
+                                                 canary_tol=canary_tol,
+                                                 context="swap_storm")
+                        stats.committed += 1
+                        stats.versions.append(int(v))
+                    except SwapRejected:
+                        stats.rejected += 1
+                time.sleep(interval)
+        except BaseException as e:  # surface, never die silently
+            stats.error = "%s: %s" % (type(e).__name__, e)
+
+    t = threading.Thread(target=storm, name="swap-storm", daemon=True)
+    t.start()
+    try:
+        yield stats
+    finally:
+        t.join(timeout=120.0)
+        if t.is_alive():
+            stats.error = stats.error or \
+                "swap storm thread failed to finish"

@@ -47,7 +47,12 @@ the sequence-parallel LM, ring and Ulysses, the pp=2 step and the ep=2
 MoE step against one process on the card, within that phase's limits).
 The supervisor: one ``run_supervised`` rollback under ``loss_bomb`` of
 ``tools/supervise_torch.py``'s job on the card, bit-identical to its
-unfaulted run.
+unfaulted run.  Serving: a ``ServeEngine`` bucket's CUDA-graph replay
+bit-equal to the eager forward of the same padded batch, one K3 launch a
+captured bucket program and none during replays, a row independent of
+its batch-mates, a NaN candidate rolled back with the live slot
+unchanged; a ``CachedDecoder`` step replayed from its graph against full
+recompute over the sliding window (1e-5).
 """
 import importlib
 
@@ -1652,3 +1657,52 @@ def test_supervised_rollback_on_the_card(dev, tmp_path):
     for a, b in zip(bstep._gp, cstep._gp):
         assert torch.equal(a, b)
 
+
+
+def test_serve_engine_graph_replay_matches_eager(dev):
+    from incubator_mxnet_tpu_torch import context, initializer, random
+    from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.parallel import fault_injection as fi
+    from incubator_mxnet_tpu_torch.serve import (CachedDecoder, ServeEngine,
+                                                 SwapRejected, TinyDecoderLM)
+
+    random.seed(0)
+    net = nn.HybridSequential()
+    with context.device_scope(dev):
+        net.add(nn.Conv2D(8, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.MaxPool2D(3, 2, 1),
+                nn.GlobalAvgPool2D(), nn.Flatten(), nn.Dense(6))
+    net.initialize(init=initializer.Xavier())
+    net.shape_init((2, 3, 16, 16))
+    eng = ServeEngine(net, buckets=(2, 8))
+    eng.warmup(np.zeros((3, 16, 16), np.float32))
+    assert all(launches.get("maxpool_idx_fwd") == 1
+               for launches in eng.capture_launches.values())
+    x = np.random.RandomState(0).rand(5, 3, 16, 16).astype(np.float32)
+    before = _kernels.launch_counts()
+    out = eng.infer(x)
+    assert _kernels.launch_counts() == before
+    slot = eng._slots[eng._state[1]]
+    xp = torch.zeros((8, 3, 16, 16), device=dev)
+    xp[:5] = torch.from_numpy(x)
+    with torch.no_grad():
+        ref = slot.net(xp)[:5]
+    assert torch.equal(out, ref)
+    mates = np.random.RandomState(1).rand(7, 3, 16, 16).astype(np.float32)
+    assert torch.equal(eng.infer(np.concatenate([x[:1], mates]))[0], out[0])
+    with pytest.raises(SwapRejected):
+        eng.update_params(fi.nan_params(eng))
+    assert torch.equal(eng.infer(x), out) and eng.recompile_count == 0
+
+    lm = TinyDecoderLM(vocab=16, d_model=8, n_heads=2, n_layers=1, d_ff=16,
+                       max_len=8)
+    params = lm.init(2, device=dev)
+    dec = CachedDecoder(lm, params, seq_buckets=(8,))
+    dec.start(np.array([[1, 2, 3]]), max_new=5)
+    feed = [4, 9, 1, 7, 3, 3, 12, 5, 0]
+    steps = [dec.step(np.array([t])) for t in feed]
+    seq = torch.tensor([[1, 2, 3] + feed], device=dev)
+    full = lm.apply_tokens(params, seq, window=8)
+    for i, got in enumerate(steps):
+        _close(got[0], full[0, 3 + i], 1e-5)
+    assert dec.pos == 12 and dec.compiles == 2

@@ -36,7 +36,8 @@ for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                     "example/distributed_training/cifar10_dist_torch.py"),
                    ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py"),
                    ("launch_torch", "tools/launch_torch.py"),
-                   ("supervise_torch", "tools/supervise_torch.py")):
+                   ("supervise_torch", "tools/supervise_torch.py"),
+                   ("serve_bench_torch", "tools/serve_bench_torch.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from incubator_mxnet_tpu_torch import rtc
@@ -120,6 +121,35 @@ def _fc():
     return symbol.FullyConnected(symbol.var("data"), num_hidden=2)
 
 
+def _serve():
+    from incubator_mxnet_tpu_torch import serve
+
+    return serve
+
+
+def _serve_on_cpu_when_asked():
+    """The engine and the decoder run on the CPU when asked, with no card."""
+    serve = _serve()
+    net = tnn.Dense(4, in_units=3, device="cpu")
+    initializer.initialize(net, generator=torch.Generator().manual_seed(0))
+    eng = serve.ServeEngine(net, buckets=(2,), device="cpu")
+    eng.warmup(np.zeros(3, np.float32))
+    out = eng.infer(np.ones((3, 3), np.float32))
+    lm = serve.TinyDecoderLM(vocab=8, d_model=4, n_heads=2, n_layers=1,
+                             d_ff=8, max_len=8)
+    dec = serve.CachedDecoder(lm, lm.init(0, device="cpu"),
+                              seq_buckets=(8,), device="cpu")
+    dec.start(np.array([[1, 2]]), max_new=2)
+    return out, dec.step(np.array([3]))
+
+
+def test_serving_runs_on_cpu_when_asked(monkeypatch):
+    _no_card(monkeypatch)
+    out, logits = _serve_on_cpu_when_asked()
+    assert out.device.type == "cpu" and out.shape == (3, 4)
+    assert logits.device.type == "cpu" and torch.isfinite(logits).all()
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -146,6 +176,12 @@ def _no_card(monkeypatch):
     lambda: _example_ssd().main(["--batches", "1"]),
     lambda: __import__("incubator_mxnet_tpu_torch").image.ImageDetIter(
         2, (3, 8, 8), imglist=[([0, 0.1, 0.1, 0.5, 0.5], "a.png")]),
+    lambda: _serve().ServeEngine(tnn.Dense(4, in_units=3, device="cpu"),
+                                 buckets=(2,)),
+    lambda: _serve().CachedDecoder(_serve().TinyDecoderLM(max_len=8), {},
+                                   seq_buckets=(8,)),
+    lambda: _serve().TinyDecoderLM().init(0),
+    lambda: _serve().init_cache(1, 1, 8, 2, 4),
 ])
 def test_entry_points_refuse_cpu_without_asking(monkeypatch, build):
     _no_card(monkeypatch)
