@@ -8,7 +8,9 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
 
 1. print the card's name and power limit; build the kernels from
    ``incubator_mxnet_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once) and print the build time;
+   once) and print the build time and the compile cache's counters (the
+   library is not damaged here: ``tools/compile_cache_torch.py`` does
+   that);
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16 and f32: K1/K2 (ghost BN forward/backward) at the stem, a
    56x56x256 dual exit, a 28x28x512 donated downsample exit, a 28x28x512
@@ -304,8 +306,11 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    candidate rolled back with the live slot bit-equal, ``swap_storm``
    (one poisoned candidate) under a ``poisson_loadtest``: no capture, no
    hung future, every row attributed; (iv) ``tools/serve_bench_torch.py
-   --model resnet50 --chaos`` at the same settings (exit 0: no hung
-   future, no capture after warmup, the poison rolled back); (v)
+   --model resnet50 --chaos`` at the same settings, its fallback the
+   int8 tier, then its swap storm against a storm-free baseline (exit 0:
+   no hung future, no capture after warmup, the poison rolled back,
+   every row one version, the storm's p99 within the baseline's x 10 +
+   250 ms); (v)
    ``CachedDecoder`` against full recompute over the sliding window
    (``SERVE["decode_tol"]``), step for step through a ring wraparound:
    at ``TinyDecoderLM``'s defaults (batch 4, seq bucket 32, 40 steps past
@@ -314,6 +319,36 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    prompt), where ``decode_step_ms`` (one step: token copy, graph replay,
    logits clone; host clock), the replay's device ms and the step's byte
    bound are read;
+3q. the int8 serve leg: 3p's settings (``resnet50_v1``, Xavier from seed
+   0, 224 px, buckets (16, 64), Poisson 400 req/s, 200 requests, 10 ms
+   flush, TF32 off, cuDNN deterministic) at ``dtype="int8"``: (i) one K3
+   launch a captured int8 program, one slot's resident bytes int8
+   against f32; (ii) ``serve_bench_torch.py``'s ``run_leg`` for the f32
+   engine and the int8 one on the same traffic (``gc.collect()`` before
+   each), ``serve_qps``, p50, p99
+   and ``serve_int8_p99_delta_ms``, no capture after warmup, no hung
+   future, no launch through a wrapper during traffic; (iii) the codes
+   made on the card equal to the CPU's ``quantize_tensor`` bit for bit,
+   the int8 logits within ``INT8_SERVE_TOL`` of the largest logit of the
+   f32 engine serving ``dequantize_tensor`` of the same codes, and their
+   error against the f32 weights for information; (iv) a candidate with
+   a NaN in a float parameter rolled back, the codes and amax bit-equal;
+3r. ``bench.py --mode infer-int8`` in the port (``INT8_INFER``):
+   ``resnet50_v1`` exported, ``fold_batch_norm``,
+   ``quantize_model(calib_mode="none")``, batch 128, 224 px,
+   ``RandomState(0)`` uniform input, through the ``Executor``: the bf16
+   leg on the folded graph and the int8 leg, each the best of 3 chunks
+   of 20 forwards after a first forward (``resnet50_int8_infer_img_per_
+   sec``, the bf16 img/s, ``int8_over_bf16``); K3 once a bf16 forward and
+   never an int8 one (the int8 pool is the plain path, as the
+   reference's ``reduce_window``); at batch 8 (``quantize_v2``'s range
+   is the batch's) the stem's int32 accumulator card against CPU bit for
+   bit and the logits card against CPU within the CPU's own floor (the
+   input nudged by 1e-6);
+3s. the flywheel: ``tools/flywheel_torch.py`` at its defaults on the card,
+   then ``--chaos loss_bomb`` (the bombed checkpoint quarantined at the
+   metric stage, no promotion from it, the engine's rollbacks 0) and
+   ``--chaos swap_storm`` (every row one version), each exit 0;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -6250,6 +6285,389 @@ def run_serving_path(dev, card):
     return k3
 
 
+# phase 3q: the int8 serve leg (bench.py's serve leg at dtype="int8")
+#: the logits of the int8 engine against the f32 engine serving the
+#: dequantized codes, of the largest logit (the same f32 weights run the
+#: same kernels: the tier adds nothing but its prologue)
+INT8_SERVE_TOL = 1e-5
+
+
+def _leg_args():
+    """The serve leg's settings as ``serve_bench_torch.py``'s
+    ``run_leg`` reads them."""
+    import argparse
+
+    return argparse.Namespace(
+        model="resnet50", buckets=",".join(str(b) for b in SERVE["buckets"]),
+        qps=SERVE["qps"], requests=SERVE["requests"],
+        max_delay=SERVE["max_delay_ms"], max_queue=1024, device=None, seed=0)
+
+
+def run_int8_serving_path(dev, card):
+    """Phase 3q (see the module docstring).  Returns the phase's K3
+    launches (captures and eager warmup passes)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from incubator_mxnet_tpu_torch.ops.quantization import (
+        dequantize_tensor, quantize_tensor)
+    from incubator_mxnet_tpu_torch.parallel import aot
+    from incubator_mxnet_tpu_torch.parallel import fault_injection as fi
+    from incubator_mxnet_tpu_torch.serve import ServeEngine, SwapRejected
+
+    t_phase = time.perf_counter()
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark,
+           torch.backends.cudnn.deterministic,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    tool = _serve_tool()
+    args = _leg_args()
+    try:
+        image = SERVE["image"]
+        mx.random.seed(SEED)
+        net = resnet.resnet50_v1(classes=1000, device=dev)
+        net.initialize(init=mx.init.Xavier())
+        net.shape_init((1, 3, image, image))
+        sample = np.zeros((3, image, image), np.float32)
+        e32 = ServeEngine(net, buckets=SERVE["buckets"])
+        e32.warmup(sample)
+        e8 = ServeEngine(net, buckets=SERVE["buckets"], dtype="int8")
+        t = e8.warmup(sample)
+        caps = e8.capture_launches
+        n_q = sum(int(np.prod(sh)) for (_n, sh, _d), q in
+                  zip(e8.param_signature, e8._quantized) if q)
+        print("[3q] (i) int8 warmup: eager passes %.3f s, captures %.3f s "
+              "(%d bucket programs); K3 launches a captured program %s; "
+              "%d of %d parameters quantized (%d weights); one slot's "
+              "resident bytes int8 %d against f32 %d (the quantized weights "
+              "%d bytes against %d)  on %s" % (
+                  t["eager"], t["capture"], len(caps),
+                  sorted(set(c.get("maxpool_idx_fwd", 0)
+                             for c in caps.values())),
+                  sum(e8._quantized), len(e8._quantized), n_q,
+                  e8.resident_bytes, e32.resident_bytes, n_q + 4 *
+                  sum(e8._quantized), 4 * n_q, card), flush=True)
+        if any(c != {"maxpool_idx_fwd": 1} for c in caps.values()):
+            raise AssertionError("an int8 bucket program launched %s, want "
+                                 "one K3" % caps)
+        # (ii) serve_bench_torch.py's --int8 leg beside its fp32 leg, the
+        # same traffic; the garbage of the engines' builds collected
+        # before each leg, so neither pays the other's
+        torch.cuda.synchronize()
+        captures = aot.CUDA_GRAPH_CAPTURES.count
+        before = _kernels.launch_counts()
+        gc.collect()
+        rep = tool.run_leg("fp32", net, sample.shape, args, engine=e32)
+        gc.collect()
+        rep8 = tool.run_leg("int8", net, sample.shape, args, engine=e8)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in
+                 _kernels.launch_counts().items() if v != before[k]}
+        captures = aot.CUDA_GRAPH_CAPTURES.count - captures
+        delta = tool.int8_delta(rep, rep8)
+        print("[3q] (ii) int8 leg: serve_qps %.2f  p50 %.3f  p99 %.3f ms  "
+              "(fp32 leg on the same traffic: serve_qps %.2f  p50 %.3f  p99 "
+              "%.3f ms)  serve_int8_p99_delta_ms %.3f  hung %d  captures "
+              "after warmup %d (process-wide during traffic %d)  launches "
+              "through the wrappers during traffic %s  on %s" % (
+                  rep8.qps_sustained, rep8.p50_ms, rep8.p99_ms,
+                  rep.qps_sustained, rep.p50_ms, rep.p99_ms, delta,
+                  rep8.hung + rep.hung, rep8.recompiles + rep.recompiles,
+                  captures, moved or 0, card), flush=True)
+        if rep8.ok != SERVE["requests"] or rep.ok != SERVE["requests"] \
+                or rep8.hung or rep.hung or rep8.recompiles \
+                or rep.recompiles or moved or captures:
+            raise AssertionError("the int8 serve leg failed: %s / %s"
+                                 % (rep8.format(), rep.format()))
+
+        # (iii) codes card against CPU; logits against the f32 engine on
+        # the dequantized codes
+        raw = [p._tensor.detach() for p in e8._params]
+        for v, q, a in zip(e8._p_vals, e8._quantized, raw):
+            if q:
+                codes, amax = quantize_tensor(a.cpu())
+                if not (torch.equal(v[0].cpu(), codes)
+                        and torch.equal(v[1].cpu(), amax)):
+                    raise AssertionError("codes made on the card differ "
+                                         "from the CPU's")
+        x = np.random.RandomState(SEED + 7).rand(
+            SERVE["buckets"][0], 3, image, image).astype(np.float32)
+        out32 = e32.infer(x)
+        out8 = e8.infer(x)
+        info = ((out8 - out32).abs().max() / out32.abs().max()).item()
+        deq = [dequantize_tensor(*v).cpu().numpy() if q
+               else a.cpu().numpy()
+               for v, q, a in zip(e8._p_vals, e8._quantized, raw)]
+        e32.update_params(deq)
+        outdq = e32.infer(x)
+        err = ((out8 - outdq).abs().max() / outdq.abs().max()).item()
+        print("[3q] (iii) %d quantized tensors' codes made on the card equal "
+              "to the CPU's bit for bit; int8 logits against the f32 engine "
+              "on the dequantized codes %.3g of the largest logit (limit "
+              "%g); against the f32 weights %.4g (for information; the "
+              "reference's tests hold 2-5 %%)  on %s"
+              % (sum(e8._quantized), err, INT8_SERVE_TOL, info, card),
+              flush=True)
+        if not err <= INT8_SERVE_TOL:
+            raise AssertionError("int8 logits off the dequantized f32 "
+                                 "engine by %g" % err)
+
+        # (iv) a poisoned swap on the int8 tier: NaN in a float parameter
+        snap = fi._live_param_snapshot(e8)
+        cand = [a.cpu().numpy().copy() for a in raw]
+        k = max(i for i, q in enumerate(e8._quantized) if not q)
+        cand[k].reshape(-1)[0] = np.nan
+        try:
+            e8.update_params(cand)
+            raise AssertionError("a poisoned int8 candidate was accepted")
+        except SwapRejected as e:
+            reason = e.reason
+        after = fi._live_param_snapshot(e8)
+        same = snap[0] == after[0] and all(
+            fi._leaves_equal(a, b) for a, b in zip(snap[1], after[1]))
+        same_out = torch.equal(e8.infer(x), out8)
+        print("[3q] (iv) NaN in %s: rolled back (%s); codes and amax "
+              "bit-equal %s, outputs bit-equal %s, rollbacks %d, captures "
+              "after warmup %d  on %s" % (
+                  e8.param_signature[k][0], reason, same, same_out,
+                  e8.rollback_count, e8.recompile_count, card), flush=True)
+        if not (same and same_out and e8.recompile_count == 0):
+            raise AssertionError("the poisoned int8 swap changed the "
+                                 "incumbent")
+        del e8, e32
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark, \
+            torch.backends.cudnn.deterministic, \
+            torch.backends.cuda.matmul.allow_tf32 = old
+    torch.cuda.synchronize()
+    k3 = _kernels.launch_counts()["maxpool_idx_fwd"]
+    print("[3q] K3 launches in the phase %d  phase wall time %.2f s  on %s"
+          % (k3, time.perf_counter() - t_phase, card), flush=True)
+    return k3
+
+
+# phase 3r: bench.py --mode infer-int8 in the port
+INT8_INFER = dict(batch=128, image=224, iters=20, chunks=3, gate_batch=8,
+                  nudge=1e-6)
+
+
+def _first_qconv(sym):
+    for node in sym._all_nodes():
+        if node.op == "_contrib_quantized_conv":
+            return node.name
+    raise AssertionError("no quantized convolution in the graph")
+
+
+def _int8_forward(mx, sym, args, aux, x, ctx, watch=None):
+    """One forward of ``sym`` on ``ctx``; with ``watch``, also the output
+    of that node (its int32 accumulator) through the monitor callback."""
+    binds = {k: mx.nd.array(v, ctx=ctx) for k, v in args.items()}
+    binds["data"] = mx.nd.array(x, ctx=ctx)
+    exe = sym.bind(ctx, args=binds,
+                   aux_states={k: mx.nd.array(v, ctx=ctx)
+                               for k, v in aux.items()})
+    seen = {}
+    if watch is not None:
+        def callback(name, arr):
+            if name == watch + "_output":
+                seen["acc"] = arr._data.detach().cpu().clone()
+        exe.set_monitor_callback(callback)
+    out = exe.forward(is_train=False)[0]._data.detach().float().cpu()
+    return out, seen.get("acc")
+
+
+def run_int8_infer_path(dev, card):
+    """Phase 3r (see the module docstring).  Returns the phase's K3
+    launches."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.contrib.quantization import (
+        fold_batch_norm, quantize_model)
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+
+    t_phase = time.perf_counter()
+    cfg = INT8_INFER
+    _kernels.reset_launch_counts()
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000, device=dev)
+    net.initialize(init=mx.init.Xavier())
+    net.shape_init((1, 3, cfg["image"], cfg["image"]))
+    directory = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    try:
+        prefix = os.path.join(directory, "r50")
+        net.export(prefix)
+        sym, args, aux = mx.model.load_checkpoint(prefix, 0, ctx=dev)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    del net
+    t0 = time.perf_counter()
+    fsym, fargs, faux = fold_batch_norm(sym, args, aux)
+    qsym, qargs, qaux = quantize_model(fsym, fargs, faux, calib_mode="none")
+    j = qsym.tojson()
+    print("[3r] export, fold_batch_norm and quantize_model(calib_mode="
+          "'none') %.2f s: %d quantized convolutions, %d quantized dense, "
+          "%d requantize, %d quantized residual adds, %d dequantize  on %s"
+          % (time.perf_counter() - t0, j.count('"_contrib_quantized_conv"'),
+             j.count('"_contrib_quantized_fully_connected"'),
+             j.count('"_contrib_requantize"'),
+             j.count('"_contrib_quantized_elemwise_add"'),
+             j.count('"_contrib_dequantize"'), card), flush=True)
+    xnp = np.random.RandomState(0).uniform(
+        size=(cfg["batch"], 3, cfg["image"], cfg["image"])).astype(np.float32)
+    results, k3_per = {}, {}
+    for tag, (s_, a_, au_) in (("bf16", (fsym, fargs, faux)),
+                               ("int8", (qsym, qargs, qaux))):
+        if tag == "bf16":
+            a_ = {k: v.astype("bfloat16") if str(v.dtype).startswith("f")
+                  else v for k, v in a_.items()}
+        binds = dict(a_)
+        binds["data"] = mx.nd.array(xnp, ctx=dev)
+        if tag == "bf16":
+            binds["data"] = binds["data"].astype("bfloat16")
+        exe = s_.bind(dev, args=binds, aux_states=au_)
+        t = time.perf_counter()
+        before = _kernels.launch_counts()["maxpool_idx_fwd"]
+        (out,) = exe.forward(is_train=False)
+        torch.cuda.synchronize()
+        k3_per[tag] = _kernels.launch_counts()["maxpool_idx_fwd"] - before
+        first = time.perf_counter() - t
+        if not torch.isfinite(out._data).all() or \
+                tuple(out.shape) != (cfg["batch"], 1000):
+            raise AssertionError("%s forward: %s, finite %s" % (
+                tag, tuple(out.shape), bool(torch.isfinite(out._data).all())))
+        best = 0.0
+        for _ in range(cfg["chunks"]):
+            t = time.perf_counter()
+            for _ in range(cfg["iters"]):
+                (out,) = exe.forward(is_train=False)
+            torch.cuda.synchronize()
+            best = max(best, cfg["iters"] * cfg["batch"]
+                       / (time.perf_counter() - t))
+        results[tag] = best
+        print("[3r] %s: first forward %.2f s, best of %d chunks of %d "
+              "forwards %.1f img/s (%.2f ms a forward), K3 launches a "
+              "forward %d  on %s" % (tag, first, cfg["chunks"], cfg["iters"],
+                                     best, cfg["batch"] / best * 1e3,
+                                     k3_per[tag], card), flush=True)
+        del exe, binds, out
+        torch.cuda.empty_cache()
+    print("[3r] resnet50_int8_infer_img_per_sec %.1f  bf16_img_per_sec %.1f"
+          "  int8_over_bf16 %.3f  (batch %d, %d px)  on %s" % (
+              results["int8"], results["bf16"],
+              results["int8"] / results["bf16"], cfg["batch"], cfg["image"],
+              card), flush=True)
+    if k3_per != {"bf16": 1, "int8": 0}:
+        raise AssertionError("K3 launches a forward %s, want bf16 1 (the "
+                             "stem pool) and int8 0 (the reference pools "
+                             "int8 codes outside its kernel)" % k3_per)
+
+    # gates at batch 8: the card and the CPU see the same batch, since
+    # quantize_v2's dynamic range is the whole batch's
+    n = cfg["gate_batch"]
+    x = xnp[:n]
+    host = {k: v.asnumpy() for k, v in qargs.items()}
+    host_aux = {k: v.asnumpy() for k, v in qaux.items()}
+    watch = _first_qconv(qsym)
+    cpu = mx.cpu()
+    t0 = time.perf_counter()
+    got, acc_card = _int8_forward(mx, qsym, host, host_aux, x, dev, watch)
+    want, acc_cpu = _int8_forward(mx, qsym, host, host_aux, x, cpu, watch)
+    nudged = (x * (1.0 + cfg["nudge"])).astype(np.float32)
+    again, _ = _int8_forward(mx, qsym, host, host_aux, nudged, cpu)
+    scale = want.abs().max().item()
+    floor = (again - want).abs().max().item() / scale
+    err = (got - want).abs().max().item() / scale
+    print("[3r] batch %d: %s's int32 accumulator %s card against CPU bit "
+          "for bit %s; logits card against CPU %.4g of the largest logit, "
+          "the CPU's own floor (input nudged by %g) %.4g; %.1f s  on %s"
+          % (n, watch, tuple(acc_cpu.shape), torch.equal(acc_card, acc_cpu),
+             err, cfg["nudge"], floor, time.perf_counter() - t0, card),
+          flush=True)
+    if not torch.equal(acc_card, acc_cpu) or acc_card.dtype != torch.int32:
+        raise AssertionError("the first quantized convolution's accumulator "
+                             "differs between the card and the CPU")
+    if not err <= max(floor, 1e-6):
+        raise AssertionError("int8 logits card against CPU %g beyond the "
+                             "floor %g" % (err, floor))
+    torch.cuda.empty_cache()
+    k3 = _kernels.launch_counts()["maxpool_idx_fwd"]
+    print("[3r] K3 launches in the phase %d  phase wall time %.2f s  on %s"
+          % (k3, time.perf_counter() - t_phase, card), flush=True)
+    return k3
+
+
+# phase 3s: tools/flywheel_torch.py on the card
+def _flywheel_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_flywheel_torch", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools",
+            "flywheel_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_flywheel_path(card):
+    """Phase 3s (see the module docstring)."""
+    import contextlib
+    import io
+
+    t_phase = time.perf_counter()
+    tool = _flywheel_tool()
+    for chaos in (None, "loss_bomb", "swap_storm"):
+        argv = [] if chaos is None else ["--chaos", chaos]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(argv)
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        storm = rec.get("swap_storm") or {}
+        print("[3s] tools/flywheel_torch.py %s: exit %d in %.1f s; trained "
+              "%s steps (rollbacks %s), promoted steps %s, quarantined %s, "
+              "serving version %d, serving rollbacks %d, captures after "
+              "warmup %d%s  on %s" % (
+                  " ".join(argv) or "(defaults)", rc,
+                  time.perf_counter() - t0, rec["trained_steps"],
+                  rec["train_rollbacks"], rec["promoted"], rec["quarantined"],
+                  rec["serving_version"], rec["serving_rollbacks"],
+                  rec["recompiles"],
+                  "; storm p99 %.3f ms (bound %.3f), %d committed, versions "
+                  "%s, unattributed %d" % (
+                      storm["p99_ms"], storm["bound_ms"], storm["committed"],
+                      storm["versions"], storm["unattributed"])
+                  if storm else "", card), flush=True)
+        if rc != 0 or rec["failures"] or rec["device"] != "cuda:0":
+            raise AssertionError("flywheel %s failed: %s"
+                                 % (chaos, rec["failures"]))
+        if chaos == "loss_bomb" and not (
+                rec["quarantined"] and rec["quarantined"][-1][1] == "metric"
+                and rec["serving_rollbacks"] == 0
+                and rec["quarantined"][-1][0] not in rec["promoted"]):
+            raise AssertionError("the bombed checkpoint was not quarantined "
+                                 "at the metric stage")
+        if chaos == "swap_storm" and not (
+                storm["unattributed"] == 0 and storm["committed"] > 0):
+            raise AssertionError("the storm left rows without one version")
+    print("[3s] phase wall time %.2f s  on %s"
+          % (time.perf_counter() - t_phase, card), flush=True)
+
+
 def main(argv=None):
     import argparse
 
@@ -6296,7 +6714,9 @@ def main(argv=None):
     card = _card_line()
     print("[1] card: %s" % card, flush=True)
     build_s = _kernels.build()
-    print("[1] kernels built in %.1f s" % build_s, flush=True)
+    print("[1] kernels built in %.1f s; compile cache %s (%s)"
+          % (build_s, _kernels.compile_cache().counters(),
+             _kernels.compile_cache().directory), flush=True)
 
     print("[2] kernels against their plain versions", flush=True)
     errs = {name: [] for name in _kernels.KERNELS}
@@ -6599,6 +7019,23 @@ def main(argv=None):
               SERVE["image"], list(SERVE["buckets"]), SERVE["qps"],
               SERVE["requests"], SERVE["max_delay_ms"]), flush=True)
     counts["maxpool_idx_fwd"] += run_serving_path(dev, card)
+
+    print("[3q] the int8 serve leg: the serve leg's settings at "
+          "dtype='int8' through serve_bench_torch.py's --int8 leg beside "
+          "its fp32 leg on the same traffic; codes card against CPU, logits "
+          "against the f32 engine on the dequantized codes, a poisoned "
+          "int8 swap", flush=True)
+    counts["maxpool_idx_fwd"] += run_int8_serving_path(dev, card)
+    print("[3r] bench.py --mode infer-int8 in the port: resnet50_v1 "
+          "exported, fold_batch_norm, quantize_model(calib_mode='none'), "
+          "batch %d, %d px, through the Executor beside the folded graph in "
+          "bf16" % (INT8_INFER["batch"], INT8_INFER["image"]), flush=True)
+    counts["maxpool_idx_fwd"] += run_int8_infer_path(dev, card)
+    torch.cuda.empty_cache()
+    print("[3s] the flywheel: tools/flywheel_torch.py at its defaults on "
+          "the card, then --chaos loss_bomb and --chaos swap_storm",
+          flush=True)
+    run_flywheel_path(card)
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "

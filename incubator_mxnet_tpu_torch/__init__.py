@@ -20,13 +20,14 @@ path: the fused ``RNN`` op, ``mx.gluon.rnn``, the legacy ``mx.rnn`` cells
 with ``BucketSentenceIter``, and ``mx.mod.BucketingModule``; and
 detection: the multibox, NMS and ROI ops (``mx.nd.contrib``,
 ``mx.sym.contrib``), ``mx.image`` with ``ImageDetIter``, and
-``mx.io.ImageDetRecordIter``.
+``mx.io.ImageDetRecordIter``; and int8: the quantization ops and
+``mx.contrib.quantization`` (BN folding, the graph rewrite, calibration).
 """
 from . import ops  # noqa: F401  (first: parallel.train_step imports ndarray)
-from . import (attribute, autograd, callback, context, executor, gluon,
-               image, initializer, io, kvstore, lr_scheduler, metric, model,
-               module, monitor, name, ndarray, optimizer, parallel, random,
-               recordio, rnn, rtc, symbol, tracing)
+from . import (attribute, autograd, callback, context, contrib, executor,
+               gluon, image, initializer, io, kvstore, lr_scheduler, metric,
+               model, module, monitor, name, ndarray, optimizer, parallel,
+               random, recordio, rnn, rtc, symbol, tracing)
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -35,9 +36,9 @@ from . import symbol as sym
 from .context import cpu, gpu
 from .ndarray import NDArray
 
-__all__ = ["attribute", "autograd", "callback", "context", "executor",
-           "gluon", "image", "init", "initializer", "io", "kv", "kvstore",
-           "lr_scheduler", "metric", "mod", "model", "module", "monitor",
+__all__ = ["attribute", "autograd", "callback", "context", "contrib",
+           "executor", "gluon", "image", "init", "initializer", "io", "kv",
+           "kvstore", "lr_scheduler", "metric", "mod", "model", "module", "monitor",
            "name", "ndarray", "nd", "optimizer", "parallel", "random",
            "recordio", "rnn", "rtc", "sym", "symbol", "tracing", "cpu", "gpu",
            "NDArray"]

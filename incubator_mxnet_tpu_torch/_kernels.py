@@ -5,7 +5,11 @@ process per source, all started together, and linked by one more into a
 shared library with a plain C interface
 (``build/torch_kernels/libmxnet_tpu_torch_<hash>.so`` at the repository
 root, keyed by a hash of the sources, their headers and the flags) and
-loaded with ``ctypes``.  Every pointer and the stream cross as ``c_void_p``; every C
+loaded with ``ctypes``.  The directory is a
+:class:`~.parallel.aot.CompileCache`: the library is opened only after
+its sha256 sidecar verifies, a damaged one is deleted and rebuilt, and
+libraries of other source hashes are swept past ``max_bytes``
+(:func:`compile_cache` reads the counters).  Every pointer and the stream cross as ``c_void_p``; every C
 entry returns ``cudaGetLastError()`` and :meth:`Kernel.launch` raises when
 it is non-zero.  Each kernel keeps a plain integer launch counter that
 only :meth:`Kernel.launch` advances.
@@ -27,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "build", "launch_counts", "query",
+__all__ = ["KERNELS", "build", "compile_cache", "launch_counts", "query",
            "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
@@ -99,13 +103,29 @@ def _nvcc():
                        "first use")
 
 
-def _library_path():
+def _source_key():
+    """The library's cache key: a hash of the flags, sources and
+    headers."""
     h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
     headers = tuple(sorted(p.name for p in _CSRC.glob("*.cuh")))
     for name in _SOURCES + headers:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
-    return _BUILD_DIR / ("libmxnet_tpu_torch_%s.so" % h.hexdigest()[:12])
+    return h.hexdigest()[:12]
+
+
+_cache = None
+
+
+def compile_cache():
+    """The :class:`~.parallel.aot.CompileCache` over the build directory
+    (one per process; its counters say how the library was had)."""
+    global _cache
+    if _cache is None:
+        from .parallel.aot import CompileCache
+
+        _cache = CompileCache(str(_BUILD_DIR), prefix="libmxnet_tpu_torch_")
+    return _cache
 
 
 def _run(procs):
@@ -122,7 +142,8 @@ def _run(procs):
 
 def _compile(path):
     """One ``nvcc -c`` per source, all at once, then one link into
-    ``path`` (written under a temporary name and renamed)."""
+    ``path``."""
+    path = Path(path)
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = "%s.%d" % (path.stem, os.getpid())
     objs = [_BUILD_DIR / ("%s.%s.o" % (tag, Path(s).stem)) for s in _SOURCES]
@@ -133,12 +154,10 @@ def _compile(path):
         _run([(c, subprocess.Popen(c, stdout=subprocess.PIPE,
                                    stderr=subprocess.PIPE, text=True))
               for c in cmds])
-        tmp = path.with_suffix(".%d.tmp" % os.getpid())
-        link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+        link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(path),
                 *[str(o) for o in objs]]
         _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))])
-        os.replace(tmp, path)
     finally:
         for o in objs:
             if o.exists():
@@ -161,23 +180,30 @@ def _build_lock():
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
+def _open(path):
+    return ctypes.CDLL(str(path))
+
+
 def build():
-    """Compile the kernels (if the library for these sources is missing)
-    and load them.  Returns the seconds spent building (0.0 when the
-    library was already there)."""
+    """Compile the kernels (if the cache holds no intact library for these
+    sources) and load them.  Returns the seconds spent building (0.0 when
+    the library was already there)."""
     global _lib
     with _lock:
         if _lib is not None:
             return 0.0
-        path = _library_path()
+        key = _source_key()
+        cache = compile_cache()
         seconds = 0.0
-        if not path.exists():
-            with _build_lock():
-                if not path.exists():  # another process may have built it
-                    t0 = time.perf_counter()
-                    _compile(path)
-                    seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
+        # under the lock across processes: ranks started together on a
+        # fresh directory build once, and a damaged entry is rebuilt once
+        with _build_lock():
+            lib = cache.load(key, _open)
+            if lib is None:
+                t0 = time.perf_counter()
+                path = cache.store(key, _compile)
+                seconds = time.perf_counter() - t0
+                lib = _open(path)
         for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

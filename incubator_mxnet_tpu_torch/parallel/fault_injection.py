@@ -13,6 +13,8 @@ survive:
   leave the last committed checkpoint intact);
 - **silent corruption** — :func:`corrupt_checkpoint` flips a bit in or
   truncates a committed file, or tears the manifest;
+  :func:`corrupt_compile_cache` damages a compile-cache entry (the built
+  kernel library, ``parallel/aot.py`` ``CompileCache``);
 - **input faults** — :func:`flaky_reads`, :func:`slow_reads` and
   :func:`kill_worker` interpose the resilient loader's record puller
   (``io/resilient.py::_pull``) with transient errnos, latency and a
@@ -42,8 +44,6 @@ survive:
   :func:`nan_params` builds a poisoned hot-swap candidate and
   :func:`swap_storm` fires canaried swaps from a thread under the
   caller's traffic, one of them poisoned if asked.
-
-The reference's ``corrupt_compile_cache`` waits for the compile cache.
 
 Everything here is process-local patching or file surgery, except
 :func:`kill_process`, which only a spawned rank should call.
@@ -286,6 +286,38 @@ def corrupt_checkpoint(directory, step=None, what="bitflip", which=0):
     else:
         raise ValueError("what must be 'bitflip', 'truncate', 'manifest' "
                          "or 'torn_manifest', got %r" % (what,))
+    return path
+
+
+def corrupt_compile_cache(directory, what="truncate", which=0):
+    """Damage a compile-cache entry (``parallel/aot.py`` ``CompileCache``:
+    the built kernel library) in place; returns the path touched.
+
+    ``what``: ``"truncate"`` halves the entry (a torn write);
+    ``"bitflip"`` flips one bit mid-file (silent corruption);
+    ``"garbage"`` replaces the whole entry with bytes that are no
+    library.  Every case must end in a warning and a rebuild: never a
+    crash, never a wrong library loaded."""
+    names = sorted(n for n in os.listdir(str(directory))
+                   if n.endswith(".so") and ".tmp." not in n)
+    if not names:
+        raise ValueError("no compile-cache entries under %r" % (directory,))
+    path = os.path.join(str(directory), names[int(which) % len(names)])
+    if what == "truncate":
+        with open(path, "r+b") as f:
+            f.truncate(max(os.path.getsize(path) // 2, 1))
+    elif what == "bitflip":
+        with open(path, "r+b") as f:
+            data = bytearray(f.read())
+            data[len(data) // 2] ^= 0x10
+            f.seek(0)
+            f.write(data)
+    elif what == "garbage":
+        with open(path, "wb") as f:
+            f.write(b"not a cache entry")
+    else:
+        raise ValueError("what must be 'truncate', 'bitflip' or "
+                         "'garbage', got %r" % (what,))
     return path
 
 
@@ -674,10 +706,12 @@ def burst_arrivals(batcher, payloads, block=False):
 
 
 def _live_param_snapshot(engine):
-    """``(version, [host copies])`` of the engine's live slot: the
-    bitwise oracle for a rejected swap."""
+    """``(version, [host copies])`` of the engine's live slot, a quantized
+    parameter's codes and amax as two leaves: the bitwise oracle for a
+    rejected swap."""
     ver, vals = engine._live
-    return ver, [t.detach().cpu().clone() for t in vals]
+    return ver, [t.detach().cpu().clone() for v in vals
+                 for t in (v if isinstance(v, tuple) else (v,))]
 
 
 def _leaves_equal(a, b) -> bool:
@@ -711,11 +745,16 @@ def swap_storm(engine, n_swaps=5, interval=0.02, perturb=0.02,
     if not getattr(engine, "_params", None):
         raise ValueError("warmup() the engine first -- the storm replays "
                          "the canaried swap path")
-    _ver0, live0 = _live_param_snapshot(engine)
+    from ..ops.quantization import dequantize_tensor
+
     sig = engine.param_signature
-    base = [np.asarray(t.float().numpy() if t.dtype == torch.bfloat16
-                       else t.numpy(), sig[i][2])
-            for i, t in enumerate(live0)]
+    base = []
+    for i, v in enumerate(engine._live[1]):
+        # an int8 tier's candidate is its live codes dequantized
+        t = (dequantize_tensor(*v) if isinstance(v, tuple) else v) \
+            .detach().cpu()
+        base.append(np.asarray(t.float().numpy() if t.dtype == torch.bfloat16
+                               else t.numpy(), sig[i][2]))
     rng = np.random.RandomState(seed)
     stats = _Stats(attempted=0, committed=0, rejected=0, versions=[],
                    poison_rejected=None, incumbent_bitwise_ok=None,

@@ -21,21 +21,27 @@ O(1) decode cache and the open-loop loadtest (port of
   :class:`~.cache.TinyDecoderLM`;
 - :func:`~.loadtest.poisson_loadtest`: open-loop Poisson traffic
   reporting p50/p95/p99, sustained QPS, batch occupancy and the captures
-  after warmup (must be 0).
+  after warmup (must be 0);
+- :class:`~.flywheel.PromotionDaemon`: watches a checkpoint directory and
+  walks each committed candidate through the promotion gauntlet
+  (checksummed load, held-out metric through ``shadow_infer``, the
+  canaried swap), every verdict in an append-only promotion ledger.
 
-The reference's promotion daemon (``serve/flywheel.py``) is not ported
-yet.
+``ServeEngine(dtype="int8")`` is the weight-only int8 tier.
 """
 from .batcher import (Backpressure, ContinuousBatcher, RequestError,
                       ServeStats)
 from .cache import CachedDecoder, TinyDecoderLM, init_cache
 from .engine import LintError, ServeEngine
+from .flywheel import (PromotionDaemon, held_out_ce, load_candidate_params,
+                       read_promotions)
 from .loadtest import LoadReport, poisson_loadtest
 from .resilience import (CircuitBreaker, DeadlineExceeded, RetryPolicy,
                          Shed, SwapRejected)
 
 __all__ = ["Backpressure", "CachedDecoder", "CircuitBreaker",
            "ContinuousBatcher", "DeadlineExceeded", "LintError",
-           "LoadReport", "RequestError", "RetryPolicy", "ServeEngine",
-           "ServeStats", "Shed", "SwapRejected", "TinyDecoderLM",
-           "init_cache", "poisson_loadtest"]
+           "LoadReport", "PromotionDaemon", "RequestError", "RetryPolicy",
+           "ServeEngine", "ServeStats", "Shed", "SwapRejected",
+           "TinyDecoderLM", "held_out_ce", "init_cache",
+           "load_candidate_params", "poisson_loadtest", "read_promotions"]

@@ -57,8 +57,21 @@ it inside the program.  The candidate's signature is the net's own
 from it in names, shapes or dtypes is refused eagerly with
 :class:`LintError` (the reference's GL011), before anything is written.
 
-Not ported: ``dtype="int8"`` (the reference's ``quantize_int8``
-graftpass), the ``lint=``, ``cost=``, ``numerics=``, ``passes=``,
+``dtype="int8"`` is the weight-only quantized tier (the reference's
+``quantize_int8`` graftpass, ``analysis/passes.py:707``): every floating
+parameter of ndim >= 2 (convolution filters, dense weights) is held in
+each slot only as int8 codes and a 0-d f32 amax
+(``ops/quantization.quantize_tensor``), quantized on the engine's device
+at load and again for each swap or shadow candidate; biases, BN vectors
+and running statistics stay float.  The slot's net holds no float copy of
+those tensors (its own are ``meta`` tensors).  Each bucket program
+dequantizes the codes in its prologue with the reference's arithmetic,
+``(q.float() * (amax / 127)).to(dtype)``, and runs the net on them
+through ``torch.func.functional_call``; the tier has no compute cast.
+``_p_vals``/``_quantized`` are the reference's per-parameter values
+(a ``(codes, amax)`` pair where quantized) and int8 flags.
+
+Not ported: the ``lint=``, ``cost=``, ``numerics=``, ``passes=``,
 ``hbm_budget=``, ``cost_device=`` and ``lint_suppress=`` hooks and
 ``schedule_hash`` (they walk jaxprs), and ``mesh=``/``batch_axis=``/
 ``param_shardings=`` (the reference's mesh is one program over the
@@ -78,6 +91,7 @@ from torch.nn.parameter import is_lazy
 
 from .. import _kernels, base, context
 from ..ndarray import NDArray
+from ..ops.quantization import dequantize_tensor, quantize_tensor
 from ..parallel.aot import capture_timed
 
 __all__ = ["LintError", "ServeEngine"]
@@ -164,12 +178,23 @@ def check_swap_compatibility(served, candidate, missing=(), extra=()):
             "under live traffic" % (len(drifts), show, more))
 
 
+def _owner(net, path):
+    """``(module, attribute)`` that holds the tensor at ``path``."""
+    *parents, attr = path.split(".")
+    mod = net
+    for p in parents:
+        mod = getattr(mod, p)
+    return mod, attr
+
+
 class _Slot:
     """One private copy of the net on the engine's device, in predict
-    mode and the engine's compute dtype, with its tensors in the
-    reference's ``collect_params()`` order."""
+    mode and the engine's compute dtype, with its values in the
+    reference's ``collect_params()`` order: a tensor, or for a quantized
+    parameter its ``(int8 codes, 0-d f32 amax)`` pair, whose float tensor
+    in the net is replaced by a ``meta`` tensor (no storage)."""
 
-    def __init__(self, net, paths, device, compute):
+    def __init__(self, net, paths, device, compute, quantized):
         self.net = copy.deepcopy(net).to(device)
         if compute is not None:
             self.net.to(compute)
@@ -177,16 +202,62 @@ class _Slot:
         self.net.requires_grad_(False)
         lookup = dict(self.net.named_parameters(remove_duplicate=False))
         lookup.update(self.net.named_buffers(remove_duplicate=False))
-        self.tensors = [lookup[p] for p in paths]
+        self.values: List[Any] = []
+        #: (path, (codes, amax), float dtype) per quantized parameter
+        self.quant: List[tuple] = []
+        gone = {}
+        for path, q in zip(paths, quantized):
+            t = lookup[path]
+            if not q:
+                self.values.append(t)
+                continue
+            pair = (torch.zeros(t.shape, dtype=torch.int8, device=device),
+                    torch.zeros((), dtype=torch.float32, device=device))
+            self.values.append(pair)
+            self.quant.append((path, pair, t.dtype))
+            meta = torch.nn.Parameter(
+                torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                requires_grad=False)
+            mod, attr = _owner(self.net, path)
+            if attr in mod._parameters:
+                mod._parameters[attr] = meta
+            else:
+                mod._buffers[attr] = meta.data
+            gone[id(t)] = meta
+        if gone:
+            # the Gluon Parameters of the copy would keep the float tensors
+            for p in self.net.collect_params().values():
+                if id(p._tensor) in gone:
+                    p._var._data = gone[id(p._tensor)]
 
     def load(self, raw):
-        """Write one version's values into this slot's tensors, in place
-        (the addresses the slot's graphs captured stay)."""
+        """Write one version's values into this slot, in place (the
+        addresses the slot's graphs captured stay); a quantized
+        parameter is quantized on the slot's device first."""
         with torch.no_grad():
-            for t, a in zip(self.tensors, raw):
+            for v, a in zip(self.values, raw):
                 src = a if isinstance(a, torch.Tensor) else \
                     torch.from_numpy(np.ascontiguousarray(a))
-                t.copy_(src)
+                if isinstance(v, tuple):
+                    codes, amax = quantize_tensor(src.to(v[0].device))
+                    v[0].copy_(codes)
+                    v[1].copy_(amax)
+                else:
+                    v.copy_(src)
+
+    def forward(self, x):
+        """The net on ``x``; quantized parameters dequantized first."""
+        if not self.quant:
+            return self.net(x)
+        deq = {path: dequantize_tensor(codes, amax, dt)
+               for path, (codes, amax), dt in self.quant}
+        return torch.func.functional_call(self.net, deq, (x,))
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of this slot's parameter values on the device."""
+        return sum(t.numel() * t.element_size() for v in self.values
+                   for t in (v if isinstance(v, tuple) else (v,)))
 
 
 class _Program:
@@ -250,7 +321,9 @@ class ServeEngine:
     ``buckets`` are the batch sizes programs exist for.  ``warmup``
     captures every bucket; after it ``recompile_count`` must stay 0.
     ``device`` is where the engine serves (``None``: the card; ``"cpu"``
-    runs the programs eagerly)."""
+    runs the programs eagerly).  ``dtype`` is None (the net's own), a
+    float dtype (the compute-cast tier) or ``"int8"`` (the weight-only
+    quantized tier, module note)."""
 
     def __init__(self, net, buckets: Sequence[int] = (1, 8, 32),
                  dtype: Optional[str] = None, device=None):
@@ -261,11 +334,9 @@ class ServeEngine:
                              % (buckets,))
         if len(set(self.buckets)) != len(self.buckets):
             raise ValueError("duplicate buckets in %r" % (buckets,))
-        if dtype == "int8":
-            raise ValueError("dtype='int8' (the reference's quantize_int8 "
-                             "tier) is not ported; serve in a float dtype")
+        self._int8 = dtype == "int8"
         self._compute = None
-        if dtype is not None:
+        if dtype is not None and not self._int8:
             # a float dtype is a compute cast (the bf16 serving tier)
             self._compute = base.torch_dtype(dtype)
             if not self._compute.is_floating_point:
@@ -277,6 +348,7 @@ class ServeEngine:
             if self.device.type == "cuda" else None
         self._params: List[Any] = []       # the net's Parameter objects
         self._param_sig: List[tuple] = []  # (name, shape, dtype) pinned
+        self._quantized: List[bool] = []   # per-param int8 flag
         self._slots: List[_Slot] = []
         # the published state: (version, live slot), one tuple
         self._state: Tuple[int, int] = (0, 0)
@@ -311,10 +383,22 @@ class ServeEngine:
         return self._state[0]
 
     @property
-    def _live(self) -> Tuple[int, List[torch.Tensor]]:
-        """``(version, tensors)`` of the live slot."""
+    def _live(self) -> Tuple[int, List[Any]]:
+        """``(version, values)`` of the live slot: a tensor per parameter,
+        a ``(codes, amax)`` pair where quantized."""
         ver, slot = self._state
-        return ver, (self._slots[slot].tensors if self._slots else [])
+        return ver, (self._slots[slot].values if self._slots else [])
+
+    @property
+    def _p_vals(self) -> List[Any]:
+        """The served values of the live version (the reference's test
+        hook)."""
+        return self._live[1]
+
+    @property
+    def resident_bytes(self) -> int:
+        """Bytes of one slot's parameter values on the device."""
+        return self._slots[0].nbytes if self._slots else 0
 
     @property
     def param_signature(self) -> List[tuple]:
@@ -351,17 +435,30 @@ class ServeEngine:
         self._params = params
         self._param_sig = [(p.name, tuple(t.shape), _sig_dtype(t.dtype))
                            for p, t in zip(params, tensors)]
-        self._slots = [_Slot(self.net, paths, self.device, self._compute)
-                       for _ in range(2)]
+        self._quantized = self._quant_layout(tensors)
+        self._slots = [_Slot(self.net, paths, self.device, self._compute,
+                             self._quantized) for _ in range(2)]
+        if any(self._quantized):
+            for slot in self._slots:
+                slot.load(tensors)
         self._state = (1, 0)
+
+    def _quant_layout(self, values):
+        """Per value (a tensor or an array), whether the int8 tier
+        quantizes it: floating with ndim >= 2
+        (``analysis/passes.py:740-749``); all False off the tier."""
+        return [self._int8 and v.ndim >= 2 and (
+            v.is_floating_point() if isinstance(v, torch.Tensor)
+            else np.issubdtype(v.dtype, np.floating)) for v in values]
 
     def _param_dtype(self):
         """The dtype an unsigned-integer request is promoted to."""
         if self._compute is not None:
             return self._compute
-        for t in self._slots[0].tensors:
-            if t.is_floating_point():
-                return t.dtype
+        for _n, _s, d in self._param_sig:
+            t = d if isinstance(d, torch.dtype) else base.torch_dtype(d)
+            if t.is_floating_point:
+                return t
         return torch.float32
 
     def _forward(self, slot, x):
@@ -373,7 +470,7 @@ class ServeEngine:
         elif self._compute is not None and x.is_floating_point():
             x = x.to(self._compute)
         with torch.no_grad():
-            return self._slots[slot].net(x)
+            return self._slots[slot].forward(x)
 
     def _ensure_bucket(self, bucket, warming=False):
         """The programs of ``bucket`` for both slots, built (eager pass,
@@ -552,6 +649,10 @@ class ServeEngine:
                                        missing=missing, extra=extra)
         if msg is not None:
             raise LintError("GL011", "%s [%s]" % (msg, where))
+        if self._quant_layout(raw) != self._quantized:
+            # unreachable past GL011; kept as the reference keeps it
+            raise RuntimeError("candidate quantization layout drifted from "
+                               "the served one")
         return raw
 
     def _warmed(self):

@@ -52,7 +52,12 @@ bit-equal to the eager forward of the same padded batch, one K3 launch a
 captured bucket program and none during replays, a row independent of
 its batch-mates, a NaN candidate rolled back with the live slot
 unchanged; a ``CachedDecoder`` step replayed from its graph against full
-recompute over the sliding window (1e-5).
+recompute over the sliding window (1e-5).  Int8: the seven quantization
+ops on the card against the CPU, bit for bit (the padded ``_int_mm``
+shapes, the 7x7 stem, grouped and dilated convolutions); the int8
+serving tier's codes made on the card equal to the CPU's, its bucket
+replay bit-equal to the eager forward with one K3 launch a captured
+program, a poisoned swap rolled back with the codes unchanged.
 """
 import importlib
 
@@ -1706,3 +1711,108 @@ def test_serve_engine_graph_replay_matches_eager(dev):
     for i, got in enumerate(steps):
         _close(got[0], full[0, 3 + i], 1e-5)
     assert dec.pos == 12 and dec.compiles == 2
+
+
+def _i8(rs, shape):
+    return torch.from_numpy(rs.randint(-127, 128, shape).astype(np.int8))
+
+
+def _f32s(*vals):
+    return [torch.tensor(v, dtype=torch.float32) for v in vals]
+
+
+def _quant_op_cases():
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.uniform(-3, 5, (64, 33)).astype(np.float32))
+    acc = torch.from_numpy(rs.randint(-2 ** 20, 2 ** 20, (7, 45))
+                           .astype(np.int32))
+    cases = {
+        "quantize": ("_contrib_quantize", [x] + _f32s(-2.0, 3.0), {}),
+        "quantize_v2": ("_contrib_quantize_v2", [x], {}),
+        "dequantize": ("_contrib_dequantize", [acc] + _f32s(-3e-3, 3e-3),
+                       {}),
+        "requantize": ("_contrib_requantize", [acc] + _f32s(-7.5, 7.5), {}),
+        "elemwise_add": ("_contrib_quantized_elemwise_add",
+                         [_i8(rs, (4, 9, 13)), _i8(rs, (4, 9, 13))]
+                         + _f32s(-1.1, 0.9, -0.3, 4.0), {}),
+    }
+    # the padded _int_mm shapes: rows <= 16, K 147 (the stem), N odd
+    for m, k, n in ((3, 147, 5), (16, 16, 16), (40, 64, 1000)):
+        cases["fc_%dx%dx%d" % (m, k, n)] = (
+            "_contrib_quantized_fully_connected",
+            [_i8(rs, (m, k)), _i8(rs, (n, k)), _i8(rs, (n,))]
+            + _f32s(-2.0, 2.5, -0.6, 0.5, -1.0, 0.8), dict(num_hidden=n))
+    for tag, (c, o, g, k, stride, pad, dil) in {
+            "stem": (3, 64, 1, 7, (2, 2), (3, 3), (1, 1)),
+            "grouped": (6, 9, 3, 3, (1, 1), (0, 0), (1, 1)),
+            "dilated": (4, 4, 2, 3, (2, 1), (1, 2), (2, 3))}.items():
+        cases["conv_" + tag] = (
+            "_contrib_quantized_conv",
+            [_i8(rs, (2, c, 23, 21)), _i8(rs, (o, c // g, k, k)),
+             _i8(rs, (o,))] + _f32s(-1.5, 3.0, -0.2, 0.25, -0.5, 0.5),
+            dict(kernel=(k, k), stride=stride, pad=pad, dilate=dil,
+                 num_filter=o, num_group=g))
+    return cases
+
+
+@pytest.mark.parametrize("case", sorted(_quant_op_cases()))
+def test_quantization_ops_on_card_match_cpu(dev, case):
+    """The seven int8 ops on the card against the CPU: accumulators and
+    codes exact, the float ranges and dequantized values bit for bit
+    (every code-deciding division divides by a tensor)."""
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    name, inputs, attrs = _quant_op_cases()[case]
+    op = registry.OPS[name]
+    want = op.fn(*inputs, **attrs)
+    got = op.fn(*[t.to(dev) for t in inputs], **attrs)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w), name
+
+
+def test_int8_serve_bucket_replay_matches_eager(dev):
+    """The int8 tier on the card: codes made on the card equal to the
+    CPU's, one K3 launch a captured bucket program and none in replays,
+    a replay bit-equal to the eager forward (the dequantize prologue
+    included), a poisoned swap rolled back with the codes unchanged."""
+    from incubator_mxnet_tpu_torch import context, initializer, random
+    from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.ops.quantization import quantize_tensor
+    from incubator_mxnet_tpu_torch.parallel import fault_injection as fi
+    from incubator_mxnet_tpu_torch.serve import ServeEngine, SwapRejected
+
+    random.seed(0)
+    net = nn.HybridSequential()
+    with context.device_scope(dev):
+        net.add(nn.Conv2D(8, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.MaxPool2D(3, 2, 1),
+                nn.GlobalAvgPool2D(), nn.Flatten(), nn.Dense(6))
+    net.initialize(init=initializer.Xavier())
+    net.shape_init((2, 3, 16, 16))
+    eng = ServeEngine(net, buckets=(2, 8), dtype="int8")
+    eng.warmup(np.zeros((3, 16, 16), np.float32))
+    raw = [p.data()._data.detach() for p in eng._params]
+    for v, q, a in zip(eng._p_vals, eng._quantized, raw):
+        if q:
+            codes, amax = quantize_tensor(a.cpu())
+            assert torch.equal(v[0].cpu(), codes)
+            assert torch.equal(v[1].cpu(), amax)
+    assert all(launches.get("maxpool_idx_fwd") == 1
+               for launches in eng.capture_launches.values())
+    x = np.random.RandomState(0).rand(5, 3, 16, 16).astype(np.float32)
+    before = _kernels.launch_counts()
+    out = eng.infer(x)
+    assert _kernels.launch_counts() == before
+    xp = torch.zeros((8, 3, 16, 16), device=dev)
+    xp[:5] = torch.from_numpy(x)
+    ref = eng._forward(eng._state[1], xp)[:5]
+    assert torch.equal(out, ref)
+    snap = fi._live_param_snapshot(eng)
+    cand = [a.cpu().numpy().copy() for a in raw]
+    cand[-1][0] = np.nan            # the dense bias: float, not quantized
+    with pytest.raises(SwapRejected):
+        eng.update_params(cand)
+    after = fi._live_param_snapshot(eng)
+    assert all(fi._leaves_equal(a, b) for a, b in zip(snap[1], after[1]))
+    assert torch.equal(eng.infer(x), out) and eng.recompile_count == 0

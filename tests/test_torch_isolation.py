@@ -37,7 +37,10 @@ for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                    ("bn_kernel_bench_torch", "tools/bn_kernel_bench_torch.py"),
                    ("launch_torch", "tools/launch_torch.py"),
                    ("supervise_torch", "tools/supervise_torch.py"),
-                   ("serve_bench_torch", "tools/serve_bench_torch.py")):
+                   ("serve_bench_torch", "tools/serve_bench_torch.py"),
+                   ("flywheel_torch", "tools/flywheel_torch.py"),
+                   ("compile_cache_torch", "tools/compile_cache_torch.py"),
+                   ("int8_profile_torch", "tools/int8_profile_torch.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from incubator_mxnet_tpu_torch import rtc
@@ -127,6 +130,31 @@ def _serve():
     return serve
 
 
+def _flywheel_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "flywheel_torch", os.path.join(ROOT, "tools", "flywheel_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _calibrate_on_default_device():
+    """``quantize_model``'s calibration binds on ``ctx`` (None: the
+    card)."""
+    from incubator_mxnet_tpu_torch import nd, symbol
+    from incubator_mxnet_tpu_torch.contrib import quantization
+
+    cpu = context.cpu()
+    args = {"fullyconnected0_weight": nd.ones((2, 3), ctx=cpu),
+            "fullyconnected0_bias": nd.zeros((2,), ctx=cpu)}
+    with __import__("incubator_mxnet_tpu_torch").name.NameManager():
+        fc = symbol.FullyConnected(symbol.var("data"), num_hidden=2)
+    quantization.quantize_model(fc, args, {}, calib_mode="naive",
+                                calib_data=[[nd.ones((2, 3), ctx=cpu)]])
+
+
 def _serve_on_cpu_when_asked():
     """The engine and the decoder run on the CPU when asked, with no card."""
     serve = _serve()
@@ -135,6 +163,9 @@ def _serve_on_cpu_when_asked():
     eng = serve.ServeEngine(net, buckets=(2,), device="cpu")
     eng.warmup(np.zeros(3, np.float32))
     out = eng.infer(np.ones((3, 3), np.float32))
+    e8 = serve.ServeEngine(net, buckets=(2,), dtype="int8", device="cpu")
+    e8.warmup(np.zeros(3, np.float32))
+    assert e8.infer(np.ones((3, 3), np.float32)).device.type == "cpu"
     lm = serve.TinyDecoderLM(vocab=8, d_model=4, n_heads=2, n_layers=1,
                              d_ff=8, max_len=8)
     dec = serve.CachedDecoder(lm, lm.init(0, device="cpu"),
@@ -182,6 +213,10 @@ def _no_card(monkeypatch):
                                    seq_buckets=(8,)),
     lambda: _serve().TinyDecoderLM().init(0),
     lambda: _serve().init_cache(1, 1, 8, 2, 4),
+    lambda: _serve().ServeEngine(tnn.Dense(4, in_units=3, device="cpu"),
+                                 buckets=(2,), dtype="int8"),
+    lambda: _flywheel_tool().main(["--steps", "2"]),
+    _calibrate_on_default_device,
 ])
 def test_entry_points_refuse_cpu_without_asking(monkeypatch, build):
     _no_card(monkeypatch)

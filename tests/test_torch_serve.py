@@ -225,8 +225,11 @@ def test_engine_refuses_before_warmup_and_int8(mlp):
             np.zeros((1,) + SAMPLE, np.float32))
     with pytest.raises(RuntimeError, match="warmup"):
         ServeEngine(tnet, buckets=(4,), device="cpu").update_params([])
-    with pytest.raises(ValueError, match="int8"):
-        ServeEngine(tnet, buckets=(4,), dtype="int8", device="cpu")
+    # dtype="int8" is the quantized tier now; a non-float compute dtype
+    # is still refused
+    ServeEngine(tnet, buckets=(4,), dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="float dtype"):
+        ServeEngine(tnet, buckets=(4,), dtype="int32", device="cpu")
     lazy = tnn.Dense(4, device="cpu")
     lazy.initialize()
     with pytest.raises(RuntimeError, match="initialize"):

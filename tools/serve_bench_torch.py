@@ -8,26 +8,31 @@ Prints, as JSON lines, per measured leg::
   {"metric": "serve_qps", "value": ..., "p50_ms": ..., "p99_ms": ...,
    "occupancy": {...}, "recompiles": 0, ...}
 
-The fp32 leg always runs.  ``--chaos`` adds the resilience leg: the same
-model behind a batcher with retry, a circuit breaker and a fallback
-engine, through the serving fault hooks: a worker kill (the watchdog
-respawns it), an engine failure burst (the breaker degrades to the
-fallback and recovers), a deadline storm (shed before compute) and a
-canaried hot swap with a poisoned candidate (rolled back).  The
-reference's fallback is its int8 tier, which the port has not yet; the
-fallback here is a ``dtype="bfloat16"`` engine of the same net, which
-the reference supports too.
+The fp32 leg always runs.  ``--int8`` adds the weight-only int8 tier on
+the same traffic (same seed, same arrival process), so the latency delta
+is the tier's (``serve_int8_p99_delta_ms``).  ``--chaos`` adds the
+resilience leg: the same model behind a batcher with retry, a circuit
+breaker and the int8 tier as its fallback engine, through the serving
+fault hooks: a worker kill (the watchdog respawns it), an engine failure
+burst (the breaker degrades to the int8 fallback and recovers), a
+deadline storm (shed before compute) and a canaried hot swap with a
+poisoned candidate (rolled back); then the swap storm:
+``--storm-swaps`` back-to-back canaried swaps, one poisoned, under
+sustained Poisson load, against a storm-free baseline of the same
+traffic.
 
 The run exits 1 on any capture after warmup (steady-state serving must
-be capture-free), any future that did not resolve within its bound, or
-a poisoned swap that was accepted.  It serves on the card unless
-``--device cpu`` is given.
+be capture-free), any future that did not resolve within its bound, a
+poisoned swap that was accepted, a served row without exactly one
+version, a storm p99 beyond the declared bound (baseline p99 * 10 + 250
+ms) or a poisoned storm swap that did not leave the incumbent bitwise
+unchanged.  It serves on the card unless ``--device cpu`` is given.
 
 Examples::
 
   python tools/serve_bench_torch.py --model resnet50 --image-size 224 \\
-      --buckets 16,64 --qps 400 --requests 200 --max-delay 10 --chaos
-  python tools/serve_bench_torch.py --model mlp --device cpu --chaos
+      --buckets 16,64 --qps 400 --requests 200 --max-delay 10 --int8 --chaos
+  python tools/serve_bench_torch.py --model mlp --device cpu --int8 --chaos
 """
 from __future__ import annotations
 
@@ -81,7 +86,10 @@ def build_model(name, image_size, device=None):
     return net, shape
 
 
-def run_leg(tag, net, sample_shape, args, dtype=None):
+def run_leg(tag, net, sample_shape, args, dtype=None, engine=None):
+    """One measured leg: ``engine`` (warmed by this call), or a new engine
+    of ``net`` in ``dtype``, behind a batcher under Poisson traffic.
+    Prints the leg's JSON record; returns its ``LoadReport``."""
     import numpy as np
 
     from incubator_mxnet_tpu_torch.serve import (ContinuousBatcher,
@@ -89,7 +97,8 @@ def run_leg(tag, net, sample_shape, args, dtype=None):
                                                  poisson_loadtest)
 
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    eng = ServeEngine(net, buckets=buckets, dtype=dtype, device=args.device)
+    eng = engine or ServeEngine(net, buckets=buckets, dtype=dtype,
+                                device=args.device)
     t = eng.warmup(np.zeros(sample_shape, np.float32))
     log("%s: warmed %d buckets (eager %.2fs, capture %.2fs)"
         % (tag, len(buckets), t["eager"], t["capture"]))
@@ -125,6 +134,17 @@ def run_leg(tag, net, sample_shape, args, dtype=None):
     return rep
 
 
+def int8_delta(rep, rep8):
+    """Print and return ``serve_int8_p99_delta_ms``: the int8 leg's p99
+    less the fp32 leg's on the same traffic."""
+    delta = rep8.p99_ms - rep.p99_ms
+    print(json.dumps({"metric": "serve_int8_p99_delta_ms",
+                      "value": round(delta, 3), "unit": "ms",
+                      "fp32_p99_ms": round(rep.p99_ms, 3),
+                      "int8_p99_ms": round(rep8.p99_ms, 3)}), flush=True)
+    return delta
+
+
 def run_chaos(net, sample_shape, args):
     """The resilience leg: the chaos scenarios against a breaker and
     fallback batcher.  Returns the number of failures (hung futures,
@@ -142,7 +162,7 @@ def run_chaos(net, sample_shape, args):
     buckets = tuple(int(b) for b in args.buckets.split(","))
     eng = ServeEngine(net, buckets=buckets, device=args.device)
     eng.warmup(np.zeros(sample_shape, np.float32))
-    fb = ServeEngine(net, buckets=buckets, dtype="bfloat16",
+    fb = ServeEngine(net, buckets=buckets, dtype="int8",
                      device=args.device)
     fb.warmup(np.zeros(sample_shape, np.float32))
     recompiles0 = eng.recompile_count + fb.recompile_count
@@ -174,7 +194,7 @@ def run_chaos(net, sample_shape, args):
         log("chaos: worker kill -- respawns=%d worker_deaths=%d"
             % (batcher.stats.respawns, batcher.stats.worker_deaths))
         # 2. failure burst on the primary only: retry absorbs the head,
-        # the breaker opens onto the bf16 tier, then half-opens and
+        # the breaker opens onto the int8 tier, then half-opens and
         # recovers
         with fi.engine_failure_burst(8, engine=eng):
             drain([batcher.submit(pool[i % 64]) for i in range(12)])
@@ -225,6 +245,89 @@ def run_chaos(net, sample_shape, args):
     return 0
 
 
+def run_swap_storm(net, sample_shape, args):
+    """The flywheel chaos leg: ``--storm-swaps`` back-to-back canaried hot
+    swaps, one of them poisoned, under sustained Poisson load, against a
+    storm-free baseline of the same traffic (same seed, same arrival
+    process).  Returns the number of failures: captures after warmup,
+    hung futures, rows without exactly one version, a p99 beyond the
+    declared bound, or a poisoned swap accepted or not leaving the
+    incumbent bitwise unchanged."""
+    import numpy as np
+
+    from incubator_mxnet_tpu_torch.parallel import fault_injection as fi
+    from incubator_mxnet_tpu_torch.serve import (ContinuousBatcher,
+                                                 ServeEngine,
+                                                 poisson_loadtest)
+
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    eng = ServeEngine(net, buckets=buckets, device=args.device)
+    eng.warmup(np.zeros(sample_shape, np.float32))
+    recompiles0 = eng.recompile_count
+    rs = np.random.RandomState(args.seed)
+    pool = rs.rand(64, *sample_shape).astype(np.float32)
+    batcher = ContinuousBatcher(eng, max_delay=args.max_delay / 1e3,
+                                max_queue=args.max_queue)
+    try:
+        base = poisson_loadtest(batcher, lambda i, rng: pool[i % 64],
+                                qps=args.qps, n_requests=args.requests,
+                                seed=args.seed,
+                                extra={"leg": "storm_baseline"})
+        log("storm baseline: " + base.format())
+        with fi.swap_storm(eng, n_swaps=args.storm_swaps, interval=0.02,
+                           poison_at=args.storm_swaps // 2,
+                           seed=args.seed) as st:
+            storm = poisson_loadtest(batcher, lambda i, rng: pool[i % 64],
+                                     qps=args.qps, n_requests=args.requests,
+                                     seed=args.seed,
+                                     extra={"leg": "swap_storm"})
+        log("swap storm:     " + storm.format())
+    finally:
+        batcher.close()
+    # the reference's declared bound: generous against the host's speed
+    # spread; the claim is that a storm does not blow up the tail
+    bound_ms = base.p99_ms * 10.0 + 250.0
+    recompiles = eng.recompile_count - recompiles0
+    checks = [
+        (recompiles, "%d capture(s) after warmup" % recompiles),
+        (base.hung or storm.hung, "hung futures (baseline %d, storm %d)"
+         % (base.hung, storm.hung)),
+        (storm.unattributed or base.unattributed,
+         "%d row(s) without exactly one version"
+         % (storm.unattributed + base.unattributed)),
+        (storm.p99_ms > bound_ms, "p99 %.2fms beyond the declared bound "
+         "%.2fms (baseline %.2fms)" % (storm.p99_ms, bound_ms, base.p99_ms)),
+        (st.error or not st.poison_rejected or not st.incumbent_bitwise_ok,
+         "storm error=%r poison_rejected=%s incumbent_bitwise_ok=%s"
+         % (st.error, st.poison_rejected, st.incumbent_bitwise_ok)),
+        (not st.committed, "0 swaps landed, nothing stress-tested"),
+    ]
+    failures = 0
+    for bad, what in checks:
+        if bad:
+            log("swap storm: FAIL -- " + what)
+            failures += 1
+    rec = {"metric": "serve_swap_storm",
+           "value": round(storm.p99_ms - base.p99_ms, 3), "unit": "ms",
+           "baseline_p99_ms": round(base.p99_ms, 3),
+           "storm_p99_ms": round(storm.p99_ms, 3),
+           "bound_ms": round(bound_ms, 3),
+           "swaps_attempted": st.attempted, "swaps_committed": st.committed,
+           "promotions": storm.promotions, "rollbacks": storm.rollbacks,
+           "versions": storm.versions, "unattributed": storm.unattributed,
+           "hung": base.hung + storm.hung, "recompiles": recompiles,
+           "poison_rejected": bool(st.poison_rejected),
+           "incumbent_bitwise_ok": bool(st.incumbent_bitwise_ok),
+           "storm_error": st.error}
+    print(json.dumps(rec), flush=True)
+    if not failures:
+        log("swap storm: ok -- %d promotions under load, p99 delta %.2fms "
+            "within bound, 0 captures after warmup, incumbent restored "
+            "bitwise on poison" % (st.committed,
+                                   storm.p99_ms - base.p99_ms))
+    return failures
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="mlp",
@@ -238,11 +341,17 @@ def main(argv=None):
                     help="batcher deadline, milliseconds")
     ap.add_argument("--max-queue", type=int, default=1024)
     ap.add_argument("--image-size", type=int, default=32)
+    ap.add_argument("--int8", action="store_true",
+                    help="add the weight-only int8 leg (same traffic)")
     ap.add_argument("--chaos", action="store_true",
-                    help="add the resilience leg (worker kill, failure "
-                         "burst, deadline storm, hot swap); exit 1 on any "
-                         "hung future, capture after warmup or accepted "
-                         "poisoned swap")
+                    help="add the resilience legs (worker kill, failure "
+                         "burst, deadline storm, hot swap, swap storm under "
+                         "load); exit 1 on any hung future, capture after "
+                         "warmup, unattributed row or accepted poisoned "
+                         "swap")
+    ap.add_argument("--storm-swaps", type=int, default=6,
+                    help="swap storm leg: swaps fired under load (one of "
+                         "them poisoned; default 6)")
     ap.add_argument("--device", default=None,
                     help="where to serve (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0)
@@ -258,8 +367,13 @@ def main(argv=None):
     net, sample_shape = build_model(args.model, args.image_size, device)
     rep = run_leg("fp32", net, sample_shape, args)
     bad = rep.recompiles + rep.hung
+    if args.int8:
+        rep8 = run_leg("int8", net, sample_shape, args, dtype="int8")
+        bad += rep8.recompiles + rep8.hung
+        int8_delta(rep, rep8)
     if args.chaos:
         bad += run_chaos(net, sample_shape, args)
+        bad += run_swap_storm(net, sample_shape, args)
     if bad:
         log("FAIL: %d capture(s) after warmup / hung future(s) / chaos "
             "failure(s) -- steady-state serving must be capture-free and "
