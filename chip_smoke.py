@@ -349,6 +349,36 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    then ``--chaos loss_bomb`` (the bombed checkpoint quarantined at the
    metric stage, no promotion from it, the engine's rollbacks 0) and
    ``--chaos swap_storm`` (every row one version), each exit 0;
+3t. ``gluon.data`` and the Estimator (``ESTIMATOR``): (i) ``Estimator.fit``
+   on phase 3g's net and trainer (stock-BN ``resnet50_v1``, 1000
+   classes, 224 px, f32, sgd lr 0.05 momentum 0.9), with
+   ``SoftmaxCrossEntropyLoss``, ``metric.Accuracy`` and a
+   ``CheckpointHandler``, one epoch over ``ImageRecordDataset`` of phase
+   3d's shard through ``RandomResizedCrop``, ``RandomFlipLeftRight``,
+   ``ToTensor`` and ``Normalize`` in a ``DataLoader`` (batch 64,
+   shuffled, the last short batch dropped, 4 thread workers: 8 batches)
+   and validation on 64 images: every loss finite, every batch a (64, 3,
+   224, 224) f32 array on the card, K3 once a train forward and once a
+   validation forward and nothing else launched, the checkpoint's
+   ``.params`` loaded into a fresh CPU net bit for bit; the first batch
+   of a 0-worker loader on the card equal to its rebuild on the CPU under
+   the same seeds (the transforms run on the host: bound 0);
+   ``estimator_step_ms`` (batch end to batch end, the card synchronized,
+   median of the steady batches) with its compute and input-wait parts,
+   ``loader_batch_ms`` at 0 and 4 workers; (ii) the fixed-transform
+   loader with ``thread_pool=False`` and 2 spawned workers: the thread
+   loader's batches bit for bit, ``torch.cuda.is_initialized()`` false in
+   every worker that reported, none left running; (iii) with TF32 off,
+   ``_contrib_DeformableConvolution`` at batch 8, 64 channels, 56x56,
+   3x3, 2 deformable groups, random offsets in [-2, 2], and
+   ``PixelShuffle2D``, ``HybridConcurrent``, a ``Conv2DLSTMCell`` and an
+   ``LSTMPCell`` unrolled 4 steps: outputs and input gradients card
+   against CPU within 4x the CPU's own difference under a 1e-6 nudge of
+   the inputs; the op's forward and forward + backward ms beside
+   ``F.conv2d``'s (``deform_conv_ms``, CUDA events); (iv) a
+   ``SoftmaxCrossEntropyLoss`` composed on ``sym.var``s and bound by the
+   ``Executor`` on the card, and a ``SequentialRNNCell`` of two
+   ``LSTMCell``s likewise, equal to the Gluon calls within 1e-6;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -6668,6 +6698,433 @@ def run_flywheel_path(card):
           % (time.perf_counter() - t_phase, card), flush=True)
 
 
+# phase 3t: Estimator.fit over a RecordIO DataLoader at config 2's width;
+# the spawned-worker loader; the contrib layers; the symbolic bodies
+ESTIMATOR = dict(model="resnet50_v1", batch=64, classes=1000, lr=0.05,
+                 workers=4, val_images=64, spawn_workers=2,
+                 spawn_batches=4, loader_batches=3)
+#: ImageNet's channel means and deviations (the Normalize of the loader)
+MEAN_STD = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+#: phase 3t (iii): the deformable convolution's shape and timing reps
+DEFORM = dict(batch=8, channels=64, size=56, kernel=3, groups=2, reps=10)
+
+
+def _estimator_loader(prefix, dev, train=True, workers=0,
+                      thread_pool=True, images=None):
+    """Phase 3t's loaders over phase 3d's shard: training (shuffled,
+    ``RandomResizedCrop``, ``RandomFlipLeftRight``, ``ToTensor``,
+    ``Normalize``, the last short batch dropped) or the fixed transforms
+    (``ToTensor``, ``Normalize``) in the shard's order over its first
+    ``images`` records."""
+    from incubator_mxnet_tpu_torch.gluon.data import DataLoader
+    from incubator_mxnet_tpu_torch.gluon.data.vision import (
+        ImageRecordDataset, transforms as T)
+
+    ds = ImageRecordDataset(prefix + ".rec")
+    tail = [T.ToTensor(), T.Normalize(*MEAN_STD)]
+    if train:
+        return DataLoader(
+            ds.transform_first(T.Compose(
+                [T.RandomResizedCrop(IMAGE), T.RandomFlipLeftRight()]
+                + tail)),
+            batch_size=ESTIMATOR["batch"], shuffle=True,
+            last_batch="discard", num_workers=workers,
+            thread_pool=thread_pool, device=dev)
+    return DataLoader(ds.take(images).transform_first(T.Compose(tail)),
+                      batch_size=ESTIMATOR["batch"], num_workers=workers,
+                      thread_pool=thread_pool, device=dev)
+
+
+def _first_batches(loader, n):
+    """The first ``n`` batches of a pass and the host ms of each
+    ``next()`` (the card synchronized after it)."""
+    import torch
+
+    out, ms = [], []
+    it = iter(loader)
+    for _ in range(n):
+        t0 = time.perf_counter()
+        b = next(it)
+        if b[0].context.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(b)
+    return out, ms
+
+
+def run_estimator_path(dev, directory):
+    """Phase 3t (i)-(ii), see the module docstring.  Returns (metrics,
+    the launch counts of the fit)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels, gluon, metric
+    from incubator_mxnet_tpu_torch.gluon.contrib import estimator as est_mod
+
+    e = ESTIMATOR
+    prefix, _, _ = write_shard(directory)
+    ex = _gluon_module()
+    torch.backends.cudnn.benchmark = True
+    args = _gluon_args(ex, e["model"], e["batch"], IMAGE, e["classes"],
+                       e["lr"], e["batch"])
+    net = ex.build_net(args, dev)
+    est = est_mod.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                            metrics=metric.Accuracy(),
+                            trainer=ex.build_trainer(net, args), context=dev)
+    np.random.seed(SEED)
+    random.seed(SEED)
+    train = _estimator_loader(prefix, dev, workers=e["workers"])
+    val = _estimator_loader(prefix, dev, train=False, workers=e["workers"],
+                            images=e["val_images"])
+    ckpt_dir = os.path.join(directory, "estimator_checkpoints")
+    watch = {"losses": [], "begin": [], "end": [], "k3": [], "bad": []}
+
+    class Watch(est_mod.BatchBegin, est_mod.BatchEnd):
+        """Times each batch, checks it and its launches."""
+
+        def batch_begin(self, estimator, *a, batch=None, **kw):
+            torch.cuda.synchronize()
+            watch["begin"].append(time.perf_counter())
+            x = batch[0]
+            if (x.shape != (e["batch"], 3, IMAGE, IMAGE)
+                    or x.dtype != np.float32 or x.context != dev):
+                watch["bad"].append((x.shape, x.dtype, x.context))
+            watch["k3_before"] = _kernels.launch_counts()
+
+        def batch_end(self, estimator, *a, loss=None, **kw):
+            torch.cuda.synchronize()
+            watch["end"].append(time.perf_counter())
+            watch["losses"].append(float(loss[0].asnumpy().mean()))
+            now = _kernels.launch_counts()
+            watch["k3"].append({k: now[k] - watch["k3_before"][k]
+                                for k in now})
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    est.fit(train, val_data=val, epochs=1, event_handlers=[
+        Watch(), est_mod.CheckpointHandler(ckpt_dir,
+                                           model_prefix=e["model"])])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    n_train = len(watch["losses"])
+    n_val = -(-e["val_images"] // e["batch"])
+    if watch["bad"]:
+        raise AssertionError("batches off shape, dtype or device: %s"
+                             % watch["bad"][:3])
+    if n_train != RECORDS // e["batch"] or not _losses_ok(watch["losses"]):
+        raise AssertionError("estimator losses %s" % watch["losses"])
+    per_batch = {k: 1 if k == "maxpool_idx_fwd" else 0 for k in counts}
+    if any(got != per_batch for got in watch["k3"]):
+        raise AssertionError("a train batch launched %s, want %s"
+                             % (watch["k3"], per_batch))
+    want = {k: (n_train + n_val) * v for k, v in per_batch.items()}
+    if counts != want:
+        raise AssertionError("the fit launched %s, want %s (%d train and "
+                             "%d validation forwards)"
+                             % (counts, want, n_train, n_val))
+    print("  %s, batch %d, %d px, %d classes, Trainer sgd lr %g momentum "
+          "0.9, Accuracy, CheckpointHandler; %d train batches (4 thread "
+          "workers) and %d validation: losses %s  %s  validation %s  fit "
+          "%.2f s  K3 launches %d" % (
+              e["model"], e["batch"], IMAGE, e["classes"], e["lr"], n_train,
+              n_val, ["%.4f" % v for v in watch["losses"]],
+              est.train_metrics[0].get(), est.val_metrics[0].get(), fit_s,
+              counts["maxpool_idx_fwd"]), flush=True)
+    compute = [(b - a) * 1e3 for a, b in zip(watch["begin"], watch["end"])]
+    steps = [(b - a) * 1e3 for a, b in zip(watch["end"], watch["end"][1:])]
+    waits = [(b - a) * 1e3 for a, b in zip(watch["end"], watch["begin"][1:])]
+
+    # the checkpoint into a fresh net on the CPU, bit for bit
+    files = sorted(os.listdir(ckpt_dir))
+    want_files = ["%s-epoch0.params" % e["model"],
+                  "%s-epoch0.states" % e["model"]]
+    if files != want_files:
+        raise AssertionError("checkpoint files %s, want %s"
+                             % (files, want_files))
+    fresh = ex.build_net(args, "cpu")
+    fresh.load_parameters(os.path.join(ckpt_dir, want_files[0]))
+    mine = net._collect_params_with_prefix()
+    theirs = fresh._collect_params_with_prefix()
+    differ = [k for k in mine if not torch.equal(
+        mine[k].data()._data.cpu(), theirs[k].data()._data)]
+    if sorted(mine) != sorted(theirs) or differ:
+        raise AssertionError("the checkpoint reloads with %d of %d tensors "
+                             "differing: %s" % (len(differ), len(mine),
+                                                differ[:4]))
+    print("  checkpoint %s (%d bytes) reloads into a fresh CPU net: all %d "
+          "tensors bit for bit" % (
+              files, sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                         for f in files), len(mine)), flush=True)
+    del net, est, fresh, train, val
+    torch.cuda.empty_cache()
+
+    # the loader alone: 0 workers on the card, its first batch rebuilt on
+    # the CPU under the same seeds; then 4 thread workers
+    loader_ms = {}
+    firsts = {}
+    for where in (dev, "cpu"):
+        np.random.seed(SEED + 1)
+        random.seed(SEED + 1)
+        batches, ms = _first_batches(
+            _estimator_loader(prefix, where), e["loader_batches"])
+        firsts[str(where)] = [t.asnumpy() for t in batches[0]]
+        if where == dev:
+            loader_ms[0] = _median(ms)
+    diff = max(float(np.abs(a - b).max()) for a, b in
+               zip(firsts[str(dev)], firsts["cpu"]))
+    if diff != 0:
+        raise AssertionError("the first batch on the card differs from its "
+                             "CPU rebuild by %g" % diff)
+    # a whole pass over the worker threads a batch (they start 8 batches
+    # ahead, so a single next() after the first does not wait)
+    threads = _estimator_loader(prefix, dev, workers=e["workers"])
+    _, ms = _first_batches(threads, len(threads))
+    loader_ms[e["workers"]] = sum(ms) / len(ms)
+    del threads
+    print("  first batch of a 0-worker loader on the card equal to its CPU "
+          "rebuild under the same seeds (max abs diff %g; the 4 thread "
+          "workers draw from one Python random in no fixed order)" % diff,
+          flush=True)
+
+    # (ii) spawned workers: the thread loader's batches, no CUDA context
+    images = e["spawn_batches"] * e["batch"]
+    t0 = time.perf_counter()
+    spawned = _estimator_loader(prefix, dev, train=False,
+                                workers=e["spawn_workers"],
+                                thread_pool=False, images=images)
+    got, _ = _first_batches(spawned, len(spawned))
+    spawn_s = time.perf_counter() - t0
+    cuda = spawned.worker_cuda_initialized()
+    del spawned
+    import gc
+    import multiprocessing
+
+    gc.collect()
+    want_b, _ = _first_batches(_estimator_loader(
+        prefix, dev, train=False, workers=e["workers"], images=images),
+        e["spawn_batches"])
+    same = all(torch.equal(a._data, b._data) for ga, gb in zip(got, want_b)
+               for a, b in zip(ga, gb))
+    if len(got) != e["spawn_batches"] or not same:
+        raise AssertionError("the spawned loader's batches differ from the "
+                             "thread loader's")
+    if not cuda or any(cuda.values()):
+        raise AssertionError("spawned workers' torch.cuda.is_initialized(): "
+                             "%s" % cuda)
+    left = multiprocessing.active_children()
+    for p in left:
+        p.join(timeout=10)
+    if any(p.is_alive() for p in left):
+        raise AssertionError("spawned workers left running: %s" % left)
+    print("  spawned loader (thread_pool=False, %d workers, %d batches of "
+          "%d): the thread loader's batches bit for bit in %.2f s (start "
+          "included); torch.cuda.is_initialized() in the %d workers that "
+          "reported: %s; none left running" % (
+              e["spawn_workers"], e["spawn_batches"], e["batch"], spawn_s,
+              len(cuda), sorted(cuda.values())), flush=True)
+    return {"estimator_step_ms": _median(steps[1:]),
+            "estimator_compute_ms": _median(compute[2:]),
+            "estimator_wait_ms": _median(waits[1:]),
+            "loader_batch_ms_0": loader_ms[0],
+            "loader_batch_ms_%d" % e["workers"]: loader_ms[e["workers"]],
+            "fit_s": fit_s, "spawn_s": spawn_s}, counts
+
+
+def _nudged(arrays, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [(a * (1 + 1e-6 * rng.normal(size=a.shape))).astype(a.dtype)
+            for a in arrays]
+
+
+def _fwd_bwd(fn, arrays, device, nudge=False):
+    """``fn`` of the arrays (leaf tensors on ``device``), its outputs'
+    sum weighted by a fixed random cotangent differentiated: [outputs...,
+    input grads...] on the host.  ``nudge`` scales the arrays and the
+    cotangent by 1 + 1e-6 * N(0, 1) elementwise."""
+    import numpy as np
+    import torch
+
+    if nudge:
+        arrays = _nudged(arrays, 2)
+    ts = [torch.tensor(a, device=device, requires_grad=True) for a in arrays]
+    outs = fn(*ts)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    rng = np.random.RandomState(1)
+    cots = [rng.uniform(-1, 1, tuple(o.shape)).astype(np.float32)
+            for o in outs]
+    if nudge:
+        cots = _nudged(cots, 3)
+    total = sum((o * torch.tensor(c, device=device)).sum()
+                for o, c in zip(outs, cots))
+    total.backward()
+    return [o.detach().cpu() for o in outs] + \
+        [t.grad.detach().cpu() for t in ts]
+
+
+def _card_vs_cpu(name, fn_of, arrays, dev):
+    """``fn_of(device)`` on the card and on the CPU from the same arrays,
+    and on the CPU from the arrays and the cotangent nudged by 1e-6: each
+    output and input gradient card-vs-CPU within 4x the nudged run's
+    difference."""
+    card = _fwd_bwd(fn_of(dev), arrays, dev)
+    cpu = _fwd_bwd(fn_of("cpu"), arrays, "cpu")
+    nudged = _fwd_bwd(fn_of("cpu"), arrays, "cpu", nudge=True)
+    worst = 0.0
+    for i, (a, b, c) in enumerate(zip(card, cpu, nudged)):
+        err, floor = _max_err(a, b), _max_err(c, b)
+        if not err <= 4 * floor:
+            raise AssertionError("%s tensor %d: card-vs-CPU %g over 4x the "
+                                 "nudged floor %g" % (name, i, err, floor))
+        worst = max(worst, err / floor if floor else 0.0)
+    print("  %-40s %d tensors (outputs, input gradients): card-vs-CPU at "
+          "most %.3fx the nudged CPU floor (limit 4x)" % (name, len(card),
+                                                          worst), flush=True)
+
+
+def _block_on(make, call):
+    """``device -> fn``: the block ``make()`` builds, on ``device``, with
+    one set of Xavier weights (seed ``SEED``), called by ``call``."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import context, convert, initializer
+
+    with context.device_scope("cpu"):
+        proto = make()
+    initializer.initialize(proto, initializer.Xavier(),
+                           torch.Generator().manual_seed(SEED))
+    weights = convert.params_to_numpy(proto)
+
+    def of(device):
+        with context.device_scope(device):
+            blk = make()
+        convert.params_from_jax(blk, weights)
+        return lambda *a: call(blk, *a)
+    return of
+
+
+def _hconcat(contrib, nn):
+    net = contrib.nn.HybridConcurrent(axis=1)
+    net.add(nn.Dense(24, in_units=32), contrib.nn.Identity(),
+            nn.Dense(8, in_units=32, activation="tanh"))
+    return net
+
+
+def contrib_card_vs_cpu(dev):
+    """Phase 3t (iii), see the module docstring.  Returns the timings."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tF
+
+    from incubator_mxnet_tpu_torch.gluon import contrib, nn
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = DEFORM
+    n, c, s, k, g = (d["batch"], d["channels"], d["size"], d["kernel"],
+                     d["groups"])
+    rng = np.random.RandomState(SEED + 5)
+    x = rng.uniform(-1, 1, (n, c, s, s)).astype(np.float32)
+    off = rng.uniform(-2, 2, (n, 2 * g * k * k, s, s)).astype(np.float32)
+    w = (rng.normal(0, 1, (c, c, k, k)) / (c * k * k) ** 0.5).astype(
+        np.float32)
+    b = rng.normal(0, 0.1, c).astype(np.float32)
+    deform = registry.get_op("_contrib_DeformableConvolution").fn
+    attrs = dict(kernel=(k, k), num_filter=c, pad=(1, 1),
+                 num_deformable_group=g)
+    _card_vs_cpu("DeformableConvolution op", lambda _: (
+        lambda *a: deform(*a, **attrs)), [x, off, w, b], dev)
+
+    def unrolled(blk, xx):
+        return blk.unroll(4, xx, merge_outputs=True)[0]
+
+    cases = [
+        ("PixelShuffle2D(2)", lambda: contrib.nn.PixelShuffle2D(2),
+         lambda blk, xx: blk(xx), (4, 16, 7, 9)),
+        ("HybridConcurrent(Dense, Identity, Dense)",
+         lambda: _hconcat(contrib, nn), lambda blk, xx: blk(xx), (16, 32)),
+        ("Conv2DLSTMCell unrolled 4 steps",
+         lambda: contrib.rnn.Conv2DLSTMCell((8, 12, 12), 16, 3, 3),
+         unrolled, (4, 4, 8, 12, 12)),
+        ("LSTMPCell unrolled 4 steps",
+         lambda: contrib.rnn.LSTMPCell(64, 32, input_size=48), unrolled,
+         (8, 4, 48)),
+    ]
+    for name, make, call, shape in cases:
+        _card_vs_cpu(name, _block_on(make, call),
+                     [rng.uniform(-1, 1, shape).astype(np.float32)], dev)
+
+    # the deformable op beside F.conv2d of its shape, CUDA events
+    args = [torch.tensor(a, device=dev) for a in (x, off, w, b)]
+    grads = [a.clone().requires_grad_() for a in args]
+    cot = torch.ones(n, c, s, s, device=dev)
+    out = {
+        "deform_conv_ms": _time_ms(lambda: deform(*args, **attrs),
+                                   d["reps"]),
+        "conv2d_ms": _time_ms(lambda: tF.conv2d(args[0], args[2], args[3],
+                                                padding=1), d["reps"]),
+        "deform_conv_fwd_bwd_ms": _time_ms(
+            lambda: deform(*grads, **attrs).backward(cot), d["reps"]),
+        "conv2d_fwd_bwd_ms": _time_ms(
+            lambda: tF.conv2d(grads[0], grads[2], grads[3],
+                              padding=1).backward(cot), d["reps"])}
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+    return out
+
+
+def symbolic_bodies_on_card(dev):
+    """Phase 3t (iv), see the module docstring."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import context, initializer
+
+    rng = np.random.RandomState(SEED + 6)
+    pred = rng.normal(0, 2, (64, 1000)).astype(np.float32)
+    label = rng.randint(0, 1000, 64).astype(np.float32)
+    with context.device_scope(dev):
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.name.NameManager():
+        graph = loss(mx.sym.var("pred"), mx.sym.var("label"))
+    exe = graph.bind(dev, {"pred": mx.nd.array(pred, ctx=dev),
+                           "label": mx.nd.array(label, ctx=dev)})
+    got = exe.forward()[0]
+    want = loss(mx.nd.array(pred, ctx=dev), mx.nd.array(label, ctx=dev))
+    _check("SoftmaxCrossEntropyLoss: Executor vs Gluon", got._data,
+           want._data, 1e-6)
+
+    with context.device_scope(dev):
+        cell = mx.gluon.rnn.SequentialRNNCell()
+        cell.add(mx.gluon.rnn.LSTMCell(64, input_size=32))
+        cell.add(mx.gluon.rnn.LSTMCell(48, input_size=64))
+    initializer.initialize(cell, initializer.Xavier(),
+                           torch.Generator(device=dev).manual_seed(SEED))
+    names = ["h0", "c0", "h1", "c1"]
+    with mx.name.NameManager():
+        out, new = cell(mx.sym.var("x"), [mx.sym.var(v) for v in names])
+    graph = mx.sym.Group([out] + list(new))
+    feeds = {"x": rng.uniform(-1, 1, (16, 32)).astype(np.float32)}
+    for v, width in zip(names, (64, 64, 48, 48)):
+        feeds[v] = rng.uniform(-1, 1, (16, width)).astype(np.float32)
+    args = {k: mx.nd.array(v, ctx=dev) for k, v in feeds.items()}
+    args.update({p.name: p.data() for p in cell.collect_params().values()})
+    outs = graph.bind(dev, args).forward()
+    eager_out, eager_states = cell(args["x"], [args[v] for v in names])
+    for i, (a, b) in enumerate(zip(outs, [eager_out] + list(eager_states))):
+        _check("SequentialRNNCell(2 LSTMCell) output %d: Executor vs eager"
+               % i, a._data, b._data, 1e-6)
+
+
 def main(argv=None):
     import argparse
 
@@ -7036,6 +7493,46 @@ def main(argv=None):
           "the card, then --chaos loss_bomb and --chaos swap_storm",
           flush=True)
     run_flywheel_path(card)
+
+    print("[3t] gluon.data and the Estimator: Estimator.fit on %s (batch "
+          "%d, %d px, %d classes, f32, Trainer sgd lr %g momentum 0.9) over "
+          "a DataLoader of phase 3d's shard (RandomResizedCrop, flip, "
+          "ToTensor, Normalize; %d thread workers), a CheckpointHandler; "
+          "the spawned-worker loader; the contrib layers and the symbolic "
+          "bodies card against CPU" % (
+              ESTIMATOR["model"], ESTIMATOR["batch"], IMAGE,
+              ESTIMATOR["classes"], ESTIMATOR["lr"], ESTIMATOR["workers"]),
+          flush=True)
+    t_est = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_estimator_")
+    try:
+        est, est_counts = run_estimator_path(dev, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    counts["maxpool_idx_fwd"] += est_counts["maxpool_idx_fwd"]
+    print("[3t] estimator_step_ms %.2f (median of batches 3-%d, batch end "
+          "to batch end: compute %.2f + input wait %.2f)  phase 3g's "
+          "gluon_step_ms %.2f  loader_batch_ms %.2f at 0 workers (median "
+          "of 3), %.2f at %d (a pass of 8 over 8)  fit %.2f s  spawned loader %.2f s  on %s" % (
+              est["estimator_step_ms"], RECORDS // ESTIMATOR["batch"],
+              est["estimator_compute_ms"], est["estimator_wait_ms"],
+              gl["gluon_step_ms"], est["loader_batch_ms_0"],
+              est["loader_batch_ms_%d" % ESTIMATOR["workers"]],
+              ESTIMATOR["workers"], est["fit_s"], est["spawn_s"], card),
+          flush=True)
+    dc = contrib_card_vs_cpu(dev)
+    print("[3t] deform_conv_ms %.3f (F.conv2d %.3f: %.1fx)  forward + "
+          "backward %.3f (F.conv2d %.3f: %.1fx)  at (%d, %d, %d, %d), 3x3, "
+          "%d deformable groups, f32, TF32 off, CUDA events  on %s" % (
+              dc["deform_conv_ms"], dc["conv2d_ms"],
+              dc["deform_conv_ms"] / dc["conv2d_ms"],
+              dc["deform_conv_fwd_bwd_ms"], dc["conv2d_fwd_bwd_ms"],
+              dc["deform_conv_fwd_bwd_ms"] / dc["conv2d_fwd_bwd_ms"],
+              DEFORM["batch"], DEFORM["channels"], DEFORM["size"],
+              DEFORM["size"], DEFORM["groups"], card), flush=True)
+    symbolic_bodies_on_card(dev)
+    print("[3t] phase wall time %.2f s" % (time.perf_counter() - t_est),
+          flush=True)
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "
           "at the stem, device time with the L2 flushed; K4-K6 one layer's "

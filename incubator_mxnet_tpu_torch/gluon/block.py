@@ -485,12 +485,21 @@ class _TensorOps:
     """``F`` of ``hybrid_forward`` and ``HybridLambda``: the registered
     ops of the port (``ops/math.py``, ``ops/tensor.py``, ``ops/nn.py``'s
     forms) by name, on tensors (``F.clip(x, 0, 6)``, ``F.Concat(a, b,
-    dim=1)``, ``F.FullyConnected(x, w, b, num_hidden=10)``)."""
+    dim=1)``, ``F.FullyConnected(x, w, b, num_hidden=10)``); ``F.contrib``
+    the ``_contrib_`` ones (``F.contrib.DeformableConvolution``)."""
+
+    def __init__(self, prefix=""):
+        self._prefix = prefix
 
     def __getattr__(self, name):
         from ..ops import math, nn, registry, tensor  # noqa: F401  (registers)
 
-        fn = registry.get_op(name).fn
+        if name.startswith("__") or name == "_prefix":
+            raise AttributeError(name)
+        if name == "contrib" and not self._prefix:
+            fn = _TensorOps("_contrib_")
+        else:
+            fn = registry.get_op(self._prefix + name).fn
         setattr(self, name, fn)  # the next lookup skips this
         return fn
 

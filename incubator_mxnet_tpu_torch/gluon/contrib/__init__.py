@@ -1,5 +1,6 @@
 """``mx.gluon.contrib`` (port of ``incubator_mxnet_tpu/gluon/contrib``):
-``contrib.nn.MoEFFN``."""
-from . import nn
+``cnn`` (``DeformableConvolution``), ``data`` (``IntervalSampler``),
+``estimator``, ``nn`` and ``rnn``."""
+from . import cnn, data, estimator, nn, rnn
 
-__all__ = ["nn"]
+__all__ = ["cnn", "data", "estimator", "nn", "rnn"]

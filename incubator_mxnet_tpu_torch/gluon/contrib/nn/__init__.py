@@ -1,18 +1,148 @@
 """``mx.gluon.contrib.nn`` (port of
-``incubator_mxnet_tpu/gluon/contrib/nn/__init__.py``): the
-mixture-of-experts layer ``MoEFFN``.  The file's other blocks
-(``PixelShuffle*``, ``Concurrent``, ``SyncBatchNorm`` and the rest) are
-ROADMAP A13."""
+``incubator_mxnet_tpu/gluon/contrib/nn/__init__.py``): ``Concurrent``,
+``HybridConcurrent``, ``Identity``, ``SparseEmbedding``,
+``SyncBatchNorm``, ``PixelShuffle1D``/``2D``/``3D`` and the
+mixture-of-experts layer ``MoEFFN``.
+
+As in the reference, ``HybridConcurrent``, ``Identity``,
+``SparseEmbedding`` and ``SyncBatchNorm`` compose on symbols and the
+pixel shuffles and ``MoEFFN`` do not (the reference's shuffles read the
+input's shape, which a symbol lacks).
+"""
 from __future__ import annotations
 
+import torch
+
 from .... import context, tracing
+from ....ndarray import NDArray
+from ....ndarray import ndarray as _nd
 from ....parallel import collectives
 from ....parallel.mesh import P
 from ....parallel.moe import (dp_load_balancing_loss, load_balancing_loss,
                               moe_ffn_local)
 from ...block import Deferred, HybridBlock
+from ...nn import BatchNorm, Embedding, HybridSequential, Sequential
 
-__all__ = ["MoEFFN"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
+           "SyncBatchNorm", "PixelShuffle1D", "PixelShuffle2D",
+           "PixelShuffle3D", "MoEFFN"]
+
+
+class Concurrent(Sequential):
+    """Every child on the same input, their outputs concatenated along
+    ``axis``."""
+
+    def __init__(self, axis=-1, **kwargs):
+        super().__init__(**kwargs)
+        self.axis = axis
+
+    def forward(self, x):
+        outs = [child(x) for child in self._children.values()]
+        if isinstance(outs[0], NDArray):
+            return _nd.concat(*outs, dim=self.axis)
+        return torch.cat(outs, dim=self.axis)
+
+
+class HybridConcurrent(HybridSequential):
+    """``Concurrent`` as a ``HybridBlock``."""
+
+    def __init__(self, axis=-1, **kwargs):
+        super().__init__(**kwargs)
+        self.axis = axis
+
+    def hybrid_forward(self, F, x):  # noqa: N803
+        return F.concat(*[child(x) for child in self._children.values()],
+                        dim=self.axis)
+
+
+class Identity(HybridBlock):
+    """The input, unchanged (a ``Concurrent`` branch)."""
+
+    def hybrid_forward(self, F, x):  # noqa: N803
+        return x
+
+
+class SparseEmbedding(Embedding):
+    """``Embedding`` under the reference's contrib name.  The reference's
+    gradient is a ``row_sparse`` one that updates the rows looked up; as
+    in the JAX package, the gradient here is dense (the rows not looked up
+    get zeros)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(input_dim, output_dim, dtype=dtype,
+                         weight_initializer=weight_initializer, **kwargs)
+
+
+class SyncBatchNorm(BatchNorm):
+    """Batch norm with the statistics of the whole data-parallel batch.
+    The port's ``BatchNorm`` already takes them over the dp axis inside a
+    data-parallel step (``ops.nn._SyncBatchNorm`` under
+    ``collectives.dp_scope``); in one process it is ``BatchNorm``.
+    ``num_devices`` and ``key`` are the reference's arguments, kept."""
+
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, key=None, **kwargs):
+        super().__init__(momentum=momentum, epsilon=epsilon,
+                         in_channels=in_channels, **kwargs)
+        self._num_devices = num_devices
+        self._key = key
+
+
+class _PixelShuffle(HybridBlock):
+    """Splits the factors off the channel axis and interleaves them into
+    the spatial axes: (N, C * prod(f), *S) to (N, C, *(S * f))."""
+
+    def __init__(self, factor, ndim):
+        super().__init__()
+        if isinstance(factor, int):
+            factor = (factor,) * ndim
+        self._factors = tuple(int(f) for f in factor)
+        if len(self._factors) != ndim:
+            raise ValueError("factor must be an int or a %d-tuple" % ndim)
+
+    def forward(self, x):
+        fs = self._factors
+        k = len(fs)
+        n, c = x.shape[0], x.shape[1]
+        spatial = tuple(x.shape[2:])
+        cout = c
+        for f in fs:
+            if cout % f:
+                raise ValueError(
+                    "channel dim %d not divisible by factor %d" % (c, f))
+            cout //= f
+        y = x.reshape((n, cout) + fs + spatial)
+        perm = [0, 1]
+        for i in range(k):
+            perm.extend([2 + k + i, 2 + i])
+        y = y.permute(perm)
+        return y.reshape((n, cout) + tuple(s * f for s, f in
+                                           zip(spatial, fs)))
+
+    def __repr__(self):
+        return "%s(%s)" % (type(self).__name__, self._factors)
+
+
+class PixelShuffle1D(_PixelShuffle):
+    """(N, f*C, W) to (N, C, f*W)."""
+
+    def __init__(self, factor):
+        super().__init__(factor, 1)
+
+
+class PixelShuffle2D(_PixelShuffle):
+    """(N, f1*f2*C, H, W) to (N, C, f1*H, f2*W)."""
+
+    def __init__(self, factor):
+        super().__init__(factor, 2)
+
+
+class PixelShuffle3D(_PixelShuffle):
+    """(N, f1*f2*f3*C, D, H, W) to (N, C, f1*D, f2*H, f3*W)."""
+
+    def __init__(self, factor):
+        super().__init__(factor, 3)
 
 
 class MoEFFN(Deferred, HybridBlock):

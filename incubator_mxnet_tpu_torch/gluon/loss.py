@@ -5,7 +5,12 @@ NDArrays recorded on the port's autograd).
 
 Every loss but ``TripletLoss``, ``CTCLoss``, ``PoissonNLLLoss`` and
 ``CosineEmbeddingLoss`` ends, as in the reference, with the mean over
-every axis but ``batch_axis``: one value per sample.  ``CTCLoss`` is
+every axis but ``batch_axis``: one value per sample.
+
+``SoftmaxCrossEntropyLoss`` and ``KLDivLoss`` compose on symbols: their
+``hybrid_forward`` is the reference's (its ops, attributes and input
+order).  The other losses raise there, as the reference's do (their
+bodies read the symbol's shape, which a symbol lacks).  ``CTCLoss`` is
 ``torch.nn.functional.ctc_loss`` (the reference computes it outside
 Pallas) with the reference's layouts and label convention.
 """
@@ -34,6 +39,15 @@ def _apply_weighting(loss, weight=None, sample_weight=None):
 
 def _reshape_like(x, y):
     return x.reshape(y.shape)
+
+
+def _weighted_sym(F, loss, weight=None, sample_weight=None):  # noqa: N803
+    """The reference's ``_apply_weighting`` on symbols."""
+    if sample_weight is not None:
+        loss = F.broadcast_mul(loss, sample_weight)
+    if weight is not None:
+        loss = loss * weight
+    return loss
 
 
 def _mean_exclude(loss, batch_axis):
@@ -139,6 +153,17 @@ class SoftmaxCrossEntropyLoss(Loss):
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return _mean_exclude(loss, self._batch_axis)
 
+    def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        if self._sparse_label:
+            loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
+        else:
+            label = label.reshape(pred.shape)
+            loss = -F.sum(pred * label, axis=self._axis, keepdims=True)
+        loss = _weighted_sym(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
 
@@ -156,6 +181,13 @@ class KLDivLoss(Loss):
         loss = label * (torch.log(label + 1e-12) - pred)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return _mean_exclude(loss, self._batch_axis)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _weighted_sym(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class CTCLoss(Loss):

@@ -13,6 +13,12 @@ unless given begin states; it returns the outputs stacked on that axis
 ``valid_length`` the outputs past each sequence's length are zeros.  As
 in the reference, ``ZoneoutCell`` draws its masks in every mode (from the
 port's generator), and ``BidirectionalCell`` runs only by ``unroll``.
+
+On symbols a step composes a graph for ``RNNCell``, ``LSTMCell`` and
+``GRUCell``, and for ``SequentialRNNCell``, ``ResidualCell`` and
+``DropoutCell`` at rate 0 over such cells (their children compose in
+turn), as the reference's do; ``ZoneoutCell``, ``DropoutCell`` at a
+nonzero rate and ``unroll`` raise there, as the reference's do.
 """
 from __future__ import annotations
 
@@ -200,8 +206,12 @@ class GRUCell(_BaseCell):
         prev = states[0]
         i2h = F.FullyConnected(x, i2h_weight, i2h_bias, num_hidden=3 * nh)
         h2h = F.FullyConnected(prev, h2h_weight, h2h_bias, num_hidden=3 * nh)
-        i2h_r, i2h_z, i2h_n = i2h.chunk(3, dim=-1)
-        h2h_r, h2h_z, h2h_n = h2h.chunk(3, dim=-1)
+        i2h_r = F.slice_axis(i2h, axis=-1, begin=0, end=nh)
+        i2h_z = F.slice_axis(i2h, axis=-1, begin=nh, end=2 * nh)
+        i2h_n = F.slice_axis(i2h, axis=-1, begin=2 * nh, end=3 * nh)
+        h2h_r = F.slice_axis(h2h, axis=-1, begin=0, end=nh)
+        h2h_z = F.slice_axis(h2h, axis=-1, begin=nh, end=2 * nh)
+        h2h_n = F.slice_axis(h2h, axis=-1, begin=2 * nh, end=3 * nh)
         reset = F.sigmoid(i2h_r + h2h_r)
         update = F.sigmoid(i2h_z + h2h_z)
         next_h_tmp = F.tanh(i2h_n + reset * h2h_n)
@@ -236,6 +246,9 @@ class SequentialRNNCell(RecurrentCell):
             p += n
         return x, next_states
 
+    def hybrid_forward(self, F, x, states):  # noqa: N803
+        return self.forward(x, states)
+
     def __len__(self):
         return len(self._children)
 
@@ -252,6 +265,13 @@ class DropoutCell(RecurrentCell):
 
     def forward(self, x, states):
         return ops.dropout(x, self._rate, training=self.training), states
+
+    def hybrid_forward(self, F, x, states):  # noqa: N803
+        if self._rate > 0:
+            raise NotImplementedError(
+                "DropoutCell composes on symbols only at rate 0 (the "
+                "reference's dropout is an eager nd call)")
+        return x, states
 
 
 class BidirectionalCell(RecurrentCell):
@@ -304,6 +324,9 @@ class ResidualCell(RecurrentCell):
     def forward(self, x, states):
         out, states = self._children["base_cell"](x, states)
         return out + x, states
+
+    def hybrid_forward(self, F, x, states):  # noqa: N803
+        return self.forward(x, states)
 
 
 def _bernoulli(prob, like):

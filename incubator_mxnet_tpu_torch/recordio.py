@@ -79,11 +79,10 @@ class MXRecordIO:
             pass
 
     def __getstate__(self):
-        """Pickle closed, reopen on unpickling (worker processes)."""
-        is_open = self.is_open
-        self.close()
+        """Pickle without the file handle and reopen on unpickling
+        (worker processes).  This object's handle stays open: a dataset
+        is pickled once for each spawned worker."""
         d = dict(self.__dict__)
-        d["is_open"] = is_open
         d["fh"] = None
         return d
 

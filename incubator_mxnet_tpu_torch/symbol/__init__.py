@@ -19,6 +19,7 @@ from ..name import NameManager
 from ..ops import math as _math  # noqa: F401  (registers the ops)
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import contrib as _contrib  # noqa: F401
+from ..ops import contrib_tail as _contrib_tail  # noqa: F401
 from ..ops import registry as _reg
 from ..ops import tensor as _tensor  # noqa: F401
 from .symbol import (AUX_SUFFIXES, PARAM_INPUT_NAMES, Group, Symbol, Variable,

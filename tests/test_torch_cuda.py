@@ -57,7 +57,12 @@ ops on the card against the CPU, bit for bit (the padded ``_int_mm``
 shapes, the 7x7 stem, grouped and dilated convolutions); the int8
 serving tier's codes made on the card equal to the CPU's, its bucket
 replay bit-equal to the eager forward with one K3 launch a captured
-program, a poisoned swap rolled back with the codes unchanged.
+program, a poisoned swap rolled back with the codes unchanged.  Gluon's
+data pipeline: a ``DataLoader``'s batches on the card equal the CPU's
+bit for bit, and 2 spawned workers give the thread loader's batches
+without initializing CUDA; ``_contrib_DeformableConvolution`` forward and
+gradients 1e-5, and ``Estimator.fit`` card against CPU (losses 1e-5
+relative, parameters 1e-5), TF32 off.
 """
 import importlib
 
@@ -1816,3 +1821,132 @@ def test_int8_serve_bucket_replay_matches_eager(dev):
     after = fi._live_param_snapshot(eng)
     assert all(fi._leaves_equal(a, b) for a, b in zip(snap[1], after[1]))
     assert torch.equal(eng.infer(x), out) and eng.recompile_count == 0
+
+
+def _record_shard(prefix, n=12, side=20):
+    from incubator_mxnet_tpu_torch import recordio
+
+    rng = np.random.RandomState(3)
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(n):
+        rec.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(i % 5), i, 0),
+            rng.randint(0, 255, (side, side, 3), dtype=np.uint8),
+            img_fmt=".npy"))
+    rec.close()
+
+
+def test_dataloader_on_card_and_spawned_workers_off_it(dev, tmp_path):
+    """``DataLoader`` on the card: the batches of a 0-worker and a thread
+    loader equal the CPU loader's bit for bit (the samples are built on
+    the host, one upload a batch), and 2 spawned workers give the same
+    batches without initializing CUDA."""
+    import random
+
+    from incubator_mxnet_tpu_torch.gluon.data import DataLoader
+    from incubator_mxnet_tpu_torch.gluon.data.vision import (
+        ImageRecordDataset, transforms as T)
+
+    prefix = str(tmp_path / "shard")
+    _record_shard(prefix)
+    aug = T.Compose([T.RandomResizedCrop(16), T.RandomFlipLeftRight(),
+                     T.ToTensor(), T.Normalize(0.5, 0.25)])
+    out = {}
+    for where in (dev, "cpu"):
+        np.random.seed(1)
+        random.seed(1)
+        ds = ImageRecordDataset(prefix + ".rec").transform_first(aug)
+        out[str(where)] = [[t.asnumpy() for t in b] for b in DataLoader(
+            ds, batch_size=4, shuffle=True, device=where)]
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    fixed = ImageRecordDataset(prefix + ".rec").transform_first(
+        T.Compose([T.ToTensor(), T.Normalize(0.5, 0.25)]))
+    batches = {}
+    for kw in (dict(num_workers=2), dict(num_workers=2, thread_pool=False)):
+        loader = DataLoader(fixed, batch_size=3, device=dev, **kw)
+        batches[kw.get("thread_pool", True)] = list(loader)
+        cuda = loader.worker_cuda_initialized()
+        del loader
+    assert batches[True][0][0].context == dev
+    for a, b in zip(batches[True], batches[False]):
+        for x, y in zip(a, b):
+            assert torch.equal(x._data, y._data)
+    assert cuda and not any(cuda.values())
+
+
+def test_deformable_convolution_on_card_matches_cpu(dev):
+    """``_contrib_DeformableConvolution`` with 2 deformable groups and
+    offsets over the border, forward and the gradients in data, offset,
+    weight and bias: card against CPU within 1e-5 of each largest
+    magnitude (TF32 off; float sums in another order)."""
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    fn = registry.get_op("_contrib_DeformableConvolution").fn
+    rng = np.random.RandomState(4)
+    arrays = [rng.uniform(-1, 1, (2, 6, 9, 9)),
+              rng.uniform(-3, 3, (2, 36, 9, 9)),
+              rng.uniform(-1, 1, (5, 6, 3, 3)), rng.uniform(-1, 1, (5,))]
+    cot = torch.from_numpy(
+        rng.uniform(-1, 1, (2, 5, 9, 9)).astype(np.float32))
+    res = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for d in (dev, torch.device("cpu")):
+            ts = [torch.tensor(a, dtype=torch.float32, device=d,
+                               requires_grad=True) for a in arrays]
+            y = fn(*ts, kernel=(3, 3), num_filter=5, pad=(1, 1),
+                   num_deformable_group=2)
+            y.backward(cot.to(d))
+            res[d.type] = [y.detach().cpu()] + [t.grad.cpu() for t in ts]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(res["cuda"], res["cpu"]):
+        _close(a, b, 1e-5)
+
+
+def test_estimator_fit_on_card_matches_cpu(dev):
+    """``Estimator.fit`` over a ``DataLoader`` on the card and on the
+    CPU from the same weights: each batch's loss within 1e-5 (relative)
+    and the parameters after 3 batches within 1e-5 of their largest
+    magnitude (TF32 off)."""
+    from incubator_mxnet_tpu_torch import context, convert, metric
+    from incubator_mxnet_tpu_torch.gluon import loss, nn
+    from incubator_mxnet_tpu_torch.gluon.contrib import estimator as est
+    from incubator_mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+
+    rng = np.random.RandomState(5)
+    x = rng.uniform(-1, 1, (12, 6)).astype(np.float32)
+    y = rng.randint(0, 3, 12).astype(np.float32)
+    weights, runs = None, {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for d in (dev, torch.device("cpu")):
+            with context.device_scope(d):
+                net = nn.HybridSequential()
+                net.add(nn.Dense(8, activation="relu", in_units=6),
+                        nn.Dense(3, in_units=8))
+            net.initialize()
+            if weights is None:
+                weights = convert.params_to_numpy(net)
+            convert.params_from_jax(net, weights)
+            losses = []
+
+            class Record(est.BatchEnd):
+                def batch_end(self, estimator, *a, loss=None, **kw):
+                    losses.append(loss[0].asnumpy().copy())
+
+            e = est.Estimator(net, loss.SoftmaxCrossEntropyLoss(),
+                              metrics=metric.Accuracy(), context=d)
+            e.fit(DataLoader(ArrayDataset(x, y), batch_size=4, device=d),
+                  epochs=1, event_handlers=[Record()])
+            runs[d.type] = (losses, convert.params_to_numpy(net))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        _close(torch.from_numpy(a), torch.from_numpy(b), 1e-5)

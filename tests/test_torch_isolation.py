@@ -23,6 +23,14 @@ import incubator_mxnet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+new = ["gluon.data.sampler", "gluon.data.dataset", "gluon.data.dataloader",
+       "gluon.data.vision.datasets", "gluon.data.vision.transforms",
+       "gluon.contrib.data", "gluon.contrib.estimator.estimator",
+       "gluon.contrib.estimator.event_handler",
+       "gluon.contrib.estimator.batch_processor", "gluon.contrib.nn",
+       "gluon.contrib.rnn", "gluon.contrib.cnn", "ops.contrib_tail"]
+missing = [n for n in new if pkg.__name__ + "." + n not in names]
+assert not missing, missing
 for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                    ("train_imagenet_torch",
                     "example/image_classification/train_imagenet_torch.py"),
@@ -181,6 +189,39 @@ def test_serving_runs_on_cpu_when_asked(monkeypatch):
     assert logits.device.type == "cpu" and torch.isfinite(logits).all()
 
 
+def _gdata():
+    from incubator_mxnet_tpu_torch.gluon import data
+
+    return data
+
+
+def _gcontrib():
+    from incubator_mxnet_tpu_torch.gluon import contrib
+
+    return contrib
+
+
+def _estimator():
+    return _gcontrib().estimator
+
+
+def test_data_pipeline_and_estimator_run_on_cpu_when_asked(monkeypatch):
+    """A ``DataLoader`` and an ``Estimator`` asked for the CPU build their
+    samples and train there with no card."""
+    _no_card(monkeypatch)
+    rng = np.random.RandomState(0)
+    ds = _gdata().ArrayDataset(rng.uniform(size=(8, 3)).astype(np.float32),
+                               rng.randint(0, 2, 8).astype(np.float32))
+    loader = _gdata().DataLoader(ds, batch_size=4, num_workers=2,
+                                 device="cpu")
+    net = tnn.Dense(2, in_units=3, device="cpu")
+    est = _estimator().Estimator(net, tloss.SoftmaxCrossEntropyLoss(),
+                                 context="cpu")
+    est.fit(loader, epochs=1)
+    assert net.weight.device.type == "cpu"
+    assert all(b.context.type == "cpu" for batch in loader for b in batch)
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -217,6 +258,14 @@ def _no_card(monkeypatch):
                                  buckets=(2,), dtype="int8"),
     lambda: _flywheel_tool().main(["--steps", "2"]),
     _calibrate_on_default_device,
+    lambda: _gdata().DataLoader(_gdata().ArrayDataset(np.ones((4, 2))),
+                                batch_size=2),
+    lambda: _estimator().Estimator(tnn.Dense(2, in_units=3, device="cpu"),
+                                   tloss.L2Loss()),
+    lambda: _gcontrib().cnn.DeformableConvolution(4),
+    lambda: _gcontrib().rnn.LSTMPCell(8, 4),
+    lambda: _gcontrib().rnn.Conv2DLSTMCell((3, 5, 5), 4, 3, 3),
+    lambda: _gcontrib().nn.SyncBatchNorm(),
 ])
 def test_entry_points_refuse_cpu_without_asking(monkeypatch, build):
     _no_card(monkeypatch)
