@@ -379,6 +379,44 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    ``SoftmaxCrossEntropyLoss`` composed on ``sym.var``s and bound by the
    ``Executor`` on the card, and a ``SequentialRNNCell`` of two
    ``LSTMCell``s likewise, equal to the Gluon calls within 1e-6;
+3u. ``contrib.amp`` (``AMP``): (i) phase 3g's loop (stock-BN
+   ``resnet50_v1``, 224 px, 1000 classes, batch 64, sgd lr 0.05 momentum
+   0.9) built through ``image_classification_torch.py``'s functions
+   with ``--amp bfloat16``: ``amp.init``, ``amp.init_trainer``,
+   ``amp.scale_loss``, 8 steps: every loss finite and float32, every
+   Conv2D and Dense output bfloat16 and every BatchNorm output float32
+   (forward hooks, first step), K3 once a step and nothing else,
+   ``amp_step_ms`` beside 3g's ``gluon_step_ms``; its first step at batch
+   8 on the card and on the CPU from the same weights, and on the CPU
+   in three runs with every weight nudged by 1e-6 (relative, as phase
+   5; ``_amp_step_diffs``): the loss, the logits, the running stats and
+   the update's norm ratio (the whole model's and the median tensor's)
+   card-vs-CPU at most 4x the largest nudged run's (``AMP_HELD_FULL``:
+   the update's direction is printed, not held, its floor saturates at
+   this size), and the card's update made zero or doubled must miss
+   that gate; the same at ``AMP_SMALL`` (``resnet18_v1``, 64 px) with
+   the update's cosine held too and a negated update missing the gate;
+   float16 (``amp_overflow_on_card``, batch 8): a planted inf gradient
+   at the 2^16 scale skips the step with every parameter bit-equal and
+   halves the scale, each later step is applied at its scale when its
+   gradients are finite and skipped with the scale halved when not,
+   until one is applied; (ii) phase 3k's
+   ``resnet50_v1(ghost_bn=16)`` (Xavier weights, running stats drawn in
+   numpy) exported, read back by ``model.load_checkpoint`` and rewritten
+   by ``amp.convert_model``: 109 ``amp_cast`` nodes, the reference's
+   count on the same graph (``tests/test_torch_amp.py``); both graphs
+   bound in the ``Executor`` at batch 64, 224 px, inference: the
+   converted graph's logits bf16, finite and within 5 % of the f32
+   graph's largest logit, top-1 agreement printed, K3 once a forward,
+   ``amp_convert_img_per_sec`` beside the f32 graph's; (iii) with TF32
+   off, every op of the tail (``_tail_op_cases``: the 47 ops less the
+   zero-input two, some in two modes, and 1-D and 3-D ``Pooling``) and
+   the 23 new layers (``_tail_layer_cases``) at moderate shapes: each
+   floating output and input gradient card against CPU within 4x the
+   CPU's own difference under a 1e-6 nudge of the inputs and
+   cotangents (not of index inputs, ``_TAIL_INDEX_INPUTS``, whose
+   readings are printed), integer outputs equal; ``_linspace`` within
+   one f32 step and ``_eye`` exact; no kernel launched;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -6943,16 +6981,24 @@ def _nudged(arrays, seed):
 
 
 def _fwd_bwd(fn, arrays, device, nudge=False):
-    """``fn`` of the arrays (leaf tensors on ``device``), its outputs'
-    sum weighted by a fixed random cotangent differentiated: [outputs...,
-    input grads...] on the host.  ``nudge`` scales the arrays and the
-    cotangent by 1 + 1e-6 * N(0, 1) elementwise."""
+    """``fn`` of the arrays as tensors on ``device`` (the floating ones
+    leaf tensors with a gradient), the sum of its floating outputs
+    weighted by fixed random cotangents differentiated: [outputs...,
+    gradients of the floating inputs...] on the host (no gradients where
+    no output has one).  ``nudge`` scales the floating arrays and the
+    cotangents by 1 + 1e-6 * N(0, 1) elementwise."""
     import numpy as np
     import torch
 
+    flt = [np.issubdtype(np.asarray(a).dtype, np.floating) for a in arrays]
     if nudge:
-        arrays = _nudged(arrays, 2)
-    ts = [torch.tensor(a, device=device, requires_grad=True) for a in arrays]
+        arrays = [n if f else a for n, f, a in
+                  zip(_nudged([np.asarray(a) if f else
+                               np.zeros(1, np.float32)
+                               for a, f in zip(arrays, flt)], 2),
+                      flt, arrays)]
+    ts = [torch.tensor(np.asarray(a), device=device, requires_grad=f)
+          for a, f in zip(arrays, flt)]
     outs = fn(*ts)
     outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
     rng = np.random.RandomState(1)
@@ -6960,31 +7006,58 @@ def _fwd_bwd(fn, arrays, device, nudge=False):
             for o in outs]
     if nudge:
         cots = _nudged(cots, 3)
-    total = sum((o * torch.tensor(c, device=device)).sum()
-                for o, c in zip(outs, cots))
-    total.backward()
+    live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+    grads = []
+    if live:
+        total = sum((o * torch.tensor(c, device=device).to(o.dtype)).sum()
+                    for o, c in live)
+        leaves = [t for t in ts if t.requires_grad]
+        got = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, got)]
     return [o.detach().cpu() for o in outs] + \
-        [t.grad.detach().cpu() for t in ts]
+        [g.detach().cpu() for g in grads]
 
 
-def _card_vs_cpu(name, fn_of, arrays, dev):
+def _card_vs_cpu(name, fn_of, arrays, dev, readings=None):
     """``fn_of(device)`` on the card and on the CPU from the same arrays,
     and on the CPU from the arrays and the cotangent nudged by 1e-6: each
-    output and input gradient card-vs-CPU within 4x the nudged run's
-    difference."""
+    floating output and input gradient card-vs-CPU within 4x the nudged
+    run's difference, each integer output equal.  Returns (the number of
+    tensors, the worst ratio); appends (card-vs-CPU, floor) of each
+    floating tensor to ``readings`` where given."""
+    import torch
+
     card = _fwd_bwd(fn_of(dev), arrays, dev)
     cpu = _fwd_bwd(fn_of("cpu"), arrays, "cpu")
     nudged = _fwd_bwd(fn_of("cpu"), arrays, "cpu", nudge=True)
+    if len(card) != len(cpu):
+        raise AssertionError("%s: %d tensors on the card, %d on the CPU"
+                             % (name, len(card), len(cpu)))
     worst = 0.0
     for i, (a, b, c) in enumerate(zip(card, cpu, nudged)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError("%s tensor %d: %s %s on the card, %s %s on "
+                                 "the CPU" % (name, i, a.dtype, tuple(
+                                     a.shape), b.dtype, tuple(b.shape)))
+        if not b.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError("%s tensor %d differs" % (name, i))
+            continue
         err, floor = _max_err(a, b), _max_err(c, b)
+        if readings is not None:
+            readings.append((err, floor))
         if not err <= 4 * floor:
             raise AssertionError("%s tensor %d: card-vs-CPU %g over 4x the "
                                  "nudged floor %g" % (name, i, err, floor))
         worst = max(worst, err / floor if floor else 0.0)
+    return len(card), worst
+
+
+def _print_card_vs_cpu(name, n, worst):
     print("  %-40s %d tensors (outputs, input gradients): card-vs-CPU at "
-          "most %.3fx the nudged CPU floor (limit 4x)" % (name, len(card),
-                                                          worst), flush=True)
+          "most %.3fx the nudged CPU floor (limit 4x)" % (name, n, worst),
+          flush=True)
 
 
 def _block_on(make, call):
@@ -7040,8 +7113,9 @@ def contrib_card_vs_cpu(dev):
     deform = registry.get_op("_contrib_DeformableConvolution").fn
     attrs = dict(kernel=(k, k), num_filter=c, pad=(1, 1),
                  num_deformable_group=g)
-    _card_vs_cpu("DeformableConvolution op", lambda _: (
-        lambda *a: deform(*a, **attrs)), [x, off, w, b], dev)
+    _print_card_vs_cpu("DeformableConvolution op", *_card_vs_cpu(
+        "DeformableConvolution op", lambda _: (
+            lambda *a: deform(*a, **attrs)), [x, off, w, b], dev))
 
     def unrolled(blk, xx):
         return blk.unroll(4, xx, merge_outputs=True)[0]
@@ -7059,8 +7133,9 @@ def contrib_card_vs_cpu(dev):
          (8, 4, 48)),
     ]
     for name, make, call, shape in cases:
-        _card_vs_cpu(name, _block_on(make, call),
-                     [rng.uniform(-1, 1, shape).astype(np.float32)], dev)
+        _print_card_vs_cpu(name, *_card_vs_cpu(
+            name, _block_on(make, call),
+            [rng.uniform(-1, 1, shape).astype(np.float32)], dev))
 
     # the deformable op beside F.conv2d of its shape, CUDA events
     args = [torch.tensor(a, device=dev) for a in (x, off, w, b)]
@@ -7123,6 +7198,655 @@ def symbolic_bodies_on_card(dev):
     for i, (a, b) in enumerate(zip(outs, [eager_out] + list(eager_states))):
         _check("SequentialRNNCell(2 LSTMCell) output %d: Executor vs eager"
                % i, a._data, b._data, 1e-6)
+
+
+# phase 3u: contrib.amp on the Gluon loop and on the exported graph, and
+# the op tail and the rest of gluon.nn card against CPU
+AMP = dict(steps=8, cpu_batch=8, convert_batch=64, convert_reps=10,
+           floors=3, fp16_steps=6)
+#: the AMP step's card-vs-CPU readings (``_amp_step_diffs``)
+AMP_READINGS = ("loss", "logits", "stats", "upd_cos", "upd_norm",
+                "upd_cos_median", "upd_norm_median")
+#: those held at phase 3g's full size: there a 1e-6 nudge turns a bf16
+#: update's direction by 0.63-0.71 in 1 - cosine (run on an H100), so 4x
+#: that floor passes any direction; its norm moves by 1-2 %
+AMP_HELD_FULL = ("loss", "logits", "stats", "upd_norm", "upd_norm_median")
+#: a size at which the direction is held too (a 1e-6 nudge turns the
+#: update by 0.04-0.05 in 1 - cosine): a negated update misses the gate
+AMP_SMALL = dict(model="resnet18_v1", batch=8, image=64, classes=10)
+#: amp_cast nodes in the converted resnet50_v1(ghost_bn=16) graph: two on
+#: each of its 53 convolutions and three on the dense head, the
+#: reference's count (tests/test_torch_amp.py holds the graph to the
+#: reference's node for node)
+AMP_CASTS = 53 * 2 + 3
+#: the converted graph's bf16 logits against the f32 graph's: within this
+#: share of the f32 logits' largest magnitude (53 convolutions each
+#: rounding its inputs to 8 significant bits)
+AMP_LOGIT_TOL = 0.05
+#: the nudge of the AMP step's CPU floors (relative, every weight), as
+#: phase 5's: it moves a weight's bf16 cast in about 1 case in 4000
+AMP_NUDGE = 1e-6
+
+
+def _dtype_hooks(net):
+    """Forward hooks recording each Conv2D, Dense and BatchNorm output's
+    dtype by module name; returns (records, handles)."""
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    seen, handles = {}, []
+    for name, m in net.named_modules():
+        if isinstance(m, (nn.Conv2D, nn.Dense, nn.BatchNorm)):
+            handles.append(m.register_forward_hook(
+                lambda mod, inp, out, n=name: seen.__setitem__(
+                    n, (type(mod).__name__, out.dtype))))
+    return seen, handles
+
+
+def _check_amp_dtypes(seen):
+    """Every Conv2D and Dense output bf16, every BatchNorm output f32;
+    returns the count of each."""
+    import torch
+
+    want = {"Conv2D": torch.bfloat16, "Dense": torch.bfloat16,
+            "BatchNorm": torch.float32}
+    bad = {n: (k, str(d)) for n, (k, d) in seen.items() if d != want[k]}
+    if bad:
+        raise AssertionError("AMP output dtypes %s" % bad)
+    counts = {}
+    for k, _ in seen.values():
+        counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+def run_amp_path(dev):
+    """Phase 3u (i), see the module docstring.  Returns (metrics,
+    counts)."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels, gluon, metric
+    from incubator_mxnet_tpu_torch.contrib import amp
+
+    ex = _gluon_module()
+    torch.backends.cudnn.benchmark = True
+    g = GLUON
+    args = _gluon_args(ex, g["model"], g["batch"], g["image"], g["classes"],
+                       g["lr"], g["batch"] * AMP["steps"])
+    args.amp = "bfloat16"
+    amp.init(args.amp)
+    try:
+        net = ex.build_net(args, dev)
+        it = ex.build_data(args, dev)
+        trainer = ex.build_trainer(net, args)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        acc = metric.Accuracy()
+        seen, handles = _dtype_hooks(net)
+        losses, step_ms, loss_dtypes = [], [], set()
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        prev = _kernels.launch_counts()
+        for i, batch in enumerate(it, 1):
+            t = time.perf_counter()
+            loss = ex.train_batch(net, trainer, loss_fn, acc, batch.data[0],
+                                  batch.label[0], args.batch_size)
+            losses.append(float(loss.asscalar()))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            loss_dtypes.add(str(loss.dtype))
+            if i == 1:
+                for h in handles:
+                    h.remove()
+            counts = _kernels.launch_counts()
+            got = {k: counts[k] - prev[k] for k in counts}
+            want = {k: int(k == "maxpool_idx_fwd") for k in counts}
+            if got != want:
+                raise AssertionError("AMP step %d launched %s, want %s"
+                                     % (i, got, want))
+            prev = counts
+        layers = _check_amp_dtypes(seen)
+        scale = trainer._amp_loss_scaler.loss_scale
+    finally:
+        amp.disable()
+    if len(losses) != AMP["steps"] or not _losses_ok(losses) \
+            or loss_dtypes != {"float32"}:
+        raise AssertionError("AMP path losses %s (%s)" % (losses,
+                                                         loss_dtypes))
+    print("  %s under amp.init('bfloat16'), batch %d, %d px, %d classes, "
+          "lr %g: outputs bf16 in %d Conv2D and %d Dense, f32 in %d "
+          "BatchNorm, the loss f32; loss scale %g" % (
+              args.model, args.batch_size, args.image_size,
+              args.num_classes, args.lr, layers.get("Conv2D", 0),
+              layers.get("Dense", 0), layers.get("BatchNorm", 0), scale),
+          flush=True)
+    print("  losses %s  %s  step_ms %s" % (
+        ["%.4f" % v for v in losses], acc.get(),
+        ["%.1f" % v for v in step_ms]), flush=True)
+    steady = _median(step_ms[2:])
+    del net, it, trainer
+    torch.cuda.empty_cache()
+    return {"amp_step_ms": steady,
+            "amp_img_s": args.batch_size / steady * 1e3}, prev
+
+
+def _amp_step_diffs(a, r):
+    """Run ``a``'s first AMP step against the CPU's, ``r``: the loss's and
+    the logits' largest difference, the running stats' (of each tensor's
+    largest magnitude, at least 1), and of the updates one minus their
+    cosine and |ln| of their norm ratio, over the whole model's update
+    (``upd_cos``, ``upd_norm``) and the median over its tensors
+    (``*_median``).  An update of norm 0 has cosine 0 and ratio 0."""
+    import numpy as np
+
+    def cos_norm(u, v):
+        u, v = u.astype(np.float64).ravel(), v.astype(np.float64).ravel()
+        nu, nv = float(np.linalg.norm(u)), float(np.linalg.norm(v))
+        if not nu:
+            return 1.0, float("inf")
+        return 1.0 - float(u @ v) / (nu * nv), abs(float(np.log(nu / nv)))
+
+    live = [i for i, t in enumerate(r["trained"])
+            if t and np.any(r["update"][i])]
+    per = [cos_norm(a["update"][i], r["update"][i]) for i in live]
+    whole = cos_norm(*(np.concatenate([d["update"][i].ravel() for i in live])
+                       for d in (a, r)))
+    stats = max(float(np.abs(u - w).max()) / max(1.0, float(np.abs(w).max()))
+                for t, u, w in zip(r["trained"], a["after"], r["after"])
+                if not t)
+    return dict(loss=abs(a["loss"] - r["loss"]),
+                logits=float(np.abs(a["logits"] - r["logits"]).max()),
+                stats=stats, upd_cos=whole[0], upd_norm=whole[1],
+                upd_cos_median=float(np.median([c for c, _ in per])),
+                upd_norm_median=float(np.median([n for _, n in per])))
+
+
+def _amp_gate_misses(got, floors, held):
+    """The readings of ``held`` over 4x the largest of the floors'."""
+    return [k for k in held if not got[k] <= 4 * max(f[k] for f in floors)]
+
+
+def amp_card_vs_cpu(dev, model=None, batch=None, image=None, classes=None,
+                    held=AMP_READINGS):
+    """Phase 3u (i), the first step card against CPU, see the module
+    docstring: the readings of ``held`` within 4x the largest floor; the
+    card's update made zero or doubled must miss that gate, and negated
+    too where the update's cosine is held.  Returns (the card's
+    readings, the floors')."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import convert, gluon, metric, nd
+    from incubator_mxnet_tpu_torch.contrib import amp
+
+    ex = _gluon_module()
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = batch or AMP["cpu_batch"]
+    image = image or GLUON["image"]
+    classes = classes or GLUON["classes"]
+    args = _gluon_args(ex, model or GLUON["model"], batch, image, classes,
+                       GLUON["lr"], batch)
+    args.amp = "bfloat16"
+    amp.init(args.amp)
+    nudged = ["cpu_nudged%d" % j for j in range(AMP["floors"])]
+    try:
+        where = dict({"cuda": dev, "cpu": "cpu"}, **dict.fromkeys(nudged,
+                                                                "cpu"))
+        nets = {d: ex.build_net(args, w) for d, w in where.items()}
+        start = {k: p.data().asnumpy()
+                 for k, p in nets["cuda"].collect_params().items()}
+        for j, d in enumerate(["cpu"] + nudged):
+            arrays = start
+            if d != "cpu":
+                rs = np.random.RandomState(SEED + 3 + j)
+                arrays = {k: (v * (1 + AMP_NUDGE * rs.normal(
+                    size=v.shape))).astype(np.float32)
+                    for k, v in start.items()}
+            convert.params_from_gluon(nets[d], arrays)
+        rng = np.random.RandomState(SEED)
+        xb = rng.rand(batch, 3, image, image).astype(np.float32)
+        yb = rng.randint(0, classes, batch).astype(np.float32)
+        read = {}
+        for d, net in nets.items():
+            params = list(net.collect_params().values())
+            before = [p.data().asnumpy() for p in params]
+            trainer = ex.build_trainer(net, args)
+            outs = []
+            hook = list(net._modules.values())[-1].register_forward_hook(
+                lambda mod, inp, out: outs.append(out.detach().float()))
+            t = time.perf_counter()
+            loss = ex.train_batch(net, trainer,
+                                  gluon.loss.SoftmaxCrossEntropyLoss(),
+                                  metric.Accuracy(),
+                                  nd.array(xb, ctx=where[d]),
+                                  nd.array(yb, ctx=where[d]), batch)
+            hook.remove()
+            read[d] = dict(
+                loss=float(loss.asscalar()), step_s=time.perf_counter() - t,
+                logits=outs[-1].cpu().numpy(),
+                trained=[p.grad_req != "null" for p in params],
+                after=[p.data().asnumpy() for p in params],
+                update=[p.data().asnumpy() - b
+                        for p, b in zip(params, before)])
+    finally:
+        amp.disable()
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.benchmark = True
+
+    card = _amp_step_diffs(read["cuda"], read["cpu"])
+    floors = [_amp_step_diffs(read[d], read["cpu"]) for d in nudged]
+    print("  %s, batch %d, %d px, %d classes:" % (args.model, batch, image,
+                                                  classes), flush=True)
+    for k in card:
+        print("  %-16s card-vs-CPU %.3e   CPU nudged by 1e-6 %s   (%s)" % (
+            k, card[k], " ".join("%.3e" % f[k] for f in floors),
+            "limit 4x the largest" if k in held else "not held: its floor "
+            "saturates at this size"), flush=True)
+    print("  loss card %.6f, CPU %.6f; largest logit %.3f; the CPU step "
+          "took %.1f s" % (read["cuda"]["loss"], read["cpu"]["loss"],
+                           float(np.abs(read["cpu"]["logits"]).max()),
+                           read["cpu"]["step_s"]), flush=True)
+    # the gate's controls: the card's step with its update made zero,
+    # doubled or (where the direction is held) negated must miss it
+    for label, f in (("zero", 0.0), ("doubled", 2.0), ("negated", -1.0)):
+        if f < 0 and "upd_cos" not in held:
+            continue
+        ctl = dict(read["cuda"], update=[u * f
+                                         for u in read["cuda"]["update"]])
+        misses = _amp_gate_misses(_amp_step_diffs(ctl, read["cpu"]), floors,
+                                  held)
+        print("  control: the card's update %s misses the gate on %s"
+              % (label, misses), flush=True)
+        if not misses:
+            raise AssertionError("the AMP step's gate passes a %s update"
+                                 % label)
+    misses = _amp_gate_misses(card, floors, held)
+    if misses:
+        raise AssertionError("the AMP step card and CPU disagree beyond the "
+                             "CPU's own floor on %s" % misses)
+    return card, floors
+
+
+def amp_overflow_on_card(dev, model=None, batch=None, image=None,
+                         classes=None):
+    """Phase 3u (i), the float16 loss scaler on the card, see the module
+    docstring.  Returns [(scale, gradients finite, step applied), ...]."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import autograd, gluon, nd
+    from incubator_mxnet_tpu_torch.contrib import amp
+
+    ex = _gluon_module()
+    batch = batch or AMP["cpu_batch"]
+    image = image or GLUON["image"]
+    classes = classes or GLUON["classes"]
+    args = _gluon_args(ex, model or GLUON["model"], batch, image, classes,
+                       GLUON["lr"], batch)
+    args.amp = "float16"
+    amp.init(args.amp)
+    log = []
+    try:
+        net = ex.build_net(args, dev)
+        trainer = ex.build_trainer(net, args)
+        scaler = trainer._amp_loss_scaler
+        trained = [p for p in net.collect_params().values()
+                   if p.grad_req != "null"]
+        rng = np.random.RandomState(SEED + 4)
+        x = nd.array(rng.rand(batch, 3, image, image).astype(np.float32),
+                     ctx=dev)
+        y = nd.array(rng.randint(0, classes, batch).astype(np.float32),
+                     ctx=dev)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        for i in range(AMP["fp16_steps"]):
+            with autograd.record():
+                loss = loss_fn(net(x), y).mean()
+                with amp.scale_loss(loss, trainer) as scaled:
+                    pass
+            scaled.backward()
+            if i == 0:
+                g = trained[0].grad()
+                g[(0,) * g.ndim] = float("inf")
+            finite = all(bool(torch.isfinite(p.grad()._data).all())
+                         for p in trained)
+            before = [p.data()._data.clone() for p in trained]
+            scale = scaler.loss_scale
+            trainer.step(batch)
+            kept = all(torch.equal(p.data()._data, b)
+                       for p, b in zip(trained, before))
+            log.append((scale, finite, not kept))
+            # a step with a non-finite gradient leaves every parameter
+            # bit-equal and halves the scale; a finite one is applied at
+            # the same scale
+            want = (scale, True) if finite else (scale / 2, False)
+            if (scaler.loss_scale, not kept) != want or (
+                    finite and not all(bool(torch.isfinite(
+                        p.data()._data).all()) for p in trained)):
+                raise AssertionError("float16 step %d at scale %g: gradients "
+                                     "finite %s, applied %s, scale after "
+                                     "%g" % (i, scale, finite, not kept,
+                                             scaler.loss_scale))
+            if finite:
+                break
+    finally:
+        amp.disable()
+    if log[0][:2] != (2.0 ** 16, False) or not log[-1][2]:
+        raise AssertionError("float16 loss scaler: %s" % log)
+    print("  float16, batch %d: the planted inf at scale 2^16 skipped the "
+          "step (parameters bit-equal), the scale halved; steps (scale, "
+          "gradients finite, applied) %s" % (batch, log), flush=True)
+    return log
+
+
+def run_amp_convert(dev, directory):
+    """Phase 3u (ii), see the module docstring.  Returns (metrics,
+    counts)."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels, initializer, nd
+    from incubator_mxnet_tpu_torch.contrib import amp
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+
+    torch.backends.cudnn.benchmark = True
+    b = AMP["convert_batch"]
+    net = resnet.resnet50_v1(classes=1000, ghost_bn=16, device=dev)
+    initializer.initialize(net, initializer.Xavier(),
+                           torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.RandomState(SEED + 7)
+    with torch.no_grad():
+        for name, t in net.named_buffers():
+            if name.endswith("running_mean"):
+                t.copy_(torch.from_numpy(rng.normal(
+                    0, 0.1, tuple(t.shape)).astype(np.float32)))
+            elif name.endswith("running_var"):
+                t.copy_(torch.from_numpy(rng.uniform(
+                    0.5, 1.5, tuple(t.shape)).astype(np.float32)))
+    prefix = os.path.join(directory, "resnet50_v1_ghost16")
+    net.export(prefix)
+    del net
+    sym, arg, aux = mx.model.load_checkpoint(prefix, 0, ctx=dev)
+    t0 = time.perf_counter()
+    amp_sym, amp_arg, amp_aux = amp.convert_model(sym, arg, aux)
+    convert_ms = (time.perf_counter() - t0) * 1e3
+    casts = sum(n["op"] == "amp_cast"
+                for n in _json.loads(amp_sym.tojson())["nodes"])
+    if casts != AMP_CASTS:
+        raise AssertionError("convert_model inserted %d amp_cast nodes, the "
+                             "reference %d" % (casts, AMP_CASTS))
+    x = nd.NDArray(torch.rand(b, 3, IMAGE, IMAGE, device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(SEED + 8)))
+    exes = {label: s.bind(dev, dict(a, data=x), grad_req="null",
+                          aux_states=dict(aux_p))
+            for label, s, a, aux_p in (("f32", sym, arg, aux),
+                                       ("amp", amp_sym, amp_arg, amp_aux))}
+    outs, ms, counts = {}, {}, {}
+    for label, exe in exes.items():
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        out = exe.forward(is_train=False)[0]._data
+        torch.cuda.synchronize()
+        c = _kernels.launch_counts()
+        if c != {k: int(k == "maxpool_idx_fwd") for k in c}:
+            raise AssertionError("the %s graph's forward launched %s"
+                                 % (label, c))
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        outs[label] = out
+        ms[label] = _time_ms(lambda: exe.forward(is_train=False),
+                             AMP["convert_reps"])
+    ref = outs["f32"].float()
+    got = outs["amp"]
+    rel = float((got.float() - ref).abs().max() / ref.abs().max())
+    top1 = float((got.float().argmax(1) == ref.argmax(1)).float().mean())
+    print("  convert_model: %d amp_cast nodes (the reference's %d) in %.1f "
+          "ms; bound at batch %d, %d px, inference: logits %s, within %.3e "
+          "of the f32 graph's largest logit (limit %g), top-1 agreement "
+          "%.4f; forward %.2f ms (f32 graph %.2f ms)" % (
+              casts, AMP_CASTS, convert_ms, b, IMAGE, str(got.dtype)
+              .replace("torch.", ""), rel, AMP_LOGIT_TOL, top1, ms["amp"],
+              ms["f32"]), flush=True)
+    if got.dtype != torch.bfloat16 or not bool(torch.isfinite(got).all()) \
+            or rel > AMP_LOGIT_TOL:
+        raise AssertionError("the converted graph's logits are off")
+    del exes, outs, sym, arg, aux, amp_sym, amp_arg, amp_aux, x
+    torch.cuda.empty_cache()
+    return {"amp_convert_img_per_sec": b / ms["amp"] * 1e3,
+            "f32_graph_img_per_sec": b / ms["f32"] * 1e3,
+            "amp_convert_top1": top1, "amp_convert_rel": rel}, counts
+
+
+#: inputs of phase 3u (iii)'s ops that the op takes as float32 but whose
+#: values are indices (sequence lengths, CTC's labels and lengths): held
+#: as int32, so that the floor's nudge leaves them whole, and cast to
+#: float32 inside the case
+_TAIL_INDEX_INPUTS = {"SequenceMask": (1,), "SequenceLast": (1,),
+                      "SequenceReverse": (1,), "CTCLoss": (1, 2, 3)}
+
+
+def _tail_op_cases(rng, s=1):
+    """(name, op name, arrays, attrs) of phase 3u (iii)'s ops; ``s``
+    scales the batch (8 at 1)."""
+    import numpy as np
+
+    def n(*shape):
+        return rng.normal(0, 1, shape).astype(np.float32)
+
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    b = max(2, int(8 * s))
+    lens = rng.randint(1, 34, b).astype(np.int32)
+    return [
+        ("depth_to_space", "depth_to_space", [n(b, 64, 28, 28)],
+         dict(block_size=2)),
+        ("space_to_depth", "space_to_depth", [n(b, 16, 56, 56)],
+         dict(block_size=2)),
+        ("slice_like", "slice_like", [n(b, 64, 30), n(b, 32, 20)], {}),
+        ("broadcast_axis", "broadcast_axis", [n(b, 1, 256)],
+         dict(axis=1, size=64)),
+        ("split_v2", "split_v2", [n(b, 96, 64)], dict(indices=(16, 48),
+                                                      axis=1)),
+        ("batch_take", "batch_take", [n(b * 32, 100),
+                                      rng.randint(0, 100, b * 32)], {}),
+        ("gather_nd", "gather_nd", [n(64, 128, 16), np.stack([
+            rng.randint(0, 64, 512), rng.randint(0, 128, 512)])], {}),
+        ("scatter_nd", "scatter_nd", [n(512, 16), np.stack(
+            np.unravel_index(rng.permutation(64 * 128)[:512], (64, 128)))],
+         dict(shape=(64, 128, 16))),
+        ("_scatter_set_nd", "_scatter_set_nd", [
+            n(64, 128), n(256), np.stack(np.unravel_index(
+                rng.permutation(64 * 128)[:256], (64, 128)))],
+         dict(shape=(64, 128))),
+        ("Cast", "Cast", [n(b, 4096) * 50], dict(dtype="int32")),
+        ("amp_cast", "amp_cast", [n(b, 4096)], dict(dtype="bfloat16")),
+        ("amp_multicast", "amp_multicast", [n(b, 4096),
+                                            n(b, 4096).astype(np.float16)],
+         dict(num_outputs=2)),
+        ("shape_array", "shape_array", [n(b, 3, 5)], {}),
+        ("size_array", "size_array", [n(b, 3, 5)], {}),
+        ("SequenceMask", "SequenceMask", [n(32, b, 256), lens],
+         dict(use_sequence_length=True)),
+        ("SequenceLast", "SequenceLast", [n(32, b, 256), lens],
+         dict(use_sequence_length=True)),
+        ("SequenceReverse", "SequenceReverse", [n(32, b, 256), lens],
+         dict(use_sequence_length=True)),
+        ("_np_nonzero", "_np_nonzero", [(u(0, 1, b, 512) > 0.7)
+                                        .astype(np.float32)], {}),
+        ("_np_unique", "_np_unique", [rng.randint(0, 300, b * 512)],
+         dict(return_index=True, return_inverse=True, return_counts=True)),
+        ("tril", "tril", [n(b, 256, 256)], dict(k=-3)),
+        ("LinearRegressionOutput", "LinearRegressionOutput",
+         [n(b * 32, 64), n(b * 32, 64)], dict(grad_scale=0.5)),
+        ("LogisticRegressionOutput", "LogisticRegressionOutput",
+         [n(b * 32, 64), u(0, 1, b * 32, 64)], {}),
+        ("MAERegressionOutput", "MAERegressionOutput",
+         [n(b * 32, 64), n(b * 32, 64)], {}),
+        ("Deconvolution", "Deconvolution", [
+            n(b, 64, 28, 28), n(64, 32, 4, 4) * 0.05, n(32)],
+         dict(kernel=(4, 4), num_filter=32, stride=(2, 2), pad=(1, 1),
+              no_bias=False)),
+        ("Deconvolution groups", "Deconvolution", [
+            n(b, 64, 28, 28), n(64, 32, 3, 3) * 0.05],
+         dict(kernel=(3, 3), num_filter=64, num_group=2, stride=(2, 2),
+              pad=(1, 1), adj=(1, 1))),
+        ("batch_norm_stats", "batch_norm_stats", [n(b, 64, 28, 28) + 3], {}),
+        ("LayerNorm", "LayerNorm", [n(b, 128, 768), n(768), n(768)],
+         dict(output_mean_var=True)),
+        ("GroupNorm", "GroupNorm", [n(b, 64, 28, 28), n(64), n(64)],
+         dict(num_groups=8, output_mean_var=True)),
+        ("InstanceNorm", "InstanceNorm", [n(b, 64, 28, 28), n(64), n(64)],
+         {}),
+        ("L2Normalization", "L2Normalization", [n(b, 64, 28, 28)],
+         dict(mode="channel")),
+        ("LRN", "LRN", [n(b, 64, 28, 28)], dict(nsize=5)),
+        ("LeakyReLU prelu", "LeakyReLU", [n(b, 64, 28, 28), u(0, 0.5, 64)],
+         dict(act_type="prelu")),
+        ("LeakyReLU elu", "LeakyReLU", [n(b, 64, 28, 28)],
+         dict(act_type="elu")),
+        ("LeakyReLU selu", "LeakyReLU", [n(b, 64, 28, 28)],
+         dict(act_type="selu")),
+        ("LeakyReLU gelu", "LeakyReLU", [n(b, 64, 28, 28)],
+         dict(act_type="gelu")),
+        ("LeakyReLU rrelu (eval)", "LeakyReLU", [n(b, 64, 28, 28)],
+         dict(act_type="rrelu")),
+        ("SoftmaxActivation", "SoftmaxActivation", [n(b, 64, 28, 28)],
+         dict(mode="channel")),
+        ("UpSampling nearest", "UpSampling", [n(b, 32, 28, 28)],
+         dict(scale=2)),
+        ("UpSampling bilinear", "UpSampling", [n(b, 32, 28, 28),
+                                               n(32, 1, 4, 4)],
+         dict(scale=2, sample_type="bilinear", num_filter=32)),
+        ("BilinearResize2D down", "_contrib_BilinearResize2D",
+         [n(b, 32, 56, 56)], dict(height=24, width=40)),
+        ("AdaptiveAvgPooling2D", "_contrib_AdaptiveAvgPooling2D",
+         [n(b, 64, 28, 28)], dict(output_size=(7, 4))),
+        ("CTCLoss", "CTCLoss", [n(64, b, 32), rng.randint(
+            1, 32, (b, 20)).astype(np.int32), np.full(b, 64, np.int32),
+            rng.randint(5, 21, b).astype(np.int32)],
+         dict(use_data_lengths=True, use_label_lengths=True)),
+        ("_scatter_elemwise_div", "_scatter_elemwise_div",
+         [n(b, 4096), u(0.5, 2, b, 4096)], {}),
+        ("make_loss", "make_loss", [n(b, 4096)], {}),
+        ("smooth_l1", "smooth_l1", [n(b, 4096)], dict(scalar=2.0)),
+        ("gelu", "gelu", [n(b, 4096)], {}),
+        ("add_n", "add_n", [n(b, 4096), n(b, 4096), n(b, 4096)], {}),
+        ("khatri_rao", "khatri_rao", [n(32, 64), n(48, 64), n(16, 64)], {}),
+        ("softmin", "softmin", [n(b, 4096)], {}),
+        ("cumsum", "cumsum", [n(b, 4096)], dict(axis=1)),
+        ("diag", "diag", [n(b, 256, 256)], dict(k=2, axis1=1, axis2=2)),
+        ("Pooling 1-D max", "Pooling", [n(b, 64, 500)],
+         dict(kernel=(3,), stride=(2,), pad=(1,), pool_type="max")),
+        ("Pooling 3-D avg", "Pooling", [n(b, 16, 16, 28, 28)],
+         dict(kernel=(2, 3, 3), stride=(2, 2, 2), pool_type="avg",
+              pooling_convention="full", count_include_pad=False)),
+    ]
+
+
+def _tail_layer_cases(nn, s=1):
+    """(name, layer factory, input shape) of phase 3u (iii)'s layers;
+    ``s`` scales the batch (8 at 1)."""
+    b = max(2, int(8 * s))
+    return [
+        ("InstanceNorm", lambda: nn.InstanceNorm(in_channels=64, scale=True),
+         (b, 64, 28, 28)),
+        ("LayerNorm", lambda: nn.LayerNorm(in_channels=768), (b, 128, 768)),
+        ("GroupNorm", lambda: nn.GroupNorm(8, in_channels=64),
+         (b, 64, 28, 28)),
+        ("Conv1D", lambda: nn.Conv1D(64, 5, padding=2, in_channels=32),
+         (b, 32, 512)),
+        ("Conv3D", lambda: nn.Conv3D(32, 3, padding=1, in_channels=16),
+         (b // 2, 16, 8, 28, 28)),
+        ("Conv1DTranspose", lambda: nn.Conv1DTranspose(
+            32, 4, strides=2, padding=1, in_channels=64), (b, 64, 256)),
+        ("Conv2DTranspose", lambda: nn.Conv2DTranspose(
+            32, 3, strides=2, padding=1, output_padding=1, in_channels=64),
+         (b, 64, 28, 28)),
+        ("Conv3DTranspose", lambda: nn.Conv3DTranspose(
+            16, 2, strides=2, in_channels=32), (b // 2, 32, 4, 14, 14)),
+        ("MaxPool1D", lambda: nn.MaxPool1D(3, 2, 1), (b, 64, 500)),
+        ("MaxPool3D", lambda: nn.MaxPool3D(ceil_mode=True),
+         (b // 2, 16, 9, 28, 28)),
+        ("AvgPool1D", lambda: nn.AvgPool1D(3, 2, 1), (b, 64, 500)),
+        ("AvgPool3D", lambda: nn.AvgPool3D(), (b // 2, 16, 8, 28, 28)),
+        ("GlobalMaxPool1D", lambda: nn.GlobalMaxPool1D(), (b, 64, 500)),
+        ("GlobalMaxPool3D", lambda: nn.GlobalMaxPool3D(),
+         (b // 2, 16, 8, 28, 28)),
+        ("GlobalAvgPool1D", lambda: nn.GlobalAvgPool1D(), (b, 64, 500)),
+        ("GlobalAvgPool3D", lambda: nn.GlobalAvgPool3D(),
+         (b // 2, 16, 8, 28, 28)),
+        ("ReflectionPad2D", lambda: nn.ReflectionPad2D(3), (b, 32, 56, 56)),
+        ("LeakyReLU", lambda: nn.LeakyReLU(0.1), (b, 64, 28, 28)),
+        ("PReLU", lambda: nn.PReLU(), (b, 64, 28, 28)),
+        ("ELU", lambda: nn.ELU(0.5), (b, 64, 28, 28)),
+        ("SELU", lambda: nn.SELU(), (b, 64, 28, 28)),
+        ("GELU", lambda: nn.GELU(), (b, 64, 28, 28)),
+        ("Swish", lambda: nn.Swish(1.5), (b, 64, 28, 28)),
+    ]
+
+
+def tail_card_vs_cpu(dev, s=1):
+    """Phase 3u (iii), see the module docstring.  Returns the number of
+    cases."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 9)
+    before = _kernels.launch_counts()
+    rows = []
+    try:
+        for name, opname, arrays, attrs in _tail_op_cases(rng, s):
+            fn = registry.get_op(opname).fn
+            idx = _TAIL_INDEX_INPUTS.get(name, ())
+            readings = []
+            rows.append((name, _card_vs_cpu(
+                name, lambda _, fn=fn, attrs=attrs, idx=idx: (
+                    lambda *a: fn(*(t.float() if i in idx else t
+                                    for i, t in enumerate(a)), **attrs)),
+                arrays, dev, readings)[1]))
+            if idx:
+                print("  %-16s (index inputs int32, not nudged) card-vs-CPU "
+                      "against floor, each floating tensor: %s" % (
+                          name, ", ".join("%.3e/%.3e" % r
+                                          for r in readings)), flush=True)
+        for opname, attrs, exact in (
+                ("_linspace", dict(start=-3.0, stop=7.0, num=100001), False),
+                ("_eye", dict(N=300, M=500, k=-7), True)):
+            fn = registry.get_op(opname).fn
+            a, b = fn(ctx=dev, **attrs).cpu(), fn(ctx="cpu", **attrs)
+            err = _max_err(a, b)
+            limit = 0.0 if exact else float(b.abs().max()) * 2.0 ** -23
+            if not err <= limit:
+                raise AssertionError("%s card-vs-CPU %g (limit %g)"
+                                     % (opname, err, limit))
+            rows.append((opname, 0.0))
+        for name, make, shape in _tail_layer_cases(nn, s):
+            rows.append((name + " (layer)", _card_vs_cpu(
+                name, _block_on(make, lambda blk, xx: blk(xx)),
+                [rng.uniform(-1, 1, shape).astype(np.float32)], dev)[1]))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    if _kernels.launch_counts() != before:
+        raise AssertionError("the op tail launched a kernel")
+    worst = max(rows, key=lambda r: r[1])
+    print("  %d ops and %d layers, forward and backward: card against CPU "
+          "within 4x the CPU's 1e-6-nudged floor (worst %s at %.3fx); "
+          "_linspace within one f32 step, _eye exact; no kernel launched"
+          % (len(rows) - 23, 23, worst[0], worst[1]), flush=True)
+    return len(rows)
 
 
 def main(argv=None):
@@ -7532,6 +8256,43 @@ def main(argv=None):
               DEFORM["size"], DEFORM["groups"], card), flush=True)
     symbolic_bodies_on_card(dev)
     print("[3t] phase wall time %.2f s" % (time.perf_counter() - t_est),
+          flush=True)
+
+    print("[3u] contrib.amp: (i) phase 3g's loop (%s, batch %d, %d px, %d "
+          "classes, sgd lr %g momentum 0.9) under amp.init('bfloat16') "
+          "with amp.init_trainer and amp.scale_loss, %d steps, its first "
+          "step at batch %d card against CPU, float16's loss scaler with "
+          "a planted inf; (ii) amp.convert_model on "
+          "phase 3k's exported resnet50_v1(ghost_bn=16) through the "
+          "Executor at batch %d; (iii) the op tail and the rest of "
+          "gluon.nn card against CPU" % (
+              GLUON["model"], GLUON["batch"], IMAGE, GLUON["classes"],
+              GLUON["lr"], AMP["steps"], AMP["cpu_batch"],
+              AMP["convert_batch"]), flush=True)
+    t_amp = time.perf_counter()
+    am, am_counts = run_amp_path(dev)
+    counts["maxpool_idx_fwd"] += am_counts["maxpool_idx_fwd"]
+    print("[3u] amp_step_ms %.2f (median of steps 3-%d)  %.1f img/s  phase "
+          "3g's gluon_step_ms %.2f (f32): %.2fx  on %s" % (
+              am["amp_step_ms"], AMP["steps"], am["amp_img_s"],
+              gl["gluon_step_ms"], gl["gluon_step_ms"] / am["amp_step_ms"],
+              card), flush=True)
+    amp_card_vs_cpu(dev, held=AMP_HELD_FULL)
+    amp_card_vs_cpu(dev, **AMP_SMALL)
+    amp_overflow_on_card(dev)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_amp_")
+    try:
+        cv, cv_counts = run_amp_convert(dev, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    counts["maxpool_idx_fwd"] += cv_counts["maxpool_idx_fwd"]
+    print("[3u] amp_convert_img_per_sec %.1f (the f32 graph %.1f: %.2fx)  "
+          "top-1 agreement %.4f  on %s" % (
+              cv["amp_convert_img_per_sec"], cv["f32_graph_img_per_sec"],
+              cv["amp_convert_img_per_sec"] / cv["f32_graph_img_per_sec"],
+              cv["amp_convert_top1"], card), flush=True)
+    tail_card_vs_cpu(dev)
+    print("[3u] phase wall time %.2f s" % (time.perf_counter() - t_amp),
           flush=True)
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "

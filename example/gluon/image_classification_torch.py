@@ -4,7 +4,9 @@
 ``autograd.record``, ``gluon.Trainer`` (sgd, momentum 0.9) over
 ``kv.create("device")`` and ``metric.Accuracy``, on synthetic data from
 numpy seed 0.  The same flags and defaults as the JAX script, plus
-``--device``; ``main(argv)`` returns the per-batch losses.
+``--device`` and ``--amp bfloat16|float16`` (``contrib.amp``: the cast
+policy, a loss scaler on the trainer, the loss scaled before backward);
+``main(argv)`` returns the per-batch losses.
 
 On the card (from the repository root):
 
@@ -29,6 +31,7 @@ import numpy as np
 
 import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch import autograd, context, gluon
+from incubator_mxnet_tpu_torch.contrib import amp
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.io import NDArrayIter
 
@@ -45,6 +48,9 @@ def parse_args(argv=None):
     ap.add_argument("--no-hybridize", action="store_true")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
+    ap.add_argument("--amp", default=None, choices=("bfloat16", "float16"),
+                    help="mixed precision: amp.init(AMP) before the net is "
+                         "built")
     return ap.parse_args(argv)
 
 
@@ -72,18 +78,29 @@ def build_data(args, device):
 
 
 def build_trainer(net, args):
-    return gluon.Trainer(net.collect_params(), "sgd",
-                         {"learning_rate": args.lr, "momentum": 0.9},
-                         kvstore=mx.kv.create("device"))
+    """sgd with momentum 0.9 over ``kv.create("device")``; with ``--amp``
+    the shared loss scaler attached (``amp.init_trainer``)."""
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": args.lr, "momentum": 0.9},
+                            kvstore=mx.kv.create("device"))
+    if getattr(args, "amp", None):
+        amp.init_trainer(trainer)
+    return trainer
 
 
 def train_batch(net, trainer, loss_fn, metric, x, y, batch_size):
     """One step of the loop: forward and loss under ``record``,
-    backward, ``trainer.step``, the metric.  Returns the loss NDArray."""
+    backward (of the loss scaled by ``amp.scale_loss`` where the trainer
+    has a loss scaler), ``trainer.step``, the metric.  Returns the loss
+    NDArray."""
     with autograd.record():
         out = net(x)
         loss = loss_fn(out, y).mean()
-    loss.backward()
+        scaled = loss
+        if getattr(trainer, "_amp_loss_scaler", None) is not None:
+            with amp.scale_loss(loss, trainer) as scaled:
+                pass
+    scaled.backward()
     trainer.step(batch_size)
     metric.update([y], [out])
     return loss
@@ -94,6 +111,8 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     dev = context.resolve(args.device)
+    if args.amp:
+        amp.init(args.amp)
     net = build_net(args, dev)
     it = build_data(args, dev)
     trainer = build_trainer(net, args)

@@ -486,7 +486,10 @@ class _TensorOps:
     ops of the port (``ops/math.py``, ``ops/tensor.py``, ``ops/nn.py``'s
     forms) by name, on tensors (``F.clip(x, 0, 6)``, ``F.Concat(a, b,
     dim=1)``, ``F.FullyConnected(x, w, b, num_hidden=10)``); ``F.contrib``
-    the ``_contrib_`` ones (``F.contrib.DeformableConvolution``)."""
+    the ``_contrib_`` ones (``F.contrib.DeformableConvolution``).  Each
+    call applies ``contrib.amp``'s cast policy as it stands at that call
+    (``registry.amp_cast_inputs``), so a policy turned on after a net
+    first ran is seen."""
 
     def __init__(self, prefix=""):
         self._prefix = prefix
@@ -499,9 +502,21 @@ class _TensorOps:
         if name == "contrib" and not self._prefix:
             fn = _TensorOps("_contrib_")
         else:
-            fn = registry.get_op(self._prefix + name).fn
+            fn = _amp_dispatch(registry.get_op(self._prefix + name))
         setattr(self, name, fn)  # the next lookup skips this
         return fn
+
+
+def _amp_dispatch(op):
+    """``op.fn`` with its inputs cast by the AMP policy of the moment."""
+    from ..ops.registry import amp_cast_inputs
+
+    def call(*args, **kwargs):
+        return op.fn(*amp_cast_inputs(op, args, kwargs), **kwargs)
+
+    call.__name__ = op.name
+    call.__doc__ = op.doc
+    return call
 
 
 F = _TensorOps()

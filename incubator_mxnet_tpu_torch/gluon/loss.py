@@ -1,23 +1,26 @@
 """Losses (port of ``incubator_mxnet_tpu/gluon/loss.py``): the ``Loss``
 base (``weight``, ``batch_axis``, ``sample_weight``) and its 13 losses,
-as ``HybridBlock``s on tensors (called on NDArrays, they return
-NDArrays recorded on the port's autograd).
+as ``HybridBlock``s (called on NDArrays, they return NDArrays recorded
+on the port's autograd).
+
+Each body is the reference's ``hybrid_forward``: its ops, attributes
+and input order, through ``F``.  On tensors ``F`` is
+``gluon.block.F``, so ``contrib.amp``'s cast policy reaches every op of
+a loss as it does in the reference (``log_softmax``, ``square``,
+``log``, ``exp``, ``mean`` and ``CTCLoss`` in float32, softrelu
+``Activation`` too); tensor arithmetic promotes to the wider type, as
+the reference's widest-type casts do.  On symbols
+``SoftmaxCrossEntropyLoss`` and ``KLDivLoss`` compose; the others raise,
+as the reference's do (their bodies read the symbol's shape, which a
+symbol lacks).
 
 Every loss but ``TripletLoss``, ``CTCLoss``, ``PoissonNLLLoss`` and
 ``CosineEmbeddingLoss`` ends, as in the reference, with the mean over
-every axis but ``batch_axis``: one value per sample.
-
-``SoftmaxCrossEntropyLoss`` and ``KLDivLoss`` compose on symbols: their
-``hybrid_forward`` is the reference's (its ops, attributes and input
-order).  The other losses raise there, as the reference's do (their
-bodies read the symbol's shape, which a symbol lacks).  ``CTCLoss`` is
-``torch.nn.functional.ctc_loss`` (the reference computes it outside
-Pallas) with the reference's layouts and label convention.
+every axis but ``batch_axis``: one value per sample.  ``CTCLoss`` is the
+registered ``CTCLoss`` op (optax's recursion, float64, as the
+reference's) with ``blank_label="last"``.
 """
 from __future__ import annotations
-
-import torch
-import torch.nn.functional as tF
 
 from .block import HybridBlock
 
@@ -28,21 +31,8 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "PoissonNLLLoss", "CosineEmbeddingLoss"]
 
 
-def _apply_weighting(loss, weight=None, sample_weight=None):
+def _apply_weighting(F, loss, weight=None, sample_weight=None):  # noqa: N803
     """``loss * sample_weight`` (broadcast) ``* weight``."""
-    if sample_weight is not None:
-        loss = loss * sample_weight
-    if weight is not None:
-        loss = loss * weight
-    return loss
-
-
-def _reshape_like(x, y):
-    return x.reshape(y.shape)
-
-
-def _weighted_sym(F, loss, weight=None, sample_weight=None):  # noqa: N803
-    """The reference's ``_apply_weighting`` on symbols."""
     if sample_weight is not None:
         loss = F.broadcast_mul(loss, sample_weight)
     if weight is not None:
@@ -50,15 +40,8 @@ def _weighted_sym(F, loss, weight=None, sample_weight=None):  # noqa: N803
     return loss
 
 
-def _mean_exclude(loss, batch_axis):
-    """The mean over every axis but ``batch_axis``."""
-    keep = batch_axis % loss.dim() if loss.dim() else None
-    axes = [a for a in range(loss.dim()) if a != keep]
-    return loss.mean(dim=axes) if axes else loss
-
-
-def _softrelu(x):
-    return tF.softplus(x)
+def _reshape_like(F, x, y):  # noqa: N803
+    return x.reshape(y.shape)
 
 
 class Loss(HybridBlock):
@@ -78,20 +61,22 @@ class L2Loss(Loss):
     def __init__(self, weight=1.0, batch_axis=0, **kwargs):
         super().__init__(weight, batch_axis, **kwargs)
 
-    def forward(self, pred, label, sample_weight=None):
-        loss = torch.square(_reshape_like(label, pred) - pred)
-        loss = _apply_weighting(loss, self._weight / 2, sample_weight)
-        return _mean_exclude(loss, self._batch_axis)
+    def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
+        label = _reshape_like(F, label, pred)
+        loss = F.square(label - pred)
+        loss = _apply_weighting(F, loss, self._weight / 2, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class L1Loss(Loss):
     def __init__(self, weight=None, batch_axis=0, **kwargs):
         super().__init__(weight, batch_axis, **kwargs)
 
-    def forward(self, pred, label, sample_weight=None):
-        loss = torch.abs(_reshape_like(label, pred) - pred)
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_exclude(loss, self._batch_axis)
+    def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(label - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class SigmoidBinaryCrossEntropyLoss(Loss):
@@ -100,26 +85,29 @@ class SigmoidBinaryCrossEntropyLoss(Loss):
         super().__init__(weight, batch_axis, **kwargs)
         self._from_sigmoid = from_sigmoid
 
-    def forward(self, pred, label, sample_weight=None, pos_weight=None):
-        label = _reshape_like(label, pred)
+    def hybrid_forward(self, F, pred, label, sample_weight=None,  # noqa: N803
+                       pos_weight=None):
+        label = _reshape_like(F, label, pred)
         if not self._from_sigmoid:
             if pos_weight is None:
-                loss = torch.relu(pred) - pred * label \
-                    + _softrelu(-torch.abs(pred))
+                loss = F.relu(pred) - pred * label + F.Activation(
+                    -F.abs(pred), act_type="softrelu")
             else:
-                log_weight = 1 + (pos_weight - 1) * label
+                log_weight = 1 + F.broadcast_mul(pos_weight - 1, label)
                 loss = pred - pred * label + log_weight * (
-                    _softrelu(-torch.abs(pred)) + torch.relu(-pred))
+                    F.Activation(-F.abs(pred), act_type="softrelu")
+                    + F.relu(-pred))
         else:
             eps = 1e-12
             if pos_weight is None:
-                loss = -(torch.log(pred + eps) * label
-                         + torch.log(1.0 - pred + eps) * (1.0 - label))
+                loss = -(F.log(pred + eps) * label
+                         + F.log(1.0 - pred + eps) * (1.0 - label))
             else:
-                loss = -(torch.log(pred + eps) * label * pos_weight
-                         + torch.log(1.0 - pred + eps) * (1.0 - label))
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_exclude(loss, self._batch_axis)
+                loss = -(F.broadcast_mul(F.log(pred + eps) * label,
+                                         pos_weight)
+                         + F.log(1.0 - pred + eps) * (1.0 - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
@@ -140,28 +128,15 @@ class SoftmaxCrossEntropyLoss(Loss):
         self._sparse_label = sparse_label
         self._from_logits = from_logits
 
-    def forward(self, pred, label, sample_weight=None):
-        axis = self._axis % pred.dim()
-        if not self._from_logits:
-            pred = tF.log_softmax(pred, dim=axis)
-        if self._sparse_label:
-            idx = label.long().clamp(0, pred.shape[axis] - 1)
-            loss = -torch.gather(pred, axis, idx.unsqueeze(axis))
-        else:
-            label = _reshape_like(label, pred)
-            loss = -(pred * label).sum(dim=axis, keepdim=True)
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_exclude(loss, self._batch_axis)
-
     def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
         if not self._from_logits:
             pred = F.log_softmax(pred, axis=self._axis)
         if self._sparse_label:
             loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
         else:
-            label = label.reshape(pred.shape)
+            label = _reshape_like(F, label, pred)
             loss = -F.sum(pred * label, axis=self._axis, keepdims=True)
-        loss = _weighted_sym(F, loss, self._weight, sample_weight)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
         return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
@@ -175,18 +150,11 @@ class KLDivLoss(Loss):
         self._axis = axis
         self._from_logits = from_logits
 
-    def forward(self, pred, label, sample_weight=None):
-        if not self._from_logits:
-            pred = tF.log_softmax(pred, dim=self._axis)
-        loss = label * (torch.log(label + 1e-12) - pred)
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_exclude(loss, self._batch_axis)
-
     def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
         if not self._from_logits:
             pred = F.log_softmax(pred, axis=self._axis)
         loss = label * (F.log(label + 1e-12) - pred)
-        loss = _weighted_sym(F, loss, self._weight, sample_weight)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
         return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
@@ -205,25 +173,17 @@ class CTCLoss(Loss):
         self._layout = layout
         self._label_layout = label_layout
 
-    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
-                sample_weight=None):
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,  # noqa: N803
+                       label_lengths=None, sample_weight=None):
         if self._layout == "NTC":
-            pred = pred.transpose(0, 1)
+            pred = F.swapaxes(pred, 0, 1)
         if self._batch_axis == 1:
-            label = label.transpose(0, 1)
-        t, n, _ = pred.shape
-        labels = label.long() + 1
-        if label_lengths is None:
-            label_lengths = (labels > 0).sum(dim=1)
-        label_lengths = label_lengths.long()
-        if pred_lengths is None:
-            pred_lengths = torch.full((n,), t, dtype=torch.long,
-                                      device=pred.device)
-        logp = tF.log_softmax(pred.float(), dim=-1)
-        loss = tF.ctc_loss(logp, labels.clamp_min(0), pred_lengths.long(),
-                           label_lengths, blank=0, reduction="none")
-        return _apply_weighting(loss.to(pred.dtype), self._weight,
-                                sample_weight)
+            label = F.swapaxes(label, 0, 1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):
@@ -231,12 +191,13 @@ class HuberLoss(Loss):
         super().__init__(weight, batch_axis, **kwargs)
         self._rho = rho
 
-    def forward(self, pred, label, sample_weight=None):
-        loss = torch.abs(_reshape_like(label, pred) - pred)
-        loss = torch.where(loss > self._rho, loss - 0.5 * self._rho,
-                           (0.5 / self._rho) * torch.square(loss))
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_exclude(loss, self._batch_axis)
+    def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(label - pred)
+        loss = F.where(loss > self._rho, loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class HingeLoss(Loss):
@@ -244,10 +205,11 @@ class HingeLoss(Loss):
         super().__init__(weight, batch_axis, **kwargs)
         self._margin = margin
 
-    def forward(self, pred, label, sample_weight=None):
-        loss = torch.relu(self._margin - pred * _reshape_like(label, pred))
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_exclude(loss, self._batch_axis)
+    def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
+        label = _reshape_like(F, label, pred)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class SquaredHingeLoss(Loss):
@@ -255,11 +217,11 @@ class SquaredHingeLoss(Loss):
         super().__init__(weight, batch_axis, **kwargs)
         self._margin = margin
 
-    def forward(self, pred, label, sample_weight=None):
-        loss = torch.square(torch.relu(
-            self._margin - pred * _reshape_like(label, pred)))
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_exclude(loss, self._batch_axis)
+    def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
+        label = _reshape_like(F, label, pred)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class LogisticLoss(Loss):
@@ -268,14 +230,14 @@ class LogisticLoss(Loss):
         super().__init__(weight, batch_axis, **kwargs)
         self._label_format = label_format
 
-    def forward(self, pred, label, sample_weight=None):
-        label = _reshape_like(label, pred)
+    def hybrid_forward(self, F, pred, label, sample_weight=None):  # noqa: N803
+        label = _reshape_like(F, label, pred)
         if self._label_format == "signed":
             label = (label + 1.0) / 2.0
-        loss = torch.relu(pred) - pred * label \
-            + _softrelu(-torch.abs(pred))
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_exclude(loss, self._batch_axis)
+        loss = F.relu(pred) - pred * label + F.Activation(
+            -F.abs(pred), act_type="softrelu")
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class TripletLoss(Loss):
@@ -283,15 +245,14 @@ class TripletLoss(Loss):
         super().__init__(weight, batch_axis, **kwargs)
         self._margin = margin
 
-    def forward(self, pred, positive, negative, sample_weight=None):
-        positive = _reshape_like(positive, pred)
-        negative = _reshape_like(negative, pred)
-        diff = torch.square(positive - pred) - torch.square(negative - pred)
-        keep = self._batch_axis % diff.dim()
-        axes = [a for a in range(diff.dim()) if a != keep]
-        loss = torch.relu((diff.sum(dim=axes) if axes else diff)
-                          + self._margin)
-        return _apply_weighting(loss, self._weight, sample_weight)
+    def hybrid_forward(self, F, pred, positive, negative,  # noqa: N803
+                       sample_weight=None):
+        positive = _reshape_like(F, positive, pred)
+        negative = _reshape_like(F, negative, pred)
+        loss = F.sum(F.square(positive - pred) - F.square(negative - pred),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class PoissonNLLLoss(Loss):
@@ -301,20 +262,20 @@ class PoissonNLLLoss(Loss):
         self._from_logits = from_logits
         self._compute_full = compute_full
 
-    def forward(self, pred, label, sample_weight=None, epsilon=1e-08):
-        label = _reshape_like(label, pred)
+    def hybrid_forward(self, F, pred, label, sample_weight=None,  # noqa: N803
+                       epsilon=1e-08):
+        label = _reshape_like(F, label, pred)
         if self._from_logits:
-            loss = torch.exp(pred) - label * pred
+            loss = F.exp(pred) - label * pred
         else:
-            loss = pred - label * torch.log(pred + epsilon)
+            loss = pred - label * F.log(pred + epsilon)
         if self._compute_full:
-            stirling = label * torch.log(label + 1e-12) - label \
-                + 0.5 * torch.log(2 * 3.1415926535 * (label + 1e-12))
-            stirling = torch.where(label <= 1, torch.zeros_like(stirling),
-                                   stirling)
+            stirling = (label * F.log(label + 1e-12) - label
+                        + 0.5 * F.log(2 * 3.1415926535 * (label + 1e-12)))
+            stirling = F.where(label <= 1, F.zeros_like(stirling), stirling)
             loss = loss + stirling
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return loss.mean()
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss)
 
 
 class CosineEmbeddingLoss(Loss):
@@ -322,13 +283,11 @@ class CosineEmbeddingLoss(Loss):
         super().__init__(weight, batch_axis, **kwargs)
         self._margin = margin
 
-    def forward(self, input1, input2, label, sample_weight=None):
-        input1 = _reshape_like(input1, input2)
-        cos = (input1 * input2).sum(dim=-1) / (
-            torch.linalg.vector_norm(input1, dim=-1)
-            * torch.linalg.vector_norm(input2, dim=-1) + 1e-12)
-        label = label.reshape(-1)
-        loss = torch.where(label == 1, 1.0 - cos,
-                           torch.relu(cos - self._margin))
-        return _apply_weighting(loss, self._weight, sample_weight)
-
+    def hybrid_forward(self, F, input1, input2, label,  # noqa: N803
+                       sample_weight=None):
+        input1 = _reshape_like(F, input1, input2)
+        cos = F.sum(input1 * input2, axis=-1) / (
+            F.norm(input1, axis=-1) * F.norm(input2, axis=-1) + 1e-12)
+        label = label.reshape((-1,))
+        loss = F.where(label == 1, 1.0 - cos, F.relu(cos - self._margin))
+        return _apply_weighting(F, loss, self._weight, sample_weight)

@@ -1,11 +1,10 @@
-"""Layers of the vision zoo and of the word LM."""
-from .activations import Activation
-from .basic_layers import (BatchNorm, Dense, Dropout, Embedding, Flatten,
-                           HybridLambda, HybridSequential, Lambda, Sequential)
-from .conv_layers import (AvgPool2D, Conv2D, GlobalAvgPool2D,
-                          GlobalMaxPool2D, MaxPool2D)
+"""Gluon's layers (``mx.gluon.nn``)."""
+from .activations import *  # noqa: F401,F403
+from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403
 
-__all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Embedding",
-           "Flatten", "HybridLambda", "HybridSequential", "Lambda",
-           "Sequential", "AvgPool2D", "Conv2D",
-           "GlobalAvgPool2D", "GlobalMaxPool2D", "MaxPool2D"]
+from .activations import __all__ as _act_all
+from .basic_layers import __all__ as _basic_all
+from .conv_layers import __all__ as _conv_all
+
+__all__ = list(_basic_all) + list(_conv_all) + list(_act_all)

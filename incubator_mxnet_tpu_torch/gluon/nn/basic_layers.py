@@ -1,7 +1,8 @@
 """Basic layers (port of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``):
 ``Sequential`` and ``Lambda`` (``Block``s), ``HybridSequential``,
-``Dense``, ``Dropout``, ``BatchNorm``, ``Embedding``, ``Flatten`` and
-``HybridLambda``, as ``HybridBlock``s.  Parameters are made inside
+``Dense``, ``Dropout``, ``BatchNorm``, ``InstanceNorm``, ``LayerNorm``,
+``GroupNorm``, ``Embedding``, ``Flatten`` and ``HybridLambda``, as
+``HybridBlock``s.  Parameters are made inside
 ``name_scope()`` with the reference's names and initializers, on
 ``device`` (default: the enclosing ``context.device_scope``, else the
 CUDA card); ``initialize`` fills them.  A width left at 0 is deferred to
@@ -12,12 +13,13 @@ from __future__ import annotations
 
 import math
 
-from ... import context
+from ... import autograd, context
 from ...ops import nn as ops
 from ..block import F, Block, Deferred, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "BatchNorm", "Embedding", "Flatten", "Lambda", "HybridLambda"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "InstanceNorm", "LayerNorm", "GroupNorm", "Embedding", "Flatten",
+           "Lambda", "HybridLambda"]
 
 
 class _Stack:
@@ -173,11 +175,15 @@ class BatchNorm(Deferred, HybridBlock):
                               "running_var"), c)
 
     def forward(self, x):
-        out, mean, var = ops.batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
-            eps=self._epsilon, fix_gamma=not self._scale,
-            use_global_stats=self._use_global_stats, axis=self._axis,
-            training=self.training, output_mean_var=True)
+        # the registered op through F (contrib.amp's policy runs it in
+        # float32), in this layer's mode, with the batch's mean and var
+        with autograd._scope(training=self.training):
+            out, mean, var = F.BatchNorm(
+                x, self.gamma, self.beta, self.running_mean,
+                self.running_var, eps=self._epsilon,
+                momentum=self._momentum, fix_gamma=not self._scale,
+                use_global_stats=self._use_global_stats,
+                output_mean_var=True, axis=self._axis)
         if self.training and not self._use_global_stats:
             rm, rv = ops.batch_norm_aux_update(
                 self.running_mean, self.running_var, mean, var,
@@ -193,6 +199,76 @@ class BatchNorm(Deferred, HybridBlock):
                            fix_gamma=not self._scale,
                            use_global_stats=self._use_global_stats,
                            axis=self._axis)
+
+
+class _Norm(Deferred, HybridBlock):
+    """gamma and beta of ``in_channels`` (0: from the input's ``axis``),
+    ``scale=False`` (``center=False``) making gamma (beta) a parameter
+    without gradient, as the reference's ``grad_req="null"``."""
+
+    def __init__(self, axis, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, device, **kwargs):
+        super().__init__(**kwargs)
+        self._device = context.resolve(device)
+        self._axis = axis
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def _infer_shapes(self, x):
+        return dict.fromkeys(("gamma", "beta"), (x.shape[self._axis],))
+
+
+class InstanceNorm(_Norm):
+    """Each channel of each sample normalized (``InstanceNorm``, channels
+    on axis 1); gamma is not trained by default (``scale=False``)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None, **kwargs):
+        super().__init__(1, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, device, **kwargs)
+        self._epsilon = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):  # noqa: N803
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class LayerNorm(_Norm):
+    """Each sample normalized over ``axis`` (default the last)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None, **kwargs):
+        super().__init__(axis, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, device, **kwargs)
+        self._epsilon = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):  # noqa: N803
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
+class GroupNorm(_Norm):
+    """Each of ``num_groups`` channel groups of each sample normalized;
+    gamma and beta a channel."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None, **kwargs):
+        super().__init__(1, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, device, **kwargs)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):  # noqa: N803
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
 
 
 class Embedding(HybridBlock):

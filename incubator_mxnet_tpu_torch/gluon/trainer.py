@@ -81,10 +81,24 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Reduce the gradients, then update with them divided by
-        ``batch_size``."""
+        ``batch_size``.
+
+        With a ``LossScaler`` attached (``contrib.amp.init_trainer``) the
+        gradients are also divided by the scale the loss was multiplied
+        by; a non-finite gradient (checked at every scale, 1 included)
+        skips the update and halves the scale."""
         self._init_kvstore()
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        loss_scale = scaler.loss_scale if scaler is not None else 1.0
         self.allreduce_grads()
-        self.update(batch_size, ignore_stale_grad)
+        if scaler is not None:
+            if scaler.has_overflow(self._params):
+                scaler.update_scale(True)
+                return
+            scaler.update_scale(False)
+        # the scale the loss was multiplied by: update_scale may have
+        # doubled it for the next step
+        self.update(batch_size, ignore_stale_grad, _loss_scale=loss_scale)
 
     def allreduce_grads(self):
         """Reduce gradients across workers: a store with more than one

@@ -174,6 +174,7 @@ class ImageRecordIter(DataIter):
         self._current = None
         self._epoch_num = -1
         self._resume_consumed = 0
+        self._epoch_rng_state = None
         self.reset()
 
     # -- decode + augment: resize shorter side, crop, mirror; normalize
@@ -305,9 +306,36 @@ class ImageRecordIter(DataIter):
 
     def reset(self):
         # stop the old epoch's producer before touching the RNG it draws
-        # from, then snapshot the epoch-start state: the checkpointable
-        # shuffle state (the live RNG races ahead of consumption)
+        # from, then leave the RNG where the old epoch's draws for the
+        # batches the consumer took, and the one the producer had begun
+        # beyond them, end; however far the producer had read ahead, the
+        # next epoch does not depend on its timing (ROADMAP Queue C: the
+        # reference's reset depends on it)
         self._prefetcher.stop()
+        if self._epoch_rng_state is not None:
+            self._rng.set_state(self._after_batches(
+                self._epoch_rng_state, self._consumed + 1))
+        self._start_epoch()
+
+    def _after_batches(self, state, batches):
+        """The producer RNG's state after an epoch's shuffle and the
+        augmentation seeds of its first ``batches`` batches (at most its
+        own), drawn from ``state`` as :meth:`_epoch` draws them."""
+        rng = np.random.RandomState()
+        rng.set_state(state)
+        order = list(self._keys)
+        if self.shuffle:
+            rng.shuffle(order)
+        n, bs = len(order), self.batch_size
+        for bidx, start in enumerate(range(0, n, bs)):
+            if bidx >= batches or (n - start < bs and not self.round_batch):
+                break
+            rng.randint(0, 2**31)
+        return rng.get_state()
+
+    def _start_epoch(self):
+        # snapshot the epoch-start state (the checkpointable shuffle
+        # state: the live RNG races ahead of consumption) and start
         skip = self._resume_consumed
         self._resume_consumed = 0
         self._epoch_rng_state = self._rng.get_state()
@@ -399,9 +427,9 @@ class ImageRecordIter(DataIter):
                     % (key, saved, type(self).__name__, key, have))
         self._prefetcher.stop()  # no straggler draws after set_state
         self._rng.set_state(_rng_state_from_json(state["rng"]))
-        self._epoch_num = int(state["epoch"]) - 1  # reset() bumps it back
+        self._epoch_num = int(state["epoch"]) - 1  # bumped back on start
         self._resume_consumed = int(state["batch"])
-        self.reset()
+        self._start_epoch()
 
     def close(self):
         self._prefetcher.stop()

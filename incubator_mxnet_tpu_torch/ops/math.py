@@ -1,6 +1,6 @@
-"""Elementwise, broadcast, reduction and product operators (port of the
-part of ``incubator_mxnet_tpu/ops/math.py`` that ``NDArray``'s methods
-call).
+"""Elementwise, broadcast, reduction, scan and product operators (port
+of ``incubator_mxnet_tpu/ops/math.py``; its linalg family is in
+``ops/linalg.py``).
 
 Each op is one function on torch tensors.  Dtypes follow the reference:
 comparisons return 0/1 in the inputs' type, ``argmax``/``argmin`` return
@@ -357,3 +357,78 @@ def _softmax(data, axis=-1, temperature=None, length=None):
     if temperature is not None and temperature != 1.0:
         data = data / temperature
     return F.softmax(data, dim=axis)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference's math.py
+# ---------------------------------------------------------------------------
+
+
+@register("_scatter_elemwise_div", num_inputs=2)
+def _scatter_div(lhs, rhs):
+    return lhs / rhs
+
+
+@register("make_loss", num_inputs=1, aliases=("MakeLoss",))
+def _make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """The identity, as the reference's body: the head gradient passes
+    through and ``grad_scale``, ``valid_thresh`` and ``normalization``
+    are accepted and unused (ROADMAP Queue C)."""
+    return data.view_as(data)
+
+
+@register("smooth_l1", num_inputs=1)
+def _smooth_l1(data, scalar=1.0):
+    s2 = scalar * scalar
+    a = torch.abs(data)
+    return torch.where(a < 1.0 / s2, 0.5 * s2 * data * data, a - 0.5 / s2)
+
+
+@register("gelu", num_inputs=1)
+def _gelu(data, approximate=False):
+    return F.gelu(data, approximate="tanh" if approximate else "none")
+
+
+@register("add_n", aliases=("ElementWiseSum", "_sum"))
+def _add_n(*args):
+    out = args[0]
+    for a in args[1:]:
+        out = out + a
+    return out
+
+
+@register("khatri_rao")
+def _khatri_rao(*mats):
+    """The column-wise Kronecker product of (r_i, k) matrices."""
+    out = mats[0]
+    for m in mats[1:]:
+        out = (out[:, None, :] * m[None, :, :]).reshape(-1, out.shape[-1])
+    return out
+
+
+@register("softmin", num_inputs=1)
+def _softmin(data, axis=-1, temperature=None):
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    return F.softmax(-data, dim=axis)
+
+
+@register("cumsum", num_inputs=1)
+def _cumsum(a, axis=None, dtype=None):
+    """Running sum along ``axis`` (of the flattened array without one), in
+    ``dtype`` or else the input's (a boolean input counts in int64), as
+    ``jnp.cumsum``."""
+    if axis is None:
+        a = a.reshape(-1)
+        axis = 0
+    out = torch.cumsum(a, dim=axis)
+    if dtype is not None:
+        return out.to(torch_dtype(dtype))
+    return out if a.dtype == torch.bool else out.to(a.dtype)
+
+
+@register("diag", num_inputs=1)
+def _diag(data, k=0, axis1=0, axis2=1):
+    if data.ndim == 1:
+        return torch.diag(data, k)
+    return torch.diagonal(data, offset=k, dim1=axis1, dim2=axis2)

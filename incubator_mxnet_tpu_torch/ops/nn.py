@@ -1,21 +1,20 @@
-"""Neural-network operators of the vision zoo (port of
-``incubator_mxnet_tpu/ops/nn.py``): convolution, pooling, fully
-connected, activations, dropout, flatten, stock batch norm with its
-running-stat update, and the ghost-BN ops with theirs.
+"""Neural-network operators (port of ``incubator_mxnet_tpu/ops/nn.py``):
+convolution and transposed convolution, pooling over 1 to 3 spatial
+axes, fully connected, activations, dropout, flatten, stock batch norm
+with its running-stat update, the ghost-BN ops with theirs, the layer,
+group and instance norms, L2 normalization, LRN, ``LeakyReLU``, the
+resizes, adaptive average pooling and CTC loss.
 
-Plain functions on tensors.  Convolution, the dense product and stock
-batch norm are PyTorch's (XLA did them outside Pallas in the reference);
-max pooling and ghost BN go through the port's kernels
-(``parallel/maxpool_idx.py``, ``parallel/fused_bn.py``).
+Plain functions on tensors.  Convolutions, the dense product, stock
+batch norm and the rest are PyTorch's (XLA did them outside Pallas in
+the reference); 2-D max pooling and ghost BN go through the port's
+kernels (``parallel/maxpool_idx.py``, ``parallel/fused_bn.py``).
 
-The registry forms that ``sym.*`` and ``nd.*`` call by name
-(``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm``,
-``Activation``, ``Dropout``, ``SoftmaxOutput`` and the six
-``_contrib_GhostBN*`` ops) keep the reference's
-signatures: the same inputs in the same order, then the same attributes
-with the same defaults (the reference's PRNG ``key`` aside: Dropout draws
-from the port's generator).  Their training mode is
-``autograd.is_training()``, which the symbolic executor sets for its
+The registry forms that ``sym.*`` and ``nd.*`` call by name keep the
+reference's signatures: the same inputs in the same order, then the same
+attributes with the same defaults (the reference's PRNG ``key`` aside:
+Dropout and rrelu draw from the port's generator).  Their training mode
+is ``autograd.is_training()``, which the symbolic executor sets for its
 forward.
 """
 from __future__ import annotations
@@ -28,11 +27,12 @@ import torch.nn.functional as F
 from ..parallel import collectives, fused_bn, maxpool_idx
 from .registry import register
 
-__all__ = ["convolution", "pooling", "fully_connected", "activation",
-           "dropout", "flatten", "batch_norm", "batch_norm_stats",
-           "batch_norm_aux_update", "ghost_bn_relu", "ghost_bn",
-           "ghost_bn_add_relu", "ghost_bn_add_relu_dual", "ghost_bn_nostats",
-           "ghost_bn_aux_update"]
+__all__ = ["convolution", "deconvolution", "pooling", "fully_connected",
+           "activation", "dropout", "flatten", "batch_norm",
+           "batch_norm_stats", "batch_norm_aux_update", "ghost_bn_relu",
+           "ghost_bn", "ghost_bn_add_relu", "ghost_bn_add_relu_dual",
+           "ghost_bn_nostats", "ghost_bn_aux_update", "leaky_relu",
+           "resize_bilinear", "ctc_forward"]
 
 
 _CONV = {3: F.conv1d, 4: F.conv2d, 5: F.conv3d}
@@ -46,24 +46,82 @@ def convolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0),
                              tuple(dilate), int(num_group))
 
 
+_CONV_T = {3: F.conv_transpose1d, 4: F.conv_transpose2d,
+           5: F.conv_transpose3d}
+
+
+def deconvolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0),
+                  dilate=(1, 1), adj=(0, 0), num_group=1):
+    """The reference's ``Deconvolution`` over 1 to 3 spatial axes: the
+    transposed convolution of weight (in, out / num_group, k...), ``adj``
+    padding the high edge.  With ``num_group > 1`` the reference neither
+    flips nor regroups the weight: it runs a grouped forward convolution
+    of the stride-dilated input with the weight as it is, taken as
+    (out, in / num_group, k...), and so does the port (ROADMAP Queue C);
+    a weight of another width raises ``ValueError`` there as here."""
+    stride, pad, dilate, adj = (tuple(int(v) for v in t)
+                                for t in (stride, pad, dilate, adj))
+    num_group = int(num_group)
+    if num_group == 1 and all(a < max(s, d) for a, s, d
+                              in zip(adj, stride, dilate)):
+        return _CONV_T[data.dim()](data, weight, bias, stride, pad, adj, 1,
+                                   dilate)
+    if num_group == 1:
+        weight = torch.flip(weight, dims=tuple(range(2, weight.dim())))
+        weight = weight.transpose(0, 1)
+    elif weight.shape[1] * num_group != data.shape[1]:
+        raise ValueError(
+            "Deconvolution with num_group=%d convolves the weight as it is: "
+            "its axis 1 (%d) times the groups must equal the input's %d "
+            "channels" % (num_group, weight.shape[1], data.shape[1]))
+    # the input dilated by the stride, padded by d * (k - 1) - p (and
+    # adj on the high edge; a negative pad crops), then convolved
+    n, c = data.shape[:2]
+    spatial = data.shape[2:]
+    dil = data.new_zeros((n, c) + tuple((i - 1) * s + 1
+                                         for i, s in zip(spatial, stride)))
+    dil[(slice(None), slice(None)) + tuple(slice(None, None, s)
+                                           for s in stride)] = data
+    pads = []
+    for k, p, d, a in reversed(list(zip(weight.shape[2:], pad, dilate,
+                                        adj))):
+        pads += [d * (k - 1) - p, d * (k - 1) - p + a]
+    return _CONV[data.dim()](F.pad(dil, pads), weight, bias, 1, 0, dilate,
+                             num_group)
+
+
+def _pad_spatial(data, padding, value=0.0):
+    """``data`` padded on its spatial axes by ``padding``, one (low, high)
+    pair an axis."""
+    flat = []
+    for lo, hi in reversed(padding):
+        flat += [lo, hi]
+    return F.pad(data, flat, value=value)
+
+
 def _window_sum(data, kernel, stride, padding):
     """Sum over each window of ``data`` zero-padded by ``padding`` (the
-    reference's ``reduce_window`` add): explicit padding, then windows
-    that lie wholly inside the padded input."""
-    xp = F.pad(data, (padding[1][0], padding[1][1], padding[0][0],
-                      padding[0][1]))
-    return F.avg_pool2d(xp, kernel, stride, divisor_override=1)
+    reference's ``reduce_window`` add) over 1 to 3 spatial axes: explicit
+    padding, then windows that lie wholly inside the padded input."""
+    xp = _pad_spatial(data, padding)
+    if len(kernel) == 1:
+        return F.avg_pool2d(xp.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(-2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(xp, kernel, stride, divisor_override=1)
 
 
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             pooling_convention="valid", stride=None, pad=None,
             count_include_pad=True, p_value=2):
-    """NCHW pooling (the reference's ``_pooling``): max, avg, sum or lp
-    (the ``p_value``-norm of each window), windowed or global.
-    ``pooling_convention="full"`` is ceil mode: the high edge is padded
-    by ``pad + stride - 1``.  Windowed max pooling goes through
-    ``maxpool_idx.max_pool``: K3 on the card where the reference places
-    its indexed kernel."""
+    """NC(D)(H)W pooling over 1 to 3 spatial axes (the reference's
+    ``_pooling``): max, avg, sum or lp (the ``p_value``-norm of each
+    window), windowed or global.  ``pooling_convention="full"`` is ceil
+    mode: the high edge is padded by ``pad + stride - 1``.  Windowed 2-D
+    max pooling goes through ``maxpool_idx.max_pool``: K3 on the card
+    where the reference places its indexed kernel; 1-D and 3-D max
+    pooling (no Pallas kernel in the reference) is ``F.max_pool1d`` /
+    ``F.max_pool3d`` over the input padded with -inf."""
     if global_pool:
         axes = tuple(range(2, data.dim()))
         if pool_type == "max":
@@ -77,8 +135,9 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
                 .pow(1.0 / p_value)
         raise ValueError("unknown pool_type %r" % (pool_type,))
     kernel = tuple(kernel)
-    stride = tuple(stride) if stride else (1, 1)
-    pad = tuple(pad) if pad else (0, 0)
+    nsp = len(kernel)
+    stride = tuple(stride) if stride else (1,) * nsp
+    pad = tuple(pad) if pad else (0,) * nsp
     if pooling_convention == "full":
         padding = tuple((p, p + s - 1) for p, s in zip(pad, stride))
     elif pooling_convention == "valid":
@@ -86,9 +145,14 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
     else:
         raise ValueError("unknown pooling_convention %r"
                          % (pooling_convention,))
-    if pool_type == "max":
+    if pool_type == "max" and nsp == 2:
         return maxpool_idx.max_pool(data, (1, 1) + kernel, (1, 1) + stride,
                                     ((0, 0), (0, 0)) + padding)
+    if pool_type == "max":
+        low = -math.inf if data.is_floating_point() \
+            else torch.iinfo(data.dtype).min
+        pool = F.max_pool1d if nsp == 1 else F.max_pool3d
+        return pool(_pad_spatial(data, padding, low), kernel, stride)
     if pool_type in ("avg", "sum"):
         summed = _window_sum(data, kernel, stride, padding)
         if pool_type == "sum":
@@ -597,3 +661,304 @@ def _softmax_output_op(data, label, grad_scale=1.0, ignore_label=-1.0,
                preserve_shape=preserve_shape, normalization=normalization,
                out_grad=out_grad, smooth_alpha=smooth_alpha)
     return _SoftmaxOutput.apply(data, label, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference's nn.py: Deconvolution, batch_norm_stats, the
+# norms, LeakyReLU, SoftmaxActivation, the resizes, adaptive pooling and
+# CTC loss (all computed outside Pallas in the reference: torch ops here)
+# ---------------------------------------------------------------------------
+
+
+@register("Deconvolution", aliases=("deconv",))
+def _deconvolution_op(data, weight, bias=None, kernel=None, stride=None,
+                      dilate=None, pad=None, adj=None, target_shape=None,
+                      num_filter=None, num_group=1, workspace=512,
+                      no_bias=True, cudnn_tune=None, cudnn_off=False,
+                      layout=None):
+    if layout is not None and not layout.startswith("NC"):
+        raise NotImplementedError("Deconvolution takes NC* layouts, got %r"
+                                  % (layout,))
+    nsp = data.dim() - 2
+    return deconvolution(data, weight, None if no_bias else bias,
+                         stride or (1,) * nsp, pad or (0,) * nsp,
+                         dilate or (1,) * nsp, adj or (0,) * nsp, num_group)
+
+
+@register("batch_norm_stats", num_inputs=1, num_outputs=2,
+          differentiable=False)
+def _batch_norm_stats_op(data, axis=1):
+    return batch_norm_stats(data, int(axis))
+
+
+def _bshape(data, axis):
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    return shape
+
+
+@register("LayerNorm", aliases=("layer_norm",))
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Normalize over ``axis`` in f32, cast back; ``output_mean_var`` also
+    returns the mean and ``1 / sqrt(var + eps)``, f32, as the
+    reference."""
+    x = data.to(torch.float32)
+    mean = x.mean(dim=axis, keepdim=True)
+    var = x.var(dim=axis, keepdim=True, correction=0)
+    inv = torch.rsqrt(var + eps)
+    shape = _bshape(data, axis)
+    out = ((x - mean) * inv * gamma.to(torch.float32).reshape(shape)
+           + beta.to(torch.float32).reshape(shape)).to(data.dtype)
+    if output_mean_var:
+        return out, mean.squeeze(axis), inv.squeeze(axis)
+    return out
+
+
+@register("GroupNorm", aliases=("group_norm",))
+def _group_norm(data, gamma, beta, num_groups=1, eps=1e-5,
+                output_mean_var=False):
+    """Normalize each of ``num_groups`` channel groups of each sample in
+    f32, cast back; ``output_mean_var`` also returns the mean and the
+    variance, (N, groups), as the reference."""
+    n, c = data.shape[:2]
+    g = int(num_groups)
+    x = data.reshape((n, g, c // g) + tuple(data.shape[2:])).to(
+        torch.float32)
+    red = tuple(range(2, x.dim()))
+    mean = x.mean(dim=red, keepdim=True)
+    var = x.var(dim=red, keepdim=True, correction=0)
+    norm = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    shape = (1, c) + (1,) * (data.dim() - 2)
+    out = (norm * gamma.to(torch.float32).reshape(shape)
+           + beta.to(torch.float32).reshape(shape)).to(data.dtype)
+    if output_mean_var:
+        return out, mean.reshape(n, g), var.reshape(n, g)
+    return out
+
+
+@register("InstanceNorm", aliases=("instance_norm",))
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalize each channel of each sample in f32; gamma and beta keep
+    their dtype (the reference does not widen them), the result has the
+    data's."""
+    x = data.to(torch.float32)
+    red = tuple(range(2, data.dim()))
+    mean = x.mean(dim=red, keepdim=True)
+    var = x.var(dim=red, keepdim=True, correction=0)
+    shape = (1, data.shape[1]) + (1,) * (data.dim() - 2)
+    return ((x - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape)
+            + beta.reshape(shape)).to(data.dtype)
+
+
+@register("L2Normalization", aliases=("l2_normalization",), num_inputs=1)
+def _l2_normalization(data, eps=1e-10, mode="instance"):
+    x = data.to(torch.float32)
+    if mode == "instance":
+        norm = x.reshape(x.shape[0], -1).square().sum(dim=1).sqrt()
+        norm = norm.reshape((-1,) + (1,) * (data.dim() - 1))
+    elif mode == "channel":
+        norm = x.square().sum(dim=1, keepdim=True).sqrt()
+    elif mode == "spatial":
+        norm = x.reshape(x.shape[0], x.shape[1], -1).square().sum(
+            dim=2).sqrt().reshape(tuple(x.shape[:2])
+                                  + (1,) * (data.dim() - 2))
+    else:
+        raise ValueError(mode)
+    return (x / (norm + eps)).to(data.dtype)
+
+
+@register("LRN", aliases=("lrn",), num_inputs=1)
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across the channels of NCHW data."""
+    x = data.to(torch.float32)
+    half = nsize // 2
+    padded = F.pad(x.square(), (0, 0, 0, 0, half, half))
+    win = sum(padded[:, i:i + x.shape[1]] for i in range(nsize))
+    return (x / (knorm + alpha * win / nsize).pow(beta)).to(data.dtype)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, training=False,
+               generator=None):
+    """``LeakyReLU``: leaky (``slope``), prelu (the learned ``gamma``, one
+    a channel), elu, selu, gelu (the erf form) or rrelu, whose negative
+    slopes are drawn uniformly in [lower_bound, upper_bound) in training
+    (from ``generator``, default the data's device generator of
+    :mod:`..random`) and are their mean otherwise."""
+    pos = data >= 0
+    if act_type == "leaky":
+        return torch.where(pos, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 and data.dim() > 2 else gamma
+        return torch.where(pos, data, g * data)
+    if act_type == "elu":
+        return torch.where(pos, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(pos, data,
+                                         _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data)
+    if act_type == "rrelu":
+        if not training:
+            return torch.where(pos, data,
+                               (lower_bound + upper_bound) / 2.0 * data)
+        if generator is None and data.device.type != "meta":
+            from .. import random
+
+            generator = random.generator(data.device)
+        s = torch.rand(data.shape, generator=generator, device=data.device,
+                       dtype=torch.float32)
+        s = lower_bound + (upper_bound - lower_bound) * s
+        return torch.where(pos, data, s.to(data.dtype) * data)
+    raise ValueError("unknown act_type %r" % (act_type,))
+
+
+@register("LeakyReLU")
+def _leaky_relu_op(data, gamma=None, act_type="leaky", slope=0.25,
+                   lower_bound=0.125, upper_bound=0.334):
+    return leaky_relu(data, gamma, act_type, slope, lower_bound,
+                      upper_bound, training=_is_train())
+
+
+@register("SoftmaxActivation", num_inputs=1, aliases=("softmax_activation",))
+def _softmax_activation(data, mode="instance"):
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
+
+
+def resize_bilinear(data, height, width):
+    """``jax.image.resize(data, (n, c, height, width), "bilinear")``:
+    half-pixel centres, a triangle filter widened by the factor where
+    the image shrinks (antialiased), the weights renormalized at the
+    edges."""
+    return F.interpolate(data, size=(int(height), int(width)),
+                         mode="bilinear", align_corners=False,
+                         antialias=True)
+
+
+@register("UpSampling")
+def _upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest: each input repeated ``scale`` times on H and W, then
+    concatenated on the channels (or summed); bilinear: the first input
+    resized by ``scale`` (the reference ignores the weight input)."""
+    data = args[0]
+    if sample_type == "nearest":
+        outs = [a.repeat_interleave(scale, dim=2).repeat_interleave(scale,
+                                                                    dim=3)
+                for a in args]
+        if len(outs) == 1:
+            return outs[0]
+        if multi_input_mode == "sum":
+            return sum(outs)
+        return torch.cat(outs, dim=1)
+    return resize_bilinear(data, data.shape[2] * scale, data.shape[3] * scale)
+
+
+@register("_contrib_BilinearResize2D", num_inputs=1,
+          aliases=("BilinearResize2D",))
+def _bilinear_resize(data, height=None, width=None, scale_height=None,
+                     scale_width=None, mode="size", align_corners=True):
+    """To (height, width), or the input's size times the scales; the
+    reference ignores ``mode`` and ``align_corners`` (half-pixel
+    centres always), and so does the port."""
+    h, w = data.shape[2:]
+    oh = int(height) if height else int(round(h * scale_height))
+    ow = int(width) if width else int(round(w * scale_width))
+    return resize_bilinear(data, oh, ow)
+
+
+@register("_contrib_AdaptiveAvgPooling2D", num_inputs=1)
+def _adaptive_avg_pool(data, output_size=(1, 1)):
+    """The mean of equal blocks: each output size must divide the input's
+    (the reference reshapes, and raises ``TypeError`` otherwise)."""
+    if isinstance(output_size, int):
+        output_size = (output_size, output_size)
+    n, c, h, w = data.shape
+    oh, ow = (int(v) for v in output_size)
+    if h % oh or w % ow:
+        raise TypeError("AdaptiveAvgPooling2D takes output sizes that "
+                        "divide the input's: (%d, %d) into (%d, %d)"
+                        % (h, w, oh, ow))
+    return data.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+
+
+_CTC_LOG_EPS = -1e5
+
+
+def _ctc_phi_update(phi, added):
+    return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], added)],
+                     dim=-1)
+
+
+def ctc_forward(logits, logit_pad, labels, label_pad):
+    """The CTC negative log-likelihood of each sequence (``optax.
+    ctc_loss`` with blank 0 and log(0) taken as -1e5, which the
+    reference calls): logits (B, T, K), paddings 1.0 where padded.
+    The forward recursion runs in float64 (the reference's state
+    starts as 64-bit ones), so an impossible alignment gives a large
+    finite loss and the result is float64."""
+    b, t, k = logits.shape
+    n = labels.shape[1]
+    f64 = torch.float64
+    dev = logits.device
+    logprobs = F.log_softmax(logits, dim=-1)
+    labellens = n - label_pad.sum(dim=1).to(torch.int32)
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).to(torch.float32),
+                   (0, 1))
+    lp_phi = logprobs[:, :, :1].transpose(0, 1)
+    one_hot = (labels.to(torch.long)[..., None]
+               == torch.arange(k, device=dev)).to(f64)
+    lp_emit = torch.einsum("btk,bnk->tbn", logprobs.to(f64), one_hot)
+    phi = torch.full((b, n + 1), _CTC_LOG_EPS, dtype=f64, device=dev)
+    phi = torch.cat([torch.zeros((b, 1), dtype=f64, device=dev), phi[:, 1:]],
+                    dim=1)
+    emit = torch.full((b, n), _CTC_LOG_EPS, dtype=f64, device=dev)
+    pads = logit_pad.transpose(0, 1)
+    to_phi = _CTC_LOG_EPS * repeat
+    to_rep = _CTC_LOG_EPS * (1.0 - repeat)
+    for step in range(t):
+        prev_phi_orig = phi
+        prev_phi = _ctc_phi_update(phi, emit + to_phi)
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + lp_emit[step],
+                                    emit + lp_emit[step])
+        next_phi = _ctc_phi_update(prev_phi + lp_phi[step],
+                                   emit + lp_phi[step] + to_rep)
+        pad = pads[step].reshape(b, 1)
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * prev_phi_orig + (1.0 - pad) * next_phi
+    last = _ctc_phi_update(phi, emit)
+    return -torch.gather(last, 1, labellens.to(torch.long)[:, None])[:, 0]
+
+
+@register("CTCLoss", aliases=("ctc_loss", "_contrib_CTCLoss"))
+def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
+              use_data_lengths=False, use_label_lengths=False,
+              blank_label="first"):
+    """CTC loss of logits (seq, batch, alphabet), blank at class 0 (for
+    ``blank_label="last"`` too: the labels shift up by one, as the
+    reference's), a label <= 0 marking padding unless lengths are
+    given; float64, one value a sequence (see :func:`ctc_forward`)."""
+    logits = data.transpose(0, 1)
+    b, t, _ = logits.shape
+    labels = label.to(torch.int32)
+    if blank_label != "first":
+        labels = labels + 1
+    dev = data.device
+    logit_pad = torch.zeros((b, t), dtype=torch.float64, device=dev)
+    if use_data_lengths and data_lengths is not None:
+        logit_pad = (torch.arange(t, device=dev)[None, :]
+                     >= data_lengths.to(torch.int32)[:, None]).to(
+                         torch.float32)
+    label_pad = (labels <= 0).to(torch.float32)
+    if use_label_lengths and label_lengths is not None:
+        label_pad = (torch.arange(labels.shape[1], device=dev)[None, :]
+                     >= label_lengths.to(torch.int32)[:, None]).to(
+                         torch.float32)
+    return ctc_forward(logits, logit_pad, labels, label_pad)

@@ -16,8 +16,17 @@ functional form of the reference's ``FMutateInputs``: the symbolic
 executor commits what it returns after a training forward.
 
 The reference's eager jit cache (``_EAGER_JIT``) has no counterpart:
-PyTorch runs eagerly.  Its AMP input casts (``_amp_cast_inputs``) wait for
-the port's AMP (ROADMAP A13).
+PyTorch runs eagerly.  An op flagged ``no_trace`` (an output shape that
+depends on the data, ``_np_unique``) runs on real tensors only:
+:meth:`Op.infer` refuses it.
+
+``AMP_POLICY`` is ``contrib.amp``'s cast policy: while it is active,
+:func:`amp_cast_inputs` casts the floating inputs of the ops it lists to
+the low-precision type or to float32, and every dispatch point of the
+port applies it per call: :func:`invoke` (``mx.nd``), ``gluon.block.F``
+(``hybrid_forward`` on tensors) and the symbolic executor's walk
+(``symbol._eval_node``).  Parameters stay float32; their gradients
+reach them through the cast.
 """
 from __future__ import annotations
 
@@ -28,7 +37,8 @@ import torch
 
 from .. import context
 
-__all__ = ["Op", "register", "get_op", "invoke", "OPS"]
+__all__ = ["Op", "register", "get_op", "invoke", "OPS", "AMP_POLICY",
+           "amp_cast_inputs"]
 
 OPS: Dict[str, "Op"] = {}
 
@@ -44,11 +54,13 @@ class Op:
         new_val} or None: the new values of the mutated inputs after a
         training forward (BatchNorm's running stats)
     mutate_idx : the positions of those inputs (``FMutateInputs``)
+    no_trace : the output's shape depends on the data, so ``infer``
+        refuses the op
     """
 
     def __init__(self, name, fn, num_inputs=None, num_outputs=1,
                  differentiable=True, aliases=(), doc="", aux_update=None,
-                 mutate_idx=()):
+                 mutate_idx=(), no_trace=False):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs
@@ -58,6 +70,7 @@ class Op:
         self.doc = doc or (fn.__doc__ or "")
         self.aux_update = aux_update
         self.mutate_idx = tuple(mutate_idx)
+        self.no_trace = no_trace
 
     def __repr__(self):
         return "Op(%s)" % self.name
@@ -67,6 +80,10 @@ class Op:
         optional input), as a tuple of ``meta`` tensors: their shapes and
         dtypes.  An op without tensor inputs that takes ``ctx`` builds
         its output on the CPU, which is then dropped to ``meta``."""
+        if self.no_trace:
+            raise TypeError(
+                "operator %r has a data-dependent output shape: it runs on "
+                "arrays only, and its shapes cannot be inferred" % self.name)
         if not in_metas and "ctx" in inspect.signature(self.fn).parameters:
             attrs = dict(attrs, ctx="cpu")
         with torch.no_grad():
@@ -95,6 +112,44 @@ def get_op(name: str) -> Op:
     except KeyError:
         raise NotImplementedError(
             "operator %r is not registered in the port" % name) from None
+
+
+# contrib.amp's cast policy (the reference's ops/registry.py AMP_POLICY):
+# ``lo`` names the ops whose floating inputs go to ``target``, ``hi``
+# those that go to float32, ``cond`` {op: (attr, values)} the ops that go
+# to float32 when an attribute takes one of the values
+AMP_POLICY: Dict[str, Any] = {"active": False, "target": None,
+                              "lo": frozenset(), "hi": frozenset(),
+                              "cond": {}}
+
+
+def _amp_target(name, attrs):
+    cond = AMP_POLICY["cond"].get(name)
+    if cond is not None and attrs is not None \
+            and str(attrs.get(cond[0])) in cond[1]:
+        return torch.float32
+    if name in AMP_POLICY["lo"]:
+        return AMP_POLICY["target"]
+    if name in AMP_POLICY["hi"]:
+        return torch.float32
+    return None
+
+
+def amp_cast_inputs(op, arrays, attrs=None):
+    """``arrays`` with each floating tensor cast as the active AMP policy
+    says for ``op`` (an :class:`Op` or an op name): to the target type
+    for a listed low-precision op, to float32 for a listed float32 op or
+    a conditional one whose attribute matches (softrelu ``Activation``).
+    Integer tensors (indices, masks), ``None`` and scalars pass as they
+    are; so does everything while the policy is off."""
+    if not AMP_POLICY["active"]:
+        return arrays
+    tgt = _amp_target(op if isinstance(op, str) else op.name, attrs)
+    if tgt is None:
+        return arrays
+    return [a.to(tgt) if isinstance(a, torch.Tensor)
+            and a.is_floating_point() and a.dtype != tgt else a
+            for a in arrays]
 
 
 def _device_of(inputs):
@@ -128,7 +183,7 @@ def invoke(name: str, inputs: Sequence[Any], out=None, **attrs):
                  and any(autograd.requires_grad(i) for i in inputs
                          if isinstance(i, NDArray)))
     with torch.set_grad_enabled(recording):
-        res = op.fn(*datas, **attrs)
+        res = op.fn(*amp_cast_inputs(op, datas, attrs), **attrs)
     multi = isinstance(res, (tuple, list))
     # outside a recording a result is a constant: a view op under no_grad
     # would otherwise inherit requires_grad from a variable it views

@@ -1,6 +1,5 @@
-"""Shape, indexing and initialization operators (port of the part of
-``incubator_mxnet_tpu/ops/tensor.py`` that ``NDArray`` and the ``nd``
-factories call).
+"""Shape, indexing, cast, initialization and sequence operators and the
+regression heads (port of ``incubator_mxnet_tpu/ops/tensor.py``).
 
 ``Reshape`` keeps MXNet's special codes (0 copy, -1 infer, -2 copy the
 rest, -3 merge two, -4 split one) and ``reverse``.  Slicing takes
@@ -351,3 +350,337 @@ def _zeros_like(data):
 @register("ones_like", num_inputs=1, differentiable=False)
 def _ones_like(data):
     return torch.ones_like(data)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference's tensor.py: space/depth, slices and splits,
+# gathers and scatters, casts, init ops, sequence ops, numpy ops, the
+# regression heads
+# ---------------------------------------------------------------------------
+
+
+@register("depth_to_space", num_inputs=1)
+def _depth_to_space(data, block_size):
+    b, c, h, w = data.shape
+    bs = block_size
+    x = data.reshape(b, bs, bs, c // (bs * bs), h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(b, c // (bs * bs), h * bs, w * bs)
+
+
+@register("space_to_depth", num_inputs=1)
+def _space_to_depth(data, block_size):
+    b, c, h, w = data.shape
+    bs = block_size
+    x = data.reshape(b, c, h // bs, bs, w // bs, bs)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, c * bs * bs, h // bs, w // bs)
+
+
+@register("slice_like", num_inputs=2)
+def _slice_like(data, shape_like, axes=()):
+    axes = list(axes) if axes else list(range(min(data.ndim,
+                                                  shape_like.ndim)))
+    idx = [slice(None)] * data.ndim
+    for a in axes:
+        idx[a] = slice(0, shape_like.shape[a])
+    return data[tuple(idx)]
+
+
+@register("broadcast_axis", num_inputs=1, aliases=("broadcast_axes",))
+def _broadcast_axis(data, axis=(), size=()):
+    axis = (axis,) if isinstance(axis, int) else axis
+    size = (size,) if isinstance(size, int) else size
+    tgt = list(data.shape)
+    for a, s in zip(axis, size):
+        tgt[a] = s
+    return torch.broadcast_to(data, tuple(tgt))
+
+
+@register("split_v2", num_inputs=1)
+def _split_v2(data, indices=(), axis=0, squeeze_axis=False, sections=0):
+    """``sections`` equal parts (which must divide the axis), else the
+    parts between ``indices``; one output a part."""
+    if sections:
+        if data.shape[axis] % sections:
+            raise ValueError("axis %d of size %d does not split into %d "
+                             "equal parts" % (axis, data.shape[axis],
+                                              sections))
+        parts = torch.tensor_split(data, sections, dim=axis)
+    else:
+        parts = torch.tensor_split(data, list(indices), dim=axis)
+    if squeeze_axis:
+        parts = [torch.squeeze(p, dim=axis) for p in parts]
+    return tuple(parts)
+
+
+def _wrap(idx, n):
+    """Indices counted from the end where negative, as numpy's."""
+    return torch.where(idx < 0, idx + n, idx)
+
+
+@register("batch_take", num_inputs=2)
+def _batch_take(a, indices):
+    idx = _wrap(indices.to(torch.long), a.shape[1])
+    return torch.take_along_dim(a, idx[:, None], dim=1)[:, 0]
+
+
+def _nd_index(indices, shape):
+    """The leading-axes index tuple of ``indices`` (M, ...): negative
+    entries count from the end."""
+    return tuple(_wrap(indices[i].to(torch.long), shape[i])
+                 for i in range(indices.shape[0]))
+
+
+@register("gather_nd", num_inputs=2)
+def _gather_nd(data, indices):
+    """``data[indices[0], indices[1], ...]``; an index out of range clamps
+    to the axis, as JAX's gathers do."""
+    idx = tuple(i.clamp(0, data.shape[k] - 1)
+                for k, i in enumerate(_nd_index(indices, data.shape)))
+    return data[idx]
+
+
+@register("scatter_nd", num_inputs=2, differentiable=False)
+def _scatter_nd(data, indices, shape=()):
+    out = torch.zeros(tuple(shape), dtype=data.dtype, device=data.device)
+    out[_nd_index(indices, out.shape)] = data
+    return out
+
+
+@register("_scatter_set_nd", num_inputs=3, differentiable=False)
+def _scatter_set_nd(lhs, rhs, indices, shape=()):
+    out = lhs.clone()
+    out[_nd_index(indices, out.shape)] = rhs.to(out.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# casts (tensor.py :296-322)
+# ---------------------------------------------------------------------------
+
+
+@register("Cast", num_inputs=1, aliases=("cast",))
+def _cast(data, dtype="float32"):
+    return data.to(torch_dtype(dtype))
+
+
+@register("amp_cast", num_inputs=1)
+def _amp_cast(data, dtype="float16"):
+    """Floating data to ``dtype``; integer and boolean data (indices,
+    masks) pass as they are, so a cast may sit on any input edge."""
+    if not data.is_floating_point():
+        return data
+    return data.to(torch_dtype(dtype))
+
+
+def _float_bits(dtype):
+    return torch.finfo(dtype).bits if dtype.is_floating_point else 64
+
+
+@register("amp_multicast")
+def _amp_multicast(*args, num_outputs=None, cast_narrow=False):
+    """Every input cast to the widest of their types (their promotion),
+    or with ``cast_narrow`` to the narrowest floating one (the first of
+    equal width)."""
+    dtypes = [a.dtype for a in args]
+    if cast_narrow:
+        tgt = min(dtypes, key=_float_bits)
+    else:
+        tgt = dtypes[0]
+        for d in dtypes[1:]:
+            tgt = torch.promote_types(tgt, d)
+    return tuple(a.to(tgt) for a in args)
+
+
+# ---------------------------------------------------------------------------
+# init ops and shape ops (tensor.py :358-383)
+# ---------------------------------------------------------------------------
+
+
+@register("_linspace", num_inputs=0, differentiable=False,
+          aliases=("linspace",))
+def _linspace(start=0, stop=1, num=50, endpoint=True, ctx=None,
+              dtype="float32"):
+    """``num`` points from ``start`` to ``stop`` (``stop`` left out
+    without ``endpoint``), spaced in float64 and cast to ``dtype``."""
+    num = int(num)
+    n = num if endpoint else num + 1
+    out = torch.linspace(float(start), float(stop), n, dtype=torch.float64,
+                         device=context.resolve(ctx))
+    return out[:num].to(torch_dtype(dtype))
+
+
+@register("_eye", num_inputs=0, differentiable=False, aliases=("eye",))
+def _eye(N=1, M=0, k=0, ctx=None, dtype="float32"):  # noqa: N803
+    n, m = int(N), int(M) if M else int(N)
+    dev = context.resolve(ctx)
+    rows = torch.arange(n, device=dev)[:, None]
+    cols = torch.arange(m, device=dev)[None, :]
+    return (cols - rows == int(k)).to(torch_dtype(dtype))
+
+
+@register("shape_array", num_inputs=1, differentiable=False)
+def _shape_array(data):
+    """The shape as int64 (the reference runs with 64-bit types on)."""
+    return torch.tensor(tuple(data.shape), dtype=torch.int64,
+                        device=data.device)
+
+
+@register("size_array", num_inputs=1, differentiable=False)
+def _size_array(data):
+    return torch.tensor([data.numel()], dtype=torch.int64,
+                        device=data.device)
+
+
+# ---------------------------------------------------------------------------
+# sequence ops (tensor.py :388-438): time on axis 0 (or 1 where ``axis``
+# says), lengths a float or integer vector over the batch
+# ---------------------------------------------------------------------------
+
+
+@register("SequenceMask", aliases=("sequence_mask",))
+def _sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                   value=0.0, axis=0):
+    if not use_sequence_length or sequence_length is None:
+        return data
+    steps = torch.arange(data.shape[axis], device=data.device)
+    lens = sequence_length.to(torch.int32)
+    if axis == 0:
+        mask = steps[:, None] < lens[None, :]
+    else:
+        mask = steps[None, :] < lens[:, None]
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.ndim - 2))
+    return torch.where(mask, data, torch.tensor(value, dtype=data.dtype,
+                                                device=data.device))
+
+
+@register("SequenceLast", aliases=("sequence_last",))
+def _sequence_last(data, sequence_length=None, use_sequence_length=False,
+                   axis=0):
+    if not use_sequence_length or sequence_length is None:
+        return torch.select(data, axis, -1)
+    idx = _wrap(sequence_length.to(torch.int32).to(torch.long) - 1,
+                data.shape[axis])
+    if axis == 0:
+        return torch.take_along_dim(
+            data, idx.reshape((1, -1) + (1,) * (data.ndim - 2)), dim=0)[0]
+    return torch.take_along_dim(
+        data, idx.reshape((-1, 1) + (1,) * (data.ndim - 2)), dim=1)[:, 0]
+
+
+@register("SequenceReverse", aliases=("sequence_reverse",))
+def _sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                      axis=0):
+    """The first ``length`` steps of each sequence reversed, the rest
+    kept; always along axis 0, as the reference (``axis`` is accepted)."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    lens = sequence_length.to(torch.int32).to(torch.long)[None, :]
+    rev = torch.where(steps < lens, lens - 1 - steps, steps)
+    rev = _wrap(rev, data.shape[0])
+    return torch.take_along_dim(
+        data, rev.reshape(tuple(rev.shape) + (1,) * (data.ndim - 2)), dim=0)
+
+
+# ---------------------------------------------------------------------------
+# numpy ops (tensor.py :441-464)
+# ---------------------------------------------------------------------------
+
+
+@register("_np_nonzero", num_inputs=1, differentiable=False)
+def _np_nonzero(data, size=None):
+    """The indices of the nonzero entries, (size, ndim) int64, padded
+    with -1 (``size`` defaults to the element count): a shape known
+    before the data, as the reference's ``jnp.nonzero(size=...)``."""
+    size = size or data.numel()
+    out = torch.full((size, data.ndim), -1, dtype=torch.int64,
+                     device=data.device)
+    if data.device.type == "meta":
+        return out
+    idx = torch.nonzero(data)[:size]
+    out[:idx.shape[0]] = idx
+    return out
+
+
+@register("_np_unique", num_inputs=1, differentiable=False, no_trace=True)
+def _np_unique(data, return_index=False, return_inverse=False,
+               return_counts=False, axis=None):
+    """``numpy.unique`` on the host, as the reference evaluates it (its
+    shape depends on the data): the values in the data's dtype, the
+    indices and counts int64, on the data's device."""
+    import numpy as np
+
+    outs = np.unique(data.detach().cpu().numpy(), return_index=return_index,
+                     return_inverse=return_inverse,
+                     return_counts=return_counts, axis=axis)
+    if isinstance(outs, tuple):
+        return tuple(torch.as_tensor(o, device=data.device) for o in outs)
+    return torch.as_tensor(outs, device=data.device)
+
+
+@register("tril", num_inputs=1)
+def _tril(data, k=0):
+    return torch.tril(data, diagonal=k)
+
+
+# ---------------------------------------------------------------------------
+# regression heads (tensor.py :470-505)
+# ---------------------------------------------------------------------------
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """Forward ``fwd(data)``; backward ignores the head gradient and
+    returns ``grad(fwd(data), label) * grad_scale / num_output`` in the
+    data's dtype (a loss layer: ``regression_output-inl.h``), with
+    ``num_output`` the features a sample, and no gradient for the
+    label."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad, grad_scale):
+        ctx.save_for_backward(data, label)
+        ctx.fwd, ctx.grad, ctx.grad_scale = fwd, grad, grad_scale
+        return fwd(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        num_output = data.numel() // data.shape[0] if data.ndim > 0 else 1
+        dx = ctx.grad(ctx.fwd(data), label) * (ctx.grad_scale / num_output)
+        dl = torch.zeros_like(label) if label.is_floating_point() else None
+        return dx.to(data.dtype), dl, None, None, None
+
+
+def _regression_output(data, label, grad_scale, fwd, grad):
+    if label.shape != data.shape:
+        label = label.reshape(data.shape)
+    return _RegressionOutput.apply(data, label, fwd, grad, float(grad_scale))
+
+
+def _identity(d):
+    return d.clone()
+
+
+def _residual(p, lab):
+    return p - lab
+
+
+@register("LinearRegressionOutput", num_inputs=2,
+          aliases=("linear_regression_output",))
+def _linreg_out(data, label, grad_scale=1.0):
+    return _regression_output(data, label, grad_scale, _identity, _residual)
+
+
+@register("LogisticRegressionOutput", num_inputs=2,
+          aliases=("logistic_regression_output",))
+def _logreg_out(data, label, grad_scale=1.0):
+    return _regression_output(data, label, grad_scale, torch.sigmoid,
+                              _residual)
+
+
+@register("MAERegressionOutput", num_inputs=2,
+          aliases=("mae_regression_output",))
+def _maereg_out(data, label, grad_scale=1.0):
+    return _regression_output(data, label, grad_scale, _identity,
+                              lambda p, lab: torch.sign(p - lab))

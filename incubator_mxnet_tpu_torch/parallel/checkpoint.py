@@ -543,12 +543,16 @@ class CheckpointManager:
                   # refused even inside stale_grace
                   "attempt": os.environ.get("MXNET_RESTART_COUNT"),
                   "meta": meta}
+        # the stage's entries are durable before the marker is visible:
+        # once it is, process 0 may commit (rename the stage) at any
+        # moment, so this process touches the stage no more; process 0's
+        # fsync of the stage before its commit covers the marker's entry
+        _fsync_dir(tmp)
         _with_retries(
             lambda: _write_bytes(
                 os.path.join(tmp, _DONE_FMT % self.process_index),
                 json.dumps(marker).encode()),
             self.retries, self.backoff)
-        _fsync_dir(tmp)
         if self.process_index != 0:
             self._wait_commit(step, final, pre_stat)
             return final

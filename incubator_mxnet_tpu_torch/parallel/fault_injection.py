@@ -725,8 +725,9 @@ def _leaves_equal(a, b) -> bool:
 @contextmanager
 def swap_storm(engine, n_swaps=5, interval=0.02, perturb=0.02,
                canary_tol=0.5, poison_at=None, seed=0):
-    """``n_swaps`` back-to-back canaried hot swaps from a thread while the
-    caller serves traffic inside the block.
+    """``n_swaps`` canaried hot swaps ``interval`` seconds apart (the
+    first ``interval`` after entry) from a thread while the caller serves
+    traffic inside the block.
 
     Each candidate is the live version at storm start, in the pinned
     signature's dtypes, scaled by ``1 + perturb * U(-1, 1)`` (one draw a
@@ -773,6 +774,11 @@ def swap_storm(engine, n_swaps=5, interval=0.02, perturb=0.02,
     def storm():
         try:
             for i in range(n_swaps):
+                # ``interval`` before each swap, the first too: the
+                # caller's traffic has begun when the first lands (a
+                # swap of a small net takes ~1 ms, less than the caller
+                # takes to open its window; ROADMAP C9)
+                time.sleep(interval)
                 stats.attempted += 1
                 if poison_at is not None and i == poison_at:
                     before = _live_param_snapshot(engine)
@@ -798,7 +804,6 @@ def swap_storm(engine, n_swaps=5, interval=0.02, perturb=0.02,
                         stats.versions.append(int(v))
                     except SwapRejected:
                         stats.rejected += 1
-                time.sleep(interval)
         except BaseException as e:  # surface, never die silently
             stats.error = "%s: %s" % (type(e).__name__, e)
 

@@ -45,10 +45,16 @@ def _compose_num_outputs(opname, attrs):
         return op.num_outputs
     if opname in ("SliceChannel", "split"):
         return int(attrs.get("num_outputs", 2))
+    if opname == "split_v2":
+        sections = int(attrs.get("sections", 0))
+        return sections if sections else len(attrs.get("indices", ())) + 1
     if opname == "topk" and attrs.get("ret_typ") == "both":
         return 2
-    if opname in ("BatchNorm", "batch_norm") and attrs.get("output_mean_var"):
+    if opname in ("BatchNorm", "batch_norm", "LayerNorm", "layer_norm",
+                  "GroupNorm") and attrs.get("output_mean_var"):
         return 3
+    if opname == "amp_multicast":
+        return int(attrs.get("num_outputs", 1))
     if opname == "RNN" and attrs.get("state_outputs"):
         return 3 if attrs.get("mode", "lstm") == "lstm" else 2
     return 1

@@ -519,13 +519,14 @@ def _op_attrs(node: _Node):
 
 
 def _eval_node(node: _Node, in_vals: List[Any], device=None):
-    """The node's outputs as a list of tensors.  An op without tensor
-    inputs that takes ``ctx`` (``_zeros``) builds on ``device``."""
+    """The node's outputs as a list of tensors, its inputs cast by the
+    AMP policy of the moment.  An op without tensor inputs that takes
+    ``ctx`` (``_zeros``) builds on ``device``."""
     op = _reg.get_op(node.op)
     attrs = _op_attrs(node)
     if not in_vals and "ctx" in inspect.signature(op.fn).parameters:
         attrs.setdefault("ctx", device)
-    out = op.fn(*in_vals, **attrs)
+    out = op.fn(*_reg.amp_cast_inputs(op, in_vals, attrs), **attrs)
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
@@ -567,10 +568,25 @@ def _param_shape_rules(node: _Node, data_shape, known):
         ng = int(a.get("num_group", 1))
         out["weight"] = (nf, data_shape[1] // ng) + tuple(a.get("kernel"))
         out["bias"] = (nf,)
-    elif op == "BatchNorm":
+    elif op == "Deconvolution":
+        nf = int(a.get("num_filter"))
+        ng = int(a.get("num_group", 1))
+        out["weight"] = (data_shape[1], nf // ng) + tuple(a.get("kernel"))
+        out["bias"] = (nf,)
+    elif op in ("BatchNorm", "InstanceNorm"):
         c = data_shape[int(a.get("axis", 1))]
         out["gamma"] = out["beta"] = (c,)
         out["moving_mean"] = out["moving_var"] = (c,)
+    elif op == "LayerNorm":
+        out["gamma"] = out["beta"] = (data_shape[int(a.get("axis", -1))],)
+    elif op == "GroupNorm":
+        out["gamma"] = out["beta"] = (data_shape[1],)
+    elif op in ("LinearRegressionOutput", "MAERegressionOutput",
+                "LogisticRegressionOutput", "linear_regression_output",
+                "mae_regression_output", "logistic_regression_output"):
+        out["label"] = tuple(data_shape)
+    elif op == "LeakyReLU" and a.get("act_type") == "prelu":
+        out["gamma"] = (data_shape[1] if len(data_shape) > 1 else 1,)
     elif op == "Embedding":
         out["weight"] = (int(a.get("input_dim")), int(a.get("output_dim")))
     elif op in ("SoftmaxOutput", "Softmax", "softmax_output"):

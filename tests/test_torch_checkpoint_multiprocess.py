@@ -186,6 +186,50 @@ def test_commit_absorbs_straggler(tmp_path, pkg):
     assert m0.steps() == [7]
 
 
+def test_peer_touches_no_stage_after_its_marker(tmp_path, monkeypatch):
+    """The interleaving that raced (ROADMAP Queue C): process 1's marker
+    lands, and process 0 commits (renames the stage) before process 1
+    does anything more.  Process 1 finishes its save, both see the
+    committed step, and the committed directory holds both markers."""
+    d = str(tmp_path / "shared")
+    state = _tree("torch", 2)
+    m0 = tck.CheckpointManager(d, process_index=0, process_count=2,
+                               commit_timeout=20)
+    m1 = tck.CheckpointManager(d, process_index=1, process_count=2,
+                               commit_timeout=20)
+    final = os.path.join(d, tck._STEP_FMT % 5)
+    real = tck._write_bytes
+    waited = []
+
+    def marker_then_commit(path, data):
+        real(path, data)
+        if os.path.basename(path) == tck._DONE_FMT % 1:
+            deadline = time.monotonic() + 20
+            while not os.path.exists(os.path.join(final, tck._MANIFEST)):
+                assert time.monotonic() < deadline, "process 0 never committed"
+                time.sleep(0.01)
+            waited.append(not os.path.isdir(os.path.dirname(path)))
+
+    monkeypatch.setattr(tck, "_write_bytes", marker_then_commit)
+    errs = []
+
+    def coordinator():
+        try:
+            m0.save(5, state)
+        except Exception as e:  # pragma: no cover
+            errs.append(e)
+
+    t = threading.Thread(target=coordinator)
+    t.start()
+    m1.save(5, state)
+    t.join(timeout=30)
+    assert not t.is_alive() and not errs, errs
+    assert waited == [True]  # the stage was gone when process 1 went on
+    assert m0.steps() == m1.steps() == [5]
+    assert sorted(n for n in os.listdir(final) if n.startswith("done-")) \
+        == [tck._DONE_FMT % 0, tck._DONE_FMT % 1]
+
+
 @pytest.mark.parametrize("pkg", sorted(PKGS))
 def test_sweep_and_retire_respect_peer_freshness(tmp_path, pkg):
     ck, _ = PKGS[pkg]

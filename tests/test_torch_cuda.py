@@ -62,7 +62,11 @@ data pipeline: a ``DataLoader``'s batches on the card equal the CPU's
 bit for bit, and 2 spawned workers give the thread loader's batches
 without initializing CUDA; ``_contrib_DeformableConvolution`` forward and
 gradients 1e-5, and ``Estimator.fit`` card against CPU (losses 1e-5
-relative, parameters 1e-5), TF32 off.
+relative, parameters 1e-5), TF32 off.  The op tail, the rest of
+``gluon.nn`` and ``contrib.amp``: ``chip_smoke.py`` phase 3u (iii) at a
+quarter of its batch (4x the CPU's 1e-6-nudged floor, integer outputs
+equal), and one ``amp.init('bfloat16')`` step of the Gluon example's
+loop at ``resnet18_v1``, 32 px, card against CPU (phase 3u (i)'s gate).
 """
 import importlib
 
@@ -1950,3 +1954,38 @@ def test_estimator_fit_on_card_matches_cpu(dev):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         _close(torch.from_numpy(a), torch.from_numpy(b), 1e-5)
+
+
+def test_op_tail_and_nn_layers_on_card_match_cpu(dev):
+    """``chip_smoke.py`` phase 3u (iii) at a quarter of its batch: every
+    op of the tail and the 23 new ``gluon.nn`` layers, forward and
+    backward, card against CPU within 4x the CPU's own difference under
+    a 1e-6 nudge (TF32 off), integer outputs equal, ``_eye`` exact and
+    ``_linspace`` within one f32 step; no kernel launched."""
+    assert _smoke().tail_card_vs_cpu(dev, s=0.25) > 70
+
+
+def test_amp_step_on_card_matches_cpu(dev):
+    """``chip_smoke.py`` phase 3u (i)'s card-against-CPU step at a small
+    size: one step of the Gluon example's loop (``resnet18_v1``, 64 px,
+    batch 8) under ``amp.init('bfloat16')``: the loss, the logits, the
+    running stats and the update's cosine and norm ratio (the whole
+    model's and the median tensor's) within 4x the largest of three CPU
+    runs' differences under a 1e-6 nudge of the weights; the card's
+    update made zero, doubled or negated misses that gate.  (At 32 px a
+    1e-6 nudge moves a bf16 update's norm by 20 %, so a doubled update
+    would pass.)"""
+    smoke = _smoke()
+    smoke.amp_card_vs_cpu(dev, **smoke.AMP_SMALL)
+
+
+def test_amp_float16_overflow_on_card(dev):
+    """``chip_smoke.py`` phase 3u (i)'s float16 loss scaler on the card
+    (``resnet18_v1``, 64 px, batch 8): a planted inf gradient at the 2^16
+    scale skips the step with every parameter bit-equal and halves the
+    scale; each later step is applied at its scale when its gradients
+    are finite and skipped with the scale halved when not, until one is
+    applied."""
+    smoke = _smoke()
+    log = smoke.amp_overflow_on_card(dev, **smoke.AMP_SMALL)
+    assert log[0] == (2.0 ** 16, False, False) and log[-1][2]

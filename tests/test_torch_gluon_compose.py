@@ -6,7 +6,9 @@ op), the port raises too.
 
 The cases are the losses, the recurrent cells (``SequentialRNNCell``,
 ``ResidualCell`` and ``DropoutCell`` at rate 0 over composing cells; the
-others raise), and the contrib layers and cells.  A trace, no compute.
+others raise), the contrib layers and cells, and the norms, N-D
+convolutions and pools, padding and activations of ``gluon.nn``.  A
+trace, no compute.
 """
 import json
 
@@ -136,13 +138,54 @@ CASES = {
             4, in_channels=3, num_deformable_group=1), _x),
 }
 
+
+def _layer(cls, **kw):
+    return (lambda m: getattr(m.gluon.nn, cls)(**kw), _x)
+
+
+# the norms, N-D convolutions and pools, padding and activations of
+# gluon.nn: all compose in the reference (LeakyReLU's act types compose a
+# ``<name>_gamma`` variable there, the op's optional input)
+NN_LAYERS = {
+    "instance_norm": _layer("InstanceNorm", in_channels=3),
+    "layer_norm": _layer("LayerNorm", in_channels=4),
+    "group_norm": _layer("GroupNorm", num_groups=2, in_channels=4),
+    "conv1d": _layer("Conv1D", channels=4, kernel_size=3, in_channels=2),
+    "conv3d": _layer("Conv3D", channels=4, kernel_size=3, strides=2,
+                     in_channels=2),
+    "conv1d_transpose": _layer("Conv1DTranspose", channels=4, kernel_size=3,
+                               in_channels=2),
+    "conv2d_transpose": _layer("Conv2DTranspose", channels=4, kernel_size=3,
+                               strides=2, output_padding=1, in_channels=2,
+                               activation="relu"),
+    "conv3d_transpose": _layer("Conv3DTranspose", channels=4, kernel_size=3,
+                               in_channels=2, use_bias=False),
+    "max_pool1d": _layer("MaxPool1D", ceil_mode=True),
+    "max_pool3d": _layer("MaxPool3D", strides=1, padding=1),
+    "avg_pool1d": _layer("AvgPool1D", count_include_pad=False),
+    "avg_pool3d": _layer("AvgPool3D"),
+    "global_max_pool1d": _layer("GlobalMaxPool1D"),
+    "global_max_pool3d": _layer("GlobalMaxPool3D"),
+    "global_avg_pool1d": _layer("GlobalAvgPool1D"),
+    "global_avg_pool3d": _layer("GlobalAvgPool3D"),
+    "reflection_pad2d": _layer("ReflectionPad2D", padding=1),
+    "leaky_relu": _layer("LeakyReLU", alpha=0.1),
+    "prelu": _layer("PReLU"),
+    "elu": _layer("ELU"),
+    "selu": _layer("SELU"),
+    "gelu": _layer("GELU"),
+    "swish": _layer("Swish", beta=2.0),
+}
+CASES.update(NN_LAYERS)
+
 #: where the reference composes
 COMPOSES = {"softmax_ce", "softmax_ce_logits_axis", "softmax_ce_sample_weight",
             "kl_div", "kl_div_softmax_weighted", "lstm_cell", "gru_cell",
             "rnn_cell", "sequential_cell", "sequential_residual_cell",
             "residual_cell", "dropout_cell_0", "hybrid_concurrent",
             "identity", "sparse_embedding", "sync_batch_norm", "lstmp_cell",
-            "conv2d_lstm_cell", "conv1d_gru_cell", "variational_dropout_0"}
+            "conv2d_lstm_cell", "conv1d_gru_cell", "variational_dropout_0"} \
+    | set(NN_LAYERS)
 
 
 def _compose(mod, scope, build, call):

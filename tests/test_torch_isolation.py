@@ -28,7 +28,9 @@ new = ["gluon.data.sampler", "gluon.data.dataset", "gluon.data.dataloader",
        "gluon.contrib.data", "gluon.contrib.estimator.estimator",
        "gluon.contrib.estimator.event_handler",
        "gluon.contrib.estimator.batch_processor", "gluon.contrib.nn",
-       "gluon.contrib.rnn", "gluon.contrib.cnn", "ops.contrib_tail"]
+       "gluon.contrib.rnn", "gluon.contrib.cnn", "ops.contrib_tail",
+       "contrib.amp", "contrib.amp.amp", "contrib.amp.loss_scaler",
+       "contrib.amp.lists", "contrib.amp.lists.symbol_bf16"]
 missing = [n for n in new if pkg.__name__ + "." + n not in names]
 assert not missing, missing
 for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
@@ -266,6 +268,15 @@ def _no_card(monkeypatch):
     lambda: _gcontrib().rnn.LSTMPCell(8, 4),
     lambda: _gcontrib().rnn.Conv2DLSTMCell((3, 5, 5), 4, 3, 3),
     lambda: _gcontrib().nn.SyncBatchNorm(),
+    lambda: tnn.Conv1D(4, 3),
+    lambda: tnn.Conv3D(4, 3, in_channels=2),
+    lambda: tnn.Conv1DTranspose(4, 3),
+    lambda: tnn.Conv2DTranspose(4, 3, in_channels=2),
+    lambda: tnn.Conv3DTranspose(4, 3),
+    lambda: tnn.InstanceNorm(),
+    lambda: tnn.LayerNorm(in_channels=8),
+    lambda: tnn.GroupNorm(num_groups=2),
+    lambda: tnn.PReLU(),
 ])
 def test_entry_points_refuse_cpu_without_asking(monkeypatch, build):
     _no_card(monkeypatch)

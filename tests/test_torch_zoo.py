@@ -96,6 +96,7 @@ def check_family(jbuild, tbuild, shape, seed=0, lr=0.01):
     """The eval forward and 3 training steps at learning rate ``lr`` of
     the pair, as the module docstring says."""
     jnet, tnet = build_pair(jbuild, tbuild, shape, seed)
+    jnet.hybridize()  # its forwards as compiled programs, not op by op
     rng = np.random.RandomState(seed + 100)
     check_eval(jnet, tnet, rng.normal(size=shape).astype(np.float32))
 
@@ -141,6 +142,7 @@ def check_first_step(jbuild, tbuild, shape):
     ``test_torch_zoo_mobile.py``'s docstring says: for nets whose
     training steps cannot be compared over 3 steps."""
     jnet, tnet = build_pair(jbuild, tbuild, shape)
+    jnet.hybridize()  # its forwards as compiled programs, not op by op
     rng = np.random.RandomState(100)
     check_eval(jnet, tnet, rng.normal(size=shape).astype(np.float32))
     x = rng.normal(size=shape).astype(np.float32)
