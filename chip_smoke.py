@@ -417,6 +417,38 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    cotangents (not of index inputs, ``_TAIL_INDEX_INPUTS``, whose
    readings are printed), integer outputs equal; ``_linspace`` within
    one f32 step and ``_eye`` exact; no kernel launched;
+3v. the NumPy frontend (``NP_PATH``): the zoo's stock-BN ``resnet50_v1``
+   (1000 classes, Xavier weights from ``SEED``) written in ``mx.np``/
+   ``mx.npx`` calls over the zoo net's parameters
+   (``example/numpy/resnet_np.py``), 224 px, batch 64, f32 with TF32 off
+   and cuDNN deterministic: uint8 NHWC images (288 x 320, from ``SEED``)
+   through ``_image_resize`` to 256, ``_image_crop`` to 224,
+   ``to_tensor`` and ``_image_normalize`` on the card, then 3 steps under
+   ``autograd.record()``, each updating every trained parameter by one
+   ``nd._multi_adamw_update`` call: (i) K3 once a step and nothing else;
+   (ii) the first step's logits, loss, gradients and running stats bit
+   for bit those of the Gluon net's ``net(x)`` and ``backward`` from the
+   same weights and batch (the same registered ops run in both), a
+   zeroed and a doubled gradient missing; (iii) that update against a
+   per-tensor plain AdamW on the card within 1e-6 of each tensor's
+   magnitude (a doubled step misses), and ``_multi_mp_adamw_update``
+   over the same parameters in bf16 with f32 masters likewise;
+   ``np_step_ms`` (the mean of steps 2-3) beside phase 3g's
+   ``gluon_step_ms``, its forward + backward beside the Gluon net's on
+   the phase's settings;
+   (iv) the first step at ``NP_SMALL`` (``resnet18_v1``, 64 px, batch
+   8) card against CPU and three CPU runs nudged by 1e-6, AMP's
+   readings (phase 3u) within 4x the largest nudged run's, the card's
+   update made zero, doubled or negated missing; (v) with TF32 off,
+   every case of ``tools/np_surface_cases.py``: each name of ``mx.np``'s
+   two sets at small shapes and the shape-agnostic ones again at
+   moderate shapes (192 x 256, products of 8 x 64 x 48), ``mx.np.linalg``
+   and ``mx.npx`` (forward, and backward for
+   the differentiable set and npx) card against CPU within 4x the CPU's
+   1e-6-nudged floor, integer, index and host outputs equal (index
+   inputs not nudged), ``svd``/``qr``/``eigh`` rebuilt within 1e-5, and
+   the samplers of ``mx.np.random`` and of the registry drawn on the
+   card within 6 standard errors of their mean and variance;
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -7849,6 +7881,565 @@ def tail_card_vs_cpu(dev, s=1):
     return len(rows)
 
 
+
+# phase 3v: the NumPy frontend: the zoo's resnet50_v1 written in mx.np and
+# mx.npx (example/numpy/resnet_np.py), trained with _multi_adamw_update
+NP_PATH = dict(model="resnet50_v1", batch=64, image=224, classes=1000,
+               steps=3, lr=1e-3, wd=1e-4, resize=256, raw=(288, 320))
+#: phase 3v (iv): the first step card against CPU at a small size
+NP_SMALL = dict(model="resnet18_v1", batch=8, image=64, classes=10)
+#: (iii): the AdamW hyperparameters the update is held at
+NP_ADAMW = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, rescale_grad=1.0,
+                clip_gradient=-1.0)
+
+
+def _np_module():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "example", "numpy", "resnet_np.py")
+    spec = importlib.util.spec_from_file_location("resnet_np", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _np_cases():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "np_surface_cases.py")
+    spec = importlib.util.spec_from_file_location("np_surface_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _zoo_net(dev, model, classes, image):
+    """A stock zoo net on ``dev`` with Xavier weights from ``SEED``."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import gluon, initializer
+
+    net = gluon.model_zoo.vision.get_model(model, classes=classes,
+                                           device=dev)
+    initializer.initialize(net, initializer.Xavier(),
+                           torch.Generator(device=dev).manual_seed(SEED))
+    gluon.shape_init(net, (1, 3, image, image))
+    return net
+
+
+@contextlib.contextmanager
+def _f32_exact():
+    """TF32 off and cuDNN deterministic without autotuning, put back
+    after (the defaults: TF32 on, autotuning on)."""
+    import torch
+
+    b = torch.backends
+    keep = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark,
+            b.cudnn.deterministic)
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    b.cudnn.benchmark, b.cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark,
+         b.cudnn.deterministic) = keep
+
+
+def _plain_adamw(w, g, m, v, lr, wd, eta=1.0, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, rescale_grad=1.0, clip_gradient=-1.0):
+    """One tensor's AdamW step in torch ops (``_multi_adamw_update``'s
+    plain version): (weight, mean, var)."""
+    import torch
+
+    g = g * rescale_grad
+    if clip_gradient > 0:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    m = beta1 * m + (1 - beta1) * g
+    v = beta2 * v + (1 - beta2) * torch.square(g)
+    return w - eta * (lr * m / (torch.sqrt(v) + epsilon) + wd * w), m, v
+
+
+def _rel_max(a, b):
+    return _max_err(a, b) / max(1.0, float(b.float().abs().max()))
+
+
+def _check_update(label, outs, plain, tol):
+    """Each output of the multi-tensor update within ``tol`` of its
+    plain version's largest magnitude; a doubled learning rate (the
+    plain update's step doubled) must miss.  Returns the worst error."""
+    worst = max(_rel_max(o, p) for o, p in zip(outs, plain))
+    if not worst <= tol:
+        raise AssertionError("%s: %g from the per-tensor update (limit %g)"
+                             % (label, worst, tol))
+    return worst
+
+
+def np_update_on_card(mx, ex, state, lr, wd):
+    """Phase 3v (iii): ``_multi_adamw_update`` over every trained
+    parameter of ``state`` against a per-tensor plain update on the card,
+    then ``_multi_mp_adamw_update`` over the same parameters in bf16 with
+    float32 masters; a doubled step misses each gate.  Updates
+    ``state``."""
+    import torch
+
+    nd = mx.nd
+    before = [a._data.detach().clone() for a in ex.adamw_arrays(state)]
+    outs = ex.adamw_update(mx, state, lr, wd, **NP_ADAMW)
+    plain = []
+    for k in range(len(state.trained)):
+        plain.extend(_plain_adamw(*before[4 * k:4 * k + 4], lr, wd,
+                                  **NP_ADAMW))
+    got = [o._data for o in outs]
+    f32 = _check_update("_multi_adamw_update", got, plain, 1e-6)
+    # the control: each weight's step doubled
+    miss = max(_rel_max(got[3 * k], 2 * plain[3 * k] - before[4 * k])
+               for k in range(len(state.trained)))
+    if not miss > 1e-6:
+        raise AssertionError("the update gate passes a doubled step")
+    # the mixed-precision form: bf16 weights and gradients, f32 masters
+    arrays, mp_plain = [], []
+    for k, i in enumerate(state.trained):
+        w32 = before[4 * k].clone()
+        g = before[4 * k + 1].to(torch.bfloat16)
+        m, v = before[4 * k + 2], before[4 * k + 3]
+        arrays += [nd.NDArray(t) for t in (w32.to(torch.bfloat16), g, m, v,
+                                           w32)]
+        nw32, nm, nv = _plain_adamw(w32, g.float(), m, v, lr, wd,
+                                    **NP_ADAMW)
+        mp_plain += [nw32.to(torch.bfloat16), nm, nv, nw32]
+    n = len(state.trained)
+    mp = nd._multi_mp_adamw_update(*arrays, num_weights=n, lrs=[lr] * n,
+                                   wds=[wd] * n, etas=[1.0] * n, **NP_ADAMW)
+    mp_got = [o._data for o in mp]
+    for i, (o, p) in enumerate(zip(mp_got, mp_plain)):
+        if o.dtype != p.dtype:
+            raise AssertionError("mp update output %d is %s, want %s"
+                                 % (i, o.dtype, p.dtype))
+    mp_err = _check_update("_multi_mp_adamw_update", mp_got, mp_plain, 1e-6)
+    print("  (iii) _multi_adamw_update over %d tensors against the "
+          "per-tensor plain update: %.3e (limit 1e-6), a doubled step %.3e "
+          "(misses); _multi_mp_adamw_update, bf16 weights with f32 "
+          "masters: %.3e" % (n, f32, miss, mp_err), flush=True)
+    return f32, mp_err
+
+
+def _np_gluon_first_step(net, x, y):
+    """The Gluon zoo net's first step on ``x``: (logits, loss, the
+    trained parameters' gradients, the running stats after it)."""
+    from incubator_mxnet_tpu_torch import autograd, gluon
+
+    params = list(net.collect_params().values())
+    with autograd.record():
+        out = net(x)
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(out, y).mean()
+    loss.backward()
+    return dict(logits=out._data.detach().clone(),
+                loss=loss._data.detach().clone(),
+                grads=[p.grad()._data.clone() for p in params
+                       if p.grad_req != "null"],
+                stats=[p.data()._data.clone() for p in params
+                       if p.grad_req == "null"])
+
+
+def run_np_path(dev, gluon_step_ms):
+    """Phase 3v (i)-(iii), see the module docstring.  Returns (metrics,
+    the launch counts of the steps)."""
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels, autograd, nd
+
+    ex = _np_module()
+    g = NP_PATH
+    spec = ex.SPECS[g["model"]]
+    t0 = time.perf_counter()
+    with _f32_exact():
+        net = _zoo_net(dev, g["model"], g["classes"], g["image"])
+        state = ex.NpState(mx, net, ctx=dev)
+        images, labels = ex.synthetic_batch(g["batch"], *g["raw"],
+                                            g["classes"], SEED)
+        raw = nd.array(images, ctx=dev, dtype="uint8")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x = ex.preprocess(mx, raw, g["resize"], g["image"])
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        y = mx.np.array(labels, ctx=dev)
+        if tuple(x.shape) != (g["batch"], 3, g["image"], g["image"]) \
+                or x.dtype != "float32" or not bool(torch.isfinite(
+                    x._data).all()):
+            raise AssertionError("preprocessed batch %s %s"
+                                 % (x.shape, x.dtype))
+        glu = _np_gluon_first_step(net, x, y)
+        counts = {k: 0 for k in _kernels.launch_counts()}
+        losses, step_ms, fwd_bwd_ms = [], [], []
+        for step in range(1, g["steps"] + 1):
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            t = time.perf_counter()
+            with autograd.record():
+                logits, stats = ex.forward(mx, state.named, x, spec)
+                loss = ex.cross_entropy(mx, logits, y)
+            loss.backward()
+            ex.update_running_stats(mx, stats)
+            if step == 1:
+                torch.cuda.synchronize()
+                np_first = dict(
+                    logits=logits._data.detach().clone(),
+                    loss=loss._data.detach().clone(),
+                    grads=[state.named[i][1].grad._data.clone()
+                           for i in state.trained],
+                    stats=[a._data.clone() for k, (_, a) in enumerate(
+                        state.named) if k not in state.trained])
+                step_counts = _kernels.launch_counts()
+                np_update_on_card(mx, ex, state, g["lr"], g["wd"])
+            else:
+                torch.cuda.synchronize()
+                fwd_bwd_ms.append((time.perf_counter() - t) * 1e3)
+                ex.adamw_update(mx, state, g["lr"], g["wd"], **NP_ADAMW)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                step_counts = _kernels.launch_counts()
+            losses.append(float(loss.asnumpy()))
+            want = {k: int(k == "maxpool_idx_fwd") for k in step_counts}
+            if step_counts != want:
+                raise AssertionError("mx.np step %d launched %s, want %s"
+                                     % (step, step_counts, want))
+            for k in counts:
+                counts[k] += step_counts[k]
+        if not _losses_ok(losses):
+            raise AssertionError("mx.np path losses %s" % losses)
+        same = _np_against_gluon(np_first, glu)
+        # the Gluon net's forward + backward again, on this phase's
+        # settings (its first call above set cuDNN up)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _np_gluon_first_step(net, x, y)
+        torch.cuda.synchronize()
+        gluon_fwd_bwd = (time.perf_counter() - t) * 1e3
+    print("  steps 2-%d: %s ms, of which forward + backward + running "
+          "stats %s ms, the update the rest; the Gluon net's forward + "
+          "backward on these settings %.2f ms" % (
+              g["steps"], ["%.2f" % v for v in step_ms],
+              ["%.2f" % v for v in fwd_bwd_ms], gluon_fwd_bwd), flush=True)
+    metrics = dict(np_step_ms=sum(step_ms) / len(step_ms),
+                   preprocess_ms=pre_ms,
+                   np_fwd_bwd_ms=sum(fwd_bwd_ms) / len(fwd_bwd_ms),
+                   gluon_fwd_bwd_ms=gluon_fwd_bwd,
+                   losses=losses, bit_equal=same,
+                   trained=len(state.trained), build_s=time.perf_counter()
+                   - t0, gluon_step_ms=gluon_step_ms)
+    del net, state, x, raw
+    torch.cuda.empty_cache()
+    return metrics, counts
+
+
+def _np_against_gluon(np_first, glu):
+    """Phase 3v (ii): the mx.np step's logits, loss, gradients and running
+    stats against the Gluon net's from the same weights and batch: the
+    same registered ops run in both, so bit for bit; a zeroed gradient
+    and a doubled one must miss."""
+    import torch
+
+    pairs = [("logits", [np_first["logits"]], [glu["logits"]]),
+             ("loss", [np_first["loss"]], [glu["loss"]]),
+             ("gradients", np_first["grads"], glu["grads"]),
+             ("running stats", np_first["stats"], glu["stats"])]
+    for label, got, want in pairs:
+        if len(got) != len(want):
+            raise AssertionError("%s: %d tensors, Gluon %d"
+                                 % (label, len(got), len(want)))
+        diff = [t for t, (a, b) in enumerate(zip(got, want))
+                if a.shape != b.shape or not torch.equal(a, b)]
+        worst = max(_rel_max(a, b) for a, b in zip(got, want)
+                    if a.shape == b.shape)
+        print("  (ii) %-14s %3d tensors, %d not bit-equal to the Gluon "
+              "net's (largest difference %.3e of the tensor's magnitude)"
+              % (label, len(got), len(diff), worst), flush=True)
+        if diff:
+            raise AssertionError("the mx.np step's %s differ from the "
+                                 "Gluon net's in %d tensors" % (label,
+                                                                len(diff)))
+    for label, f in (("zeroed", 0.0), ("doubled", 2.0)):
+        ctl = [g * f for g in np_first["grads"]]
+        if all(torch.equal(a, b) for a, b in zip(ctl, glu["grads"])):
+            raise AssertionError("the gradient gate passes a %s gradient"
+                                 % label)
+    print("  (ii) controls: a zeroed and a doubled gradient are not "
+          "bit-equal (miss)", flush=True)
+    return True
+
+
+def _np_step_read(ex, mx, net, x, y, spec, ctx, lr):
+    """One mx.np step (``ex.train_step``) of ``net``'s weights on ``ctx``:
+    the loss, the logits, which arrays are trained, each array after the
+    step and its change (AMP's readings, ``_amp_step_diffs``)."""
+    state = ex.NpState(mx, net, ctx=ctx)
+    before = [a.asnumpy() for _, a in state.named]
+    t = time.perf_counter()
+    loss, logits = ex.train_step(mx, state, mx.np.array(x, ctx=ctx),
+                                 mx.np.array(y, ctx=ctx), spec, lr)
+    after = [a.asnumpy() for _, a in state.named]
+    return dict(loss=float(loss.asnumpy()), step_s=time.perf_counter() - t,
+                logits=logits.asnumpy(),
+                trained=[k in state.trained for k in range(len(after))],
+                after=after, update=[a - b for a, b in zip(after, before)])
+
+
+def np_card_vs_cpu(dev, model, batch, image, classes):
+    """Phase 3v (iv): the mx.np step at a small size on the card and on
+    the CPU from the same weights and batch, and on the CPU in three runs
+    with every weight nudged by 1e-6: AMP's readings (phase 3u,
+    ``_amp_step_diffs``) card-vs-CPU within 4x the largest nudged run's;
+    the card's update made zero, doubled or negated must miss."""
+    import numpy as np
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import context, convert
+
+    ex = _np_module()
+    spec = ex.SPECS[model]
+    with _f32_exact():
+        card_net = _zoo_net(dev, model, classes, image)
+        start = {k: p.data().asnumpy()
+                 for k, p in card_net.collect_params().items()}
+        images, labels = ex.synthetic_batch(batch, image + 16, image + 8,
+                                            classes, SEED)
+        with context.device_scope("cpu"):
+            x = ex.preprocess(mx, mx.nd.array(images, dtype="uint8"),
+                              image * 8 // 7, image).asnumpy()
+        read = {"cuda": _np_step_read(ex, mx, card_net, x, labels, spec, dev,
+                                      NP_PATH["lr"])}
+        nudged = ["cpu_nudged%d" % j for j in range(AMP["floors"])]
+        for j, d in enumerate(["cpu"] + nudged):
+            with context.device_scope("cpu"):
+                net = _zoo_net("cpu", model, classes, image)
+            arrays = start
+            if d != "cpu":
+                rs = np.random.RandomState(SEED + 3 + j)
+                arrays = {k: (v * (1 + AMP_NUDGE * rs.normal(
+                    size=v.shape))).astype(v.dtype)
+                    for k, v in start.items()}
+            convert.params_from_gluon(net, arrays)
+            with context.device_scope("cpu"):
+                read[d] = _np_step_read(ex, mx, net, x, labels, spec, "cpu",
+                                        NP_PATH["lr"])
+    card = _amp_step_diffs(read["cuda"], read["cpu"])
+    floors = [_amp_step_diffs(read[d], read["cpu"]) for d in nudged]
+    print("  (iv) %s, batch %d, %d px, %d classes, f32, TF32 off:"
+          % (model, batch, image, classes), flush=True)
+    for k in card:
+        print("  %-16s card-vs-CPU %.3e   CPU nudged by 1e-6 %s   (limit 4x "
+              "the largest)" % (k, card[k], " ".join(
+                  "%.3e" % f[k] for f in floors)), flush=True)
+    for label, f in (("zero", 0.0), ("doubled", 2.0), ("negated", -1.0)):
+        ctl = dict(read["cuda"], update=[u * f
+                                         for u in read["cuda"]["update"]])
+        misses = _amp_gate_misses(_amp_step_diffs(ctl, read["cpu"]), floors,
+                                  AMP_READINGS)
+        print("  control: the card's update %s misses the gate on %s"
+              % (label, misses), flush=True)
+        if not misses:
+            raise AssertionError("the mx.np step's gate passes a %s update"
+                                 % label)
+    misses = _amp_gate_misses(card, floors, AMP_READINGS)
+    if misses:
+        raise AssertionError("the mx.np step card and CPU disagree beyond "
+                             "the CPU's own floor on %s" % misses)
+    return card, floors
+
+
+class _Slot:
+    """Where a case's array goes (``tools/np_surface_cases.py``)."""
+
+    def __init__(self, i):
+        self.i = i
+
+
+def _fill(obj, arrays):
+    if isinstance(obj, _Slot):
+        return arrays[obj.i]
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_fill(v, arrays) for v in obj)
+    if isinstance(obj, dict):
+        return {k: _fill(v, arrays) for k, v in obj.items()}
+    return obj
+
+
+def _surface_case(cases, table, case, func_of):
+    """(arrays, fn_of, host values of) a case: ``fn_of(device)`` is the
+    function of its arrays as tensors that ``_card_vs_cpu`` takes (its
+    tensor outputs, recorded under ``autograd.record()`` where
+    ``func_of`` says it differentiates); ``host(device)`` its other
+    outputs (shapes, dtypes, strings)."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import autograd, context
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+
+    arrays = []
+
+    def slot(x):
+        arrays.append(np.asarray(x))
+        return _Slot(len(arrays) - 1)
+
+    args, kwargs = cases.build(table, case, slot)
+    fn, record = func_of(cases.case_name(case))
+
+    def call(device, ts):
+        nds = [NDArray(t) for t in ts]
+        with context.device_scope(device):
+            if record:
+                with autograd.record():
+                    out = fn(*_fill(args, nds), **_fill(kwargs, nds))
+            else:
+                out = fn(*_fill(args, nds), **_fill(kwargs, nds))
+        leaves = []
+
+        def walk(o):
+            if isinstance(o, (tuple, list)):
+                for v in o:
+                    walk(v)
+            else:
+                leaves.append(o._data if isinstance(o, NDArray) else o)
+        walk(out)
+        return leaves
+
+    def fn_of(device):
+        return lambda *ts: [o for o in call(device, ts)
+                            if isinstance(o, torch.Tensor) and o.numel()]
+
+    def host(device):
+        ts = [torch.tensor(a, device=device) for a in arrays]
+        return [o if not isinstance(o, torch.Tensor) else
+                (str(o.dtype), tuple(o.shape)) for o in call(device, ts)]
+
+    return arrays, fn_of, host
+
+
+def _card_vs_cpu_quiet(name, fn_of, arrays, dev):
+    """``fn_of`` of ``arrays`` on the card and on the CPU: integer and
+    boolean outputs equal, floating ones within 1e-6 of their largest
+    magnitude.  Returns 0 (no floor to be a ratio of)."""
+    import torch
+
+    card = [t.cpu() for t in fn_of(dev)(*[torch.tensor(a, device=dev)
+                                          for a in arrays])]
+    cpu = fn_of("cpu")(*[torch.tensor(a) for a in arrays])
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError("%s output %d: %s %s on the card, %s %s on "
+                                 "the CPU" % (name, i, a.dtype, tuple(
+                                     a.shape), b.dtype, tuple(b.shape)))
+        if b.is_floating_point():
+            bad = not _rel_max(a, b) <= 1e-6
+        else:
+            bad = not torch.equal(a, b)
+        if bad:
+            raise AssertionError("%s output %d differs card against CPU"
+                                 % (name, i))
+    if len(card) != len(cpu):
+        raise AssertionError("%s: %d outputs on the card, %d on the CPU"
+                             % (name, len(card), len(cpu)))
+    return 0.0
+
+
+def np_surface_card_vs_cpu(dev):
+    """Phase 3v (v), see the module docstring.  Returns the number of
+    cases."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels
+
+    cases = _np_cases()
+    np_mod = mx.np
+    tables = (
+        ("mx.np", dict(cases.CASES, **cases.MODERATE), lambda name: (
+            getattr(np_mod, name), name in np_mod._DIFFERENTIABLE)),
+        ("mx.np.linalg", cases.LINALG, lambda name: (
+            getattr(np_mod.linalg, name), False)),
+        ("mx.npx", cases.NPX, lambda name: (getattr(mx.npx, name), True)))
+    rows = []
+    with _f32_exact():
+        before = _kernels.launch_counts()
+        for label, table, func_of in tables:
+            for case in sorted(table):
+                arrays, fn_of, host = _surface_case(cases, table, case,
+                                                    func_of)
+                if host(dev) != host("cpu"):
+                    raise AssertionError("%s %s: %s on the card, %s on the "
+                                         "CPU" % (label, case, host(dev),
+                                                  host("cpu")))
+                if label == "mx.np" and cases.case_name(case) \
+                        not in np_mod._DIFFERENTIABLE:
+                    # the quiet set: piecewise constant, and some outputs'
+                    # shapes follow the values, so no nudged floor
+                    rows.append(("%s.%s" % (label, case), _card_vs_cpu_quiet(
+                        case, fn_of, arrays, dev)))
+                    continue
+                rows.append(("%s.%s" % (label, case), _card_vs_cpu(
+                    case, fn_of, arrays, dev)[1]))
+        # the factors with a sign freedom: their products
+        a = np.random.RandomState(SEED).normal(size=(48, 32)).astype(
+            np.float32)
+        spd = a.T @ a + 32 * np.eye(32, dtype=np.float32)
+        for name, arr, rebuild in (
+                ("svd", a, lambda u, s, vt: (u[:, :32] * s) @ vt),
+                ("qr", a, lambda q, r: q @ r),
+                ("eigh", spd, lambda w, v: (v * w) @ v.T)):
+            got = getattr(np_mod.linalg, name)(mx.np.array(arr, ctx=dev))
+            err = float(np.abs(rebuild(*[o.asnumpy() for o in got])
+                               - arr).max()) / float(np.abs(arr).max())
+            if not err <= 1e-5:
+                raise AssertionError("np.linalg.%s on the card rebuilds "
+                                     "with %g" % (name, err))
+            rows.append(("mx.np.linalg.%s (rebuilt)" % name, 0.0))
+        launched = {k: v - before[k] for k, v in
+                    _kernels.launch_counts().items() if v != before[k]}
+    # the samplers on the card: shape, dtype, moments
+    mx.random.seed(SEED)
+    moments = []
+    for name in sorted(cases.RANDOM):
+        kwargs, mean, var = cases.RANDOM[name]
+        out = getattr(np_mod.random, name)(**dict(kwargs, ctx=dev))
+        if out.context != dev or out.shape != (cases.N,):
+            raise AssertionError("np.random.%s on %s, shape %s"
+                                 % (name, out.context, out.shape))
+        moments.append(("np.random." + name, out._data.double(), mean, var))
+    for name, arrays, attrs, mean, var in cases.SAMPLERS:
+        op = mx.ops.registry.get_op(name)
+        ts = [torch.tensor(a, device=dev) for a in arrays]
+        out = op.fn(*ts, **(attrs if arrays else dict(attrs, ctx=dev)))
+        out = out[0] if isinstance(out, tuple) else out
+        if out.device != dev:
+            raise AssertionError("%s drew on %s" % (name, out.device))
+        moments.append((name, out.double(), mean, var))
+    for name, x, mean, var in moments:
+        n = x.shape[-1]
+        m, v = x.mean(-1).cpu().numpy(), x.var(-1, unbiased=False).cpu(
+        ).numpy()
+        if not (np.all(np.abs(m - mean) <= 6 * np.sqrt(np.asarray(var) / n))
+                and np.all(np.abs(v - var) <= 6 * np.sqrt(
+                    8 * np.square(var) / n))):
+            raise AssertionError("%s on the card: mean %s var %s, want %s %s"
+                                 % (name, m, v, mean, var))
+    worst = max(rows, key=lambda r: r[1])
+    print("  (v) %d cases of mx.np (every name, and %d at moderate shapes), "
+          "mx.np.linalg and mx.npx, forward and "
+          "(differentiable set, npx) backward, card against CPU within 4x "
+          "the CPU's 1e-6-nudged floor (index inputs not nudged; worst %s "
+          "at %.3fx); kernels launched there: %s; %d samplers' draws on the "
+          "card within 6 standard errors of their mean and variance"
+          % (len(rows), len(cases.MODERATE), worst[0], worst[1],
+             launched or "none", len(moments)), flush=True)
+    return len(rows)
+
+
 def main(argv=None):
     import argparse
 
@@ -8293,6 +8884,35 @@ def main(argv=None):
               cv["amp_convert_top1"], card), flush=True)
     tail_card_vs_cpu(dev)
     print("[3u] phase wall time %.2f s" % (time.perf_counter() - t_amp),
+          flush=True)
+
+    print("[3v] the NumPy frontend: %s (stock BN, %d classes) written in "
+          "mx.np/mx.npx over the zoo net's parameters (example/numpy/"
+          "resnet_np.py), batch %d, %d px, f32, TF32 off: uint8 NHWC images "
+          "through _image_resize, _image_crop, to_tensor and "
+          "_image_normalize on the card, %d steps under autograd.record(), "
+          "each one nd._multi_adamw_update call; the first step against the "
+          "Gluon net, the updates against their plain versions, %s card "
+          "against CPU, the surface card against CPU" % (
+              NP_PATH["model"], NP_PATH["classes"], NP_PATH["batch"],
+              NP_PATH["image"], NP_PATH["steps"], NP_SMALL["model"]),
+          flush=True)
+    t_np = time.perf_counter()
+    npm, np_counts = run_np_path(dev, gl["gluon_step_ms"])
+    counts["maxpool_idx_fwd"] += np_counts["maxpool_idx_fwd"]
+    print("[3v] np_step_ms %.2f (mean of steps 2-%d; TF32 off, cuDNN "
+          "deterministic)  phase 3g's gluon_step_ms %.2f: %.2fx  forward + "
+          "backward %.2f against the Gluon net's %.2f on these settings  "
+          "preprocess_ms %.2f  losses %s  K3 launches %d in %d steps  on %s"
+          % (npm["np_step_ms"], NP_PATH["steps"], gl["gluon_step_ms"],
+             npm["np_step_ms"] / gl["gluon_step_ms"], npm["np_fwd_bwd_ms"],
+             npm["gluon_fwd_bwd_ms"], npm["preprocess_ms"],
+             ["%.4f" % v for v in npm["losses"]],
+             np_counts["maxpool_idx_fwd"], NP_PATH["steps"], card),
+          flush=True)
+    np_card_vs_cpu(dev, **NP_SMALL)
+    np_surface_card_vs_cpu(dev)
+    print("[3v] phase wall time %.2f s" % (time.perf_counter() - t_np),
           flush=True)
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "

@@ -21,13 +21,17 @@ with ``BucketSentenceIter``, and ``mx.mod.BucketingModule``; and
 detection: the multibox, NMS and ROI ops (``mx.nd.contrib``,
 ``mx.sym.contrib``), ``mx.image`` with ``ImageDetIter``, and
 ``mx.io.ImageDetRecordIter``; and int8: the quantization ops and
-``mx.contrib.quantization`` (BN folding, the graph rewrite, calibration).
+``mx.contrib.quantization`` (BN folding, the graph rewrite, calibration);
+and the NumPy frontend: ``mx.np`` (with ``linalg`` and ``random``),
+``mx.npx`` and ``mx.util``'s NumPy-semantics switches.
 """
 from . import ops  # noqa: F401  (first: parallel.train_step imports ndarray)
 from . import (attribute, autograd, callback, context, contrib, executor,
                gluon, image, initializer, io, kvstore, lr_scheduler, metric,
                model, module, monitor, name, ndarray, optimizer, parallel,
-               random, recordio, rnn, rtc, symbol, tracing)
+               random, recordio, rnn, rtc, symbol, tracing, util)
+from . import numpy as np  # noqa: A004  (mx.np)
+from . import numpy_extension as npx
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -35,10 +39,12 @@ from . import ndarray as nd
 from . import symbol as sym
 from .context import cpu, gpu
 from .ndarray import NDArray
+from .util import is_np_array, reset_np, set_np
 
 __all__ = ["attribute", "autograd", "callback", "context", "contrib",
            "executor", "gluon", "image", "init", "initializer", "io", "kv",
            "kvstore", "lr_scheduler", "metric", "mod", "model", "module", "monitor",
            "name", "ndarray", "nd", "optimizer", "parallel", "random",
            "recordio", "rnn", "rtc", "sym", "symbol", "tracing", "cpu", "gpu",
-           "NDArray"]
+           "NDArray", "np", "npx", "util", "is_np_array", "reset_np",
+           "set_np"]

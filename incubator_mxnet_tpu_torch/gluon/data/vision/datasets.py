@@ -19,18 +19,12 @@ import numpy as np
 
 from .... import context
 from .... import recordio as _recordio
+from ....util import data_dir
 from ....ndarray import ndarray as _nd
 from ..dataset import Dataset, RecordFileDataset
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
            "ImageRecordDataset", "ImageFolderDataset"]
-
-
-def data_dir():
-    """The data and cache root: ``$MXNET_HOME`` if set, else
-    ``~/.mxnet``."""
-    return os.environ.get("MXNET_HOME") or os.path.join(
-        os.path.expanduser("~"), ".mxnet")
 
 
 def _host_image(img):

@@ -1,6 +1,12 @@
-"""Operators as plain functions on tensors (port of ``incubator_mxnet_tpu/ops``)."""
-from . import (contrib, control_flow, linalg, nn, optimizer_ops, quantization,
-               rnn)
+"""Operators as plain functions on tensors (port of ``incubator_mxnet_tpu/ops``).
 
-__all__ = ["contrib", "control_flow", "linalg", "nn", "optimizer_ops",
-           "quantization", "rnn"]
+Importing this package registers every op; ``npi`` comes last, as in the
+reference, because its aliases resolve against what is registered then.
+"""
+from . import (contrib, control_flow, linalg, math, nn, optimizer_ops,
+               quantization, rnn, tensor)
+from .. import random  # noqa: F401  (the samplers)
+from . import npi  # noqa: E402  (the _npi_*/_np_*/_npx_* names)
+
+__all__ = ["contrib", "control_flow", "linalg", "math", "nn", "npi",
+           "optimizer_ops", "quantization", "rnn", "tensor"]

@@ -37,7 +37,7 @@ import torch
 
 from .. import context
 
-__all__ = ["Op", "register", "get_op", "invoke", "OPS", "AMP_POLICY",
+__all__ = ["Op", "register", "alias", "get_op", "invoke", "OPS", "AMP_POLICY",
            "amp_cast_inputs"]
 
 OPS: Dict[str, "Op"] = {}
@@ -104,6 +104,15 @@ def register(name, fn=None, **kwargs):
     if fn is not None:
         return _do(fn)
     return _do
+
+
+def alias(new_name, existing):
+    """Register ``new_name`` as another name of the op ``existing`` and
+    record it on the op (the reference's ``parity_tail._alias``)."""
+    op = OPS[existing]
+    OPS[new_name] = op
+    if new_name not in op.aliases:
+        op.aliases = op.aliases + (new_name,)
 
 
 def get_op(name: str) -> Op:

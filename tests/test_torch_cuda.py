@@ -1989,3 +1989,38 @@ def test_amp_float16_overflow_on_card(dev):
     smoke = _smoke()
     log = smoke.amp_overflow_on_card(dev, **smoke.AMP_SMALL)
     assert log[0] == (2.0 ** 16, False, False) and log[-1][2]
+
+
+def test_np_path_on_card(dev):
+    """``chip_smoke.py`` phase 3v (i)-(iii) at a small size
+    (``resnet18_v1``, 64 px, batch 8, 10 classes): the ``mx.np``-written
+    step launches K3 once a step and nothing else, its first step is bit
+    for bit the Gluon net's, ``_multi_adamw_update`` and
+    ``_multi_mp_adamw_update`` equal their per-tensor plain versions."""
+    smoke = _smoke()
+    keep = dict(smoke.NP_PATH)
+    smoke.NP_PATH.update(model="resnet18_v1", batch=8, image=64, classes=10,
+                         resize=72, raw=(80, 76))
+    try:
+        metrics, counts = smoke.run_np_path(dev, 1.0)
+    finally:
+        smoke.NP_PATH.clear()
+        smoke.NP_PATH.update(keep)
+    assert metrics["bit_equal"] and counts["maxpool_idx_fwd"] == 3
+
+
+def test_np_step_on_card_matches_cpu(dev):
+    """``chip_smoke.py`` phase 3v (iv): the ``mx.np`` step at ``NP_SMALL``
+    card against CPU within 4x the largest of three nudged CPU runs'
+    differences; the card's update zeroed, doubled or negated misses."""
+    smoke = _smoke()
+    smoke.np_card_vs_cpu(dev, **smoke.NP_SMALL)
+
+
+def test_np_surface_on_card_matches_cpu(dev):
+    """``chip_smoke.py`` phase 3v (v): every case of
+    ``tools/np_surface_cases.py`` card against CPU within 4x the CPU's
+    nudged floor (the quiet set equal), the factors rebuilt, the
+    samplers' moments on the card."""
+    assert _smoke().np_surface_card_vs_cpu(dev) > 300
+

@@ -30,7 +30,9 @@ new = ["gluon.data.sampler", "gluon.data.dataset", "gluon.data.dataloader",
        "gluon.contrib.estimator.batch_processor", "gluon.contrib.nn",
        "gluon.contrib.rnn", "gluon.contrib.cnn", "ops.contrib_tail",
        "contrib.amp", "contrib.amp.amp", "contrib.amp.loss_scaler",
-       "contrib.amp.lists", "contrib.amp.lists.symbol_bf16"]
+       "contrib.amp.lists", "contrib.amp.lists.symbol_bf16", "ops.npi",
+       "numpy", "numpy._impl", "numpy.linalg", "numpy.random",
+       "numpy_extension", "util"]
 missing = [n for n in new if pkg.__name__ + "." + n not in names]
 assert not missing, missing
 for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
@@ -50,7 +52,9 @@ for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
                    ("serve_bench_torch", "tools/serve_bench_torch.py"),
                    ("flywheel_torch", "tools/flywheel_torch.py"),
                    ("compile_cache_torch", "tools/compile_cache_torch.py"),
-                   ("int8_profile_torch", "tools/int8_profile_torch.py")):
+                   ("int8_profile_torch", "tools/int8_profile_torch.py"),
+                   ("resnet_np", "example/numpy/resnet_np.py"),
+                   ("np_surface_cases", "tools/np_surface_cases.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from incubator_mxnet_tpu_torch import rtc
@@ -329,6 +333,58 @@ def test_imperative_entry_points_refuse_cpu_without_asking(monkeypatch,
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
         build(mx)
+
+
+@pytest.mark.parametrize("build", [
+    lambda mx: mx.np.array([1.0, 2.0]),
+    lambda mx: mx.np.zeros((2, 3)),
+    lambda mx: mx.np.ones(3),
+    lambda mx: mx.np.full((2,), 1.5),
+    lambda mx: mx.np.arange(4),
+    lambda mx: mx.np.eye(3),
+    lambda mx: mx.np.indices((2, 3)),
+    lambda mx: mx.np.tril_indices(3),
+    lambda mx: mx.np.add(np.ones(2), 1.0),
+    lambda mx: mx.np.random.uniform(size=2),
+    lambda mx: mx.np.random.normal(size=2),
+    lambda mx: mx.np.random.randint(4, size=2),
+    lambda mx: mx.np.random.gamma(2.0, size=2),
+    lambda mx: mx.np.random.choice(5, size=2),
+    lambda mx: mx.np.random.multinomial(3, [0.5, 0.5]),
+    lambda mx: mx.nd.random_gamma(shape=(2,)),
+    lambda mx: mx.nd.random_poisson(shape=(2,)),
+    lambda mx: mx.nd.random_exponential(shape=(2,)),
+    lambda mx: mx.nd.random_negative_binomial(shape=(2,)),
+    lambda mx: mx.nd.random_generalized_negative_binomial(shape=(2,)),
+    lambda mx: mx.nd._npi_normal_n(size=(2,)),
+    lambda mx: mx.nd._npi_uniform_n(size=(2,)),
+    lambda mx: mx.nd._npi_choice(a=3, size=(2,)),
+    lambda mx: mx.nd._npi_hanning(M=4),
+    lambda mx: mx.nd._npi_logspace(num=3),
+    lambda mx: mx.nd._npi_indices(dimensions=(2,)),
+])
+def test_numpy_frontend_refuses_cpu_without_asking(monkeypatch, build):
+    """``mx.np``'s constructors, functions given no array, ``np.random``
+    and the samplers build on the card, and raise without one."""
+    import incubator_mxnet_tpu_torch as mx
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(mx)
+
+
+def test_numpy_frontend_runs_on_cpu_when_asked(monkeypatch):
+    import incubator_mxnet_tpu_torch as mx
+
+    _no_card(monkeypatch)
+    cpu = mx.cpu()
+    a = mx.np.arange(6, ctx=cpu)
+    assert mx.np.sum(a).context == cpu
+    assert mx.np.random.uniform(size=3, ctx=cpu).context == cpu
+    assert mx.nd.random_gamma(shape=(2,), ctx=cpu).context == cpu
+    with context.device_scope("cpu"):
+        assert mx.np.indices((2, 2)).context == cpu
+        assert mx.np.zeros(3).context == cpu
 
 
 def test_imperative_path_runs_on_cpu_when_asked(monkeypatch, tmp_path):
