@@ -449,6 +449,47 @@ CUDA card, ``nvcc`` and no network, and imports nothing of JAX.  Phases
    inputs not nudged), ``svd``/``qr``/``eigh`` rebuilt within 1e-5, and
    the samplers of ``mx.np.random`` and of the registry drawn on the
    card within 6 standard errors of their mean and variance;
+3w. the op registry's tail (``LARS``, ``BERT``, ``RPN``), TF32 off and
+   cuDNN deterministic: (i) upstream MXNet 1.6's large-batch ResNet-50
+   recipe: the zoo's stock-BN ``resnet50_v1`` (1000 classes, Xavier
+   weights from ``SEED``), 224 px, batch 64, f32, a registered
+   ``CustomOp`` softmax head (forward ``softmax`` in nd ops, backward
+   ``(p - onehot(label)) / batch``), 3 steps each updating every trained
+   tensor by one call each of ``multi_sum_sq`` (weights, then
+   gradients), ``multi_lars`` and ``preloaded_multi_sgd_mom_update``
+   (momentum 0.9, lr 0.1, wd 1e-4, eta 0.001): K3 once a step and
+   nothing else; the first step's logits bit for bit those of the same
+   net under ``SoftmaxCrossEntropyLoss``, its gradients within
+   ``LARS_GRAD_TOL`` (1e-4) of each tensor's largest magnitude, the
+   worst three printed by name (a doubled head gradient misses); the
+   update 0 from its per-tensor plain version,
+   and ``preloaded_multi_mp_sgd_mom_update`` on bf16 copies with f32
+   masters likewise (a doubled step misses each); ``lars_step_ms`` (the
+   mean of steps 2-3) beside 3g's ``gluon_step_ms``; (ii) BERT-base
+   self-attention (GluonNLP ``BERTEncoder`` widths: 768 units, 12 heads,
+   seq 512, batch 8, f32): ``_contrib_interleaved_matmul_selfatt_qk`` ->
+   ``softmax`` -> ``_contrib_interleaved_matmul_selfatt_valatt``,
+   forward and backward, against ``_contrib_flash_attention`` (K4, K5/K6)
+   on the same q, k, v: the output and dq, dk, dv against f64 within 4x
+   the kernels' floor, measured in the run as the same attention in
+   plain torch with every product in the kernels' 3xTF32 split
+   (``_mm_3xtf32``) against f64 on the card; each reading is printed
+   against the interleaved f32 path's own f64 floor too (K4-K6's
+   products are good to ~2^-21, f32 ones to 2^-24); a doubled output
+   missing; K4-K6 once each; ``interleaved_attn_ms`` beside K4-K6's;
+   (iii) the Faster R-CNN RPN's ``Proposal`` at
+   ``example/rcnn``'s VGG-16 test setting (a 600x1000 image, its 38x63
+   map, 9 anchors, pre-NMS 6000, post-NMS 300, IoU 0.7, min size 16)
+   from seeded numpy inputs, and ``MultiProposal`` at batch 2: rois and
+   scores on the card equal to the CPU's; ``proposal_ms``; (iv) every
+   other new name (``_w_cases``) at moderate shapes card against CPU
+   within 4x the CPU's 1e-6-nudged floor, integer outputs equal, each
+   nonzero floating tensor made zero, doubled and negated missing;
+   ``Custom`` with two outputs eager (equal to its nd expression),
+   recorded and through ``mx.sym`` into an ``Executor`` (equal to the
+   recorded call); the ``*_like`` samplers' moments on the card and
+   ``_sample_unique_zipfian``'s candidates distinct; no kernel launched
+   in (iii) and (iv);
 4. time each kernel at the shapes the paths gave it (K1 and K2 summed
    over one step's 53 layers, and K3 at the stem, each launch and its
    plain version by the profiler's device time with the L2 flushed, as
@@ -7051,13 +7092,16 @@ def _fwd_bwd(fn, arrays, device, nudge=False):
         [g.detach().cpu() for g in grads]
 
 
-def _card_vs_cpu(name, fn_of, arrays, dev, readings=None):
+def _card_vs_cpu(name, fn_of, arrays, dev, readings=None, controls=None):
     """``fn_of(device)`` on the card and on the CPU from the same arrays,
     and on the CPU from the arrays and the cotangent nudged by 1e-6: each
     floating output and input gradient card-vs-CPU within 4x the nudged
     run's difference, each integer output equal.  Returns (the number of
     tensors, the worst ratio); appends (card-vs-CPU, floor) of each
-    floating tensor to ``readings`` where given."""
+    floating tensor to ``readings`` where given.  Where ``controls`` is a
+    list, each floating tensor with a nonzero value is also made zero,
+    doubled and negated on the card, each of which must miss, and
+    (tensor, factor) of each is appended to it."""
     import torch
 
     card = _fwd_bwd(fn_of(dev), arrays, dev)
@@ -7083,6 +7127,13 @@ def _card_vs_cpu(name, fn_of, arrays, dev, readings=None):
             raise AssertionError("%s tensor %d: card-vs-CPU %g over 4x the "
                                  "nudged floor %g" % (name, i, err, floor))
         worst = max(worst, err / floor if floor else 0.0)
+        if controls is not None and bool((a != 0).any()):
+            for f in (0.0, 2.0, -1.0):
+                if not _max_err(a * f, b) > 4 * floor:
+                    raise AssertionError("%s tensor %d: the gate passes the "
+                                         "card's value times %g" % (name, i,
+                                                                    f))
+                controls.append((i, f))
     return len(card), worst
 
 
@@ -8440,6 +8491,890 @@ def np_surface_card_vs_cpu(dev):
     return len(rows)
 
 
+# phase 3w: the last of the op registry: LARS through the multi-tensor
+# updates with a CustomOp head, BERT-base attention through the interleaved
+# matmuls, the Faster R-CNN RPN's Proposal, every other new name card
+# against CPU
+
+#: (i): upstream MXNet 1.6's large-batch ResNet-50 recipe at one card
+LARS = dict(model="resnet50_v1", batch=64, image=224, classes=1000, steps=3,
+            lr=0.1, momentum=0.9, wd=1e-4, eta=0.001)
+#: (i): the CustomOp head's gradients against the Gluon loss's, of each
+#: tensor's largest magnitude (a tensor whose gradient is a sum with much
+#: cancellation reads larger; the worst are printed by name)
+LARS_GRAD_TOL = 1e-4
+#: (ii): GluonNLP BERTEncoder's widths (bert_12_768_12) at seq 512
+BERT = dict(units=768, heads=12, seq=512, batch=8, reps=5)
+#: (iii): example/rcnn's VGG-16 test setting: a 600x1000 image, the
+#: stride-16 map 38x63, 9 anchors
+RPN = dict(image=(600, 1000), stride=16, scales=(8, 16, 32),
+           ratios=(0.5, 1, 2), pre=6000, post=300, threshold=0.7,
+           min_size=16, reps=5)
+HEAD_OP = "chip_smoke_softmax_head"
+def _softmax_head(mx):
+    """Register the reference docs' custom softmax head (once): forward
+    ``softmax`` in nd ops, backward ``(p - onehot(label)) / batch``; no
+    cotangent reaches it (a loss head)."""
+    if HEAD_OP in mx.operator.get_all_registered():
+        return HEAD_OP
+
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        mx.nd.softmax(in_data[0], axis=-1))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            p = out_data[0]
+            onehot = mx.nd.one_hot(in_data[1], p.shape[1])
+            self.assign(in_grad[0], req[0], (p - onehot) / p.shape[0])
+
+    @mx.operator.register(HEAD_OP)
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+    return HEAD_OP
+
+
+def lars_update(nd, weights, grads, moms, lr, wd, eta, momentum):
+    """One LARS step over every tensor by one call of each op:
+    ``multi_sum_sq`` of the weights and of the gradients,
+    ``multi_lars`` and ``preloaded_multi_sgd_mom_update``.  Returns the
+    new (weight, mom) NDArrays of each tensor, in order, and the
+    learning rates."""
+    n = len(weights)
+    ctx = weights[0].context
+    wss = nd.multi_sum_sq(*weights, num_arrays=n)
+    gss = nd.multi_sum_sq(*grads, num_arrays=n)
+    lrs = nd.multi_lars(nd.full((n,), lr, ctx=ctx), nd.stack(*wss),
+                        nd.stack(*gss), wds=(wd,) * n, eta=eta)
+    flat = [a for w, g, m in zip(weights, grads, moms) for a in (w, g, m)]
+    outs = nd.preloaded_multi_sgd_mom_update(
+        *flat, lrs, nd.full((n,), wd, ctx=ctx), num_weights=n,
+        momentum=momentum)
+    return outs, lrs
+
+
+def _plain_lars_lr(w, g, lr, wd, eta):
+    """One tensor's LARS learning rate in torch ops (``multi_sum_sq`` and
+    ``multi_lars``'s plain version, the same operations on 0-d
+    tensors)."""
+    import torch
+
+    wn = torch.sqrt(torch.square(w.float()).sum())
+    gn = torch.sqrt(torch.square(g.float()).sum()) * 1.0
+    wd_t = torch.tensor(wd, dtype=torch.float32, device=w.device)
+    trust = torch.where((wn > 0) & (gn > 0), eta * wn / (gn + wd_t * wn
+                                                        + 1e-8),
+                        torch.ones((), device=w.device))
+    return torch.tensor(lr, dtype=torch.float32, device=w.device) * trust, \
+        wd_t
+
+
+def _plain_sgd_mom(w, g, m, lr, wd, momentum):
+    """``preloaded_multi_sgd_mom_update``'s plain version for one tensor:
+    (weight, mom)."""
+    new_m = momentum * m - lr * (g * 1.0 + wd * w)
+    return w + new_m, new_m
+
+
+def lars_on_card(mx, params, moms, cfg):
+    """Phase 3w (i): the LARS update over every trained parameter against
+    its per-tensor plain version on the card, 0 apart, then
+    ``preloaded_multi_mp_sgd_mom_update`` on bf16 copies with float32
+    masters likewise; a doubled step misses each.  Commits the f32
+    update."""
+    import torch
+
+    nd = mx.nd
+    weights = [p.data() for p in params]
+    grads = [p.grad() for p in params]
+    before = [w._data.clone() for w in weights]
+    outs, lrs = lars_update(nd, weights, grads, moms, cfg["lr"], cfg["wd"],
+                            cfg["eta"], cfg["momentum"])
+    got, plain, lr_plain = [], [], []
+    for k, (w, g, m) in enumerate(zip(before, grads, moms)):
+        lr_k, wd_t = _plain_lars_lr(w, g._data, cfg["lr"], cfg["wd"],
+                                    cfg["eta"])
+        lr_plain.append(lr_k)
+        plain += _plain_sgd_mom(w, g._data, m._data, lr_k, wd_t,
+                                cfg["momentum"])
+        got += [outs[2 * k]._data, outs[2 * k + 1]._data]
+    lr_err = _max_err(lrs._data, torch.stack(lr_plain))
+    err = max(_max_err(a, b) for a, b in zip(got, plain))
+    miss = max(_max_err(got[2 * k], 2 * plain[2 * k] - before[k])
+               for k in range(len(before)))
+    if lr_err != 0 or err != 0 or not miss > 0:
+        raise AssertionError("LARS update: learning rates %g and tensors %g "
+                             "from the plain version (want 0); a doubled "
+                             "step %g (must miss)" % (lr_err, err, miss))
+    # the mixed-precision form: bf16 weights and gradients, f32 masters
+    flat, mp_plain = [], []
+    for k, (w32, g, m) in enumerate(zip(before, grads, moms)):
+        gb = g._data.to(torch.bfloat16)
+        flat += [nd.NDArray(t) for t in (w32.to(torch.bfloat16), gb,
+                                         m._data, w32)]
+        nw32, nm = _plain_sgd_mom(w32, gb.float(), m._data, lr_plain[k],
+                                  torch.tensor(cfg["wd"], device=w32.device),
+                                  cfg["momentum"])
+        mp_plain += [nw32.to(torch.bfloat16), nm, nw32]
+    n = len(before)
+    mp = nd.preloaded_multi_mp_sgd_mom_update(
+        *flat, lrs, nd.full((n,), cfg["wd"], ctx=weights[0].context),
+        num_weights=n, momentum=cfg["momentum"])
+    mp_got = [o._data for o in mp]
+    mp_err = max(_max_err(a, b) for a, b in zip(mp_got, mp_plain))
+    mp_miss = max(_max_err(mp_got[3 * k + 2], 2 * mp_plain[3 * k + 2]
+                           - before[k]) for k in range(n))
+    if any(a.dtype != b.dtype for a, b in zip(mp_got, mp_plain)) \
+            or mp_err != 0 or not mp_miss > 0:
+        raise AssertionError("preloaded_multi_mp_sgd_mom_update %g from the "
+                             "plain version (want 0); doubled %g"
+                             % (mp_err, mp_miss))
+    _commit(params, moms, outs)
+    print("  (i) LARS over %d tensors (multi_sum_sq x2, multi_lars, "
+          "preloaded_multi_sgd_mom_update): learning rates and tensors 0 "
+          "from the per-tensor plain version, a doubled step %.3e (misses); "
+          "trust-scaled lr %.3e..%.3e; preloaded_multi_mp_sgd_mom_update, "
+          "bf16 weights with f32 masters: 0 from its plain version, doubled "
+          "%.3e (misses)" % (n, miss, float(lrs._data.min()),
+                            float(lrs._data.max()), mp_miss), flush=True)
+
+
+def _commit(params, moms, outs):
+    """Write the update's (weight, mom) pairs into the parameters."""
+    for k, p in enumerate(params):
+        p.set_data(outs[2 * k])
+        moms[k]._set_data(outs[2 * k + 1]._data)
+
+
+def _lars_commit(mx, params, moms, cfg):
+    """A LARS step without its checks (steps 2 on)."""
+    outs, _ = lars_update(mx.nd, [p.data() for p in params],
+                          [p.grad() for p in params], moms, cfg["lr"],
+                          cfg["wd"], cfg["eta"], cfg["momentum"])
+    _commit(params, moms, outs)
+
+
+def run_lars_path(dev, gluon_step_ms):
+    """Phase 3w (i), see the module docstring.  Returns (metrics, the
+    launch counts of the steps)."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels, autograd, nd
+
+    g = LARS
+    head = _softmax_head(mx)
+    with _f32_exact():
+        net = _zoo_net(dev, g["model"], g["classes"], g["image"])
+        params = [p for p in net.collect_params().values()
+                  if p.grad_req != "null"]
+        rng = np.random.RandomState(SEED)
+        x = nd.array(rng.rand(g["batch"], 3, g["image"], g["image"]).astype(
+            np.float32), ctx=dev)
+        y = nd.array(rng.randint(0, g["classes"], g["batch"]).astype(
+            np.float32), ctx=dev)
+        glu = _np_gluon_first_step(net, x, y)
+        moms = [nd.zeros(p.shape, ctx=dev) for p in params]
+        counts = {k: 0 for k in _kernels.launch_counts()}
+        losses, step_ms, upd_ms = [], [], []
+        for step in range(1, g["steps"] + 1):
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            t = time.perf_counter()
+            with autograd.record():
+                logits = net(x)
+                prob = nd.Custom(logits, y, op_type=head)
+            prob.backward()
+            step_counts = _kernels.launch_counts()
+            if step == 1:
+                first = dict(logits=logits._data.detach().clone(),
+                             grads=[p.grad()._data.clone() for p in params],
+                             names=[p.name for p in params])
+            if step == 1:
+                lars_on_card(mx, params, moms, g)
+            else:
+                torch.cuda.synchronize()
+                t_upd = time.perf_counter()
+                _lars_commit(mx, params, moms, g)
+                torch.cuda.synchronize()
+                done = time.perf_counter()
+                upd_ms.append((done - t_upd) * 1e3)
+                step_ms.append((done - t) * 1e3)
+            want = {k: int(k == "maxpool_idx_fwd") for k in step_counts}
+            if step_counts != want:
+                raise AssertionError("LARS step %d launched %s, want %s"
+                                     % (step, step_counts, want))
+            for k in counts:
+                counts[k] += step_counts[k]
+            p_np = prob.asnumpy()
+            losses.append(float(-np.log(p_np[np.arange(g["batch"]),
+                                             y.asnumpy().astype(int)]
+                                        + 1e-30).mean()))
+        if not _losses_ok(losses):
+            raise AssertionError("LARS path losses %s" % losses)
+        worst = _lars_against_gluon(first, glu)
+    metrics = dict(lars_step_ms=sum(step_ms) / len(step_ms),
+                   lars_update_ms=sum(upd_ms) / len(upd_ms),
+                   losses=losses, trained=len(params), grad_worst=worst,
+                   gluon_step_ms=gluon_step_ms)
+    print("  steps 2-%d: %s ms, of which the update %s ms; losses %s"
+          % (g["steps"], ["%.2f" % v for v in step_ms],
+             ["%.2f" % v for v in upd_ms], ["%.4f" % v for v in losses]),
+          flush=True)
+    del net, params, moms, x, glu, first
+    torch.cuda.empty_cache()
+    return metrics, counts
+
+
+def _lars_against_gluon(first, glu):
+    """Phase 3w (i): the CustomOp head's first step against the Gluon net's
+    ``SoftmaxCrossEntropyLoss`` step from the same weights and batch:
+    logits bit for bit, each gradient within ``LARS_GRAD_TOL`` of the
+    tensor's largest magnitude, the worst three printed by name; a doubled
+    head gradient misses.  Returns the worst gradient reading."""
+    import torch
+
+    if not torch.equal(first["logits"], glu["logits"]):
+        raise AssertionError("the CustomOp head's logits differ from the "
+                             "Gluon net's")
+    if len(first["grads"]) != len(glu["grads"]):
+        raise AssertionError("%d gradients, Gluon %d"
+                             % (len(first["grads"]), len(glu["grads"])))
+    reads = [_rel_max(a, b) for a, b in zip(first["grads"], glu["grads"])]
+    worst = max(reads)
+    top = sorted(range(len(reads)), key=lambda i: -reads[i])[:3]
+    doubled = max(_rel_max(2 * a, b)
+                  for a, b in zip(first["grads"], glu["grads"]))
+    print("  (i) logits bit for bit the Gluon net's (SoftmaxCrossEntropyLoss); "
+          "%d gradients against its, of each tensor's largest magnitude: "
+          "median %.3e, worst %s (limit %g); a doubled head gradient %.3e "
+          "(misses)" % (
+              len(reads), sorted(reads)[len(reads) // 2],
+              ", ".join("%s %.3e" % (first["names"][i], reads[i])
+                        for i in top), LARS_GRAD_TOL, doubled), flush=True)
+    if worst > LARS_GRAD_TOL:
+        raise AssertionError("CustomOp head gradients over %g: %s"
+                             % (LARS_GRAD_TOL, [(first["names"][i], reads[i])
+                                                for i in top]))
+    if not doubled > LARS_GRAD_TOL:
+        raise AssertionError("the gradient gate passes a doubled head")
+    return worst
+
+
+def _bert_heads(qkv, heads):
+    """(S, B, 3 * H * D) interleaved per head -> q, k, v (B, H, S, D)."""
+    s, b, proj = qkv.shape
+    d = proj // (3 * heads)
+    t = qkv.reshape(s, b, heads, 3, d).permute(1, 2, 3, 0, 4)
+    return t[:, :, 0], t[:, :, 1], t[:, :, 2]
+
+
+def _bert_paths():
+    """(interleaved, flash): self-attention of an interleaved (S, B, 3U)
+    tensor through ``_contrib_interleaved_matmul_selfatt_qk`` ->
+    ``softmax`` -> ``..._valatt``, and through ``_contrib_flash_attention``
+    (K4, K5/K6 backward) on q, k, v taken from it; (S, B, U) out."""
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    ops = registry.OPS
+    h = BERT["heads"]
+
+    def interleaved(qkv):
+        scores = ops["_contrib_interleaved_matmul_selfatt_qk"].fn(qkv,
+                                                                   heads=h)
+        att = ops["softmax"].fn(scores, axis=-1)
+        return ops["_contrib_interleaved_matmul_selfatt_valatt"].fn(
+            qkv, att, heads=h)
+
+    def flash(qkv):
+        q, k, v = _bert_heads(qkv, h)
+        o = ops["_contrib_flash_attention"].fn(q, k, v, causal=False)
+        b, _, s, d = o.shape
+        return o.permute(2, 0, 1, 3).reshape(s, b, h * d)
+
+    return interleaved, flash
+
+
+def _tf32(x):
+    """x (float32) rounded to TF32 as the kernels' ``tf32_bits`` rounds it:
+    to nearest, ties away from zero, onto 10 mantissa bits."""
+    import torch
+
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def _mm_3xtf32_plain(a, b):
+    """a @ b in csrc/flash_attention.cu's 3xTF32 split: each float32
+    operand as hi = tf32(x) and lo = tf32(x - hi), the product as three
+    TF32 products with float32 sums, lo*hi + hi*lo + hi*hi."""
+    import torch
+
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    mm = torch.backends.cuda.matmul
+    keep, mm.allow_tf32 = mm.allow_tf32, True
+    try:
+        return torch.matmul(al, bh) + torch.matmul(ah, bl) + \
+            torch.matmul(ah, bh)
+    finally:
+        mm.allow_tf32 = keep
+
+
+def _mm_3xtf32():
+    """``_mm_3xtf32_plain`` as an autograd function whose two gradient
+    products are in the same split."""
+    import torch
+
+    class Mm(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, b):
+            ctx.save_for_backward(a, b)
+            return _mm_3xtf32_plain(a, b)
+
+        @staticmethod
+        def backward(ctx, g):
+            a, b = ctx.saved_tensors
+            return (_mm_3xtf32_plain(g, b.transpose(-1, -2)),
+                    _mm_3xtf32_plain(a.transpose(-1, -2), g))
+
+    return Mm.apply
+
+
+def _attn_3xtf32(qkv):
+    """The self-attention of ``_bert_paths`` in plain torch with every
+    product, forward and backward, in K4-K6's 3xTF32 split: the kernels'
+    floor."""
+    import torch
+
+    mm = _mm_3xtf32()
+    q, k, v = _bert_heads(qkv, BERT["heads"])
+    b, h, s, d = q.shape
+    att = torch.softmax(mm(q / d ** 0.5, k.transpose(-1, -2)), dim=-1)
+    return mm(att, v).permute(2, 0, 1, 3).reshape(s, b, h * d)
+
+
+def _err64(a, b):
+    return (a.double() - b.double()).abs().max().item()
+
+
+def _attn_read(fn, qkv, cot):
+    """(out, dq, dk, dv) of ``fn`` at ``qkv`` with cotangent ``cot``."""
+    import torch
+
+    x = qkv.detach().clone().requires_grad_(True)
+    out = fn(x)
+    (g,) = torch.autograd.grad((out * cot).sum(), [x])
+    return [out.detach()] + [t.contiguous() for t in _bert_heads(
+        g, BERT["heads"])]
+
+
+def run_bert_attention(dev):
+    """Phase 3w (ii), see the module docstring.  Returns (metrics, launch
+    counts)."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+
+    b = BERT
+    rng = np.random.RandomState(SEED + 25)
+    qkv = torch.tensor(rng.normal(0, 1, (b["seq"], b["batch"],
+                                         3 * b["units"])).astype(np.float32),
+                       device=dev)
+    cot = torch.tensor(rng.uniform(-1, 1, (b["seq"], b["batch"],
+                                           b["units"])).astype(np.float32),
+                       device=dev)
+    interleaved, flash = _bert_paths()
+    names = ("out", "dq", "dk", "dv")
+    with _f32_exact():
+        ref = _attn_read(interleaved, qkv, cot)
+        f64 = _attn_read(interleaved, qkv.double(), cot.double())
+        tc = _attn_read(_attn_3xtf32, qkv, cot)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        got = _attn_read(flash, qkv, cot)
+        counts = _kernels.launch_counts()
+        want = {k: int(k in FLASH) for k in counts}
+        if counts != want:
+            raise AssertionError("the flash comparison launched %s, want %s"
+                                 % (counts, want))
+        # (name, K4-K6 against f64, the kernels' floor, K4-K6 against the
+        # interleaved f32 path, that path's f64 floor)
+        rows = [(n, _err64(g, d), _err64(t, d), _err64(g, r), _err64(r, d))
+                for n, r, g, t, d in zip(names, ref, got, tc, f64)]
+        if not _err64(2 * got[0], f64[0]) > 4 * rows[0][2]:
+            raise AssertionError("the attention gate passes a doubled output")
+
+        def fwd_bwd(fn):
+            x = qkv.detach().requires_grad_(True)
+            torch.autograd.grad((fn(x) * cot).sum(), [x])
+
+        inter_ms = _time_ms(lambda: fwd_bwd(interleaved), b["reps"])
+        flash_ms = _time_ms(lambda: fwd_bwd(flash), b["reps"])
+    for n, err, floor, err32, floor32 in rows:
+        print("  (ii) %-3s K4-K6 against f64 %.3e, the plain path in 3xTF32 "
+              "against f64 %.3e: %.2fx it (limit 4x); K4-K6 against the "
+              "interleaved f32 path %.3e, %.2fx that path's f64 floor %.3e"
+              % (n, err, floor, err / floor, err32, err32 / floor32, floor32),
+              flush=True)
+    print("  (ii) a doubled output misses; K4, K5, K6 once each", flush=True)
+    for n, err, floor, _, _ in rows:
+        if not err <= 4 * floor:
+            raise AssertionError("BERT attention %s: K4-K6 %g from f64, over "
+                                 "4x the 3xTF32 floor %g" % (n, err, floor))
+    return dict(interleaved_attn_ms=inter_ms, flash_attn_ms=flash_ms), counts
+
+
+def _rpn_inputs(batch, seed):
+    """Seeded RPN head outputs at ``RPN``'s map: (cls_prob (N, 18, H, W)
+    with each anchor's background and foreground summing to 1, bbox_pred
+    (N, 36, H, W), im_info (N, 3))."""
+    import math
+
+    import numpy as np
+
+    r = RPN
+    fh = math.ceil(r["image"][0] / r["stride"])
+    fw = math.ceil(r["image"][1] / r["stride"])
+    a = len(r["scales"]) * len(r["ratios"])
+    rng = np.random.RandomState(seed)
+    fg = rng.rand(batch, a, fh, fw).astype(np.float32)
+    cls = np.concatenate([1 - fg, fg], axis=1)
+    bbox = rng.normal(0, 0.2, (batch, 4 * a, fh, fw)).astype(np.float32)
+    info = np.tile(np.array([[r["image"][0], r["image"][1], 1.0]],
+                            np.float32), (batch, 1))
+    return cls, bbox, info
+
+
+def run_proposal(dev):
+    """Phase 3w (iii), see the module docstring.  Returns the metrics."""
+    import torch
+
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    r = RPN
+    fn = registry.OPS["_contrib_Proposal"].fn
+    attrs = dict(rpn_pre_nms_top_n=r["pre"], rpn_post_nms_top_n=r["post"],
+                 threshold=r["threshold"], rpn_min_size=r["min_size"],
+                 scales=r["scales"], ratios=r["ratios"],
+                 feature_stride=r["stride"], output_score=True)
+    before = _kernels.launch_counts()
+    out = {}
+    for label, batch in (("Proposal", 1), ("MultiProposal", 2)):
+        arrays = _rpn_inputs(batch, SEED + 26)
+        card = [t.cpu() for t in fn(*[torch.tensor(a, device=dev)
+                                      for a in arrays], **attrs)]
+        cpu = fn(*[torch.tensor(a) for a in arrays], **attrs)
+        moved = int((card[0] != cpu[0]).any(dim=1).sum())
+        same_scores = torch.equal(card[1], cpu[1])
+        print("  (iii) %s: map %s, %d anchors a position, batch %d: %d rois "
+              "(%d distinct), %d rows differ card against CPU, scores %s"
+              % (label, tuple(arrays[0].shape[2:]), arrays[0].shape[1] // 2,
+                 batch, card[0].shape[0], len(torch.unique(card[0], dim=0)),
+                 moved, "equal" if same_scores else "DIFFER"), flush=True)
+        if moved or not same_scores:
+            raise AssertionError("%s: rois or scores differ card against CPU"
+                                 % label)
+        ts = [torch.tensor(a, device=dev) for a in arrays]
+        out[label.lower() + "_ms"] = _time_ms(lambda: fn(*ts, **attrs),
+                                              r["reps"])
+    if _kernels.launch_counts() != before:
+        raise AssertionError("Proposal launched a kernel")
+    return out
+
+
+def _w_cases(rng):
+    """(label, op name, arrays, attrs) of phase 3w (iv): every new name but
+    the samplers and ``Custom`` (checked apart), at moderate shapes;
+    index inputs are integers (not nudged)."""
+    import numpy as np
+
+    def n(*shape):
+        return rng.normal(0, 1, shape).astype(np.float32)
+
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def i(hi, *shape):
+        return rng.randint(0, hi, shape).astype(np.int64)
+
+    w16 = u(0, 1, 64, 256).astype(np.float16)
+    hawkes_k, hawkes_n, hawkes_t = 4, 64, 48
+    lags = rng.exponential(0.5, (hawkes_n, hawkes_t)).astype(np.float32)
+    anchors = np.sort(u(0, 1, 4, 256, 4).reshape(4, 256, 2, 2), axis=2
+                      ).transpose(0, 1, 3, 2).reshape(4, 256, 4)
+    rois = np.concatenate([np.zeros((32, 1), np.float32),
+                           np.sort(u(0, 60, 32, 2, 2), axis=1).reshape(
+                               32, 4)], axis=1)
+    cases = [(nm, nm, [n(64, 256), n(64, 256)], {})
+             for nm in ("equal", "not_equal", "greater", "greater_equal",
+                        "less", "less_equal", "_grad_add", "_hypot")]
+    cases += [(nm, nm, [n(64, 256)], dict(scalar=s)) for nm, s in (
+        ("_scatter_plus_scalar", 1.5), ("_scatter_minus_scalar", 1.5),
+        ("_logical_and_scalar", 2.0), ("_logical_or_scalar", 0.0),
+        ("_logical_xor_scalar", 1.0), ("_hypot_scalar", 0.75))]
+    cases += [
+        ("BatchNorm_v1", "BatchNorm_v1", [n(8, 32, 16, 16), u(0.5, 1.5, 32),
+                                          n(32), n(32), u(0.5, 1.5, 32)],
+         dict(fix_gamma=False)),
+        ("moments", "moments", [n(8, 64, 32) + 3], dict(axes=(0, 2))),
+        ("reshape_like", "reshape_like", [n(64, 256), n(128, 128)], {}),
+        ("softmax_cross_entropy", "softmax_cross_entropy",
+         [n(256, 1000), i(1000, 256)], {}),
+        ("_histogram", "_histogram", [n(64, 256)], dict(bin_cnt=50)),
+        ("histogram", "histogram", [n(64, 256)],
+         dict(bin_cnt=20, range=(-2.0, 2.0))),
+        ("_ravel_multi_index", "_ravel_multi_index",
+         [np.stack([i(64, 4096), i(32, 4096), i(16, 4096)])],
+         dict(shape=(64, 32, 16))),
+        ("_unravel_index", "_unravel_index", [i(64 * 32 * 16, 4096)],
+         dict(shape=(64, 32, 16))),
+        ("_slice_assign", "_slice_assign", [n(64, 256), n(16, 64)],
+         dict(begin=(8, 0), end=(40, 256), step=(2, 4))),
+        ("_slice_assign_scalar", "_slice_assign_scalar", [n(64, 256)],
+         dict(scalar=3.0, begin=(60, 250), end=(2, 10), step=(-3, -4))),
+        ("_split_v2", "_split_v2", [n(64, 256)], dict(indices=(50, 130),
+                                                       axis=1)),
+        ("_identity_with_attr_like_rhs", "_identity_with_attr_like_rhs",
+         [n(64, 256), n(3)], {}),
+        ("_np_all", "_np_all", [np.round(u(0, 1.2, 64, 256))],
+         dict(axis=1)),
+        ("all", "all", [u(0.1, 1, 64, 256)], {}),
+        ("_np_any", "_np_any", [np.round(u(0, 0.51, 64, 256))],
+         dict(axis=(0,), keepdims=True)),
+        ("any", "any", [np.zeros((8, 8), np.float32)], {}),
+        ("im2col", "im2col", [n(8, 16, 32, 32)],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1))),
+        ("col2im", "col2im", [n(8, 16 * 9, 256)],
+         dict(output_size=(32, 32), kernel=(3, 3), stride=(2, 2),
+              pad=(1, 1))),
+        ("_contrib_round_ste", "_contrib_round_ste", [n(64, 256) * 3], {}),
+        ("_contrib_sign_ste", "_contrib_sign_ste", [n(64, 256)], {}),
+        ("_contrib_gradientmultiplier", "_contrib_gradientmultiplier",
+         [n(64, 256)], dict(scalar=-0.25)),
+        ("_contrib_quadratic", "_contrib_quadratic", [n(64, 256)],
+         dict(a=0.5, b=-1.0, c=2.0)),
+        ("_npx_quadratic", "_npx_quadratic", [n(64, 256)], dict(a=1.5)),
+        ("_contrib_allclose", "_contrib_allclose", [n(64, 256), n(64, 256)],
+         {}),
+        ("_contrib_arange_like", "_contrib_arange_like", [n(64, 256)],
+         dict(start=-5.0, step=0.25, repeat=3)),
+        ("_contrib_getnnz", "_contrib_getnnz",
+         [np.round(u(0, 1, 64, 256))], dict(axis=1)),
+        ("_contrib_box_encode", "_contrib_box_encode",
+         [np.round(u(0, 1, 4, 256)), i(256, 4, 256), anchors,
+          anchors[:, ::-1].copy()], {}),
+        ("_contrib_box_decode", "_contrib_box_decode",
+         [n(4, 256, 4) * 0.3, anchors], dict(clip=0.9)),
+        ("multi_sum_sq", "multi_sum_sq", [n(64, 256), n(1000),
+                                          n(8, 3, 3, 3)],
+         dict(num_arrays=3)),
+        ("reset_arrays", "reset_arrays", [n(64, 256), n(1000)],
+         dict(num_arrays=2)),
+        ("multi_lars", "multi_lars", [u(0.05, 0.2, 161), u(0, 40, 161),
+                                      u(0, 4, 161)],
+         dict(wds=(1e-4,) * 161, eta=0.001)),
+        ("mp_nag_mom_update", "mp_nag_mom_update",
+         [w16, n(64, 256).astype(np.float16), n(64, 256),
+          w16.astype(np.float32)], dict(lr=0.1, momentum=0.9, wd=1e-4)),
+        ("mp_lamb_update_phase1", "mp_lamb_update_phase1",
+         [w16, n(64, 256).astype(np.float16), n(64, 256) * 0.1,
+          u(0, 1, 64, 256), w16.astype(np.float32)],
+         dict(t=5, wd=0.01)),
+        ("mp_lamb_update_phase2", "mp_lamb_update_phase2",
+         [w16, n(64, 256), u(1, 2, 1), u(0.5, 1, 1),
+          w16.astype(np.float32)], dict(lr=0.01)),
+        ("_mp_adamw_update", "_mp_adamw_update",
+         [w16, n(64, 256).astype(np.float16), n(64, 256) * 0.1,
+          u(0, 1, 64, 256), w16.astype(np.float32)],
+         dict(lr=0.01, wd=0.01)),
+        ("preloaded_multi_sgd_update", "preloaded_multi_sgd_update",
+         [n(64, 256), n(64, 256), n(1000), n(1000), u(0, 0.1, 2),
+          u(0, 1e-3, 2)], dict(num_weights=2)),
+        ("preloaded_multi_sgd_mom_update", "preloaded_multi_sgd_mom_update",
+         [n(64, 256), n(64, 256), n(64, 256), n(1000), n(1000), n(1000),
+          u(0, 0.1, 2), u(0, 1e-3, 2)], dict(num_weights=2, momentum=0.9)),
+        ("preloaded_multi_mp_sgd_update", "preloaded_multi_mp_sgd_update",
+         [w16, n(64, 256).astype(np.float16), w16.astype(np.float32),
+          u(0, 0.1, 1), u(0, 1e-3, 1)], dict(num_weights=1)),
+        ("preloaded_multi_mp_sgd_mom_update",
+         "preloaded_multi_mp_sgd_mom_update",
+         [w16, n(64, 256).astype(np.float16), n(64, 256),
+          w16.astype(np.float32), u(0, 0.1, 1), u(0, 1e-3, 1)],
+         dict(num_weights=1, momentum=0.9)),
+        ("_contrib_group_adagrad_update", "_contrib_group_adagrad_update",
+         [n(64, 256), n(64, 256), u(0, 1, 64)], dict(lr=0.05)),
+        ("IdentityAttachKLSparseReg", "IdentityAttachKLSparseReg",
+         [u(0.05, 0.95, 64, 256)], dict(sparseness_target=0.2,
+                                         penalty=0.01)),
+        ("_contrib_hawkesll", "_contrib_hawkesll",
+         [u(0.1, 0.5, hawkes_k), u(0.1, 0.4, hawkes_k), u(0.5, 2, hawkes_k),
+          lags, i(hawkes_k, hawkes_n, hawkes_t),
+          rng.randint(1, hawkes_t + 1, hawkes_n).astype(np.int64),
+          lags.sum(1) + 1.0], {}),
+        ("GridGenerator-affine", "GridGenerator", [n(8, 6)],
+         dict(transform_type="affine", target_shape=(32, 48))),
+        ("GridGenerator-warp", "GridGenerator", [n(8, 2, 32, 48)],
+         dict(transform_type="warp")),
+        ("BilinearSampler", "BilinearSampler", [n(8, 16, 32, 32),
+                                                u(-1.1, 1.1, 8, 2, 24, 24)],
+         {}),
+        ("SpatialTransformer", "SpatialTransformer",
+         [n(8, 16, 32, 32), np.tile(np.array([[0.9, 0.1, 0.05, -0.1, 0.8,
+                                               0.0]], np.float32), (8, 1))
+          + n(8, 6) * 0.05], dict(target_shape=(24, 24))),
+        ("Crop", "Crop", [n(8, 16, 32, 32), n(8, 1, 20, 24)],
+         dict(num_args=2, center_crop=True)),
+        ("Correlation", "Correlation", [n(4, 32, 24, 32), n(4, 32, 24, 32)],
+         dict(kernel_size=3, max_displacement=4, stride2=2, pad_size=4)),
+        ("Correlation-absdiff", "Correlation", [n(4, 16, 24, 32),
+                                                n(4, 16, 24, 32)],
+         dict(kernel_size=1, max_displacement=2, is_multiply=False)),
+        ("DeformablePSROIPooling", "_contrib_DeformablePSROIPooling",
+         [n(4, 2 * 9, 16, 16), rois, n(32, 2, 3, 3)],
+         dict(spatial_scale=0.25, output_dim=2, group_size=3, pooled_size=3,
+              part_size=3, sample_per_part=2, trans_std=0.1)),
+        ("SyncBatchNorm", "_contrib_SyncBatchNorm",
+         [n(8, 32, 16, 16), u(0.5, 1.5, 32), n(32), n(32), u(0.5, 1.5, 32)],
+         dict(fix_gamma=False, ndev=2, key="bn")),
+        ("div_sqrt_dim", "_contrib_div_sqrt_dim", [n(64, 8, 96)], {}),
+        ("interleaved_matmul_encdec_qk",
+         "_contrib_interleaved_matmul_encdec_qk",
+         [n(40, 4, 4 * 32), n(56, 4, 4 * 32 * 2)], dict(heads=4)),
+        ("interleaved_matmul_encdec_valatt",
+         "_contrib_interleaved_matmul_encdec_valatt",
+         [n(56, 4, 4 * 32 * 2), u(0, 0.05, 16, 40, 56)], dict(heads=4)),
+        ("fft", "_contrib_fft", [n(64, 256)], {}),
+        ("ifft", "_contrib_ifft", [n(64, 512)], {}),
+        ("count_sketch", "_contrib_count_sketch",
+         [n(64, 256), i(100, 1, 256), np.sign(n(1, 256))],
+         dict(out_dim=100)),
+        ("boolean_mask", "_contrib_boolean_mask",
+         [n(256, 64), i(2, 256)], {}),
+        ("index_copy", "_contrib_index_copy",
+         [n(256, 64), rng.permutation(256)[:64].astype(np.int64),
+          n(64, 64)], {}),
+        ("index_array", "_contrib_index_array", [n(16, 32, 8)],
+         dict(axes=(2, 0))),
+        ("_zeros_without_dtype", "_zeros_without_dtype", [],
+         dict(shape=(64, 256))),
+    ]
+    return cases
+
+
+def tail_w_card_vs_cpu(dev):
+    """Phase 3w (iv), see the module docstring.  Returns the number of
+    cases."""
+    import numpy as np
+    import torch
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import _kernels
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(SEED + 27)
+    rows, controls, misses = [], 0, []
+    before = _kernels.launch_counts()
+    with _f32_exact():
+        for label, opname, arrays, attrs in _w_cases(rng):
+            op = registry.get_op(opname)
+            if not arrays:
+                a = op.fn(ctx=dev, **attrs).cpu()
+                b = op.fn(ctx="cpu", **attrs)
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    misses.append("%s differs" % label)
+                rows.append((label, 0.0))
+                continue
+
+            def fn_of(_, fn=op.fn, attrs=attrs):
+                return lambda *ts: fn(*ts, **attrs)
+
+            # every case is held; the misses are reported together
+            held = []
+            try:
+                _, worst = _card_vs_cpu(label, fn_of, arrays, dev,
+                                        controls=held)
+            except AssertionError as exc:
+                misses.append(str(exc))
+                continue
+            rows.append((label, worst))
+            controls += len(held)
+        # Custom: eager, recorded, and through mx.sym into an Executor
+        rows += _custom_card_vs_cpu(mx, dev)
+    if misses:
+        raise AssertionError("phase 3w (iv): %d of %d cases miss: %s"
+                             % (len(misses), len(rows) + len(misses),
+                                "; ".join(misses)))
+    launched = {k: v - before[k] for k, v in _kernels.launch_counts().items()
+                if v != before[k]}
+    if launched:
+        raise AssertionError("phase 3w (iv) launched %s" % launched)
+    moments = _w_samplers_on_card(mx, dev)
+    worst = max(rows, key=lambda r: r[1])
+    print("  (iv) %d cases (every new name but the samplers, Proposal and "
+          "the self-attention matmuls), forward and backward, card against "
+          "CPU within 4x the CPU's 1e-6-nudged floor (worst %s at %.3fx), "
+          "%d controls (zeroed, doubled, negated) missing; no kernel "
+          "launched; %d samplers' draws on the card within 6 standard "
+          "errors of their mean and variance" % (
+              len(rows), worst[0], worst[1], controls, moments), flush=True)
+    return len(rows)
+
+
+#: name -> (attrs, mean, variance) of the *_like samplers on the card
+W_SAMPLERS = {
+    "_random_uniform_like": (dict(low=2.0, high=3.0), 2.5, 1.0 / 12),
+    "_random_normal_like": (dict(loc=5.0, scale=0.1), 5.0, 0.01),
+    "_random_exponential_like": (dict(lam=4.0), 0.25, 1.0 / 16),
+    "_random_gamma_like": (dict(alpha=3.0, beta=0.5), 1.5, 0.75),
+    "_random_poisson_like": (dict(lam=3.5), 3.5, 3.5),
+    "_random_negative_binomial_like": (dict(k=4, p=0.4), 6.0, 15.0),
+    "_random_generalized_negative_binomial_like": (
+        dict(mu=2.0, alpha=0.5), 2.0, 4.0),
+}
+
+
+def _w_samplers_on_card(mx, dev):
+    """The ``*_like`` samplers drawn on the card (shape, dtype, device, and
+    1M draws within 6 standard errors of their mean and variance), and
+    ``_sample_unique_zipfian``'s candidates on the card, distinct."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch.ops import registry
+
+    mx.random.seed(SEED)
+    base = torch.zeros((1000, 1000), device=dev)
+    for name, (attrs, mean, var) in W_SAMPLERS.items():
+        x = registry.OPS[name].fn(base, **attrs)
+        if x.device != dev or x.shape != base.shape or x.dtype != base.dtype:
+            raise AssertionError("%s drew %s %s on %s" % (name, x.dtype,
+                                                          tuple(x.shape),
+                                                          x.device))
+        x = x.double()
+        m, v = float(x.mean()), float(x.var(unbiased=False))
+        nn = x.numel()
+        if not (abs(m - mean) <= 6 * np.sqrt(var / nn)
+                and abs(v - var) <= 6 * np.sqrt(8 * var * var / nn)):
+            raise AssertionError("%s on the card: mean %g var %g, want %g %g"
+                                 % (name, m, v, mean, var))
+    cand, trials = registry.OPS["_sample_unique_zipfian"].fn(
+        range_max=50000, shape=(4096,), ctx=dev)
+    if cand.device != dev or len(torch.unique(cand)) != 4096 \
+            or int(cand.max()) >= 50000 or int(trials[0]) < 4096:
+        raise AssertionError("_sample_unique_zipfian on the card")
+    return len(W_SAMPLERS) + 1
+
+
+CUSTOM_OP = "chip_smoke_twoout"
+
+
+def _custom_ops(mx):
+    """A CustomOp in nd ops (once): ``chip_smoke_twoout`` (x * sigmoid(x)
+    and x^2 / 2, two outputs) for the eager, recorded and symbolic
+    checks."""
+    if CUSTOM_OP in mx.operator.get_all_registered():
+        return CUSTOM_OP
+
+    class TwoOut(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0]
+            self.assign(out_data[0], req[0], x * mx.nd.sigmoid(x))
+            self.assign(out_data[1], req[1], x * x * 0.5)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            x = in_data[0]
+            s = mx.nd.sigmoid(x)
+            self.assign(in_grad[0], req[0], out_grad[0] * (s + x * s * (1 - s))
+                        + out_grad[1] * x)
+
+    @mx.operator.register(CUSTOM_OP)
+    class TwoOutProp(mx.operator.CustomOpProp):
+        def list_outputs(self):
+            return ["swish", "half_square"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0], in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return TwoOut()
+
+    return CUSTOM_OP
+
+
+def _custom_card_vs_cpu(mx, dev):
+    """``Custom`` with two outputs card against CPU: eager (outputs equal
+    the nd expression's on the same device), recorded (outputs and the
+    input gradient within 4x the nudged floor, with the controls) and
+    through ``mx.sym`` into an ``Executor`` (forward and backward equal
+    the recorded call's on the same device).  Returns the rows."""
+    import numpy as np
+    import torch
+
+    from incubator_mxnet_tpu_torch import autograd, context
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+
+    op_type = _custom_ops(mx)
+    x = np.random.RandomState(SEED + 28).normal(0, 1, (64, 256)).astype(
+        np.float32)
+
+    def fn_of(device):
+        def run(t):
+            a = NDArray(t)
+            with context.device_scope(device):
+                if t.requires_grad:
+                    with autograd.record():
+                        out = mx.nd.Custom(a, op_type=op_type)
+                else:
+                    out = mx.nd.Custom(a, op_type=op_type)
+            return [o._data for o in out]
+        return run
+
+    rows = [("Custom (recorded)", _card_vs_cpu("Custom", fn_of, [x], dev,
+                                                controls=[])[1])]
+    xt = mx.nd.array(x, ctx=dev)
+    eager = mx.nd.Custom(xt, op_type=op_type)
+    want = [xt * mx.nd.sigmoid(xt), xt * xt * 0.5]
+    for a, b in zip(eager, want):
+        if a.context != dev or not torch.equal(a._data, b._data):
+            raise AssertionError("Custom eager on the card differs from its "
+                                 "nd expression")
+    sym = mx.sym.Custom(mx.sym.Variable("data"), op_type=op_type, name="two")
+    if sym.list_outputs() != ["two_output0", "two_output1"]:
+        raise AssertionError("Custom composed %s" % sym.list_outputs())
+    exe = sym.bind(dev, {"data": mx.nd.array(x, ctx=dev)},
+                   args_grad={"data": mx.nd.zeros(x.shape, ctx=dev)})
+    outs = exe.forward(is_train=True)
+    heads = [mx.nd.ones(x.shape, ctx=dev), mx.nd.full(x.shape, 0.5, ctx=dev)]
+    exe.backward(heads)
+    v = mx.nd.array(x, ctx=dev)
+    v.attach_grad()
+    with autograd.record():
+        rec = mx.nd.Custom(v, op_type=op_type)
+        loss = (rec[0] * heads[0]).sum() + (rec[1] * heads[1]).sum()
+    loss.backward()
+    if not (all(torch.equal(a._data, b._data) for a, b in zip(outs, rec))
+            and torch.equal(exe.grad_dict["data"]._data, v.grad._data)):
+        raise AssertionError("Custom through the Executor differs from the "
+                             "recorded call on the card")
+    rows.append(("Custom (eager, Executor)", 0.0))
+    return rows
+
+
 def main(argv=None):
     import argparse
 
@@ -8913,6 +9848,41 @@ def main(argv=None):
     np_card_vs_cpu(dev, **NP_SMALL)
     np_surface_card_vs_cpu(dev)
     print("[3v] phase wall time %.2f s" % (time.perf_counter() - t_np),
+          flush=True)
+
+    print("[3w] the op registry's tail: (i) LARS on %s (stock BN, %d "
+          "classes), batch %d, %d px, f32, TF32 off, a CustomOp softmax "
+          "head, %d steps of multi_sum_sq, multi_lars and "
+          "preloaded_multi_sgd_mom_update; (ii) BERT-base self-attention "
+          "(%d units, %d heads, seq %d, batch %d) through the interleaved "
+          "matmuls against K4-K6; (iii) the RPN's Proposal on a %dx%d image "
+          "(pre-NMS %d, post-NMS %d); (iv) every other new name card "
+          "against CPU" % (
+              LARS["model"], LARS["classes"], LARS["batch"], LARS["image"],
+              LARS["steps"], BERT["units"], BERT["heads"], BERT["seq"],
+              BERT["batch"], RPN["image"][0], RPN["image"][1], RPN["pre"],
+              RPN["post"]), flush=True)
+    t_w = time.perf_counter()
+    lars, lars_counts = run_lars_path(dev, gl["gluon_step_ms"])
+    counts["maxpool_idx_fwd"] += lars_counts["maxpool_idx_fwd"]
+    print("[3w] lars_step_ms %.2f (mean of steps 2-%d; TF32 off, cuDNN "
+          "deterministic)  the update %.2f ms of it (%.1f %%)  phase 3g's "
+          "gluon_step_ms %.2f  K3 launches %d in %d steps  on %s"
+          % (lars["lars_step_ms"], LARS["steps"], lars["lars_update_ms"],
+             100.0 * lars["lars_update_ms"] / lars["lars_step_ms"],
+             gl["gluon_step_ms"], lars_counts["maxpool_idx_fwd"],
+             LARS["steps"], card), flush=True)
+    bert, bert_counts = run_bert_attention(dev)
+    counts.update({name: counts[name] + bert_counts[name] for name in FLASH})
+    print("[3w] interleaved_attn_ms %.3f (forward + backward, TF32 off)  "
+          "K4-K6 on the same q, k, v %.3f  on %s"
+          % (bert["interleaved_attn_ms"], bert["flash_attn_ms"], card),
+          flush=True)
+    rpn = run_proposal(dev)
+    print("[3w] proposal_ms %.3f  multiproposal_ms (batch 2) %.3f  on %s"
+          % (rpn["proposal_ms"], rpn["multiproposal_ms"], card), flush=True)
+    tail_w_card_vs_cpu(dev)
+    print("[3w] phase wall time %.2f s" % (time.perf_counter() - t_w),
           flush=True)
 
     print("[4] kernel times (K1/K2 summed over one step's 53 layers and K3 "

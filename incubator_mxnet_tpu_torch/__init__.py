@@ -23,13 +23,15 @@ detection: the multibox, NMS and ROI ops (``mx.nd.contrib``,
 ``mx.io.ImageDetRecordIter``; and int8: the quantization ops and
 ``mx.contrib.quantization`` (BN folding, the graph rewrite, calibration);
 and the NumPy frontend: ``mx.np`` (with ``linalg`` and ``random``),
-``mx.npx`` and ``mx.util``'s NumPy-semantics switches.
+``mx.npx`` and ``mx.util``'s NumPy-semantics switches; and
+``mx.operator``: custom operators written in Python, run by the
+``Custom`` op.
 """
 from . import ops  # noqa: F401  (first: parallel.train_step imports ndarray)
 from . import (attribute, autograd, callback, context, contrib, executor,
                gluon, image, initializer, io, kvstore, lr_scheduler, metric,
-               model, module, monitor, name, ndarray, optimizer, parallel,
-               random, recordio, rnn, rtc, symbol, tracing, util)
+               model, module, monitor, name, ndarray, operator, optimizer,
+               parallel, random, recordio, rnn, rtc, symbol, tracing, util)
 from . import numpy as np  # noqa: A004  (mx.np)
 from . import numpy_extension as npx
 from . import initializer as init
@@ -44,7 +46,7 @@ from .util import is_np_array, reset_np, set_np
 __all__ = ["attribute", "autograd", "callback", "context", "contrib",
            "executor", "gluon", "image", "init", "initializer", "io", "kv",
            "kvstore", "lr_scheduler", "metric", "mod", "model", "module", "monitor",
-           "name", "ndarray", "nd", "optimizer", "parallel", "random",
+           "name", "ndarray", "nd", "operator", "optimizer", "parallel", "random",
            "recordio", "rnn", "rtc", "sym", "symbol", "tracing", "cpu", "gpu",
            "NDArray", "np", "npx", "util", "is_np_array", "reset_np",
            "set_np"]

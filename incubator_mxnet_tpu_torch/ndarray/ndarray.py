@@ -184,8 +184,10 @@ class NDArray:
     # ------------------------------------------------------------ arithmetic
     def _binop(self, other, opname, reverse=False):
         if isinstance(other, (int, float, bool, np.number)):
-            other = NDArray(torch.tensor(other, dtype=self._data.dtype,
-                                         device=self._data.device))
+            # a fill on the device, not a copy from the host: a CUDA graph
+            # can capture it
+            other = NDArray(torch.full((), other, dtype=self._data.dtype,
+                                       device=self._data.device))
         lhs, rhs = (other, self) if reverse else (self, other)
         return _reg.invoke(opname, [lhs, rhs])
 

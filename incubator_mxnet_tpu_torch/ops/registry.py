@@ -38,7 +38,7 @@ import torch
 from .. import context
 
 __all__ = ["Op", "register", "alias", "get_op", "invoke", "OPS", "AMP_POLICY",
-           "amp_cast_inputs"]
+           "amp_cast_inputs", "list_ops", "op_info", "op_doc"]
 
 OPS: Dict[str, "Op"] = {}
 
@@ -121,6 +121,78 @@ def get_op(name: str) -> Op:
     except KeyError:
         raise NotImplementedError(
             "operator %r is not registered in the port" % name) from None
+
+
+def list_ops():
+    """Every registered name, aliases included, sorted."""
+    return sorted(OPS.keys())
+
+
+def _dmlc_type_name(default):
+    """A Python default as a ``dmlc::Parameter`` field-type name."""
+    if isinstance(default, bool):
+        return "boolean"
+    if isinstance(default, int):
+        return "int"
+    if isinstance(default, float):
+        return "float"
+    if isinstance(default, str):
+        return "string"
+    if isinstance(default, (tuple, list)):
+        return "Shape(tuple)"
+    if default is None:
+        return "string or None"
+    return type(default).__name__
+
+
+def op_info(name):
+    """An op's ``dmlc::Parameter``-style schema, from the signature of its
+    ``fn`` (the reference's ``op_info``): name, description, inputs
+    [(name, type)], arguments [(name, type, default repr or None)],
+    num_outputs and aliases.  Which parameters are tensor inputs is the
+    symbol layer's rule, so composition and reflection agree."""
+    from ..symbol.symbol import _input_arg_names
+
+    op = get_op(name)
+    in_names = _input_arg_names(op)
+    inputs, arguments = [], []
+    for p in inspect.signature(op.fn).parameters.values():
+        if p.kind == p.VAR_POSITIONAL:
+            inputs.append((p.name, "NDArray[]"))
+        elif p.kind == p.VAR_KEYWORD:
+            continue
+        elif in_names is not None and p.name in in_names:
+            inputs.append((p.name, "NDArray" if p.default is p.empty
+                           else "NDArray, optional"))
+        elif p.default is p.empty:
+            if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD):
+                inputs.append((p.name, "NDArray"))
+            else:
+                arguments.append((p.name, "required", None))
+        else:
+            arguments.append((p.name, "%s, optional"
+                              % _dmlc_type_name(p.default), repr(p.default)))
+    return {"name": op.name, "description": (op.doc or "").strip(),
+            "inputs": inputs, "arguments": arguments,
+            "num_outputs": op.num_outputs, "aliases": list(op.aliases)}
+
+
+def op_doc(name):
+    """``op_info`` rendered as the reference's docstring text."""
+    info = op_info(name)
+    lines = [info["name"], ""]
+    if info["description"]:
+        lines += [info["description"], ""]
+    if info["inputs"]:
+        lines.append("Inputs:")
+        lines += ["    %s : %s" % (n, t) for n, t in info["inputs"]]
+        lines.append("")
+    if info["arguments"]:
+        lines.append("Parameters:")
+        lines += ["    %s : %s%s" % (n, t, "" if d is None
+                                      else ", default=%s" % d)
+                  for n, t, d in info["arguments"]]
+    return "\n".join(lines)
 
 
 # contrib.amp's cast policy (the reference's ops/registry.py AMP_POLICY):

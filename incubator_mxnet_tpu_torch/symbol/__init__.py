@@ -39,13 +39,19 @@ _NULL_NODE = _Node(None, "__null__")
 
 def _compose_num_outputs(opname, attrs):
     """A new node's outputs, from the op's registration or its attributes
-    (inference corrects a node loaded without them)."""
+    (inference corrects a node loaded without them).  A ``Custom`` node
+    has its prop's outputs."""
+    if opname == "Custom":
+        from ..operator import custom_num_outputs
+
+        return custom_num_outputs(attrs.get("op_type"), {
+            k: v for k, v in attrs.items() if k != "op_type"})
     op = _reg.OPS.get(opname)
-    if op is not None and op.num_outputs > 1:
+    if op is not None and (op.num_outputs or 1) > 1:
         return op.num_outputs
     if opname in ("SliceChannel", "split"):
         return int(attrs.get("num_outputs", 2))
-    if opname == "split_v2":
+    if opname in ("split_v2", "_split_v2"):
         sections = int(attrs.get("sections", 0))
         return sections if sections else len(attrs.get("indices", ())) + 1
     if opname == "topk" and attrs.get("ret_typ") == "both":

@@ -67,6 +67,14 @@ relative, parameters 1e-5), TF32 off.  The op tail, the rest of
 quarter of its batch (4x the CPU's 1e-6-nudged floor, integer outputs
 equal), and one ``amp.init('bfloat16')`` step of the Gluon example's
 loop at ``resnet18_v1``, 32 px, card against CPU (phase 3u (i)'s gate).
+The last of the op registry: ``chip_smoke.py`` phase 3w (iv) (every new
+name of ``ops/parity_tail.py`` and ``ops/contrib_tail.py`` card against
+CPU within 4x the CPU's 1e-6-nudged floor, integer outputs equal, the
+controls missing) and (iii) at a small map (``Proposal``'s rois and
+scores equal); ``Custom`` on the card: callbacks get card arrays, eager,
+recorded and ``Executor`` calls agree, a net with an nd-written
+``Custom`` is captured by ``ServeEngine`` and replays equal to its eager
+forward, and a callback that reads to the host fails the capture.
 """
 import importlib
 
@@ -2024,3 +2032,120 @@ def test_np_surface_on_card_matches_cpu(dev):
     samplers' moments on the card."""
     assert _smoke().np_surface_card_vs_cpu(dev) > 300
 
+
+
+def test_op_registry_tail_on_card_matches_cpu(dev):
+    """``chip_smoke.py`` phase 3w (iv) whole and (iii) at a 200x300
+    image: every new name card against CPU, Proposal and MultiProposal
+    equal."""
+    smoke = _smoke()
+    assert smoke.tail_w_card_vs_cpu(dev) > 70
+    smoke.RPN.update(image=(200, 300), pre=500, post=50, reps=1)
+    smoke.run_proposal(dev)
+
+
+_CAPTURE_HOST_READ = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch import context, gluon, initializer
+from incubator_mxnet_tpu_torch.gluon import nn
+from incubator_mxnet_tpu_torch.serve import ServeEngine
+
+
+class HostSqr(mx.operator.CustomOp):
+    def forward(self, is_train, req, in_data, out_data, aux):
+        self.assign(out_data[0], req[0], np.square(np.asarray(in_data[0])))
+
+
+@mx.operator.register("host_sqr")
+class HostSqrProp(mx.operator.CustomOpProp):
+    def create_operator(self, ctx, shapes, dtypes):
+        return HostSqr()
+
+
+class Net(gluon.HybridBlock):
+    def __init__(self):
+        super().__init__()
+        self.fc = nn.Dense(8, in_units=6)
+
+    def hybrid_forward(self, F, x):
+        return F.Custom(self.fc(x), op_type="host_sqr")
+
+
+with context.device_scope("cuda"):
+    net = Net()
+initializer.initialize(net, initializer.Xavier())
+eng = ServeEngine(net, buckets=(4,))
+eng.warmup(np.zeros(6, np.float32))
+print("CAPTURED")
+"""
+
+
+def test_custom_op_on_card(dev):
+    """``Custom`` on the card: its callbacks get NDArrays on the card;
+    eager, recorded and ``Executor`` calls agree (``chip_smoke.py``'s
+    ``_custom_card_vs_cpu``).  Under ``ServeEngine``'s CUDA-graph capture
+    a ``Custom`` written in nd ops is captured (its Python runs once, at
+    capture) and the replay equals the eager forward; one whose callback
+    reads to the host (``np.asarray``) cannot be captured: the warmup
+    raises (run in a process of its own, so that a failed capture cannot
+    disturb the tests after it)."""
+    import os
+    import subprocess
+    import sys
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import context, gluon, initializer
+    from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.serve import ServeEngine
+
+    smoke = _smoke()
+    rows = smoke._custom_card_vs_cpu(mx, dev)
+    assert len(rows) == 2
+    op_type = smoke._custom_ops(mx)
+    seen = []
+
+    class Probe(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            seen.append(in_data[0].context)
+            self.assign(out_data[0], req[0], in_data[0] * 2)
+
+    @mx.operator.register("card_probe")
+    class ProbeProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Probe()
+
+    out = mx.nd.Custom(mx.nd.ones((3,), ctx=dev), op_type="card_probe")
+    assert seen == [dev] and out.context == dev
+
+    class Net(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Dense(8, in_units=6)
+
+        def hybrid_forward(self, F, x):
+            return F.Custom(self.fc(x), op_type=op_type)[0]
+
+    with context.device_scope(dev):
+        net = Net()
+    initializer.initialize(net, initializer.Xavier(),
+                           torch.Generator(device=dev).manual_seed(0))
+    eng = ServeEngine(net, buckets=(4,))
+    eng.warmup(np.zeros(6, np.float32))
+    x = np.random.RandomState(0).rand(3, 6).astype(np.float32)
+    got = eng.infer(x)
+    xp = torch.zeros((4, 6), device=dev)
+    xp[:3] = torch.from_numpy(x)
+    with torch.no_grad():
+        want = eng._slots[eng._state[1]].net(xp)[:3]
+    assert torch.equal(got, want)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _CAPTURE_HOST_READ, root],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "CAPTURED" not in proc.stdout, \
+        proc.stdout + proc.stderr
+    print("host-reading Custom under capture: %s"
+          % proc.stderr.strip().splitlines()[-1])

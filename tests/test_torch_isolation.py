@@ -32,7 +32,7 @@ new = ["gluon.data.sampler", "gluon.data.dataset", "gluon.data.dataloader",
        "contrib.amp", "contrib.amp.amp", "contrib.amp.loss_scaler",
        "contrib.amp.lists", "contrib.amp.lists.symbol_bf16", "ops.npi",
        "numpy", "numpy._impl", "numpy.linalg", "numpy.random",
-       "numpy_extension", "util"]
+       "numpy_extension", "util", "ops.parity_tail", "operator"]
 missing = [n for n in new if pkg.__name__ + "." + n not in names]
 assert not missing, missing
 for name, path in (("train_lm_torch", "example/long_context/train_lm_torch.py"),
@@ -371,6 +371,71 @@ def test_numpy_frontend_refuses_cpu_without_asking(monkeypatch, build):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
         build(mx)
+
+
+@pytest.mark.parametrize("build", [
+    lambda mx: mx.nd._zeros_without_dtype(shape=(2,)),
+    lambda mx: mx.nd._sample_unique_zipfian(range_max=10, shape=(2,)),
+    lambda mx: mx.nd.Custom(np.ones(2, np.float32), op_type="_iso_sqr"),
+    lambda mx: mx.nd.Custom(op_type="_iso_const"),
+    lambda mx: mx.nd.multi_sum_sq(np.ones(2, np.float32), num_arrays=1),
+])
+def test_op_tail_and_custom_refuse_cpu_without_asking(monkeypatch, build):
+    """The ops of ``ops/parity_tail.py`` given no array, and ``Custom`` fed
+    host data or no input at all, build on the card and raise without
+    one."""
+    import incubator_mxnet_tpu_torch as mx
+
+    _iso_sqr(mx)
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(mx)
+
+
+def _iso_sqr(mx):
+    class Sqr(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+    @mx.operator.register("_iso_sqr")
+    class SqrProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sqr()
+
+    class Const(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], out_data[0] + 2.0)
+
+    @mx.operator.register("_iso_const")
+    class ConstProp(mx.operator.CustomOpProp):
+        def list_arguments(self):
+            return []
+
+        def infer_shape(self, in_shape):
+            return [], [[2]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Const()
+
+
+def test_op_tail_and_custom_run_on_cpu_when_asked(monkeypatch):
+    """With ``ctx=mx.cpu()`` (or CPU arrays) the same calls run on the CPU
+    with no card, and ``Custom``'s callbacks get CPU arrays."""
+    import incubator_mxnet_tpu_torch as mx
+
+    _iso_sqr(mx)
+    _no_card(monkeypatch)
+    cpu = mx.cpu()
+    assert mx.nd._zeros_without_dtype(shape=(2,), ctx=cpu).context == cpu
+    cand, _ = mx.nd._sample_unique_zipfian(range_max=10, shape=(2,), ctx=cpu)
+    assert cand.context == cpu
+    x = mx.nd.array(np.array([1.0, 3.0], np.float32), ctx=cpu)
+    y = mx.nd.Custom(x, op_type="_iso_sqr")
+    assert y.context == cpu and y.asnumpy().tolist() == [1.0, 9.0]
+    assert mx.nd.multi_sum_sq(x, num_arrays=1)[0].context == cpu
+    with context.device_scope("cpu"):
+        z = mx.nd.Custom(op_type="_iso_const")
+    assert z.context == cpu and z.asnumpy().tolist() == [2.0, 2.0]
 
 
 def test_numpy_frontend_runs_on_cpu_when_asked(monkeypatch):
